@@ -1,0 +1,22 @@
+from .alphabet import ALPHABET, ALPHABET_SIZE, GAP_CODE, encode_bytes
+from .fasta import Alignment, has_fasta_ext, read_fasta
+from .newick import Node
+from .pairs import n_pairs, pair_indices, vector_to_square
+from .phylip import matrix_to_phylip, read_phylip, vec_to_phylip
+
+__all__ = [
+    "ALPHABET",
+    "ALPHABET_SIZE",
+    "GAP_CODE",
+    "Alignment",
+    "Node",
+    "encode_bytes",
+    "has_fasta_ext",
+    "matrix_to_phylip",
+    "n_pairs",
+    "pair_indices",
+    "read_fasta",
+    "read_phylip",
+    "vec_to_phylip",
+    "vector_to_square",
+]

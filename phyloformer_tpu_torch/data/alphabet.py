@@ -1,0 +1,38 @@
+"""Amino-acid alphabet and integer codec.
+
+22 symbols = 20 amino acids + ``X`` (unknown) + ``-`` (gap), encoded by their
+index in the string below; the one-hot depth (and the embedding table's row
+count) is therefore 22.  Lowercase residues map to the same codes; ``strict``
+mode rejects them, as the reference codec does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+ALPHABET: bytes = b"ARNDCQEGHILKMFPSTWYVX-"
+ALPHABET_SIZE: int = len(ALPHABET)  # 22
+GAP_CODE: int = ALPHABET.index(b"-")  # 21
+UNKNOWN_CODE: int = ALPHABET.index(b"X")  # 20
+
+# 256-entry lookup table: byte value -> code, or -1 for invalid bytes.
+_LUT = np.full(256, -1, dtype=np.int16)
+for _i, _c in enumerate(ALPHABET):
+    _LUT[_c] = _i
+for _i, _c in enumerate(ALPHABET.lower()):
+    if _c != ALPHABET[_i]:
+        _LUT[_c] = _i
+
+
+def encode_bytes(seq: bytes, strict: bool = True) -> np.ndarray:
+    """Encode a residue byte-string into int8 codes of shape ``(L,)``."""
+    arr = np.frombuffer(seq, dtype=np.uint8)
+    codes = _LUT[arr]
+    if strict:
+        exact = np.isin(arr, np.frombuffer(ALPHABET, dtype=np.uint8))
+        if not exact.all():
+            bad = arr[~exact][0]
+            raise ValueError(f"invalid residue byte {bytes([bad])!r} in sequence")
+    elif (codes < 0).any():
+        raise ValueError("unencodable residue byte in sequence")
+    return codes.astype(np.int8)

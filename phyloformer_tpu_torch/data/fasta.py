@@ -1,0 +1,71 @@
+"""FASTA reading for protein MSAs.
+
+Ids are the full header text after ``>``; sequences may span several lines;
+all sequences must have the same length.  :func:`read_fasta` returns integer
+codes ``(n, L)``, the compact form the inference engine ships to the device.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import List, Union
+
+import numpy as np
+
+from .alphabet import encode_bytes
+
+
+@dataclass
+class Alignment:
+    """A parsed MSA: integer codes ``(n, L)`` int8 + taxon ids in file order."""
+
+    codes: np.ndarray  # (n_seqs, seq_len) int8
+    ids: List[str]
+
+    @property
+    def n_seqs(self) -> int:
+        return self.codes.shape[0]
+
+    @property
+    def seq_len(self) -> int:
+        return self.codes.shape[1]
+
+
+def read_fasta(path_or_bytes: Union[str, os.PathLike, bytes], strict: bool = True) -> Alignment:
+    """Parse a FASTA alignment into an :class:`Alignment`."""
+    if isinstance(path_or_bytes, bytes):
+        raw = path_or_bytes
+    else:
+        with open(path_or_bytes, "rb") as fh:
+            raw = fh.read()
+
+    ids: List[str] = []
+    chunks: List[List[bytes]] = []
+    for line in raw.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith(b">"):
+            ids.append(line[1:].decode("utf8"))
+            chunks.append([])
+        else:
+            if not chunks:
+                raise ValueError("FASTA sequence data before first '>' header")
+            chunks[-1].append(line)
+
+    if not ids:
+        raise ValueError("empty FASTA file")
+
+    seqs = [encode_bytes(b"".join(c), strict=strict) for c in chunks]
+    lengths = {len(s) for s in seqs}
+    if len(lengths) != 1:
+        raise ValueError(f"unaligned FASTA: sequence lengths differ ({sorted(lengths)})")
+
+    return Alignment(codes=np.stack(seqs).astype(np.int8), ids=ids)
+
+
+def has_fasta_ext(path: Union[str, os.PathLike]) -> bool:
+    """True for ``.fa`` / ``.fasta`` (any case)."""
+    p = str(path).lower()
+    return p.endswith(".fa") or p.endswith(".fasta")

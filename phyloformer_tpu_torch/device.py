@@ -1,0 +1,24 @@
+"""Device resolution for the port's entry points.
+
+Entry points run on the card unless the caller asks for the CPU.  Without a
+CUDA device, asking for the card (or asking for nothing) raises: the port never
+continues silently on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """``None`` → ``cuda``; raise if the resolved device is CUDA and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' (CLI: --device cpu) "
+            "to run the plain PyTorch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev

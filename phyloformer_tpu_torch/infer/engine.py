@@ -1,0 +1,185 @@
+"""Batched, bucketed inference engine.
+
+Alignments are padded into a small set of (n, L) buckets (masked, so padding
+is an exact no-op), batched under a token budget, and run through the
+pipelined forward of :mod:`..ops.kernels.pipeline`.  On ``cuda`` that
+forward always runs the hand-written kernels; on ``cpu`` it runs their plain
+PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from functools import lru_cache
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..data.fasta import Alignment
+from ..data.pairs import n_pairs, pair_indices
+from ..device import resolve_device
+from ..models.params import Params, PhyloformerConfig, map_params
+from ..ops.kernels import _build
+from ..ops.kernels.axial_block import GELU_MODES
+from ..ops.kernels.pipeline import PipelineWeights, forward_fused_pipeline
+
+DEFAULT_N_BUCKETS = (10, 20, 30, 40, 50, 60, 80, 100, 120, 150, 200)
+DEFAULT_L_BUCKETS = (128, 256, 384, 512, 640, 768, 1024, 1280, 1536, 2048,
+                     3072, 4096)
+# The pipelined kernels keep a whole pair row per block pass; longer site
+# axes need the L-tiled kernels, which are not yet ported.
+MAX_PIPELINE_SITES = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class InferenceConfig:
+    n_buckets: Tuple[int, ...] = DEFAULT_N_BUCKETS
+    l_buckets: Tuple[int, ...] = DEFAULT_L_BUCKETS
+    # Max activation tokens (B * P * L) per device batch: 2^22 tokens * 64
+    # channels * 4 B = 1 GiB per fp32 activation tensor.
+    max_batch_tokens: int = 1 << 22
+    max_batch_size: int = 64
+    precision: str = "float32"  # parameter/activation dtype
+    matmul_precision: str = "float32"  # IEEE fp32 products
+    pipeline_act_dtype: str = "float32"  # storage dtype between kernels
+    pipeline_gelu: str = "exact"  # FFN activation: "exact" (erf) | "tanh"
+    allow_oversize: bool = True  # n/L beyond the last bucket: exact shape
+    # Round batch sizes up to powers of two (padding rows are masked no-ops).
+    pad_batch_sizes: bool = False
+
+
+def _not_ported(what: str) -> ValueError:
+    return ValueError(f"{what} is not yet ported, see ROADMAP.md")
+
+
+def _bucketize(value: int, buckets: Sequence[int], allow_oversize: bool) -> int:
+    for b in buckets:
+        if value <= b:
+            return b
+    if allow_oversize:
+        return value
+    raise ValueError(f"value {value} exceeds largest bucket {buckets[-1]}")
+
+
+@lru_cache(maxsize=None)
+def real_pair_selector(pad_n: int, n: int) -> np.ndarray:
+    """Indices into the padded pair axis that correspond to real pairs,
+    in the real upper-triangle order."""
+    i_idx, j_idx = pair_indices(pad_n)
+    return np.nonzero((i_idx < n) & (j_idx < n))[0]
+
+
+class InferenceEngine:
+    """Runs Phyloformer forward passes over many alignments.
+
+    ``device``: ``None`` or ``"cuda"`` runs the CUDA kernels and raises
+    without a card; ``"cpu"`` runs the plain PyTorch versions.
+    """
+
+    def __init__(
+        self,
+        params: Params,
+        cfg: PhyloformerConfig,
+        icfg: Optional[InferenceConfig] = None,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.icfg = icfg or InferenceConfig()
+        if self.icfg.precision != "float32":
+            raise _not_ported(f"precision={self.icfg.precision!r}")
+        if self.icfg.matmul_precision != "float32":
+            raise _not_ported(f"matmul_precision={self.icfg.matmul_precision!r}")
+        if self.icfg.pipeline_act_dtype != "float32":
+            raise _not_ported(f"pipeline_act_dtype={self.icfg.pipeline_act_dtype!r}")
+        if self.icfg.pipeline_gelu not in GELU_MODES:
+            raise ValueError(f"pipeline_gelu={self.icfg.pipeline_gelu!r}: "
+                             f"expected one of {GELU_MODES}")
+        self.cfg = cfg
+        params = map_params(lambda t: t.to(self.device, torch.float32), params)
+        self.weights = PipelineWeights.from_params(params)
+        self.stats = {"compile_s": 0.0, "device_s": 0.0, "batches": 0, "alignments": 0}
+
+    # -- batching ------------------------------------------------------------
+    def _plan(self, alns: Sequence[Alignment]):
+        """Group alignment indices into (pad_n, pad_l) buckets, then chunk
+        into batches under the token budget."""
+        groups: Dict[Tuple[int, int], List[int]] = {}
+        for idx, a in enumerate(alns):
+            pad_n = _bucketize(a.n_seqs, self.icfg.n_buckets, self.icfg.allow_oversize)
+            pad_l = _bucketize(a.seq_len, self.icfg.l_buckets, self.icfg.allow_oversize)
+            if pad_l > MAX_PIPELINE_SITES:
+                raise NotImplementedError(
+                    f"alignment {idx} ({a.seq_len} sites) falls in a {pad_l}-site "
+                    f"bucket; above {MAX_PIPELINE_SITES} sites the forward needs the "
+                    "L-tiled kernels _kernel_a1/_kernel_a2/_kernel_b "
+                    "(phyloformer_tpu/ops/pallas/axial_block.py), not yet ported, "
+                    "see ROADMAP.md")
+            groups.setdefault((pad_n, pad_l), []).append(idx)
+
+        batches = []
+        for (pad_n, pad_l), idxs in sorted(groups.items()):
+            tokens_per = n_pairs(pad_n) * pad_l
+            bsz = max(1, min(self.icfg.max_batch_size,
+                             self.icfg.max_batch_tokens // max(tokens_per, 1)))
+            if self.icfg.pad_batch_sizes and bsz > 1:
+                # round down so the pad-up of partial chunks stays in budget
+                bsz = 1 << (bsz.bit_length() - 1)
+            for start in range(0, len(idxs), bsz):
+                batches.append(((pad_n, pad_l), idxs[start : start + bsz]))
+        return batches
+
+    def _batch_inputs(self, alns, pad_n, pad_l, idxs):
+        bsz = len(idxs)
+        if self.icfg.pad_batch_sizes:
+            bsz = 1 << (bsz - 1).bit_length()
+        codes = np.zeros((bsz, pad_n, pad_l), dtype=np.int32)
+        site_mask = np.zeros((bsz, pad_l), dtype=bool)
+        seq_mask = np.zeros((bsz, pad_n), dtype=bool)
+        for row, idx in enumerate(idxs):
+            a = alns[idx]
+            codes[row, : a.n_seqs, : a.seq_len] = a.codes
+            site_mask[row, : a.seq_len] = True
+            seq_mask[row, : a.n_seqs] = True
+        return tuple(torch.from_numpy(t).to(self.device)
+                     for t in (codes, site_mask, seq_mask))
+
+    def predict(self, alns: Sequence[Alignment]) -> List[np.ndarray]:
+        """Predict distance vectors for every alignment: one float32 array of
+        shape ``(C(n_i, 2),)`` per input, in input order.  All batches are
+        queued on the device before any result is copied back."""
+        out: List[Optional[np.ndarray]] = [None] * len(alns)
+        plan = self._plan(alns)
+        if self.device.type == "cuda" and self.stats["batches"] == 0:
+            t = time.perf_counter()
+            _build.load()
+            self.stats["compile_s"] += time.perf_counter() - t
+        t0 = time.perf_counter()
+        pending = []
+        with torch.inference_mode():
+            for (pad_n, pad_l), idxs in plan:
+                codes, site_mask, seq_mask = self._batch_inputs(alns, pad_n, pad_l, idxs)
+                preds = forward_fused_pipeline(
+                    self.weights, codes, site_mask, seq_mask, eps=self.cfg.ln_eps,
+                    gelu_mode=self.icfg.pipeline_gelu)
+                pending.append((pad_n, idxs, preds))
+                self.stats["batches"] += 1
+                self.stats["alignments"] += len(idxs)
+            for pad_n, idxs, preds in pending:
+                preds = preds.cpu().numpy()  # waits for the device
+                for row, idx in enumerate(idxs):
+                    sel = real_pair_selector(pad_n, alns[idx].n_seqs)
+                    out[idx] = preds[row, sel].astype(np.float32)
+        self.stats["device_s"] += time.perf_counter() - t0
+        return out  # type: ignore[return-value]
+
+    def predict_one(self, aln: Alignment) -> np.ndarray:
+        return self.predict([aln])[0]
+
+
+class ShardedInferenceEngine:
+    """Multi-device inference (batch and pair-axis sharding) — not yet ported."""
+
+    def __init__(self, *args, **kwargs):
+        raise _not_ported("ShardedInferenceEngine")

@@ -1,0 +1,91 @@
+"""Model configuration and parameter trees.
+
+Parameters are nested dicts of fp32 tensors with the JAX package's keys and
+channel-last layout: every linear weight is stored ``(in, out)`` so
+application is ``x @ w + b``.  The architecture defaults are the published
+Phyloformer's: 6 blocks, 4 heads, d=64, dropout 0.0 — 308,449 parameters.
+
+Tree layout::
+
+    {"embed": {"w": (22, d), "b": (d,)},
+     "layers": [{"row_norm": {"scale", "bias"},
+                 "row_attn": {"wq": (d, H), "bq", "wk": (d, H), "bk",
+                              "wv": (d, d), "bv", "wo": (d, d), "bo"},
+                 "col_norm": ..., "col_attn": ..., "ffn_norm": ...,
+                 "ffn": {"w1": (d, 4d), "b1", "w2": (4d, d), "b2"}}, ...],
+     "head": {"w": (d, 1), "b": (1,)}}
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Union
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class PhyloformerConfig:
+    n_blocks: int = 6
+    n_heads: int = 4
+    embed_dim: int = 64
+    dropout: float = 0.0
+    in_channels: int = 22  # alphabet size
+    ln_eps: float = 1e-5
+    # The port computes in IEEE fp32 only ("float32"); reduced-precision
+    # matmul modes are not yet ported.
+    matmul_precision: str = "float32"
+
+    @property
+    def ffn_dim(self) -> int:
+        return 4 * self.embed_dim
+
+    @classmethod
+    def from_reference_hparams(cls, hp: Dict[str, Any]) -> "PhyloformerConfig":
+        """Build from a reference checkpoint's ``hyper_parameters`` dict.
+
+        The reference checkpoints store ``nb_blocks/nb_heads/embed_dim`` while
+        its constructor takes ``n_blocks/n_heads/h_dim``; both spellings are
+        read here.
+        """
+        def pick(*names, default):
+            for n in names:
+                if n in hp:
+                    return hp[n]
+            return default
+
+        return cls(
+            n_blocks=int(pick("nb_blocks", "n_blocks", default=6)),
+            n_heads=int(pick("nb_heads", "n_heads", default=4)),
+            embed_dim=int(pick("embed_dim", "h_dim", default=64)),
+            dropout=float(pick("dropout", default=0.0)),
+        )
+
+
+Params = Dict[str, Any]
+
+
+def params_from_numpy(tree: Any, device: Union[str, torch.device] = "cpu") -> Any:
+    """Nested dict/list of numpy arrays (the JAX package's parameter tree, or
+    any array-likes) → the same tree of fp32 tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device) for v in tree]
+    return torch.as_tensor(np.asarray(tree, dtype=np.float32)).to(device)
+
+
+def map_params(fn, tree: Any) -> Any:
+    """Apply ``fn`` to every tensor leaf of a parameter tree."""
+    if isinstance(tree, dict):
+        return {k: map_params(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_params(fn, v) for v in tree]
+    return fn(tree)
+
+
+def count_params(params: Params) -> int:
+    sizes = []
+    map_params(lambda t: sizes.append(int(t.numel())), params)
+    return sum(sizes)

@@ -1,0 +1,91 @@
+"""The Phyloformer network as eager fp32 PyTorch — the plain model.
+
+Embedding (one-hot ⊗ Conv1x1 as a table lookup) + ReLU → pair gather-add
+``pair[k] = emb[i_k] + emb[j_k]`` → n_blocks axial blocks (row attention over
+sites, column attention over pairs, 4× GELU FFN, pre-LN residuals) → softplus
+head → mean over real sites.  Channel-last ``(B, P, L, d)``.  Optional masks
+make padded sites and sequences exact no-ops.  Deterministic (dropout 0): the
+port runs inference only.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..data.pairs import pair_indices
+from ..ops.attention import layer_norm, scaled_linear_attention
+from .params import Params, PhyloformerConfig
+
+
+def embed_alignment(params: Params, codes: torch.Tensor) -> torch.Tensor:
+    """``(B, n, L)`` integer codes → ``(B, n, L, d)``: table lookup + ReLU."""
+    w, b = params["embed"]["w"], params["embed"]["b"]
+    return torch.relu(w[codes.long()] + b)
+
+
+def _pair_index_tensors(n_seqs: int, device) -> "tuple[torch.Tensor, torch.Tensor]":
+    i_idx, j_idx = pair_indices(n_seqs)
+    return (torch.as_tensor(i_idx, dtype=torch.long, device=device),
+            torch.as_tensor(j_idx, dtype=torch.long, device=device))
+
+
+def build_pairs(emb: torch.Tensor, n_seqs: int) -> torch.Tensor:
+    """``(B, n, L, d)`` → ``(B, P, L, d)``, ``pair[k] = emb[i_k] + emb[j_k]``."""
+    i_idx, j_idx = _pair_index_tensors(n_seqs, emb.device)
+    return emb.index_select(1, i_idx) + emb.index_select(1, j_idx)
+
+
+def pair_mask_from_seq_mask(seq_mask: torch.Tensor, n_seqs: int) -> torch.Tensor:
+    """``(B, n)`` sequence mask → ``(B, P)`` pair mask."""
+    i_idx, j_idx = _pair_index_tensors(n_seqs, seq_mask.device)
+    return seq_mask.index_select(1, i_idx) & seq_mask.index_select(1, j_idx)
+
+
+def axial_block(
+    x: torch.Tensor,
+    layer: Dict[str, Any],
+    cfg: PhyloformerConfig,
+    site_mask: Optional[torch.Tensor],
+    pair_mask: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """One Phyloformer layer on ``(B, P, L, d)``."""
+    row_mask = site_mask[:, None, :] if site_mask is not None else None  # (B,1,L)
+    col_mask = pair_mask[:, None, :] if pair_mask is not None else None  # (B,1,P)
+
+    h = layer_norm(x, layer["row_norm"]["scale"], layer["row_norm"]["bias"], cfg.ln_eps)
+    x = x + scaled_linear_attention(h, layer["row_attn"], cfg.n_heads, mask=row_mask)
+
+    h = layer_norm(x, layer["col_norm"]["scale"], layer["col_norm"]["bias"], cfg.ln_eps)
+    h = scaled_linear_attention(h.transpose(1, 2), layer["col_attn"], cfg.n_heads,
+                                mask=col_mask)
+    x = x + h.transpose(1, 2)
+
+    h = layer_norm(x, layer["ffn_norm"]["scale"], layer["ffn_norm"]["bias"], cfg.ln_eps)
+    h = F.gelu(h @ layer["ffn"]["w1"] + layer["ffn"]["b1"], approximate="none")
+    return x + (h @ layer["ffn"]["w2"] + layer["ffn"]["b2"])
+
+
+def forward(
+    params: Params,
+    codes: torch.Tensor,
+    cfg: PhyloformerConfig,
+    site_mask: Optional[torch.Tensor] = None,
+    seq_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Predict pairwise distances: ``(B, n, L)`` codes → ``(B, P)``,
+    ``P = n(n-1)/2`` in upper-triangle order.  Padded pairs hold garbage;
+    mask them with :func:`pair_mask_from_seq_mask`."""
+    n_seqs = codes.shape[1]
+    x = build_pairs(embed_alignment(params, codes), n_seqs)
+    pair_mask = pair_mask_from_seq_mask(seq_mask, n_seqs) if seq_mask is not None else None
+    for layer in params["layers"]:
+        x = axial_block(x, layer, cfg, site_mask, pair_mask)
+
+    h = F.softplus(x @ params["head"]["w"] + params["head"]["b"])[..., 0]  # (B, P, L)
+    if site_mask is not None:
+        m = site_mask[:, None, :].to(h.dtype)
+        return (h * m).sum(dim=-1) / m.sum(dim=-1).clamp_min(1.0)
+    return h.mean(dim=-1)

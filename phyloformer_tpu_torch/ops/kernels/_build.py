@@ -1,0 +1,107 @@
+"""Build and load the CUDA kernels of ``csrc/`` on first use.
+
+``nvcc`` compiles the sources of this package into a shared library with a
+plain C interface, which :func:`load` opens with ``ctypes``.  The library
+lands in ``ops/kernels/build/`` (listed in ``.gitignore``), named by a hash
+of the sources, so an edited source is rebuilt and an unchanged one is not.
+Nothing is built when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+from typing import Optional
+
+_HERE = pathlib.Path(__file__).resolve().parent
+SRC_DIR = _HERE / "csrc"
+BUILD_DIR = _HERE / "build"
+SOURCES = ("axial_pipeline.cu",)
+HEADERS = ("axial_pipeline.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib: Optional[ctypes.CDLL] = None
+# Wall-clock seconds of the last nvcc run in this process (0.0 when the
+# library was already built), and the compiler's resource report.
+build_seconds = 0.0
+ptxas_log = ""
+
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "pf_weight_sizes": [_p],
+    "pf_kernel_p0": [_p] * 10 + [_i] * 5 + [_f, _p],
+    "pf_kernel_a_only": [_p] * 7 + [_i] * 4 + [_f, _p],
+    "pf_kernel_m": [_p] * 10 + [_i] * 4 + [_f, _i, _p],
+    "pf_kernel_z": [_p] * 7 + [_i] * 4 + [_f, _i, _p],
+    "pf_reduce_stats": [_p, _p, _i, _i, _i, _p],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the machine "
+                       "with the card (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS + (" ".join(NVCC_FLAGS),):
+        path = SRC_DIR / name
+        h.update(path.read_bytes() if path.exists() else name.encode())
+    return BUILD_DIR / f"libpf_axial_{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels unless a library of the current sources exists."""
+    global build_seconds, ptxas_log
+    out = library_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [str(SRC_DIR / s) for s in SOURCES]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        build_seconds = time.perf_counter() - t0
+        ptxas_log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{ptxas_log}")
+        (BUILD_DIR / (out.stem + ".ptxas.txt")).write_text(ptxas_log)
+        os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, open the library and declare its C signatures."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.pf_error_string.argtypes = [ctypes.c_int]
+        lib.pf_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error."""
+    if rc != 0:
+        msg = lib.pf_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

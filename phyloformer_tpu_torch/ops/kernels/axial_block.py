@@ -1,0 +1,128 @@
+"""Plain PyTorch versions of the axial-block kernel bodies.
+
+These are the functions the CUDA kernels of ``csrc/axial_pipeline.cu``
+compute, written as eager tensor code in the op order of the JAX bodies
+(``phyloformer_tpu/ops/pallas/axial_block.py:172-249``).  The CPU path runs
+them, the tests hold them against JAX, and ``chip_smoke.py`` holds each CUDA
+kernel against them on the card.  They are general in ``d`` and the head
+count; the q/k weights come pre-expanded to ``(d, d)``
+(:func:`expand_qk_weights`).
+
+Shapes: activations ``(B, P, L, d)``; ``smask`` ``(B, L)`` and ``pmask``
+``(B, P)`` fp32 0/1; column stats ``(B, L, 3d)`` laid out
+``[Σk | Σq | Σk·v]``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Sequence
+
+import torch
+
+from ..attention import layer_norm
+
+
+def expand_qk_weights(layer: Dict[str, Any]) -> Dict[str, Any]:
+    """Repeat each head's q/k projection column over its ``d / H`` value
+    lanes, in the row and column attention of one layer.  φ commutes with
+    repetition, so this is exact."""
+
+    def ex(attn):
+        d, h = attn["wq"].shape
+        hd = d // h
+        out = dict(attn)
+        for k in ("wq", "wk"):
+            out[k] = attn[k].repeat_interleave(hd, dim=1)
+        for k in ("bq", "bk"):
+            out[k] = attn[k].repeat_interleave(hd)
+        return out
+
+    new = dict(layer)
+    new["row_attn"] = ex(layer["row_attn"])
+    new["col_attn"] = ex(layer["col_attn"])
+    return new
+
+
+GELU_MODES = ("exact", "tanh")
+
+
+def gelu(x: torch.Tensor, mode: str = "exact") -> torch.Tensor:
+    if mode == "exact":
+        return 0.5 * x * (1.0 + torch.erf(x * (1.0 / math.sqrt(2.0))))
+    if mode == "tanh":
+        inner = math.sqrt(2.0 / math.pi) * (x + 0.044715 * x * x * x)
+        return 0.5 * x * (1.0 + torch.tanh(inner))
+    raise ValueError(f"gelu mode {mode!r}: expected one of {GELU_MODES}")
+
+
+def phi(x: torch.Tensor) -> torch.Tensor:
+    """elu(x) + 1: x + 1 for x > 0, exp(x) otherwise."""
+    return torch.where(x > 0, x + 1.0, torch.exp(x.clamp_max(0.0)))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    return x.clamp_min(0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _guard(s: torch.Tensor) -> torch.Tensor:
+    """where(s > 0, s, 1): fully masked axes give zero sums."""
+    return torch.where(s > 0, s, torch.ones_like(s))
+
+
+def body_row_attn(x: torch.Tensor, smask: torch.Tensor, rp: Sequence[torch.Tensor],
+                  eps: float) -> torch.Tensor:
+    """Row sub-block on the whole site axis: ``x1 = x + rowattn(LN x)``.
+
+    ``rp = (ln_s, ln_b, wq, bq, wk, bk, wv, bv, wo, bo)``."""
+    ln_s, ln_b, wq, bq, wk, bk, wv, bv, wo, bo = rp
+    m = smask[:, None, :, None]
+    h = layer_norm(x, ln_s, ln_b, eps)
+    q = phi(h @ wq + bq) * m
+    k = phi(h @ wk + bk) * m
+    v = h @ wv + bv
+
+    count = smask.sum(dim=-1).clamp_min(1.0)[:, None, None, None]
+    q_mean = _guard(q.sum(dim=2, keepdim=True) / count)
+    k_sum = _guard(k.sum(dim=2, keepdim=True))
+    ctx = (k / k_sum * v).sum(dim=2, keepdim=True)  # (B, P, 1, d)
+    return x + ((q / q_mean * ctx) @ wo + bo)
+
+
+def body_col_stats(x1: torch.Tensor, pmask: torch.Tensor, cp: Sequence[torch.Tensor],
+                   eps: float) -> torch.Tensor:
+    """Column-attention sums over the pair axis: ``(B, L, 3d)``.
+
+    ``cp = (ln_s, ln_b, wq, bq, wk, bk, wv, bv)``."""
+    ln_s, ln_b, wq, bq, wk, bk, wv, bv = cp
+    m = pmask[:, :, None, None]
+    hc = layer_norm(x1, ln_s, ln_b, eps)
+    qc = phi(hc @ wq + bq) * m
+    kc = phi(hc @ wk + bk) * m
+    vc = hc @ wv + bv
+    return torch.cat([kc.sum(dim=1), qc.sum(dim=1), (kc * vc).sum(dim=1)], dim=-1)
+
+
+def body_b(x1: torch.Tensor, stats: torch.Tensor, n_pairs: torch.Tensor,
+           bp: Sequence[torch.Tensor], eps: float, gelu_mode: str = "exact") -> torch.Tensor:
+    """Column attention finalised from the global stats, then the FFN: x3.
+
+    ``n_pairs``: ``(B,)`` real pair counts, already ``max(count, 1)``.
+    ``bp = (cn_s, cn_b, cwq, cbq, cwo, cbo, fn_s, fn_b, w1, b1, w2, b2)``."""
+    cn_s, cn_b, cwq, cbq, cwo, cbo, fn_s, fn_b, w1, b1, w2, b2 = bp
+    d = x1.shape[-1]
+    qc = phi(layer_norm(x1, cn_s, cn_b, eps) @ cwq + cbq)
+    k_sum = _guard(stats[..., :d])
+    q_mean = _guard(stats[..., d:2 * d] / n_pairs[:, None, None])
+    ctx = stats[..., 2 * d:] / k_sum  # (B, L, d)
+    x2 = x1 + (((qc / q_mean[:, None]) * ctx[:, None]) @ cwo + cbo)
+    f = gelu(layer_norm(x2, fn_s, fn_b, eps) @ w1 + b1, gelu_mode)
+    return x2 + (f @ w2 + b2)
+
+
+def head(x3: torch.Tensor, hw: torch.Tensor, hb: torch.Tensor,
+         smask: torch.Tensor) -> torch.Tensor:
+    """Head d→1, softplus, mean over real sites: ``(B, P, L, d)`` → ``(B, P)``."""
+    sp = softplus(x3 @ hw + hb)[..., 0]  # (B, P, L)
+    count = smask.sum(dim=-1).clamp_min(1.0)[:, None]
+    return (sp * smask[:, None, :]).sum(dim=-1) / count

@@ -1,0 +1,390 @@
+"""Pipelined fused forward: one kernel per block boundary.
+
+The PyTorch side of the CUDA kernels in ``csrc/axial_pipeline.cu`` and the
+counterpart of ``phyloformer_tpu/ops/pallas/pipeline.py``:
+
+- :func:`kernel_p0`: pair gather ``emb[i] + emb[j]`` + block-0 kernel A
+  (row attention, then the column stats of its output);
+- :func:`kernel_a_only`: kernel A on a pair tensor gathered outside, x1
+  written in place;
+- :func:`kernel_m` (× n_blocks − 1): kernel B of block i, then kernel A of
+  block i+1, x1 in place;
+- :func:`kernel_z`: the last kernel B, the softplus head and the masked site
+  mean;
+- :func:`reduce_stats`: the per-block column-stat partials summed in a fixed
+  order.
+
+Each wrapper takes its plain PyTorch version only for tensors on the CPU.
+For CUDA tensors it checks device, dtype, shape and contiguity, launches its
+kernel and adds one to its entry in :data:`LAUNCHES`, or raises.  The plain
+versions (``*_plain``) run on any device; ``chip_smoke.py`` uses them as the
+kernels' references on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+from ...data.pairs import pair_indices
+from . import _build
+from .axial_block import (
+    GELU_MODES,
+    body_b,
+    body_col_stats,
+    body_row_attn,
+    expand_qk_weights,
+    head,
+)
+
+# Block 0 gathers pairs inside the kernel when one batch element's (n, L, d)
+# fp32 embedding is at most this size and the pair count at most 8192 (the
+# JAX pipeline's rule); otherwise the pair tensor is gathered outside and
+# kernel A-only runs on it.
+P0_EMB_BUDGET_BYTES = 4 * 1024 * 1024
+P0_MAX_PAIRS = 8192
+
+D_KERNEL = 64  # the only width the CUDA kernels are built for
+# Packed weight sizes (floats) of the kernels' groups; see axial_pipeline.cuh.
+ROW_SIZE = 2 * D_KERNEL + 4 * (D_KERNEL * D_KERNEL + D_KERNEL)
+COL_SIZE = 2 * D_KERNEL + 3 * (D_KERNEL * D_KERNEL + D_KERNEL)
+B_SIZE = (4 * D_KERNEL + 2 * (D_KERNEL * D_KERNEL + D_KERNEL)
+          + 2 * 4 * D_KERNEL * D_KERNEL + 4 * D_KERNEL + D_KERNEL)
+HEAD_SIZE = D_KERNEL + 1
+
+# Launches of each kernel in this process (the CPU path counts nothing).
+LAUNCHES: Dict[str, int] = {
+    "kernel_p0": 0, "kernel_a_only": 0, "kernel_m": 0, "kernel_z": 0, "reduce_stats": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_layout_checked = False
+
+
+def _lib() -> ctypes.CDLL:
+    """The kernel library, its packed weight layout checked on first use."""
+    global _layout_checked
+    lib = _build.load()
+    if not _layout_checked:
+        sizes = (ctypes.c_int * 4)()
+        lib.pf_weight_sizes(ctypes.addressof(sizes))
+        if tuple(sizes) != (ROW_SIZE, COL_SIZE, B_SIZE, HEAD_SIZE):
+            raise RuntimeError(f"packed weight layout mismatch: library {tuple(sizes)}, "
+                               f"wrapper {(ROW_SIZE, COL_SIZE, B_SIZE, HEAD_SIZE)}")
+        _layout_checked = True
+    return lib
+
+
+@dataclass(frozen=True)
+class WeightGroup:
+    """One kernel's weight group: the tensors in the kernel's order (for the
+    plain versions) and the same values packed into one buffer (for CUDA)."""
+
+    parts: Tuple[torch.Tensor, ...]
+    flat: torch.Tensor
+
+    @classmethod
+    def of(cls, parts: Sequence[torch.Tensor]) -> "WeightGroup":
+        parts = tuple(p.contiguous() for p in parts)
+        return cls(parts, torch.cat([p.reshape(-1) for p in parts]).contiguous())
+
+
+def row_group(layer) -> WeightGroup:
+    la = layer["row_attn"]
+    return WeightGroup.of((layer["row_norm"]["scale"], layer["row_norm"]["bias"],
+                           la["wq"], la["bq"], la["wk"], la["bk"], la["wv"], la["bv"],
+                           la["wo"], la["bo"]))
+
+
+def col_group(layer) -> WeightGroup:
+    ca = layer["col_attn"]
+    return WeightGroup.of((layer["col_norm"]["scale"], layer["col_norm"]["bias"],
+                           ca["wq"], ca["bq"], ca["wk"], ca["bk"], ca["wv"], ca["bv"]))
+
+
+def b_group(layer) -> WeightGroup:
+    ca, ffn = layer["col_attn"], layer["ffn"]
+    return WeightGroup.of((layer["col_norm"]["scale"], layer["col_norm"]["bias"],
+                           ca["wq"], ca["bq"], ca["wo"], ca["bo"],
+                           layer["ffn_norm"]["scale"], layer["ffn_norm"]["bias"],
+                           ffn["w1"], ffn["b1"], ffn["w2"], ffn["b2"]))
+
+
+@dataclass(frozen=True)
+class PipelineWeights:
+    """A model's parameters arranged for the pipeline (q/k pre-expanded)."""
+
+    embed_w: torch.Tensor
+    embed_b: torch.Tensor
+    row: List[WeightGroup]
+    col: List[WeightGroup]
+    b: List[WeightGroup]
+    head: WeightGroup
+
+    @classmethod
+    def from_params(cls, params) -> "PipelineWeights":
+        layers = [expand_qk_weights(ly) for ly in params["layers"]]
+        return cls(
+            embed_w=params["embed"]["w"], embed_b=params["embed"]["b"],
+            row=[row_group(ly) for ly in layers], col=[col_group(ly) for ly in layers],
+            b=[b_group(ly) for ly in layers],
+            head=WeightGroup.of((params["head"]["w"], params["head"]["b"])))
+
+
+# ---- plain versions -------------------------------------------------------
+
+def kernel_p0_plain(emb, ii, jj, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
+    x = emb.index_select(1, ii.long()) + emb.index_select(1, jj.long())
+    return kernel_a_only_plain(x, smask, pmask, rw, cw, eps)
+
+
+def kernel_a_only_plain(x, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
+    x1 = body_row_attn(x, smask, rw.parts, eps)
+    return x1, body_col_stats(x1, pmask, cw.parts, eps)
+
+
+def kernel_m_plain(x1, stats, smask, pmask, pair_count, bw: WeightGroup, rw: WeightGroup,
+                   cw: WeightGroup, eps, gelu_mode="exact"):
+    x3 = body_b(x1, stats, pair_count.clamp_min(1.0), bw.parts, eps, gelu_mode)
+    return kernel_a_only_plain(x3, smask, pmask, rw, cw, eps)
+
+
+def kernel_z_plain(x1, stats, smask, pair_count, bw: WeightGroup, hw: WeightGroup, eps,
+                   gelu_mode="exact"):
+    x3 = body_b(x1, stats, pair_count.clamp_min(1.0), bw.parts, eps, gelu_mode)
+    return head(x3, hw.parts[0], hw.parts[1], smask)
+
+
+def reduce_stats_plain(partial):
+    return partial.sum(dim=1)
+
+
+# ---- CUDA wrappers --------------------------------------------------------
+
+def _on_cpu(*tensors) -> bool:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return False
+
+
+def _require(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _require_groups(**groups: Tuple[WeightGroup, int]) -> None:
+    for name, (g, size) in groups.items():
+        _require(g.flat, name, (size,))
+
+
+def _slots(P: int, B: int, device: torch.device) -> int:
+    """Blocks per batch element: about 8 per SM over the whole grid, each
+    owning a contiguous range of pairs, never more blocks than pairs."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(P, math.ceil(8 * sms / B)))
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _check_width(d: int) -> None:
+    if d != D_KERNEL:
+        raise ValueError(f"the CUDA kernels are built for d={D_KERNEL}, got d={d}")
+
+
+def reduce_stats(partial: torch.Tensor) -> torch.Tensor:
+    """``(B, S, L, 3d)`` per-block partials → ``(B, L, 3d)`` in slot order."""
+    if _on_cpu(partial):
+        return reduce_stats_plain(partial)
+    B, S, L, d3 = partial.shape
+    _check_width(d3 // 3)
+    _require(partial, "partial", (B, S, L, 3 * D_KERNEL))
+    stats = torch.empty((B, L, d3), device=partial.device, dtype=torch.float32)
+    lib = _lib()
+    _build.check(lib, lib.pf_reduce_stats(partial.data_ptr(), stats.data_ptr(), B, S, L,
+                                          _stream()), "reduce_stats")
+    LAUNCHES["reduce_stats"] += 1
+    return stats
+
+
+def _scratch(B: int, P: int, L: int, device) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    if P < 1:
+        raise ValueError("the pipeline needs at least one pair (two sequences)")
+    S = _slots(P, B, device)
+    rowctx = torch.empty((B, P, 2, D_KERNEL), device=device, dtype=torch.float32)
+    partial = torch.empty((B, S, L, 3 * D_KERNEL), device=device, dtype=torch.float32)
+    return S, rowctx, partial
+
+
+def kernel_p0(emb, ii, jj, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
+    """``emb`` ``(B, n, L, d)``, ``ii/jj`` ``(P,)`` int32 → x1 ``(B, P, L, d)``,
+    stats ``(B, L, 3d)``."""
+    if _on_cpu(emb, ii, jj, smask, pmask, rw.flat, cw.flat):
+        return kernel_p0_plain(emb, ii, jj, smask, pmask, rw, cw, eps)
+    B, n, L, d = emb.shape
+    P = ii.shape[0]
+    _check_width(d)
+    _require(emb, "emb", (B, n, L, d))
+    _require(ii, "ii", (P,), torch.int32)
+    _require(jj, "jj", (P,), torch.int32)
+    _require(smask, "smask", (B, L))
+    _require(pmask, "pmask", (B, P))
+    _require_groups(row=(rw, ROW_SIZE), col=(cw, COL_SIZE))
+    S, rowctx, partial = _scratch(B, P, L, emb.device)
+    x1 = torch.empty((B, P, L, d), device=emb.device, dtype=torch.float32)
+    lib = _lib()
+    _build.check(lib, lib.pf_kernel_p0(
+        emb.data_ptr(), ii.data_ptr(), jj.data_ptr(), x1.data_ptr(), smask.data_ptr(),
+        pmask.data_ptr(), rw.flat.data_ptr(), cw.flat.data_ptr(), rowctx.data_ptr(),
+        partial.data_ptr(), B, n, P, L, S, float(eps), _stream()), "kernel_p0")
+    LAUNCHES["kernel_p0"] += 1
+    return x1, reduce_stats(partial)
+
+
+def kernel_a_only(x, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
+    """``x`` ``(B, P, L, d)`` → (x1, stats).  On the card x1 is written in
+    place over ``x`` (the returned x1 is ``x``)."""
+    if _on_cpu(x, smask, pmask, rw.flat, cw.flat):
+        return kernel_a_only_plain(x, smask, pmask, rw, cw, eps)
+    B, P, L, d = x.shape
+    _check_width(d)
+    _require(x, "x", (B, P, L, d))
+    _require(smask, "smask", (B, L))
+    _require(pmask, "pmask", (B, P))
+    _require_groups(row=(rw, ROW_SIZE), col=(cw, COL_SIZE))
+    S, rowctx, partial = _scratch(B, P, L, x.device)
+    lib = _lib()
+    _build.check(lib, lib.pf_kernel_a_only(
+        x.data_ptr(), smask.data_ptr(), pmask.data_ptr(), rw.flat.data_ptr(),
+        cw.flat.data_ptr(), rowctx.data_ptr(), partial.data_ptr(), B, P, L, S, float(eps),
+        _stream()), "kernel_a_only")
+    LAUNCHES["kernel_a_only"] += 1
+    return x, reduce_stats(partial)
+
+
+def _gelu_code(gelu_mode: str) -> int:
+    if gelu_mode not in GELU_MODES:
+        raise ValueError(f"gelu mode {gelu_mode!r}: expected one of {GELU_MODES}")
+    return GELU_MODES.index(gelu_mode)
+
+
+def kernel_m(x1, stats, smask, pmask, pair_count, bw: WeightGroup, rw: WeightGroup,
+             cw: WeightGroup, eps, gelu_mode="exact"):
+    """Block boundary: (x1, stats) of block i → (x1, stats) of block i+1.
+    On the card x1 is updated in place; the stats come in a new buffer."""
+    if _on_cpu(x1, stats, smask, pmask, pair_count, bw.flat, rw.flat, cw.flat):
+        return kernel_m_plain(x1, stats, smask, pmask, pair_count, bw, rw, cw, eps, gelu_mode)
+    B, P, L, d = x1.shape
+    _check_width(d)
+    _require(x1, "x1", (B, P, L, d))
+    _require(stats, "stats", (B, L, 3 * d))
+    _require(smask, "smask", (B, L))
+    _require(pmask, "pmask", (B, P))
+    _require(pair_count, "pair_count", (B,))
+    _require_groups(b=(bw, B_SIZE), row=(rw, ROW_SIZE), col=(cw, COL_SIZE))
+    gelu = _gelu_code(gelu_mode)
+    S, rowctx, partial = _scratch(B, P, L, x1.device)
+    lib = _lib()
+    _build.check(lib, lib.pf_kernel_m(
+        x1.data_ptr(), stats.data_ptr(), smask.data_ptr(), pmask.data_ptr(),
+        pair_count.data_ptr(), bw.flat.data_ptr(), rw.flat.data_ptr(), cw.flat.data_ptr(),
+        rowctx.data_ptr(), partial.data_ptr(), B, P, L, S, float(eps), gelu, _stream()),
+        "kernel_m")
+    LAUNCHES["kernel_m"] += 1
+    return x1, reduce_stats(partial)
+
+
+def kernel_z(x1, stats, smask, pair_count, bw: WeightGroup, hw: WeightGroup, eps,
+             gelu_mode="exact"):
+    """Last block's kernel B + head → ``(B, P)`` distances."""
+    if _on_cpu(x1, stats, smask, pair_count, bw.flat, hw.flat):
+        return kernel_z_plain(x1, stats, smask, pair_count, bw, hw, eps, gelu_mode)
+    B, P, L, d = x1.shape
+    _check_width(d)
+    _require(x1, "x1", (B, P, L, d))
+    _require(stats, "stats", (B, L, 3 * d))
+    _require(smask, "smask", (B, L))
+    _require(pair_count, "pair_count", (B,))
+    _require_groups(b=(bw, B_SIZE), head=(hw, HEAD_SIZE))
+    gelu = _gelu_code(gelu_mode)
+    if P < 1:
+        raise ValueError("the pipeline needs at least one pair (two sequences)")
+    S = _slots(P, B, x1.device)
+    out = torch.empty((B, P), device=x1.device, dtype=torch.float32)
+    lib = _lib()
+    _build.check(lib, lib.pf_kernel_z(
+        x1.data_ptr(), stats.data_ptr(), smask.data_ptr(), pair_count.data_ptr(),
+        bw.flat.data_ptr(), hw.flat.data_ptr(), out.data_ptr(), B, P, L, S, float(eps), gelu,
+        _stream()), "kernel_z")
+    LAUNCHES["kernel_z"] += 1
+    return out
+
+
+# ---- the pipelined forward ------------------------------------------------
+
+def uses_gather(n_seqs: int, seq_len: int, d: int) -> bool:
+    """Block 0 runs kernel P0 (in-kernel gather) rather than A-only."""
+    return (n_seqs * seq_len * d * 4 <= P0_EMB_BUDGET_BYTES
+            and n_seqs * (n_seqs - 1) // 2 <= P0_MAX_PAIRS)
+
+
+def forward_fused_pipeline(
+    weights: PipelineWeights,
+    codes: torch.Tensor,
+    site_mask: torch.Tensor,
+    seq_mask: torch.Tensor,
+    eps: float = 1e-5,
+    gelu_mode: str = "exact",
+) -> torch.Tensor:
+    """Full Phyloformer forward through the pipelined kernels.
+
+    ``codes`` ``(B, n, L)`` integers, ``site_mask`` ``(B, L)`` and
+    ``seq_mask`` ``(B, n)`` bool, all on one device.  Returns ``(B, P)``
+    distances, ``P = n(n-1)/2`` in upper-triangle order (padded pairs hold
+    finite garbage).  The kernels run for CUDA tensors, the plain versions
+    for CPU tensors.
+    """
+    device = codes.device
+    b, n, l = codes.shape
+    d = weights.embed_w.shape[1]
+    i_np, j_np = pair_indices(n)
+    ii = torch.as_tensor(i_np, device=device)
+    jj = torch.as_tensor(j_np, device=device)
+
+    emb = torch.relu(weights.embed_w[codes.long()] + weights.embed_b)  # (B, n, L, d)
+    smask = site_mask.to(torch.float32).contiguous()
+    pmask = (seq_mask.index_select(1, ii.long())
+             & seq_mask.index_select(1, jj.long())).to(torch.float32).contiguous()
+    pair_count = pmask.sum(dim=1)
+
+    if uses_gather(n, l, d):
+        x1, stats = kernel_p0(emb, ii, jj, smask, pmask, weights.row[0], weights.col[0], eps)
+    else:
+        x0 = emb.index_select(1, ii.long()) + emb.index_select(1, jj.long())
+        x1, stats = kernel_a_only(x0, smask, pmask, weights.row[0], weights.col[0], eps)
+
+    for i in range(len(weights.row) - 1):
+        x1, stats = kernel_m(x1, stats, smask, pmask, pair_count, weights.b[i],
+                             weights.row[i + 1], weights.col[i + 1], eps, gelu_mode)
+
+    return kernel_z(x1, stats, smask, pair_count, weights.b[-1], weights.head, eps, gelu_mode)

@@ -1,0 +1,121 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: without an NVIDIA card these tests skip.  On a machine with
+one (no JAX needed there):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Shapes are small and chosen for the edges the main path's buckets rarely
+reach: a site axis that ends in a partial tile, fewer pairs than blocks, a
+batch element with every sequence but two masked, batch size one.  The
+kernels sum in another order than the plain versions (tiles, blocks, the
+one-pass ctx = Σk·v/Σk): tolerance 2e-5 relative to max(1, max|ref|) per
+kernel, 1e-4 on distances after six blocks against the eager model.
+"""
+
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def card():
+    r = subprocess.run([sys.executable, "-c",
+                        "import torch; print(torch.cuda.is_available())"],
+                       capture_output=True, text=True, timeout=300)
+    if r.stdout.strip() != "True":
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+
+
+_CODE = """
+import json
+import numpy as np
+import torch
+from phyloformer_tpu_torch.data.pairs import pair_indices
+from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+from phyloformer_tpu_torch.models.params import map_params
+from phyloformer_tpu_torch.models.phyloformer import forward
+from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda")
+params, cfg, _ = load_pretrained("artifacts/pf_mre_r5.ckpt")
+params = map_params(lambda t: t.to(dev), params)
+w = pipe.PipelineWeights.from_params(params)
+rng = np.random.default_rng(7)
+
+def rel(got, want):
+    want = want.double()
+    return (got.double() - want).abs().max().item() / max(1.0, want.abs().max().item())
+
+errs = {}
+for name, (dims, pad_n, pad_l) in {
+        "partial_tile": ([(9, 45), (6, 30)], 9, 45),
+        "two_seqs": ([(2, 70)], 2, 70),
+        "masked_seqs": ([(12, 33), (2, 33)], 12, 40)}.items():
+    b = len(dims)
+    codes = np.zeros((b, pad_n, pad_l), np.int32)
+    smask = np.zeros((b, pad_l), bool)
+    qmask = np.zeros((b, pad_n), bool)
+    for r, (n, l) in enumerate(dims):
+        codes[r, :n, :l] = rng.integers(0, 22, (n, l))
+        smask[r, :l] = True
+        qmask[r, :n] = True
+    codes, smask, qmask = (torch.from_numpy(a).to(dev) for a in (codes, smask, qmask))
+    i, j = (torch.as_tensor(a, device=dev) for a in pair_indices(pad_n))
+    emb = torch.relu(w.embed_w[codes.long()] + w.embed_b).contiguous()
+    sm = smask.float().contiguous()
+    pm = (qmask[:, i.long()] & qmask[:, j.long()]).float().contiguous()
+    pc = pm.sum(1)
+    x0 = (emb[:, i.long()] + emb[:, j.long()]).contiguous()
+    e = []
+    got = pipe.kernel_p0(emb, i, j, sm, pm, w.row[0], w.col[0], 1e-5)
+    want = pipe.kernel_p0_plain(emb, i, j, sm, pm, w.row[0], w.col[0], 1e-5)
+    e += [rel(got[0], want[0]), rel(got[1], want[1])]
+    got = pipe.kernel_a_only(x0.clone(), sm, pm, w.row[0], w.col[0], 1e-5)
+    e += [rel(got[0], want[0]), rel(got[1], want[1])]
+    x1, stats = want
+    for gelu in ("exact", "tanh"):
+        got = pipe.kernel_m(x1.clone(), stats, sm, pm, pc, w.b[0], w.row[1], w.col[1],
+                            1e-5, gelu)
+        ref = pipe.kernel_m_plain(x1, stats, sm, pm, pc, w.b[0], w.row[1], w.col[1], 1e-5,
+                                  gelu)
+        e += [rel(got[0], ref[0]), rel(got[1], ref[1])]
+        e.append(rel(pipe.kernel_z(x1, stats, sm, pc, w.b[5], w.head, 1e-5, gelu),
+                     pipe.kernel_z_plain(x1, stats, sm, pc, w.b[5], w.head, 1e-5, gelu)))
+    pipe.reset_launch_counts()
+    dist = pipe.forward_fused_pipeline(w, codes, smask, qmask)
+    launches = dict(pipe.LAUNCHES)
+    ref = forward(params, codes, cfg, site_mask=smask, seq_mask=qmask)
+    real = pm.bool()
+    errs[name] = {"kernels": max(e), "launches": launches,
+                  "finite": bool(torch.isfinite(dist[real]).all()),
+                  "dist": (dist[real].double() - ref[real].double()).abs().max().item()}
+torch.cuda.synchronize()
+print(json.dumps(errs))
+"""
+
+
+@pytest.fixture(scope="module")
+def results(card):
+    r = subprocess.run([sys.executable, "-c", _CODE], capture_output=True, text=True,
+                       cwd=str(REPO), timeout=900)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("case", ["partial_tile", "two_seqs", "masked_seqs"])
+def test_kernels_match_plain_on_card(case, results):
+    res = results[case]
+    assert res["kernels"] <= 2e-5, res
+    assert res["finite"] and res["dist"] <= 1e-4, res
+    assert res["launches"]["kernel_p0"] == 1 and res["launches"]["kernel_m"] == 5, res
+    assert res["launches"]["kernel_z"] == 1 and res["launches"]["reduce_stats"] == 6, res
