@@ -3,16 +3,26 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the hand-written CUDA kernels from this checkout's sources;
-3. holds every kernel of the inference path (P0, A-only, M, Z and the stats
-   reduction) against its plain PyTorch version on the card (TF32 off), at
-   the headline bucket (60 tips, 256 sites, real pf_mre_r5 weights) and on a
-   ragged batch, and times both with CUDA events;
+2. builds the hand-written CUDA kernels from this checkout's sources (one
+   nvcc per source, all in parallel);
+3. holds every kernel of the inference paths against its plain PyTorch
+   version on the card (TF32 off) and times both with CUDA events:
+   - the pipeline's P0, A-only, M, Z and the stats reduction at the headline
+     bucket (60 tips, 256 sites, real pf_mre_r5 weights) and on ragged
+     batches;
+   - the fused forward's A and B at the headline bucket, A1, A2 and B at a
+     long bucket (60 tips x 1500 sites -> (60, 1536)) and all four on a
+     ragged unbucketed pair of alignments of 1100 and 1031 sites;
 4. drives the main path through the CLI (``pf-infer`` with ``--trees
    --fastme --stats``) on synthetic FASTA files made with numpy from a seed,
-   checks the launch counts, the finiteness of every distance and their
-   agreement with the plain eager model run on the card;
-5. prints the ``kernels`` JSON line and the throughput, then, as its last
+   up to 3000 sites, so that buckets up to 1024 sites run the pipeline and
+   longer ones the L-tiled A1/A2/B; checks the launch counts, the finiteness
+   of every distance and their agreement with the plain eager model run on
+   the card;
+5. drives the two-kernel fused forward (``InferenceConfig(use_pipeline=
+   False)``, kernels A and B) through the engine on the 60 x 250 set, with
+   the same checks;
+6. prints the ``kernels`` JSON line and the throughputs, then, as its last
    line, ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line.  Nothing falls back to
@@ -42,10 +52,13 @@ SEED = 1234
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# Matmul FLOPs per pair-site: kernel A = 7 d x d products, kernel B = 2 d x d
-# + 2 d x 4d products, the head one d-vector.
+# Matmul FLOPs per pair-site: kernel A = 7 d x d products (A1 3 of them, A2
+# the other 4 and the q projection again: 5), kernel B = 2 d x d + 2 d x 4d
+# products, the head one d-vector.
 D = 64
 FLOPS_A = 7 * 2 * D * D
+FLOPS_A1 = 3 * 2 * D * D
+FLOPS_A2 = 5 * 2 * D * D
 FLOPS_B = 2 * 2 * D * D + 2 * 2 * D * 4 * D
 FLOPS_HEAD = 2 * D
 # Tolerances, relative to the reference's largest magnitude (max(1, max|ref|)):
@@ -94,6 +107,13 @@ def time_ms(fn, setup=None, reps=5) -> float:
     return statistics.median(times)
 
 
+def bound(flops, nbytes):
+    """(least ms on the card, "operations" or "bytes"): the larger of the
+    matmul FLOPs over the fp32 peak and the bytes over the HBM rate."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def random_alignment(rng, n, l, gap_frac=0.02):
     from phyloformer_tpu_torch.data.alphabet import GAP_CODE
 
@@ -118,12 +138,28 @@ def batch_inputs(rng, dims, pad_n, pad_l, device):
     return [torch.from_numpy(t).to(device) for t in (codes, smask, qmask)]
 
 
+def block0_inputs(w, rng, dims, pad_n, pad_l, device):
+    """A random padded batch as block 0 sees it: the embedding, the pair
+    indices, the float site / pair masks, the real pair counts and the
+    gathered pair tensor."""
+    import torch
+
+    from phyloformer_tpu_torch.data.pairs import pair_indices
+
+    codes, site_mask, seq_mask = batch_inputs(rng, dims, pad_n, pad_l, device)
+    ii, jj = (torch.as_tensor(a, device=device) for a in pair_indices(pad_n))
+    emb = torch.relu(w.embed_w[codes.long()] + w.embed_b).contiguous()
+    smask = site_mask.float().contiguous()
+    pmask = (seq_mask[:, ii.long()] & seq_mask[:, jj.long()]).float().contiguous()
+    x0 = (emb[:, ii.long()] + emb[:, jj.long()]).contiguous()
+    return emb, ii, jj, smask, pmask, pmask.sum(1), x0
+
+
 def kernel_checks(weights, device):
     """Each kernel against its plain version on the card, at the headline
     bucket and on a ragged batch; times at the headline shapes."""
     import torch
 
-    from phyloformer_tpu_torch.data.pairs import pair_indices
     from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
 
     rng = np.random.default_rng(SEED)
@@ -142,16 +178,9 @@ def kernel_checks(weights, device):
                ("kernel_p0", "kernel_a_only", "kernel_m", "kernel_z", "reduce_stats")}
     timing_inputs = {}
     for case, (dims, pad_n, pad_l) in cases.items():
-        codes, site_mask, seq_mask = batch_inputs(rng, dims, pad_n, pad_l, device)
         b = len(dims)
-        i_np, j_np = pair_indices(pad_n)
-        ii = torch.as_tensor(i_np, device=device)
-        jj = torch.as_tensor(j_np, device=device)
-        emb = torch.relu(w.embed_w[codes.long()] + w.embed_b).contiguous()
-        smask = site_mask.float().contiguous()
-        pmask = (seq_mask[:, ii.long()] & seq_mask[:, jj.long()]).float().contiguous()
-        pcount = pmask.sum(1)
-        x0 = (emb[:, ii.long()] + emb[:, jj.long()]).contiguous()
+        emb, ii, jj, smask, pmask, pcount, x0 = block0_inputs(w, rng, dims, pad_n, pad_l,
+                                                              device)
 
         # block 0: P0 and A-only
         if case != "wide":
@@ -187,7 +216,7 @@ def kernel_checks(weights, device):
         if case in ("headline", "wide"):
             timing_inputs[case] = dict(emb=emb, ii=ii, jj=jj, smask=smask, pmask=pmask,
                                        pcount=pcount, x0=x0, x1=x1, stats=stats, xz=xz,
-                                       sz=sz, b=b, n=pad_n, p=len(i_np), l=pad_l)
+                                       sz=sz, b=b, n=pad_n, p=len(ii), l=pad_l)
 
     # timing at the main path's shapes
     h, wd = timing_inputs["headline"], timing_inputs["wide"]
@@ -215,10 +244,6 @@ def kernel_checks(weights, device):
 
     def clone_of(t):
         return lambda: (t.clone(),)
-
-    def bound(flops, nbytes):
-        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-        return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
     hs = h["b"] * h["p"] * h["l"]  # pair-sites
     ws = wd["b"] * wd["p"] * wd["l"]
@@ -249,6 +274,105 @@ def kernel_checks(weights, device):
     return results
 
 
+def fused_kernel_checks(weights, device):
+    """The fused forward's kernels A, B, A1 and A2 against their plain
+    versions: A and B at the headline bucket, A1, A2 and B at the long one,
+    all four on a ragged unbucketed batch; times at the main paths' shapes
+    (A at the headline, A1, A2 and B at the long bucket)."""
+    import torch
+
+    from phyloformer_tpu_torch.ops.kernels import fused
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+
+    rng = np.random.default_rng(SEED + 2)
+    cases = {
+        # name: (real dims, pad_n, pad_l, kernels checked)
+        "headline": ([(60, 250)] * 9, 60, 256, ("kernel_a", "kernel_b")),
+        # one 60 x 1500 alignment in the (60, 1536) bucket: B = 1, P = 1770
+        "long": ([(60, 1500)], 60, 1536, ("kernel_a1", "kernel_a2", "kernel_b")),
+        # --no-bucketing: 1100 sites end in a partial tile of 12, the second
+        # row has 1031 real sites and 33 of 40 sequences
+        "ragged": ([(40, 1100), (33, 1031)], 40, 1100,
+                   ("kernel_a", "kernel_a1", "kernel_a2", "kernel_b")),
+    }
+    w, eps = weights, 1e-5
+    results = {k: {"errs": []} for k in ("kernel_a", "kernel_b", "kernel_a1", "kernel_a2")}
+    shapes = {}
+    for case, (dims, pad_n, pad_l, names) in cases.items():
+        _, _, _, smask, pmask, pcount, x0 = block0_inputs(w, rng, dims, pad_n, pad_l, device)
+        if "kernel_a" in names:
+            got = fused.kernel_a(x0, smask, pmask, w.row[0], w.col[0], eps)
+            want = pipe.kernel_a_only_plain(x0, smask, pmask, w.row[0], w.col[0], eps)
+            results["kernel_a"]["errs"] += [errors(got[0], want[0]), errors(got[1], want[1])]
+        rowstats = fused.kernel_a1_plain(x0, smask, w.row[0], eps)
+        if "kernel_a1" in names:
+            results["kernel_a1"]["errs"].append(
+                errors(fused.kernel_a1(x0, smask, w.row[0], eps), rowstats))
+        want = fused.kernel_a2_plain(x0, rowstats, smask, pmask, w.row[0], w.col[0], eps)
+        if "kernel_a2" in names:
+            got = fused.kernel_a2(x0, rowstats, smask, pmask, w.row[0], w.col[0], eps)
+            results["kernel_a2"]["errs"] += [errors(got[0], want[0]), errors(got[1], want[1])]
+        x1, stats = want
+        results["kernel_b"]["errs"].append(
+            errors(fused.kernel_b(x1, stats, pcount, w.b[0], eps),
+                   fused.kernel_b_plain(x1, stats, pcount, w.b[0], eps)))
+        torch.cuda.synchronize()
+        shapes[case] = dict(smask=smask, pmask=pmask, pcount=pcount, x0=x0, rowstats=rowstats,
+                            x1=x1, stats=stats, b=len(dims), p=x0.shape[1], l=pad_l)
+        del want, x1, stats
+
+    h, lg = shapes["headline"], shapes["long"]
+
+    def a(plain):
+        f = pipe.kernel_a_only_plain if plain else fused.kernel_a
+        return lambda: f(h["x0"], h["smask"], h["pmask"], w.row[0], w.col[0], eps)
+
+    def b(plain, s):
+        f = fused.kernel_b_plain if plain else fused.kernel_b
+        return lambda: f(s["x1"], s["stats"], s["pcount"], w.b[0], eps)
+
+    def a1(plain):
+        f = fused.kernel_a1_plain if plain else fused.kernel_a1
+        return lambda: f(lg["x0"], lg["smask"], w.row[0], eps)
+
+    def a2(plain):
+        f = fused.kernel_a2_plain if plain else fused.kernel_a2
+        return lambda: f(lg["x0"], lg["rowstats"], lg["smask"], lg["pmask"], w.row[0], w.col[0],
+                         eps)
+
+    def sites(s):
+        return s["b"] * s["p"] * s["l"]
+
+    act = 4 * D  # bytes of one pair-site row
+
+    def stats_bytes(s):
+        return 4 * s["b"] * s["l"] * 3 * D
+
+    rowstats_b = 4 * lg["b"] * lg["p"] * 3 * D
+    timed = {
+        "kernel_a": (a(False), a(True),
+                     bound(FLOPS_A * sites(h), 2 * act * sites(h) + stats_bytes(h))),
+        "kernel_b": (b(False, lg), b(True, lg),
+                     bound(FLOPS_B * sites(lg), 2 * act * sites(lg) + stats_bytes(lg))),
+        "kernel_a1": (a1(False), a1(True),
+                      bound(FLOPS_A1 * sites(lg), act * sites(lg) + rowstats_b)),
+        "kernel_a2": (a2(False), a2(True),
+                      bound(FLOPS_A2 * sites(lg),
+                            2 * act * sites(lg) + rowstats_b + stats_bytes(lg))),
+    }
+    for name, (kern, plain, (bound_ms, bound_by)) in timed.items():
+        r = results[name]
+        r["ms"] = time_ms(kern)
+        r["plain_ms"] = time_ms(plain)
+        r["bound_ms"], r["bound_by"] = bound_ms, bound_by
+        r["library_ms"] = None  # no single PyTorch call computes these functions
+    # kernel B also runs at the headline bucket on the two-kernel path
+    results["kernel_b"]["headline_ms"] = time_ms(b(False, h))
+    results["kernel_b"]["headline_bound_ms"] = bound(
+        FLOPS_B * sites(h), 2 * act * sites(h) + stats_bytes(h))[0]
+    return results
+
+
 def write_fasta(path, codes, rng_ids):
     from phyloformer_tpu_torch.data.alphabet import ALPHABET
 
@@ -258,9 +382,50 @@ def write_fasta(path, codes, rng_ids):
             fh.write(bytes(ALPHABET[c] for c in row).decode() + "\n")
 
 
+def expected_launches(plan, n_blocks, pipelined):
+    """Launch counts of a run of ``plan``: per pipelined batch one block-0
+    kernel (P0 or A-only) + (n_blocks - 1) M + 1 Z; per fused batch, A1, A2
+    and B per block above 1024 sites, A and B per block up to it; n_blocks
+    reductions per batch either way."""
+    from phyloformer_tpu_torch.ops.kernels import axial_block
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+
+    n = {k: 0 for k in pipe.LAUNCHES}
+    for (pad_n, pad_l), _ in plan:
+        if pipelined(pad_n, pad_l):
+            n["kernel_p0" if pipe.uses_gather(pad_n, pad_l, D) else "kernel_a_only"] += 1
+            n["kernel_m"] += n_blocks - 1
+            n["kernel_z"] += 1
+        elif pad_l > axial_block.RESIDENT_SITES_MAX:
+            for k in ("kernel_a1", "kernel_a2", "kernel_b"):
+                n[k] += n_blocks
+        else:
+            n["kernel_a"] += n_blocks
+            n["kernel_b"] += n_blocks
+        n["reduce_stats"] += n_blocks
+    return n
+
+
+def rel_err(got, want):
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+def throughput(engine, alns):
+    """Alignments per second of engine.predict after one warm run."""
+    import torch
+
+    engine.predict(alns)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.predict(alns)
+    return len(alns) / (time.perf_counter() - t0)
+
+
 def main_path(device):
-    """Run the CLI on synthetic alignments; return the launch counts, the
-    expected counts, the distance error vs the plain model and throughput."""
+    """Run the CLI on synthetic alignments of up to 3000 sites; check the
+    launch counts, the files and the distances against the plain model.
+    Returns the checks' numbers, the 60 x 250 alignments and their plain
+    model distances, and the throughputs at 60 x 250 and 60 x 1500."""
     import torch
 
     from phyloformer_tpu_torch.data.fasta import read_fasta
@@ -276,21 +441,19 @@ def main_path(device):
     aln_dir, out_dir = os.path.join(WORK, "alns"), os.path.join(WORK, "out")
     os.makedirs(aln_dir)
     rng = np.random.default_rng(SEED + 1)
-    dims = [(60, 250)] * 18 + [(17, 130), (33, 333), (45, 700), (25, 1000), (110, 200)]
+    dims = ([(60, 250)] * 18 + [(17, 130), (33, 333), (45, 700), (25, 1000), (110, 200)]
+            + [(60, 1500)] * 2 + [(100, 2000), (30, 3000)])
     for k, (n, l) in enumerate(dims):
         write_fasta(os.path.join(aln_dir, f"aln{k:02d}.fa"), random_alignment(rng, n, l), k)
     gapped = random_alignment(rng, 12, 150, gap_frac=0.35)
     write_fasta(os.path.join(aln_dir, "gapped.fa"), gapped, "g")
+    dims.append((12, 150))
 
     params, cfg, _ = load_pretrained(CKPT)
     names = sorted(os.listdir(aln_dir))
     alns = [read_fasta(os.path.join(aln_dir, f)) for f in names]
     engine = InferenceEngine(params, cfg, InferenceConfig(), device=device)
-    plan = engine._plan(alns)
-    n_p0 = sum(pipe.uses_gather(shape[0], shape[1], D) for shape, _ in plan)
-    expected = {"kernel_p0": n_p0, "kernel_a_only": len(plan) - n_p0,
-                "kernel_m": (cfg.n_blocks - 1) * len(plan), "kernel_z": len(plan),
-                "reduce_stats": cfg.n_blocks * len(plan)}
+    expected = expected_launches(engine._plan(alns), cfg.n_blocks, pipe.pipeline_supported)
 
     pipe.reset_launch_counts()
     out = io.StringIO()
@@ -304,7 +467,7 @@ def main_path(device):
     cli_stats = json.loads(out.getvalue().strip().splitlines()[-1])
 
     # distances: finite, and equal to the plain eager model on the card
-    worst = 0.0
+    worst, worst_long, refs = 0.0, 0.0, []
     dev_params = map_params(lambda t: t.to(device), params)
     for name, aln in zip(names, alns):
         stem = name[:-3]
@@ -317,17 +480,59 @@ def main_path(device):
         with torch.inference_mode():
             codes = torch.from_numpy(aln.codes.astype(np.int32))[None].to(device)
             ref = forward(dev_params, codes, cfg)[0].double().cpu().numpy()
+        refs.append(ref)
         i, j = np.triu_indices(aln.n_seqs, 1)
-        worst = max(worst, float(np.abs(dm[i, j] - ref).max() / max(1.0, np.abs(ref).max())))
+        err = rel_err(dm[i, j], ref)
+        worst = max(worst, err)
+        if aln.seq_len > 1024:
+            worst_long = max(worst_long, err)
+        torch.cuda.empty_cache()
 
-    # throughput on the headline set, after the first (warm) run above
-    head = [a for a, (n, l) in zip(alns, dims + [(12, 150)]) if (n, l) == (60, 250)]
-    engine.predict(head)
+    head = [k for k, d in enumerate(dims) if d == (60, 250)]
+    long = [k for k, d in enumerate(dims) if d == (60, 1500)]
+    return dict(launches=launches, expected=expected, dist_err=worst, dist_err_long=worst_long,
+                cli_stats=cli_stats, head_alns=[alns[k] for k in head],
+                head_refs=[refs[k] for k in head],
+                aln_per_s=throughput(engine, [alns[k] for k in head]),
+                long_aln_per_s=throughput(engine, [alns[k] for k in long]),
+                n_head=len(head), n_long=len(long))
+
+
+def two_kernel_path(device, alns, refs):
+    """The engine with use_pipeline=False: kernels A and B per block on the
+    60 x 250 set.  Returns launches, expected launches and the distance
+    error against the plain model."""
+    import torch
+
+    from phyloformer_tpu_torch.infer.engine import InferenceConfig, InferenceEngine
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+
+    params, cfg, _ = load_pretrained(CKPT)
+    engine = InferenceEngine(params, cfg, InferenceConfig(use_pipeline=False), device=device)
+    expected = expected_launches(engine._plan(alns), cfg.n_blocks, lambda n, l: False)
+    pipe.reset_launch_counts()
+    preds = engine.predict(alns)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    engine.predict(head)
-    aln_per_s = len(head) / (time.perf_counter() - t0)
-    return launches, expected, worst, cli_stats, aln_per_s, len(head)
+    launches = dict(pipe.LAUNCHES)
+    if not all(np.isfinite(p).all() for p in preds):
+        fail("two-kernel path: non-finite distances")
+    return launches, expected, max(rel_err(p, r) for p, r in zip(preds, refs))
+
+
+SOURCE = "phyloformer_tpu_torch/ops/kernels/csrc/"
+# name: (source, TPU kernel it replaces)
+KERNELS = {
+    "kernel_p0": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/pipeline.py:100"),
+    "kernel_a_only": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/pipeline.py:145"),
+    "kernel_m": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/pipeline.py:176"),
+    "kernel_z": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/pipeline.py:214"),
+    "reduce_stats": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/pipeline.py:136"),
+    "kernel_a": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/axial_block.py:252"),
+    "kernel_b": ("axial_fused.cu", "phyloformer_tpu/ops/pallas/axial_block.py:294"),
+    "kernel_a1": ("axial_fused.cu", "phyloformer_tpu/ops/pallas/axial_block.py:314"),
+    "kernel_a2": ("axial_fused.cu", "phyloformer_tpu/ops/pallas/axial_block.py:353"),
+}
 
 
 def main() -> int:
@@ -363,6 +568,8 @@ def main() -> int:
     weights = pipe.PipelineWeights.from_params(map_params(lambda t: t.to(device), params))
 
     results = kernel_checks(weights, device)
+    results.update(fused_kernel_checks(weights, device))
+    torch.cuda.empty_cache()
     for name, r in results.items():
         r["max_abs_err"] = max(e[0] for e in r["errs"])
         r["max_rel_err"] = max(e[1] for e in r["errs"])
@@ -370,39 +577,49 @@ def main() -> int:
               f"(tol {KERNEL_TOL:.0e}), "
               f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']}) [{card}]")
+    b = results["kernel_b"]
+    print(f"kernel_b at the headline bucket: {b['headline_ms']:.3f} ms, bound "
+          f"{b['headline_bound_ms']:.3f} ms [{card}]")
     bad = [n for n, r in results.items() if not r["max_rel_err"] <= KERNEL_TOL]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
 
-    launches, expected, dist_err, cli_stats, aln_per_s, n_head = main_path(device)
-    print(f"main path: launches {launches}, expected {expected}")
-    print(f"main path: distances vs plain model rel max err {dist_err:.3e} (tol {DIST_TOL:.0e})")
-    print(f"main path: cli stats {json.dumps(cli_stats)}")
-    if launches != expected:
-        fail("launch counts differ from one block-0 kernel, 5 M and 1 Z per batch")
-    if not dist_err <= DIST_TOL:
-        fail("kernel-path distances disagree with the plain model")
-    print(f"throughput: {aln_per_s:.3f} aln/s on {n_head} alignments of 60 x 250 [{card}]")
+    # each path is driven with the counts set to 0 just before it
+    mp = main_path(device)
+    print(f"main path: launches {mp['launches']}, expected {mp['expected']}")
+    print(f"main path: distances vs plain model rel max err {mp['dist_err']:.3e}, "
+          f"above 1024 sites {mp['dist_err_long']:.3e} (tol {DIST_TOL:.0e})")
+    print(f"main path: cli stats {json.dumps(mp['cli_stats'])}")
+    if mp["launches"] != mp["expected"]:
+        fail("main path: launch counts differ from 1 block-0 kernel + 5 M + 1 Z per "
+             "pipelined batch and 6 A1 + 6 A2 + 6 B per L-tiled one")
+    if not mp["dist_err"] <= DIST_TOL:
+        fail("main path: kernel-path distances disagree with the plain model")
 
-    replaces = {
-        "kernel_p0": "phyloformer_tpu/ops/pallas/pipeline.py:100",
-        "kernel_a_only": "phyloformer_tpu/ops/pallas/pipeline.py:145",
-        "kernel_m": "phyloformer_tpu/ops/pallas/pipeline.py:176",
-        "kernel_z": "phyloformer_tpu/ops/pallas/pipeline.py:214",
-        "reduce_stats": "phyloformer_tpu/ops/pallas/pipeline.py:136",
-    }
+    launches2, expected2, dist_err2 = two_kernel_path(device, mp["head_alns"], mp["head_refs"])
+    print(f"two-kernel path: launches {launches2}, expected {expected2}")
+    print(f"two-kernel path: distances vs plain model rel max err {dist_err2:.3e} "
+          f"(tol {DIST_TOL:.0e})")
+    if launches2 != expected2:
+        fail("two-kernel path: launch counts differ from 6 A + 6 B per batch")
+    if not dist_err2 <= DIST_TOL:
+        fail("two-kernel path: distances disagree with the plain model")
+    print(f"throughput: {mp['aln_per_s']:.3f} aln/s on {mp['n_head']} alignments of 60 x 250, "
+          f"{mp['long_aln_per_s']:.3f} aln/s on {mp['n_long']} alignments of 60 x 1500 "
+          f"[{card}]")
+
     line = {"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "phyloformer_tpu_torch/ops/kernels/csrc/axial_pipeline.cu",
-         "replaces": replaces[name], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": SOURCE + KERNELS[name][0],
+         "replaces": KERNELS[name][1],
+         "launches": mp["launches"][name] + launches2[name],
          "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
          "tolerance": KERNEL_TOL, "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"]}
         for name, r in results.items()],
-        "card": card, "aln_per_s": aln_per_s}
+        "card": card, "aln_per_s": mp["aln_per_s"], "long_aln_per_s": mp["long_aln_per_s"]}
     if any(k["launches"] <= 0 for k in line["kernels"]):
-        fail("a kernel of the path was not launched on the main path")
+        fail("a kernel of the paths was not launched on them")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

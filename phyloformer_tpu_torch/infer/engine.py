@@ -2,9 +2,11 @@
 
 Alignments are padded into a small set of (n, L) buckets (masked, so padding
 is an exact no-op), batched under a token budget, and run through the
-pipelined forward of :mod:`..ops.kernels.pipeline`.  On ``cuda`` that
-forward always runs the hand-written kernels; on ``cpu`` it runs their plain
-PyTorch versions.
+pipelined forward of :mod:`..ops.kernels.pipeline` where it serves the
+bucket (up to ``RESIDENT_SITES_MAX`` sites), else through the fused forward
+(:func:`..models.phyloformer.forward_fused`, L-tiled above that).  On
+``cuda`` both always run the hand-written kernels; on ``cpu`` they run
+their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -21,16 +23,14 @@ from ..data.fasta import Alignment
 from ..data.pairs import n_pairs, pair_indices
 from ..device import resolve_device
 from ..models.params import Params, PhyloformerConfig, map_params
+from ..models.phyloformer import forward_fused
 from ..ops.kernels import _build
 from ..ops.kernels.axial_block import GELU_MODES
-from ..ops.kernels.pipeline import PipelineWeights, forward_fused_pipeline
+from ..ops.kernels.pipeline import PipelineWeights, forward_fused_pipeline, pipeline_supported
 
 DEFAULT_N_BUCKETS = (10, 20, 30, 40, 50, 60, 80, 100, 120, 150, 200)
 DEFAULT_L_BUCKETS = (128, 256, 384, 512, 640, 768, 1024, 1280, 1536, 2048,
                      3072, 4096)
-# The pipelined kernels keep a whole pair row per block pass; longer site
-# axes need the L-tiled kernels, which are not yet ported.
-MAX_PIPELINE_SITES = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +45,10 @@ class InferenceConfig:
     matmul_precision: str = "float32"  # IEEE fp32 products
     pipeline_act_dtype: str = "float32"  # storage dtype between kernels
     pipeline_gelu: str = "exact"  # FFN activation: "exact" (erf) | "tanh"
+    # Pipelined kernels (merged block boundaries, in-kernel pair gather and
+    # head).  None = where pipeline_supported holds for the bucket, else the
+    # fused forward (exact GELU); True / False force one or the other.
+    use_pipeline: Optional[bool] = None
     allow_oversize: bool = True  # n/L beyond the last bucket: exact shape
     # Round batch sizes up to powers of two (padding rows are masked no-ops).
     pad_batch_sizes: bool = False
@@ -109,13 +113,6 @@ class InferenceEngine:
         for idx, a in enumerate(alns):
             pad_n = _bucketize(a.n_seqs, self.icfg.n_buckets, self.icfg.allow_oversize)
             pad_l = _bucketize(a.seq_len, self.icfg.l_buckets, self.icfg.allow_oversize)
-            if pad_l > MAX_PIPELINE_SITES:
-                raise NotImplementedError(
-                    f"alignment {idx} ({a.seq_len} sites) falls in a {pad_l}-site "
-                    f"bucket; above {MAX_PIPELINE_SITES} sites the forward needs the "
-                    "L-tiled kernels _kernel_a1/_kernel_a2/_kernel_b "
-                    "(phyloformer_tpu/ops/pallas/axial_block.py), not yet ported, "
-                    "see ROADMAP.md")
             groups.setdefault((pad_n, pad_l), []).append(idx)
 
         batches = []
@@ -160,9 +157,15 @@ class InferenceEngine:
         with torch.inference_mode():
             for (pad_n, pad_l), idxs in plan:
                 codes, site_mask, seq_mask = self._batch_inputs(alns, pad_n, pad_l, idxs)
-                preds = forward_fused_pipeline(
-                    self.weights, codes, site_mask, seq_mask, eps=self.cfg.ln_eps,
-                    gelu_mode=self.icfg.pipeline_gelu)
+                pipeline = self.icfg.use_pipeline
+                if pipeline is None:
+                    pipeline = pipeline_supported(pad_n, pad_l)
+                if pipeline:
+                    preds = forward_fused_pipeline(
+                        self.weights, codes, site_mask, seq_mask, eps=self.cfg.ln_eps,
+                        gelu_mode=self.icfg.pipeline_gelu)
+                else:
+                    preds = forward_fused(self.weights, codes, self.cfg, site_mask, seq_mask)
                 pending.append((pad_n, idxs, preds))
                 self.stats["batches"] += 1
                 self.stats["alignments"] += len(idxs)

@@ -6,6 +6,10 @@ sites, column attention over pairs, 4× GELU FFN, pre-LN residuals) → softplus
 head → mean over real sites.  Channel-last ``(B, P, L, d)``.  Optional masks
 make padded sites and sequences exact no-ops.  Deterministic (dropout 0): the
 port runs inference only.
+
+:func:`forward` is the plain eager model; :func:`forward_fused` runs the
+same network through the fused axial-block kernels
+(:mod:`..ops.kernels.fused`).
 """
 
 from __future__ import annotations
@@ -17,6 +21,9 @@ import torch.nn.functional as F
 
 from ..data.pairs import pair_indices
 from ..ops.attention import layer_norm, scaled_linear_attention
+from ..ops.kernels.axial_block import head
+from ..ops.kernels.fused import BlockWeights, fused_axial_block
+from ..ops.kernels.pipeline import PipelineWeights
 from .params import Params, PhyloformerConfig
 
 
@@ -89,3 +96,33 @@ def forward(
         m = site_mask[:, None, :].to(h.dtype)
         return (h * m).sum(dim=-1) / m.sum(dim=-1).clamp_min(1.0)
     return h.mean(dim=-1)
+
+
+def forward_fused(
+    params,
+    codes: torch.Tensor,
+    cfg: PhyloformerConfig,
+    site_mask: Optional[torch.Tensor] = None,
+    seq_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The forward of :func:`forward` through the fused kernels: per block
+    kernel A then kernel B, or above ``RESIDENT_SITES_MAX`` sites the
+    L-tiled A1, A2 then B.  No site cap.  The head runs as tensor code, as
+    in the JAX package.
+
+    ``params``: a parameter tree, or the :class:`PipelineWeights` made from
+    one (as the engine holds them).  CUDA tensors run the kernels, CPU
+    tensors their plain versions.  Returns ``(B, P)`` distances."""
+    w = params if isinstance(params, PipelineWeights) else PipelineWeights.from_params(params)
+    b, n_seqs, seq_len = codes.shape
+    if site_mask is None:
+        site_mask = torch.ones((b, seq_len), dtype=torch.bool, device=codes.device)
+    if seq_mask is None:
+        seq_mask = torch.ones((b, n_seqs), dtype=torch.bool, device=codes.device)
+    smask = site_mask.to(torch.float32).contiguous()
+    pmask = pair_mask_from_seq_mask(seq_mask, n_seqs).to(torch.float32).contiguous()
+
+    x = build_pairs(torch.relu(w.embed_w[codes.long()] + w.embed_b), n_seqs)
+    for row, col, bw in zip(w.row, w.col, w.b):
+        x = fused_axial_block(x, BlockWeights(row, col, bw), smask, pmask, cfg.ln_eps)
+    return head(x, w.head.parts[0], w.head.parts[1], smask)

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of ``csrc/`` on first use.
 
-``nvcc`` compiles the sources of this package into a shared library with a
+``nvcc`` compiles each source of this package into an object, all sources
+at once in parallel, and links the objects into one shared library with a
 plain C interface, which :func:`load` opens with ``ctypes``.  The library
 lands in ``ops/kernels/build/`` (listed in ``.gitignore``), named by a hash
 of the sources, so an edited source is rebuilt and an unchanged one is not.
@@ -22,10 +23,10 @@ from typing import Optional
 _HERE = pathlib.Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
-SOURCES = ("axial_pipeline.cu",)
-HEADERS = ("axial_pipeline.cuh",)
+SOURCES = ("axial_pipeline.cu", "axial_fused.cu")
+HEADERS = ("axial_pipeline.cuh", "axial_bodies.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
 # Wall-clock seconds of the last nvcc run in this process (0.0 when the
@@ -38,9 +39,13 @@ _SIGNATURES = {
     "pf_weight_sizes": [_p],
     "pf_kernel_p0": [_p] * 10 + [_i] * 5 + [_f, _p],
     "pf_kernel_a_only": [_p] * 7 + [_i] * 4 + [_f, _p],
+    "pf_kernel_a": [_p] * 8 + [_i] * 4 + [_f, _p],
     "pf_kernel_m": [_p] * 10 + [_i] * 4 + [_f, _i, _p],
     "pf_kernel_z": [_p] * 7 + [_i] * 4 + [_f, _i, _p],
     "pf_reduce_stats": [_p, _p, _i, _i, _i, _p],
+    "pf_kernel_a1": [_p] * 4 + [_i] * 4 + [_f, _p],
+    "pf_kernel_a2": [_p] * 8 + [_i] * 5 + [_f, _p],
+    "pf_kernel_b": [_p] * 5 + [_i] * 4 + [_f, _p],
 }
 
 
@@ -73,13 +78,28 @@ def build() -> pathlib.Path:
         if out.exists():
             return out
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [str(SRC_DIR / s) for s in SOURCES]
+        nvcc = _nvcc()
+        objs = [out.with_name(f"{out.stem}.{os.getpid()}.{s}.o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(SRC_DIR / s)]
+                for s, o in zip(SOURCES, objs)]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for c in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        ptxas_log = "".join(f"== {s}\n{log}" for s, log in zip(SOURCES, logs))
+        failed = [(c, p.returncode) for c, p in zip(cmds, procs) if p.returncode != 0]
+        if not failed:
+            link = [nvcc, "-shared", "-o", str(tmp)] + [str(o) for o in objs]
+            res = subprocess.run(link, capture_output=True, text=True)
+            ptxas_log += res.stdout + res.stderr
+            if res.returncode != 0:
+                failed.append((link, res.returncode))
         build_seconds = time.perf_counter() - t0
-        ptxas_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{ptxas_log}")
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if failed:
+            cmd, rc = failed[0]
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{ptxas_log}")
         (BUILD_DIR / (out.stem + ".ptxas.txt")).write_text(ptxas_log)
         os.replace(tmp, out)
     return out

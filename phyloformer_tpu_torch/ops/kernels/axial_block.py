@@ -8,9 +8,15 @@ kernel against them on the card.  They are general in ``d`` and the head
 count; the q/k weights come pre-expanded to ``(d, d)``
 (:func:`expand_qk_weights`).
 
+The two passes of the L-tiled kernel A (``_kernel_a1`` / ``_kernel_a2``,
+``axial_block.py:314-411``) are :func:`row_sums` and
+:func:`row_finalize_col_stats`; kernel A itself is :func:`body_row_attn`
+then :func:`body_col_stats`, kernel B is :func:`body_b`.
+
 Shapes: activations ``(B, P, L, d)``; ``smask`` ``(B, L)`` and ``pmask``
 ``(B, P)`` fp32 0/1; column stats ``(B, L, 3d)`` laid out
-``[Σk | Σq | Σk·v]``.
+``[Σk | Σq | Σk·v]``; per-pair row sums ``(B, P, 3d)`` laid out
+``[Σq | Σk | Σk·v]`` (q first, as ``_kernel_a1`` writes them).
 """
 
 from __future__ import annotations
@@ -21,6 +27,12 @@ from typing import Any, Dict, Sequence
 import torch
 
 from ..attention import layer_norm
+
+# Longest site axis that the fused forward runs with kernel A on whole rows
+# (the counterpart of the JAX package's fp32 ``_RESIDENT_SITES_MAX_HI``);
+# longer site axes take the L-tiled A1/A2 passes, and the pipeline serves
+# only buckets up to it.  Read at call time, so tests may lower it.
+RESIDENT_SITES_MAX = 1024
 
 
 def expand_qk_weights(layer: Dict[str, Any]) -> Dict[str, Any]:
@@ -87,6 +99,40 @@ def body_row_attn(x: torch.Tensor, smask: torch.Tensor, rp: Sequence[torch.Tenso
     k_sum = _guard(k.sum(dim=2, keepdim=True))
     ctx = (k / k_sum * v).sum(dim=2, keepdim=True)  # (B, P, 1, d)
     return x + ((q / q_mean * ctx) @ wo + bo)
+
+
+def row_sums(x: torch.Tensor, smask: torch.Tensor, rp: Sequence[torch.Tensor],
+             eps: float) -> torch.Tensor:
+    """L-tiled pass 1 (``_kernel_a1``): per-pair masked row sums
+    ``(B, P, 3d)`` = ``[Σq | Σk | Σk·v]`` over the site axis.
+
+    ``rp``: the row group ``(ln_s, ln_b, wq, bq, wk, bk, wv, bv, wo, bo)``."""
+    ln_s, ln_b, wq, bq, wk, bk, wv, bv = rp[:8]
+    m = smask[:, None, :, None]
+    h = layer_norm(x, ln_s, ln_b, eps)
+    q = phi(h @ wq + bq) * m
+    k = phi(h @ wk + bk) * m
+    v = h @ wv + bv
+    return torch.cat([q.sum(dim=2), k.sum(dim=2), (k * v).sum(dim=2)], dim=-1)
+
+
+def row_finalize_col_stats(x: torch.Tensor, rowstats: torch.Tensor, smask: torch.Tensor,
+                           pmask: torch.Tensor, rp: Sequence[torch.Tensor],
+                           cp: Sequence[torch.Tensor], eps: float):
+    """L-tiled pass 2 (``_kernel_a2``): row attention finalized from the
+    row sums of :func:`row_sums` (q-mean over the real site count, the
+    one-pass ``ctx = Σk·v / Σk``), then the column stats of the result.
+    Returns ``(x1, stats)``."""
+    ln_s, ln_b, wq, bq, _, _, _, _, wo, bo = rp
+    d = x.shape[-1]
+    h = layer_norm(x, ln_s, ln_b, eps)
+    q = phi(h @ wq + bq) * smask[:, None, :, None]
+    count = smask.sum(dim=-1).clamp_min(1.0)[:, None, None]
+    q_mean = _guard(rowstats[..., :d] / count)  # (B, P, d)
+    k_sum = _guard(rowstats[..., d:2 * d])
+    ctx = rowstats[..., 2 * d:] / k_sum
+    x1 = x + (((q / q_mean[:, :, None]) * ctx[:, :, None]) @ wo + bo)
+    return x1, body_col_stats(x1, pmask, cp, eps)
 
 
 def body_col_stats(x1: torch.Tensor, pmask: torch.Tensor, cp: Sequence[torch.Tensor],

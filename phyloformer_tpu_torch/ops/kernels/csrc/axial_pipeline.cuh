@@ -79,6 +79,7 @@ struct Smem {
   float fs[TS * F];     // FFN hidden
   float red[3 * NG * D];  // per-group row sums, combined in a fixed order
   float wsum[NWARP];
+  float count;          // max(real site count, 1) of the block's batch element
 };
 
 }  // namespace pf

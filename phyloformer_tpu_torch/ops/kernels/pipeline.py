@@ -32,6 +32,7 @@ import torch
 
 from ...data.pairs import pair_indices
 from . import _build
+from . import axial_block
 from .axial_block import (
     GELU_MODES,
     body_b,
@@ -49,6 +50,7 @@ P0_EMB_BUDGET_BYTES = 4 * 1024 * 1024
 P0_MAX_PAIRS = 8192
 
 D_KERNEL = 64  # the only width the CUDA kernels are built for
+TILE_SITES = 32  # sites per tile (TS in axial_pipeline.cuh)
 # Packed weight sizes (floats) of the kernels' groups; see axial_pipeline.cuh.
 ROW_SIZE = 2 * D_KERNEL + 4 * (D_KERNEL * D_KERNEL + D_KERNEL)
 COL_SIZE = 2 * D_KERNEL + 3 * (D_KERNEL * D_KERNEL + D_KERNEL)
@@ -56,9 +58,12 @@ B_SIZE = (4 * D_KERNEL + 2 * (D_KERNEL * D_KERNEL + D_KERNEL)
           + 2 * 4 * D_KERNEL * D_KERNEL + 4 * D_KERNEL + D_KERNEL)
 HEAD_SIZE = D_KERNEL + 1
 
-# Launches of each kernel in this process (the CPU path counts nothing).
+# Launches of each kernel in this process (the CPU path counts nothing);
+# kernel_a, kernel_b, kernel_a1 and kernel_a2 are the fused forward's
+# (ops/kernels/fused.py).
 LAUNCHES: Dict[str, int] = {
     "kernel_p0": 0, "kernel_a_only": 0, "kernel_m": 0, "kernel_z": 0, "reduce_stats": 0,
+    "kernel_a": 0, "kernel_b": 0, "kernel_a1": 0, "kernel_a2": 0,
 }
 
 
@@ -196,11 +201,16 @@ def _require_groups(**groups: Tuple[WeightGroup, int]) -> None:
         _require(g.flat, name, (size,))
 
 
-def _slots(P: int, B: int, device: torch.device) -> int:
-    """Blocks per batch element: about 8 per SM over the whole grid, each
-    owning a contiguous range of pairs, never more blocks than pairs."""
+def _grid_blocks(B: int, device: torch.device) -> int:
+    """Blocks per batch element that give about 8 per SM over the grid."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(P, math.ceil(8 * sms / B)))
+    return math.ceil(8 * sms / B)
+
+
+def _slots(P: int, B: int, device: torch.device) -> int:
+    """Blocks per batch element, each owning a contiguous range of the P
+    items (pairs): about 8 per SM over the grid, never more than items."""
+    return max(1, min(P, _grid_blocks(B, device)))
 
 
 def _stream() -> int:
@@ -227,13 +237,16 @@ def reduce_stats(partial: torch.Tensor) -> torch.Tensor:
     return stats
 
 
-def _scratch(B: int, P: int, L: int, device) -> Tuple[int, torch.Tensor, torch.Tensor]:
+def _scratch(B: int, P: int, L: int, device, max_slots: int = 1 << 30
+             ) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """Blocks per batch element, the per-pair row sums and the per-block
+    column-stat partials of a kernel A."""
     if P < 1:
         raise ValueError("the pipeline needs at least one pair (two sequences)")
-    S = _slots(P, B, device)
-    rowctx = torch.empty((B, P, 2, D_KERNEL), device=device, dtype=torch.float32)
+    S = min(_slots(P, B, device), max_slots)
+    rowsum = torch.empty((B, P, 3, D_KERNEL), device=device, dtype=torch.float32)
     partial = torch.empty((B, S, L, 3 * D_KERNEL), device=device, dtype=torch.float32)
-    return S, rowctx, partial
+    return S, rowsum, partial
 
 
 def kernel_p0(emb, ii, jj, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
@@ -250,12 +263,12 @@ def kernel_p0(emb, ii, jj, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
     _require(smask, "smask", (B, L))
     _require(pmask, "pmask", (B, P))
     _require_groups(row=(rw, ROW_SIZE), col=(cw, COL_SIZE))
-    S, rowctx, partial = _scratch(B, P, L, emb.device)
+    S, rowsum, partial = _scratch(B, P, L, emb.device)
     x1 = torch.empty((B, P, L, d), device=emb.device, dtype=torch.float32)
     lib = _lib()
     _build.check(lib, lib.pf_kernel_p0(
         emb.data_ptr(), ii.data_ptr(), jj.data_ptr(), x1.data_ptr(), smask.data_ptr(),
-        pmask.data_ptr(), rw.flat.data_ptr(), cw.flat.data_ptr(), rowctx.data_ptr(),
+        pmask.data_ptr(), rw.flat.data_ptr(), cw.flat.data_ptr(), rowsum.data_ptr(),
         partial.data_ptr(), B, n, P, L, S, float(eps), _stream()), "kernel_p0")
     LAUNCHES["kernel_p0"] += 1
     return x1, reduce_stats(partial)
@@ -272,11 +285,11 @@ def kernel_a_only(x, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
     _require(smask, "smask", (B, L))
     _require(pmask, "pmask", (B, P))
     _require_groups(row=(rw, ROW_SIZE), col=(cw, COL_SIZE))
-    S, rowctx, partial = _scratch(B, P, L, x.device)
+    S, rowsum, partial = _scratch(B, P, L, x.device)
     lib = _lib()
     _build.check(lib, lib.pf_kernel_a_only(
         x.data_ptr(), smask.data_ptr(), pmask.data_ptr(), rw.flat.data_ptr(),
-        cw.flat.data_ptr(), rowctx.data_ptr(), partial.data_ptr(), B, P, L, S, float(eps),
+        cw.flat.data_ptr(), rowsum.data_ptr(), partial.data_ptr(), B, P, L, S, float(eps),
         _stream()), "kernel_a_only")
     LAUNCHES["kernel_a_only"] += 1
     return x, reduce_stats(partial)
@@ -303,12 +316,12 @@ def kernel_m(x1, stats, smask, pmask, pair_count, bw: WeightGroup, rw: WeightGro
     _require(pair_count, "pair_count", (B,))
     _require_groups(b=(bw, B_SIZE), row=(rw, ROW_SIZE), col=(cw, COL_SIZE))
     gelu = _gelu_code(gelu_mode)
-    S, rowctx, partial = _scratch(B, P, L, x1.device)
+    S, rowsum, partial = _scratch(B, P, L, x1.device)
     lib = _lib()
     _build.check(lib, lib.pf_kernel_m(
         x1.data_ptr(), stats.data_ptr(), smask.data_ptr(), pmask.data_ptr(),
         pair_count.data_ptr(), bw.flat.data_ptr(), rw.flat.data_ptr(), cw.flat.data_ptr(),
-        rowctx.data_ptr(), partial.data_ptr(), B, P, L, S, float(eps), gelu, _stream()),
+        rowsum.data_ptr(), partial.data_ptr(), B, P, L, S, float(eps), gelu, _stream()),
         "kernel_m")
     LAUNCHES["kernel_m"] += 1
     return x1, reduce_stats(partial)
@@ -341,6 +354,14 @@ def kernel_z(x1, stats, smask, pair_count, bw: WeightGroup, hw: WeightGroup, eps
 
 
 # ---- the pipelined forward ------------------------------------------------
+
+def pipeline_supported(n_seqs: int, seq_len: int) -> bool:
+    """True when the pipelined kernels serve this bucket shape: site axes up
+    to ``RESIDENT_SITES_MAX``; longer ones take the L-tiled fused forward.
+    fp32 is the port's only precision, so the fp32 threshold is the one; as
+    in the JAX rule, ``n_seqs`` does not enter."""
+    return seq_len <= axial_block.RESIDENT_SITES_MAX
+
 
 def uses_gather(n_seqs: int, seq_len: int, d: int) -> bool:
     """Block 0 runs kernel P0 (in-kernel gather) rather than A-only."""

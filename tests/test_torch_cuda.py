@@ -7,10 +7,12 @@ one (no JAX needed there):
 
 Shapes are small and chosen for the edges the main path's buckets rarely
 reach: a site axis that ends in a partial tile, fewer pairs than blocks, a
-batch element with every sequence but two masked, batch size one.  The
-kernels sum in another order than the plain versions (tiles, blocks, the
-one-pass ctx = Σk·v/Σk): tolerance 2e-5 relative to max(1, max|ref|) per
-kernel, 1e-4 on distances after six blocks against the eager model.
+batch element with every sequence but two masked, batch size one, a single
+pair.  The fused kernels (A, B, A1, A2) are checked on site axes above 1024
+(the L-tiled forward) and below it (the two-kernel forward).  The kernels
+sum in another order than the plain versions (tiles, blocks, the one-pass
+ctx = Σk·v/Σk): tolerance 2e-5 relative to max(1, max|ref|) per kernel,
+1e-4 on distances after six blocks against the eager model.
 """
 
 import json
@@ -99,6 +101,51 @@ for name, (dims, pad_n, pad_l) in {
     errs[name] = {"kernels": max(e), "launches": launches,
                   "finite": bool(torch.isfinite(dist[real]).all()),
                   "dist": (dist[real].double() - ref[real].double()).abs().max().item()}
+
+# the fused forward's kernels: A, B, A1, A2 against their plain versions,
+# then forward_fused against the eager model with its launch counts
+from phyloformer_tpu_torch.models.phyloformer import forward_fused
+from phyloformer_tpu_torch.ops.kernels import fused
+for name, (dims, pad_n, pad_l) in {
+        "long_partial_tile": ([(9, 1100), (2, 1077)], 9, 1100),
+        "long_one_pair": ([(2, 1050)], 2, 1050),
+        "short_two_kernel": ([(7, 45), (2, 45)], 7, 45)}.items():
+    b = len(dims)
+    codes = np.zeros((b, pad_n, pad_l), np.int32)
+    smask = np.zeros((b, pad_l), bool)
+    qmask = np.zeros((b, pad_n), bool)
+    for r, (n, l) in enumerate(dims):
+        codes[r, :n, :l] = rng.integers(0, 22, (n, l))
+        smask[r, :l] = True
+        qmask[r, :n] = True
+    codes, smask, qmask = (torch.from_numpy(a).to(dev) for a in (codes, smask, qmask))
+    i, j = (torch.as_tensor(a, device=dev) for a in pair_indices(pad_n))
+    emb = torch.relu(w.embed_w[codes.long()] + w.embed_b).contiguous()
+    sm = smask.float().contiguous()
+    pm = (qmask[:, i.long()] & qmask[:, j.long()]).float().contiguous()
+    pc = pm.sum(1)
+    x0 = (emb[:, i.long()] + emb[:, j.long()]).contiguous()
+    e = {}
+    got = fused.kernel_a(x0, sm, pm, w.row[0], w.col[0], 1e-5)
+    want = pipe.kernel_a_only_plain(x0, sm, pm, w.row[0], w.col[0], 1e-5)
+    e["kernel_a"] = max(rel(got[0], want[0]), rel(got[1], want[1]))
+    rs = fused.kernel_a1_plain(x0, sm, w.row[0], 1e-5)
+    e["kernel_a1"] = rel(fused.kernel_a1(x0, sm, w.row[0], 1e-5), rs)
+    got = fused.kernel_a2(x0, rs, sm, pm, w.row[0], w.col[0], 1e-5)
+    want = fused.kernel_a2_plain(x0, rs, sm, pm, w.row[0], w.col[0], 1e-5)
+    e["kernel_a2"] = max(rel(got[0], want[0]), rel(got[1], want[1]))
+    x1, stats = want
+    e["kernel_b"] = rel(fused.kernel_b(x1, stats, pc, w.b[0], 1e-5),
+                        fused.kernel_b_plain(x1, stats, pc, w.b[0], 1e-5))
+    e["x_untouched"] = bool(torch.equal(x0, (emb[:, i.long()] + emb[:, j.long()])))
+    pipe.reset_launch_counts()
+    dist = forward_fused(w, codes, cfg, smask, qmask)
+    launches = dict(pipe.LAUNCHES)
+    ref = forward(params, codes, cfg, site_mask=smask, seq_mask=qmask)
+    real = pm.bool()
+    errs[name] = {"kernels": e, "launches": launches,
+                  "finite": bool(torch.isfinite(dist[real]).all()),
+                  "dist": (dist[real].double() - ref[real].double()).abs().max().item()}
 torch.cuda.synchronize()
 print(json.dumps(errs))
 """
@@ -119,3 +166,20 @@ def test_kernels_match_plain_on_card(case, results):
     assert res["finite"] and res["dist"] <= 1e-4, res
     assert res["launches"]["kernel_p0"] == 1 and res["launches"]["kernel_m"] == 5, res
     assert res["launches"]["kernel_z"] == 1 and res["launches"]["reduce_stats"] == 6, res
+
+
+@pytest.mark.parametrize("case", ["long_partial_tile", "long_one_pair", "short_two_kernel"])
+def test_fused_kernels_match_plain_on_card(case, results):
+    """Kernels A, B, A1 and A2, out of place, and forward_fused through
+    them: A1/A2/B per block above 1024 sites, A/B below."""
+    res = results[case]
+    kernels = res["kernels"]
+    assert kernels.pop("x_untouched"), res
+    assert max(kernels.values()) <= 2e-5, res
+    assert res["finite"] and res["dist"] <= 1e-4, res
+    n = res["launches"]
+    if case.startswith("long"):
+        assert n["kernel_a1"] == n["kernel_a2"] == n["kernel_b"] == 6 and n["kernel_a"] == 0, n
+    else:
+        assert n["kernel_a"] == n["kernel_b"] == 6 and n["kernel_a1"] == 0, n
+    assert n["reduce_stats"] == 6 and n["kernel_m"] == 0 and n["kernel_z"] == 0, n

@@ -7,6 +7,7 @@ processes throughout the port's tests).
 
 import ast
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -118,16 +119,14 @@ try:
     msgs.append("ran")
 except ValueError as e:
     msgs.append(str(e))
-from phyloformer_tpu_torch.data.fasta import read_fasta
 import numpy as np
 from phyloformer_tpu_torch.data.fasta import Alignment
+# a 1100-site alignment (a 1280-site bucket) runs the L-tiled path
 eng = InferenceEngine(params, cfg, device="cpu")
-try:
-    eng.predict([Alignment(np.zeros((4, 1100), np.int8), list("abcd"))])
-    msgs.append("ran")
-except NotImplementedError as e:
-    msgs.append(str(e))
-print(json.dumps(msgs))
+codes = np.random.default_rng(0).integers(0, 20, (4, 1100)).astype(np.int8)
+long_pred = eng.predict([Alignment(codes, list("abcd"))])[0]
+print(json.dumps({"msgs": msgs, "long": long_pred.tolist()}))
 """)
-    assert all("not yet ported, see ROADMAP.md" in m for m in out), out
-    assert "_kernel_a1" in out[-1] and "_kernel_b" in out[-1]
+    assert len(out["msgs"]) == 4, out
+    assert all("not yet ported, see ROADMAP.md" in m for m in out["msgs"]), out
+    assert len(out["long"]) == 6 and all(math.isfinite(v) for v in out["long"]), out
