@@ -22,7 +22,20 @@
 5. drives the two-kernel fused forward (``InferenceConfig(use_pipeline=
    False)``, kernels A and B) through the engine on the 60 x 250 set, with
    the same checks;
-6. prints the ``kernels`` JSON line and the throughputs, then, as its last
+6. holds the fused backward's kernels C, D and E against their plain
+   versions on the residuals of the fused forward (real weights, a seeded
+   cotangent) at the training shape 4 x 50 tips x 256 sites and on a ragged
+   batch, checks that two runs give the same bits, and times them;
+7. drives training through the CLI (``pf-train-torch --base-model
+   pf_mre_r5.ckpt --batch-size 4 --loss mre --max-steps 8``) on a synthetic
+   corpus of random trees and matching 50-tip alignments, then resumes it
+   for 4 more steps; checks the launch counts, the losses, the metrics file
+   and the checkpoints, and reports ms per step and examples per second;
+8. holds one step's loss and gradients through the kernels against plain
+   eager autograd on the card, at 1 x 50 x 256, and traces three training
+   steps with ``torch.profiler`` (device time by kernel, busy share, peak
+   memory);
+9. prints the ``kernels`` JSON line and the throughputs, then, as its last
    line, ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line.  Nothing falls back to
@@ -61,9 +74,21 @@ FLOPS_A1 = 3 * 2 * D * D
 FLOPS_A2 = 5 * 2 * D * D
 FLOPS_B = 2 * 2 * D * D + 2 * 2 * D * 4 * D
 FLOPS_HEAD = 2 * D
+# Backward products per pair-site, the JAX kernels' functions: C = 5 d x 4d +
+# 3 d x d + 1 d x H, D = 4 d x d + 6 d x H, E = 5 d x d + 6 d x H.
+H = 4
+FLOPS_C = 5 * 2 * D * 4 * D + 3 * 2 * D * D + 2 * D * H
+FLOPS_D = 4 * 2 * D * D + 6 * 2 * D * H
+FLOPS_E = 5 * 2 * D * D + 6 * 2 * D * H
 # Tolerances, relative to the reference's largest magnitude (max(1, max|ref|)):
 # fp32 sums taken in another order (tiles, blocks, one-pass ctx = Σk·v/Σk).
 KERNEL_TOL = 2e-5
+# Weight gradients of C, D and E sum over every pair-site of the batch
+# (1.25 M at the training shape) in another order than the plain versions.
+GRAD_TOL = 1e-4
+# One training step through the kernels against plain eager autograd.
+STEP_LOSS_TOL = 1e-5
+STEP_GRAD_TOL = 1e-4
 # Distances after 6 blocks against the plain eager model on the card.
 DIST_TOL = 1e-4
 
@@ -520,6 +545,310 @@ def two_kernel_path(device, alns, refs):
     return launches, expected, max(rel_err(p, r) for p, r in zip(preds, refs))
 
 
+def backward_kernel_checks(params, device):
+    """Kernels C, D and E against their plain versions on the residuals of
+    the fused forward (layer 0 of pf_mre_r5, block-0 input of random
+    alignments, a seeded cotangent masked as a masked loss makes it) at the
+    training shape 4 x 50 x 256 and on a ragged batch (45 of 50 tips, 230 of
+    256 sites); every output compared on its own.  Times at the training
+    shape, and the same bits from two runs of the whole block backward."""
+    import torch
+
+    from phyloformer_tpu_torch.ops.kernels import axial_block_bwd as bw
+    from phyloformer_tpu_torch.ops.kernels import fused
+    from phyloformer_tpu_torch.ops.kernels.autodiff import layer_leaves
+    from phyloformer_tpu_torch.ops.kernels.pipeline import PipelineWeights
+
+    layer = params["layers"][0]
+    w = bw.BwdWeights.of(layer)
+    pw = PipelineWeights.from_params(params)
+    rng = np.random.default_rng(SEED + 3)
+    cases = {"train": ([(50, 256)] * 4, 50, 256), "ragged": ([(45, 230), (50, 256)], 50, 256)}
+    results = {k: {"errs": [], "grad_errs": []} for k in ("kernel_c", "kernel_d", "kernel_e")}
+    results["reduce_partials"] = {"errs": [], "grad_errs": []}
+    shapes, same_bits = {}, True
+    for case, (dims, pad_n, pad_l) in cases.items():
+        _, _, _, smask, pmask, pcount, x = block0_inputs(pw, rng, dims, pad_n, pad_l, device)
+        _, x1, stats = fused.fused_axial_block_res(x, layer, smask, pmask)
+        g3 = (torch.randn(x.shape, device=device,
+                          generator=torch.Generator(device).manual_seed(SEED))
+              * smask[:, None, :, None] * pmask[:, :, None, None]).contiguous()
+        d, h = D, H
+
+        def grad_errs(name, got, want):
+            g = bw.unpack_grads(name, got, d, h, {})
+            r = bw.unpack_grads(name, want, d, h, {})
+            return [errors(g[a][b], r[a][b]) for a in r for b in r[a]]
+
+        got = bw.kernel_c(x1, g3, stats, pmask, pcount, w.c, 1e-5)
+        want = bw.kernel_c_plain(x1, g3, stats, pmask, pcount, w.c, 1e-5)
+        results["kernel_c"]["errs"] += [errors(got[0], want[0]), errors(got[1], want[1])]
+        results["kernel_c"]["grad_errs"] += grad_errs("kernel_c", got[2], want[2])
+        g2, a1 = want[0], want[1]
+        got = bw.kernel_d(x1, g2, stats, a1, pmask, pcount, w.d, 1e-5)
+        want = bw.kernel_d_plain(x1, g2, stats, a1, pmask, pcount, w.d, 1e-5)
+        results["kernel_d"]["errs"].append(errors(got[0], want[0]))
+        results["kernel_d"]["grad_errs"] += grad_errs("kernel_d", got[1], want[1])
+        g1 = want[0]
+        got = bw.kernel_e(x, g1, smask, w.e, 1e-5)
+        want = bw.kernel_e_plain(x, g1, smask, w.e, 1e-5)
+        results["kernel_e"]["errs"].append(errors(got[0], want[0]))
+        results["kernel_e"]["grad_errs"] += grad_errs("kernel_e", got[1], want[1])
+        partial = torch.randn((3, 37, 5000), device=device,
+                              generator=torch.Generator(device).manual_seed(SEED))
+        results["reduce_partials"]["errs"].append(
+            errors(bw.reduce_partials(partial), bw.reduce_partials_plain(partial)))
+        first = bw.fused_axial_block_bwd(x, x1, stats, g3, layer, smask, pmask, H)
+        second = bw.fused_axial_block_bwd(x, x1, stats, g3, layer, smask, pmask, H)
+        same_bits &= torch.equal(first[0], second[0]) and all(
+            torch.equal(a, b) for a, b in zip(layer_leaves(first[1]), layer_leaves(second[1])))
+        torch.cuda.synchronize()
+        if case == "train":
+            shapes = dict(x=x, x1=x1, stats=stats, g3=g3, g2=g2, a1=a1, g1=g1, smask=smask,
+                          pmask=pmask, pcount=pcount, b=len(dims), p=x.shape[1], l=pad_l)
+        del got, want, first, second
+    torch.cuda.empty_cache()
+
+    t = shapes
+    sites = t["b"] * t["p"] * t["l"]
+    act = 4 * D * sites  # bytes of one (B, P, L, d) fp32 tensor
+    stats_b, a1_b = 4 * t["b"] * t["l"] * 3 * D, 4 * t["b"] * t["l"] * D
+    nw = {k: 4 * bw.grad_size(k, D, H) for k in ("kernel_c", "kernel_d", "kernel_e")}
+    wb = 4 * bw.group_size(bw.C_PARTS, D, H), 4 * bw.group_size(bw.ATT_PARTS, D, H)
+    partial = torch.randn((1, 132, bw.grad_size("kernel_c", D, H)), device=device)
+
+    def c(plain):
+        f = bw.kernel_c_plain if plain else bw.kernel_c
+        return lambda: f(t["x1"], t["g3"], t["stats"], t["pmask"], t["pcount"], w.c, 1e-5)
+
+    def dk(plain):
+        f = bw.kernel_d_plain if plain else bw.kernel_d
+        return lambda: f(t["x1"], t["g2"], t["stats"], t["a1"], t["pmask"], t["pcount"], w.d,
+                         1e-5)
+
+    def e(plain):
+        f = bw.kernel_e_plain if plain else bw.kernel_e
+        return lambda: f(t["x"], t["g1"], t["smask"], w.e, 1e-5)
+
+    timed = {
+        "kernel_c": (c(False), c(True),
+                     bound(FLOPS_C * sites, 3 * act + stats_b + a1_b + wb[0] + nw["kernel_c"])),
+        "kernel_d": (dk(False), dk(True),
+                     bound(FLOPS_D * sites, 3 * act + stats_b + a1_b + wb[1] + nw["kernel_d"])),
+        "kernel_e": (e(False), e(True),
+                     bound(FLOPS_E * sites, 3 * act + 4 * t["b"] * t["l"] + wb[1]
+                           + nw["kernel_e"])),
+        "reduce_partials": (lambda: bw.reduce_partials(partial),
+                            lambda: bw.reduce_partials_plain(partial),
+                            bound(partial.numel(), 4 * partial.numel() + 4 * partial.shape[2])),
+    }
+    for name, (kern, plain, (bound_ms, bound_by)) in timed.items():
+        r = results[name]
+        r["ms"] = time_ms(kern)
+        r["plain_ms"] = time_ms(plain)
+        r["bound_ms"], r["bound_by"] = bound_ms, bound_by
+        r["library_ms"] = (time_ms(lambda: torch.sum(partial, dim=1))
+                           if name == "reduce_partials" else None)
+        torch.cuda.empty_cache()
+    return results, same_bits
+
+
+def random_newick(rng, names):
+    """A random binary tree over ``names`` with exponential branch lengths."""
+    nodes = [f"{n}:{rng.exponential(0.1):.6f}" for n in names]
+    while len(nodes) > 2:
+        i, j = sorted(rng.choice(len(nodes), 2, replace=False))
+        b, a = nodes.pop(j), nodes.pop(i)
+        nodes.append(f"({a},{b}):{rng.exponential(0.1):.6f}")
+    return f"({nodes[0]},{nodes[1]});"
+
+
+def write_corpus(root, rng, dims):
+    """``root/trees/exNN.nwk`` and ``root/alns/exNN.fa``, one random tree and
+    a matching alignment (about 2% gaps, rows in another order) per (n, L)."""
+    from phyloformer_tpu_torch.data.alphabet import ALPHABET
+
+    os.makedirs(os.path.join(root, "trees"))
+    os.makedirs(os.path.join(root, "alns"))
+    for k, (n, l) in enumerate(dims):
+        names = [f"ex{k}_t{i}" for i in range(n)]
+        with open(os.path.join(root, "trees", f"ex{k:02d}.nwk"), "w") as fh:
+            fh.write(random_newick(rng, names) + "\n")
+        codes = random_alignment(rng, n, l)
+        with open(os.path.join(root, "alns", f"ex{k:02d}.fa"), "w") as fh:
+            for i in rng.permutation(n):
+                fh.write(f">{names[i]}\n{bytes(ALPHABET[c] for c in codes[i]).decode()}\n")
+
+
+def expected_train_launches(steps, evals, n_blocks):
+    """Per train step 6 A + 6 B + 6 C + 6 D + 6 E, with 6 stats reductions
+    and 4 x 6 partial reductions (A1, and C's, D's and E's weight
+    gradients); per eval batch 6 A + 6 B and 6 stats reductions."""
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+
+    n = {k: 0 for k in pipe.LAUNCHES}
+    for k in ("kernel_a", "kernel_b", "reduce_stats"):
+        n[k] = n_blocks * (steps + evals)
+    for k in ("kernel_c", "kernel_d", "kernel_e"):
+        n[k] = n_blocks * steps
+    n["reduce_partials"] = 4 * n_blocks * steps
+    return n
+
+
+def training_path(device):
+    """pf-train-torch on a synthetic corpus of 40 examples in the (50, 256)
+    bucket (36 train, 4 validation): 8 steps at batch 4 with validations at
+    steps 4 and 8, then resumed from the checkpoint of step 8 up to step 12.
+    Returns the launches and their expectation per run, the step times and
+    the checks' numbers."""
+    import torch
+
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+    from phyloformer_tpu_torch.train import cli
+
+    root = os.path.join(WORK, "train")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 4)
+    dims = [(50, 250)] * 30 + [(45, 250), (50, 230), (42, 200), (48, 256), (50, 180),
+                               (44, 240), (50, 250), (47, 210), (50, 256), (49, 222)]
+    write_corpus(os.path.join(root, "corpus"), rng, dims)
+    out = os.path.join(root, "out")
+    common = ["-t", os.path.join(root, "corpus", "trees"),
+              "-a", os.path.join(root, "corpus", "alns"), "--base-model", CKPT,
+              "--batch-size", "4", "--loss", "mre", "--check-val-every", "4",
+              "--log-every", "1", "--warmup-steps", "2", "--learning-rate", "1e-4",
+              # random sequences against random trees: the MRE is far above the
+              # default divergence ceiling of 3, which would stop the run
+              "--hard-loss-ceiling", "1e6",
+              "--device", "cuda", "-o", out, "-n", "smoke", "--num-workers", "4"]
+    runs = []
+    for extra in (["--max-steps", "8"],
+                  ["--max-steps", "12", "--load-checkpoint",
+                   os.path.join(out, "checkpoints_smoke")]):
+        pipe.reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(common + extra)
+        torch.cuda.synchronize()
+        runs.append(dict(rc=rc, stdout=buf.getvalue(), launches=dict(pipe.LAUNCHES),
+                         wall_s=time.perf_counter() - t0))
+        if rc != 0:
+            fail(f"pf-train-torch exited {rc}")
+    records = [json.loads(line) for line in
+               open(os.path.join(out, "smoke_metrics.jsonl")).read().splitlines()]
+    train_recs = [r for r in records if "train_loss" in r]
+    val_steps = [r["step"] for r in records if "val_loss" in r]
+    summaries = [json.loads(r["stdout"].strip().splitlines()[-1]) for r in runs]
+    for k, (run, summary) in enumerate(zip(runs, summaries)):
+        lo, hi = (0, 8) if k == 0 else (8, 12)
+        evals = sum(1 for v in val_steps if lo < v <= hi)
+        run["expected"] = expected_train_launches(summary["steps"] - lo, evals, 6)
+        run["evals"] = evals
+    # the metrics file's clock between logged steps of the first run (steps
+    # 5 and 9 also hold the validation and checkpoint of steps 4 and 8)
+    times = [r["time"] for r in train_recs[:8]]
+    step_ms = [1e3 * (b - a) for a, b in zip(times, times[1:])]
+    ckpts = sorted(f for f in os.listdir(os.path.join(out, "checkpoints_smoke")))
+    return dict(runs=runs, summaries=summaries, train_steps=[r["step"] for r in train_recs],
+                losses=[r["train_loss"] for r in train_recs], val_steps=val_steps,
+                log_step_ms=step_ms, ckpts=ckpts,
+                corpus=os.path.join(root, "corpus"))
+
+
+def one_step_check(device, corpus):
+    """One training batch (the first example of the corpus, 1 x 50 x 256)
+    through the kernels (forward_fused_ad) and through plain eager autograd,
+    TF32 off: the loss and every gradient leaf.  Batch 1: eager autograd
+    keeps ~25 activation-sized tensors and three 4d-wide ones per block,
+    about 18 GB here and ~70 GB at batch 4."""
+    import torch
+
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    from phyloformer_tpu_torch.models.params import map_params
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+    from phyloformer_tpu_torch.train.data import load_example
+    from phyloformer_tpu_torch.train.losses import get_loss
+    from phyloformer_tpu_torch.train.trainer import (
+        TrainConfig, _batch_loss, batch_to_device, make_batch, param_leaves)
+
+    params, cfg, _ = load_pretrained(CKPT)
+    aln, vec = load_example(os.path.join(corpus, "trees", "ex00.nwk"),
+                            os.path.join(corpus, "alns", "ex00.fa"))
+    batch = batch_to_device(make_batch([aln], [vec], 50, 256), device)
+    out = {}
+    for fused_path in (True, False):
+        p = map_params(lambda t: t.to(device).requires_grad_(True), params)
+        pipe.reset_launch_counts()
+        loss, _ = _batch_loss(p, batch, cfg, TrainConfig(use_pallas=fused_path), get_loss("mre"))
+        grads = torch.autograd.grad(loss, param_leaves(p))
+        torch.cuda.synchronize()
+        out[fused_path] = (loss.item(), [g.detach() for g in grads], dict(pipe.LAUNCHES))
+        del p, loss, grads
+        torch.cuda.empty_cache()
+    (lk, gk, nk), (lp, gp, _) = out[True], out[False]
+    return dict(loss_rel=abs(lk - lp) / abs(lp), loss=lk,
+                grad_err=max(errors(a, b)[1] for a, b in zip(gk, gp)),
+                launches=nk, n_leaves=len(gk))
+
+
+def profile_training(device, corpus, n_timed=5, n_steps=3):
+    """The training step's time and where it goes, at batch 4 x 50 x 256
+    through ``make_train_step`` (the step ``fit`` runs) on the corpus's
+    batches: after one warm-up, the median host-clock time of ``n_timed``
+    steps, each ended by reading the loss; then ``n_steps`` steps under
+    ``torch.profiler``: the device time per kernel name and step, the
+    device's busy share of the wall time (one stream, so the kernels' time
+    sum is the busy time), and the peak device memory of a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    from phyloformer_tpu_torch.train.data import BucketedLoader, LoaderConfig, make_pairs
+    from phyloformer_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state, make_train_step)
+
+    params, cfg, _ = load_pretrained(CKPT)
+    tcfg = TrainConfig(loss="mre", learning_rate=1e-4, warmup_steps=2, total_steps=100,
+                       use_pallas=True)
+    state, tx = create_train_state(cfg, tcfg, params=params, device=device)
+    step = make_train_step(cfg, tcfg, tx)
+    loader = BucketedLoader(make_pairs(os.path.join(corpus, "trees"),
+                                       os.path.join(corpus, "alns")),
+                            LoaderConfig(batch_size=4, num_workers=1, shuffle=False))
+    batches = [b for _, b in zip(range(1 + n_timed + n_steps), loader)]
+    if len(batches) != 1 + n_timed + n_steps or any(
+            b["codes"].shape != (4, 50, 256) for b in batches):
+        fail("profile: the corpus does not give enough batches of 4 x 50 x 256")
+    state, logs = step(state, batches[0])
+    float(logs["train_loss"])
+    step_ms = []
+    for b in batches[1:1 + n_timed]:
+        t0 = time.perf_counter()
+        state, logs = step(state, b)
+        float(logs["train_loss"])
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[1 + n_timed:]:
+            state, logs = step(state, b)
+            float(logs["train_loss"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    by_name = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / n_steps
+    return dict(step_ms=statistics.median(step_ms), steps_ms=step_ms, wall_ms=wall_ms,
+                device_ms=sum(by_name.values()), peak_gb=peak_gb,
+                top=sorted(by_name.items(), key=lambda kv: -kv[1])[:14])
+
+
 SOURCE = "phyloformer_tpu_torch/ops/kernels/csrc/"
 # name: (source, TPU kernel it replaces)
 KERNELS = {
@@ -532,6 +861,10 @@ KERNELS = {
     "kernel_b": ("axial_fused.cu", "phyloformer_tpu/ops/pallas/axial_block.py:294"),
     "kernel_a1": ("axial_fused.cu", "phyloformer_tpu/ops/pallas/axial_block.py:314"),
     "kernel_a2": ("axial_fused.cu", "phyloformer_tpu/ops/pallas/axial_block.py:353"),
+    "kernel_c": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:176"),
+    "kernel_d": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:281"),
+    "kernel_e": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:372"),
+    "reduce_partials": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:241"),
 }
 
 
@@ -565,7 +898,8 @@ def main() -> int:
             print("  ptxas:", line.strip())
 
     params, cfg, _ = load_pretrained(CKPT)
-    weights = pipe.PipelineWeights.from_params(map_params(lambda t: t.to(device), params))
+    dev_params = map_params(lambda t: t.to(device), params)
+    weights = pipe.PipelineWeights.from_params(dev_params)
 
     results = kernel_checks(weights, device)
     results.update(fused_kernel_checks(weights, device))
@@ -607,17 +941,81 @@ def main() -> int:
     print(f"throughput: {mp['aln_per_s']:.3f} aln/s on {mp['n_head']} alignments of 60 x 250, "
           f"{mp['long_aln_per_s']:.3f} aln/s on {mp['n_long']} alignments of 60 x 1500 "
           f"[{card}]")
+    del weights
+    torch.cuda.empty_cache()
 
+    # the fused backward's kernels against their plain versions
+    bwd, same_bits = backward_kernel_checks(dev_params, device)
+    for name, r in bwd.items():
+        errs = r["errs"] + r["grad_errs"]
+        r["max_abs_err"] = max(e[0] for e in errs)
+        r["max_rel_err"] = max(e[1] for e in r["errs"])
+        r["max_rel_err_grads"] = max((e[1] for e in r["grad_errs"]), default=0.0)
+        print(f"{name}: max abs err {r['max_abs_err']:.3e}, relative {r['max_rel_err']:.3e} "
+              f"(tol {KERNEL_TOL:.0e}), weight gradients {r['max_rel_err_grads']:.3e} "
+              f"(tol {GRAD_TOL:.0e}), {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}) [{card}]")
+    print(f"backward: two runs give the same bits: {same_bits}")
+    bad = [n for n, r in bwd.items()
+           if not (r["max_rel_err"] <= KERNEL_TOL and r["max_rel_err_grads"] <= GRAD_TOL)]
+    if bad or not same_bits:
+        fail(f"backward kernels disagree with their plain versions or between runs: {bad}")
+
+    # training through the CLI, then resumed
+    tp = training_path(device)
+    for k, run in enumerate(tp["runs"]):
+        print(f"training run {k + 1}: launches {run['launches']}, expected {run['expected']} "
+              f"({run['evals']} eval batches), {run['wall_s']:.1f} s")
+    print(f"training: steps {tp['train_steps']}, losses {tp['losses']}, "
+          f"validations at {tp['val_steps']}, checkpoints {tp['ckpts']}")
+    print("training: ms between logged steps 2-8 of the CLI run (validation and checkpoint "
+          f"in 5 and 9): {[round(v, 3) for v in tp['log_step_ms']]}")
+    if any(run["launches"] != run["expected"] for run in tp["runs"]):
+        fail("training: launch counts differ from 6 A + 6 B + 6 C + 6 D + 6 E per step "
+             "and 6 A + 6 B per eval batch")
+    if ([s["steps"] for s in tp["summaries"]] != [8, 12]
+            or "resumed from step 8" not in tp["runs"][1]["stdout"]
+            or tp["train_steps"] != list(range(1, 13)) or tp["val_steps"] != [4, 8, 8, 12, 12]
+            or tp["ckpts"] != ["ckpt_12.pt", "ckpt_4.pt", "ckpt_8.pt"]
+            or not all(math.isfinite(v) for v in tp["losses"])
+            or not all(s["use_pallas"] for s in tp["summaries"])):
+        fail("training: steps, resume, validations, checkpoints or losses are not as expected")
+
+    st = one_step_check(device, tp["corpus"])
+    print(f"one step, kernels vs plain autograd (1 x 50 x 256, {st['n_leaves']} leaves): "
+          f"loss {st['loss']:.6f} rel err {st['loss_rel']:.3e} (tol {STEP_LOSS_TOL:.0e}), "
+          f"gradients {st['grad_err']:.3e} (tol {STEP_GRAD_TOL:.0e})")
+    if not (st["loss_rel"] <= STEP_LOSS_TOL and st["grad_err"] <= STEP_GRAD_TOL):
+        fail("one step: the kernel path's loss or gradients disagree with plain autograd")
+
+    prof = profile_training(device, tp["corpus"])
+    ms_step = prof["step_ms"]
+    print(f"training: {ms_step:.3f} ms per optimizer step (median after the first; steps "
+          f"{[round(v, 3) for v in prof['steps_ms']]}), {4e3 / ms_step:.3f} examples/s at "
+          f"batch 4 x 50 x 256 [{card}]")
+    print(f"profile: {prof['wall_ms']:.3f} ms per step under the profiler, device busy "
+          f"{prof['device_ms']:.3f} ms ({100 * prof['device_ms'] / prof['wall_ms']:.1f}%), peak "
+          f"device memory {prof['peak_gb']:.2f} GB [{card}]")
+    for name, ms in prof["top"]:
+        print(f"  profile: {ms:9.3f} ms/step  {name[:110]}")
+    if prof["device_ms"] <= 0:
+        fail("profile: the trace holds no device time")
+
+    results.update(bwd)
+    train_launches = {k: sum(run["launches"][k] for run in tp["runs"]) for k in KERNELS}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE + KERNELS[name][0],
          "replaces": KERNELS[name][1],
-         "launches": mp["launches"][name] + launches2[name],
+         "launches": mp["launches"][name] + launches2[name] + train_launches[name],
          "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
          "tolerance": KERNEL_TOL, "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"],
+         **({"max_rel_err_grads": r["max_rel_err_grads"], "tolerance_grads": GRAD_TOL}
+            if "grad_errs" in r else {})}
         for name, r in results.items()],
-        "card": card, "aln_per_s": mp["aln_per_s"], "long_aln_per_s": mp["long_aln_per_s"]}
+        "card": card, "aln_per_s": mp["aln_per_s"], "long_aln_per_s": mp["long_aln_per_s"],
+        "train_ms_per_step": ms_step, "train_examples_per_s": 4e3 / ms_step}
     if any(k["launches"] <= 0 for k in line["kernels"]):
         fail("a kernel of the paths was not launched on them")
     print(json.dumps(line))

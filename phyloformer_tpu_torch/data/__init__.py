@@ -1,6 +1,6 @@
 from .alphabet import ALPHABET, ALPHABET_SIZE, GAP_CODE, encode_bytes
 from .fasta import Alignment, has_fasta_ext, read_fasta
-from .newick import Node
+from .newick import Node, parse_newick, patristic_matrix, patristic_vector, read_newick
 from .pairs import n_pairs, pair_indices, vector_to_square
 from .phylip import matrix_to_phylip, read_phylip, vec_to_phylip
 
@@ -15,7 +15,11 @@ __all__ = [
     "matrix_to_phylip",
     "n_pairs",
     "pair_indices",
+    "parse_newick",
+    "patristic_matrix",
+    "patristic_vector",
     "read_fasta",
+    "read_newick",
     "read_phylip",
     "vec_to_phylip",
     "vector_to_square",

@@ -11,7 +11,8 @@ Key schema of the 161-tensor reference state dict::
 
 Torch Conv2d 1x1 kernels are ``(out, in, 1, 1)`` and Linear weights
 ``(out, in)``; the port stores ``(in, out)`` so application is ``x @ w``.
-Orbax directories and ``.npz`` parameter files are not yet ported.
+Orbax directories are not yet ported; ``.npz`` parameter files load with
+:func:`.checkpoint.load_params_npz`.
 """
 
 from __future__ import annotations
@@ -72,8 +73,8 @@ def load_pretrained(path: "str | os.PathLike") -> Tuple[Params, PhyloformerConfi
     """Reference ``.ckpt`` → ``(params on the CPU, config, hyper_parameters)``."""
     if os.path.isdir(path) or str(path).endswith(".npz"):
         raise ValueError(
-            f"{path}: Orbax directories and .npz parameter files are not yet "
-            "ported, see ROADMAP.md; pass a reference .ckpt")
+            f"{path}: Orbax directories are not yet ported, see ROADMAP.md; .npz "
+            "parameter files load with io.checkpoint.load_params_npz; pass a reference .ckpt")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     hparams = dict(ckpt.get("hyper_parameters") or {})
     cfg = PhyloformerConfig.from_reference_hparams(hparams)

@@ -19,7 +19,8 @@ Tree layout::
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Union
+import math
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -64,6 +65,54 @@ class PhyloformerConfig:
 
 
 Params = Dict[str, Any]
+
+
+def _uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:
+    return (torch.rand(shape, generator=generator, dtype=torch.float32) * 2.0 - 1.0) * bound
+
+
+def _linear_init(fan_in: int, fan_out: int, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """torch.nn.Linear / 1x1 Conv2d default init: kaiming-uniform (a = √5)
+    weights and U(-1/√fan_in, 1/√fan_in) biases, as the JAX package draws
+    them (its ``_linear_init``)."""
+    bound_w = math.sqrt(6.0 / fan_in) / math.sqrt(2.0)
+    w = _uniform((fan_in, fan_out), bound_w, generator)
+    return {"w": w, "b": _uniform((fan_out,), 1.0 / math.sqrt(fan_in), generator)}
+
+
+def _attn_init(cfg: PhyloformerConfig, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    d, h = cfg.embed_dim, cfg.n_heads
+    out = {}
+    for name, width in (("q", h), ("k", h), ("v", d), ("o", d)):
+        lin = _linear_init(d, width, generator)
+        out["w" + name], out["b" + name] = lin["w"], lin["b"]
+    return out
+
+
+def _norm_init(cfg: PhyloformerConfig) -> Dict[str, torch.Tensor]:
+    return {"scale": torch.ones(cfg.embed_dim), "bias": torch.zeros(cfg.embed_dim)}
+
+
+def init_params(cfg: PhyloformerConfig, generator: Optional[torch.Generator] = None) -> Params:
+    """A fresh parameter tree on the CPU with the distributions of the JAX
+    package's ``init_params``, drawn from ``generator`` (default: seed 0).
+    The random streams differ from JAX's."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    layers: List[Dict[str, Any]] = []
+    for _ in range(cfg.n_blocks):
+        row, col = _attn_init(cfg, generator), _attn_init(cfg, generator)
+        l1 = _linear_init(cfg.embed_dim, cfg.ffn_dim, generator)
+        l2 = _linear_init(cfg.ffn_dim, cfg.embed_dim, generator)
+        layers.append({
+            "row_norm": _norm_init(cfg), "row_attn": row,
+            "col_norm": _norm_init(cfg), "col_attn": col,
+            "ffn_norm": _norm_init(cfg),
+            "ffn": {"w1": l1["w"], "b1": l1["b"], "w2": l2["w"], "b2": l2["b"]},
+        })
+    return {"embed": _linear_init(cfg.in_channels, cfg.embed_dim, generator),
+            "layers": layers,
+            "head": _linear_init(cfg.embed_dim, 1, generator)}
 
 
 def params_from_numpy(tree: Any, device: Union[str, torch.device] = "cpu") -> Any:

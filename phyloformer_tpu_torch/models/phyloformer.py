@@ -4,23 +4,28 @@ Embedding (one-hot ⊗ Conv1x1 as a table lookup) + ReLU → pair gather-add
 ``pair[k] = emb[i_k] + emb[j_k]`` → n_blocks axial blocks (row attention over
 sites, column attention over pairs, 4× GELU FFN, pre-LN residuals) → softplus
 head → mean over real sites.  Channel-last ``(B, P, L, d)``.  Optional masks
-make padded sites and sequences exact no-ops.  Deterministic (dropout 0): the
-port runs inference only.
+make padded sites and sequences exact no-ops.  Deterministic: dropout is not
+yet ported (the published checkpoints use 0).
 
-:func:`forward` is the plain eager model; :func:`forward_fused` runs the
-same network through the fused axial-block kernels
-(:mod:`..ops.kernels.fused`).
+:func:`forward` is the plain eager model, differentiable by autograd (with
+``remat=True`` each block is recomputed in the backward); :func:`forward_fused`
+runs the same network through the fused axial-block kernels
+(:mod:`..ops.kernels.fused`), and :func:`forward_fused_ad` does so for
+training, with the fused backward kernels (:mod:`..ops.kernels.autodiff`).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..data.pairs import pair_indices
 from ..ops.attention import layer_norm, scaled_linear_attention
+from ..ops.kernels.autodiff import fused_axial_block_ad
 from ..ops.kernels.axial_block import head
 from ..ops.kernels.fused import BlockWeights, fused_axial_block
 from ..ops.kernels.pipeline import PipelineWeights
@@ -81,15 +86,22 @@ def forward(
     cfg: PhyloformerConfig,
     site_mask: Optional[torch.Tensor] = None,
     seq_mask: Optional[torch.Tensor] = None,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Predict pairwise distances: ``(B, n, L)`` codes → ``(B, P)``,
     ``P = n(n-1)/2`` in upper-triangle order.  Padded pairs hold garbage;
-    mask them with :func:`pair_mask_from_seq_mask`."""
+    mask them with :func:`pair_mask_from_seq_mask`.  ``remat``: keep only
+    each block's input for the backward and recompute the block there
+    (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``)."""
     n_seqs = codes.shape[1]
     x = build_pairs(embed_alignment(params, codes), n_seqs)
     pair_mask = pair_mask_from_seq_mask(seq_mask, n_seqs) if seq_mask is not None else None
     for layer in params["layers"]:
-        x = axial_block(x, layer, cfg, site_mask, pair_mask)
+        if remat:
+            x = checkpoint(axial_block, x, layer, cfg, site_mask, pair_mask,
+                           use_reentrant=False)
+        else:
+            x = axial_block(x, layer, cfg, site_mask, pair_mask)
 
     h = F.softplus(x @ params["head"]["w"] + params["head"]["b"])[..., 0]  # (B, P, L)
     if site_mask is not None:
@@ -126,3 +138,35 @@ def forward_fused(
     for row, col, bw in zip(w.row, w.col, w.b):
         x = fused_axial_block(x, BlockWeights(row, col, bw), smask, pmask, cfg.ln_eps)
     return head(x, w.head.parts[0], w.head.parts[1], smask)
+
+
+def forward_fused_ad(
+    params: Params,
+    codes: torch.Tensor,
+    cfg: PhyloformerConfig,
+    site_mask: Optional[torch.Tensor] = None,
+    seq_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The training forward through the fused kernels, differentiable: per
+    block kernels A and B forward and C, D and E backward
+    (:class:`..ops.kernels.autodiff.FusedAxialBlock`);
+    ``PF_PALLAS_BWD=remat`` backpropagates through the eager block instead.
+    The embedding, pair build and head are tensor code, as in the JAX
+    package's ``_forward_pallas_ad``.  CUDA tensors run the kernels, CPU
+    tensors their plain versions.  Up to ``RESIDENT_SITES_MAX`` sites with
+    the fused backward.  Returns ``(B, P)`` distances."""
+    mode = os.environ.get("PF_PALLAS_BWD", "fused")
+    if mode not in ("fused", "remat"):
+        raise ValueError(f"PF_PALLAS_BWD={mode!r}: expected 'fused' or 'remat'")
+    b, n_seqs, seq_len = codes.shape
+    if site_mask is None:
+        site_mask = torch.ones((b, seq_len), dtype=torch.bool, device=codes.device)
+    if seq_mask is None:
+        seq_mask = torch.ones((b, n_seqs), dtype=torch.bool, device=codes.device)
+    smask = site_mask.to(torch.float32).contiguous()
+    pmask = pair_mask_from_seq_mask(seq_mask, n_seqs).to(torch.float32).contiguous()
+    x = build_pairs(embed_alignment(params, codes), n_seqs)
+    for layer in params["layers"]:
+        x = fused_axial_block_ad(x, layer, smask, pmask, cfg, remat=mode == "remat")
+    h = F.softplus(x @ params["head"]["w"] + params["head"]["b"])[..., 0]
+    return (h * smask[:, None, :]).sum(dim=-1) / smask.sum(dim=-1).clamp_min(1.0)[:, None]

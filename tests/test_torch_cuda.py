@@ -183,3 +183,116 @@ def test_fused_kernels_match_plain_on_card(case, results):
     else:
         assert n["kernel_a"] == n["kernel_b"] == 6 and n["kernel_a1"] == 0, n
     assert n["reduce_stats"] == 6 and n["kernel_m"] == 0 and n["kernel_z"] == 0, n
+
+
+_BWD_CODE = """
+import json
+import numpy as np
+import torch
+from phyloformer_tpu_torch.data.pairs import pair_indices
+from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+from phyloformer_tpu_torch.models.params import map_params
+from phyloformer_tpu_torch.models.phyloformer import axial_block
+from phyloformer_tpu_torch.ops.kernels import axial_block_bwd as bw
+from phyloformer_tpu_torch.ops.kernels import fused
+from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+from phyloformer_tpu_torch.ops.kernels.autodiff import LAYER_LEAVES, layer_leaves
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda")
+params, cfg, _ = load_pretrained("artifacts/pf_mre_r5.ckpt")
+params = map_params(lambda t: t.to(dev), params)
+layer = params["layers"][3]
+w = bw.BwdWeights.of(layer)
+rng = np.random.default_rng(11)
+
+def rel(got, want):
+    want = want.double()
+    return (got.double() - want).abs().max().item() / max(1.0, want.abs().max().item())
+
+res = {}
+for name, (dims, pad_n, pad_l) in {
+        "partial_tile": ([(9, 45), (6, 30)], 9, 45),
+        "l1024": ([(5, 1024)], 5, 1024),
+        "few_pairs": ([(3, 70)], 3, 70),
+        "two_seqs": ([(12, 33), (2, 33)], 12, 40),
+        "masked_row": ([(8, 50), (0, 0)], 8, 50)}.items():
+    b = len(dims)
+    codes = np.zeros((b, pad_n, pad_l), np.int32)
+    smask = np.zeros((b, pad_l), bool)
+    qmask = np.zeros((b, pad_n), bool)
+    for r, (n, l) in enumerate(dims):
+        codes[r, :n, :l] = rng.integers(0, 22, (n, l))
+        smask[r, :l] = True
+        qmask[r, :n] = True
+    i, j = (torch.as_tensor(a, device=dev).long() for a in pair_indices(pad_n))
+    codes, smask, qmask = (torch.from_numpy(a).to(dev) for a in (codes, smask, qmask))
+    emb = torch.relu(params["embed"]["w"][codes.long()] + params["embed"]["b"])
+    x = (emb[:, i] + emb[:, j]).contiguous()
+    sm = smask.float().contiguous()
+    pm = (qmask[:, i] & qmask[:, j]).float().contiguous()
+    pc = pm.sum(1)
+    g3 = (torch.randn(x.shape, device=dev, generator=torch.Generator(dev).manual_seed(3))
+          * sm[:, None, :, None] * pm[:, :, None, None]).contiguous()
+    _, x1, stats = fused.fused_axial_block_res(x, layer, sm, pm)
+    e = {"act": 0.0, "grad": 0.0}
+    got = bw.kernel_c(x1, g3, stats, pm, pc, w.c, 1e-5)
+    want = bw.kernel_c_plain(x1, g3, stats, pm, pc, w.c, 1e-5)
+    e["act"] = max(e["act"], rel(got[0], want[0]), rel(got[1], want[1]))
+    e["grad"] = max(e["grad"], rel(got[2], want[2]))
+    g2, a1 = want[0], want[1]
+    got = bw.kernel_d(x1, g2, stats, a1, pm, pc, w.d, 1e-5)
+    want = bw.kernel_d_plain(x1, g2, stats, a1, pm, pc, w.d, 1e-5)
+    e["act"] = max(e["act"], rel(got[0], want[0]))
+    e["grad"] = max(e["grad"], rel(got[1], want[1]))
+    got = bw.kernel_e(x, want[0], sm, w.e, 1e-5)
+    want = bw.kernel_e_plain(x, want[0], sm, w.e, 1e-5)
+    e["act"] = max(e["act"], rel(got[0], want[0]))
+    e["grad"] = max(e["grad"], rel(got[1], want[1]))
+    # the whole block backward: launch counts, same bits twice, and the
+    # gradients against autograd of the eager block
+    pipe.reset_launch_counts()
+    gx, dl = bw.fused_axial_block_bwd(x, x1, stats, g3, layer, sm, pm, 4)
+    launches = dict(pipe.LAUNCHES)
+    gx2, dl2 = bw.fused_axial_block_bwd(x, x1, stats, g3, layer, sm, pm, 4)
+    same = torch.equal(gx, gx2) and all(torch.equal(a, b) for a, b in
+                                        zip(layer_leaves(dl), layer_leaves(dl2)))
+    leaves = [t.detach().requires_grad_(True) for t in layer_leaves(layer)]
+    lay = {}
+    for (a, k), t in zip(LAYER_LEAVES, leaves):
+        lay.setdefault(a, {})[k] = t
+    xr = x.detach().requires_grad_(True)
+    ref = torch.autograd.grad(axial_block(xr, lay, cfg, smask, pm.bool()), [xr] + leaves, g3)
+    e["autograd"] = max([rel(gx, ref[0])] + [rel(g, r) for g, r in zip(layer_leaves(dl), ref[1:])])
+    torch.cuda.synchronize()
+    res[name] = {"errs": e, "launches": launches, "same_bits": same,
+                 "finite": bool(torch.isfinite(gx).all())
+                 and all(bool(torch.isfinite(t).all()) for t in layer_leaves(dl))}
+print(json.dumps(res))
+"""
+
+
+@pytest.fixture(scope="module")
+def bwd_results(card):
+    r = subprocess.run([sys.executable, "-c", _BWD_CODE], capture_output=True, text=True,
+                       cwd=str(REPO), timeout=900)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("case", ["partial_tile", "l1024", "few_pairs", "two_seqs",
+                                  "masked_row"])
+def test_backward_kernels_match_plain_on_card(case, bwd_results):
+    """Kernels C, D and E against their plain versions (2e-5 on g2, A1, g1
+    and gx; 1e-4 on the weight gradients, sums over every pair-site taken in
+    another order), the block backward against autograd of the eager block
+    (1e-4), its launches, and the same bits from two runs."""
+    res = bwd_results[case]
+    assert res["errs"]["act"] <= 2e-5, res
+    assert res["errs"]["grad"] <= 1e-4, res
+    assert res["errs"]["autograd"] <= 1e-4, res
+    assert res["finite"] and res["same_bits"], res
+    n = res["launches"]
+    assert n["kernel_c"] == n["kernel_d"] == n["kernel_e"] == 1, n
+    assert n["reduce_partials"] == 4, n

@@ -130,3 +130,97 @@ print(json.dumps({"msgs": msgs, "long": long_pred.tolist()}))
     assert len(out["msgs"]) == 4, out
     assert all("not yet ported, see ROADMAP.md" in m for m in out["msgs"]), out
     assert len(out["long"]) == 6 and all(math.isfinite(v) for v in out["long"]), out
+
+
+def test_import_walk_covers_training_modules():
+    out = _run("""
+import json, pkgutil
+import phyloformer_tpu_torch as pkg
+print(json.dumps({"names": [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                                    pkg.__name__ + ".")]}))
+""")
+    for name in ("train.cli", "train.data", "train.loop", "train.losses", "train.schedule",
+                 "train.trainer", "io.checkpoint", "ops.kernels.autodiff",
+                 "ops.kernels.axial_block_bwd"):
+        assert "phyloformer_tpu_torch." + name in out["names"], name
+
+
+def test_train_cli_defaults_to_cuda(tmp_path):
+    """Without a card pf-train-torch raises before reading any data; the
+    card is the default device."""
+    out = _run(f"""
+import json, torch
+from phyloformer_tpu_torch.train import cli
+res = {{"cuda": torch.cuda.is_available()}}
+if not res["cuda"]:
+    try:
+        cli.main(["-t", {str(tmp_path)!r}, "-a", {str(tmp_path)!r}, "-o", {str(tmp_path)!r}])
+        res["cli"] = "ran"
+    except RuntimeError as e:
+        res["cli"] = str(e)
+    try:
+        from phyloformer_tpu_torch.models.params import PhyloformerConfig
+        from phyloformer_tpu_torch.train import TrainConfig, create_train_state
+        create_train_state(PhyloformerConfig(n_blocks=1), TrainConfig())
+        res["state"] = "ran"
+    except RuntimeError as e:
+        res["state"] = str(e)
+res["default"] = cli.build_parser().parse_args([]).device
+print(json.dumps(res))
+""")
+    assert out["default"] == "cuda"
+    if not out["cuda"]:
+        assert "no CUDA device" in out["cli"], out
+        assert "no CUDA device" in out["state"], out
+
+
+@pytest.mark.parametrize("flags", [["--packed-data", "x"], ["--mesh-data", "2"],
+                                   ["--mesh-pair", "2"], ["--shard-pairs"],
+                                   ["--distributed-init"], ["--profile"], ["--debug-nans"],
+                                   ["--dropout", "0.1"], ["--matmul-precision", "default"]])
+def test_train_cli_refuses_unported_flags(flags, tmp_path):
+    out = _run(f"""
+import json
+from phyloformer_tpu_torch.train import cli
+try:
+    cli.main(["-t", {str(tmp_path)!r}, "-a", {str(tmp_path)!r}, "--device", "cpu"] + {flags!r})
+    msg = "ran"
+except ValueError as e:
+    msg = str(e)
+print(json.dumps({{"msg": msg}}))
+""")
+    assert "not yet ported, see ROADMAP.md" in out["msg"], out
+
+
+def test_training_knobs_refuse_what_is_not_ported():
+    """Dropout, pair sharding and a mesh in the train step; fused training
+    above 1024 sites, in the block and in the backward host function."""
+    out = _run("""
+import json
+import torch
+from phyloformer_tpu_torch.models.params import PhyloformerConfig, init_params
+from phyloformer_tpu_torch.ops.kernels.autodiff import fused_axial_block_ad
+from phyloformer_tpu_torch.ops.kernels.axial_block_bwd import fused_axial_block_bwd
+from phyloformer_tpu_torch.train import TrainConfig, create_train_state, make_train_step
+msgs = []
+def attempt(fn):
+    try:
+        fn()
+        msgs.append("ran")
+    except ValueError as e:
+        msgs.append(str(e))
+cfg = PhyloformerConfig(n_blocks=1, embed_dim=32)
+state, tx = create_train_state(cfg, TrainConfig(), device="cpu")
+attempt(lambda: make_train_step(PhyloformerConfig(n_blocks=1, embed_dim=32, dropout=0.1),
+                                TrainConfig(), tx))
+attempt(lambda: make_train_step(cfg, TrainConfig(shard_pairs=True), tx))
+attempt(lambda: make_train_step(cfg, TrainConfig(), tx, mesh=object()))
+layer = init_params(cfg)["layers"][0]
+x = torch.zeros(1, 1, 1025, 32)
+sm, pm = torch.ones(1, 1025), torch.ones(1, 1)
+attempt(lambda: fused_axial_block_ad(x, layer, sm, pm, cfg))
+attempt(lambda: fused_axial_block_bwd(x, x, torch.zeros(1, 1025, 96), x, layer, sm, pm, 4))
+print(json.dumps({"msgs": msgs}))
+""")
+    assert len(out["msgs"]) == 5, out
+    assert all("not yet ported, see ROADMAP.md" in m for m in out["msgs"]), out
