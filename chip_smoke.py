@@ -35,7 +35,17 @@
    eager autograd on the card, at 1 x 50 x 256, and traces three training
    steps with ``torch.profiler`` (device time by kernel, busy share, peak
    memory);
-9. prints the ``kernels`` JSON line and the throughputs, then, as its last
+9. holds the L-tiled row backward's kernels E1 and E2 (above 1024 sites)
+   against their plain versions at the (50, 1536) training bucket and on a
+   ragged batch, E1 + E2 against kernel E at 1024 sites, and two runs of the
+   long block backward against each other; times E1 and E2;
+10. drives training on long alignments: a synthetic corpus in the
+   (50, 1536) bucket packed with ``pf-preprocess-torch``, ``pf-train-torch
+   --packed-data --batch-size 2`` for 4 steps and a validation (launch
+   counts, losses), the step's time and peak memory at 2 x 50 x 1536,
+   ``--profile`` (10 traced steps), and one step against plain eager
+   autograd at 1 x 20 x 1100 sites;
+11. prints the ``kernels`` JSON line and the throughputs, then, as its last
    line, ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line.  Nothing falls back to
@@ -80,9 +90,14 @@ H = 4
 FLOPS_C = 5 * 2 * D * 4 * D + 3 * 2 * D * D + 2 * D * H
 FLOPS_D = 4 * 2 * D * D + 6 * 2 * D * H
 FLOPS_E = 5 * 2 * D * D + 6 * 2 * D * H
+# E1 = the q, k (d x H), v and d_attn (d x d) products; E2 does E's.
+FLOPS_E1 = 2 * 2 * D * D + 2 * 2 * D * H
 # Tolerances, relative to the reference's largest magnitude (max(1, max|ref|)):
 # fp32 sums taken in another order (tiles, blocks, one-pass ctx = Σk·v/Σk).
 KERNEL_TOL = 2e-5
+# E1's row sums and E2's gx against their plain versions, and E1 + E2
+# against kernel E: the sums over a row are taken in another order.
+E12_TOL = 1e-5
 # Weight gradients of C, D and E sum over every pair-site of the batch
 # (1.25 M at the training shape) in another order than the plain versions.
 GRAD_TOL = 1e-4
@@ -130,6 +145,23 @@ def time_ms(fn, setup=None, reps=5) -> float:
         if r:
             times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def summarize(name, r, tol, where, card) -> bool:
+    """Fold a kernel's error lists into its maxima, print them, and say
+    whether they hold: outputs to tol, weight gradients (where the kernel
+    has any) to GRAD_TOL."""
+    errs = r["errs"] + r.get("grad_errs", [])
+    r["max_abs_err"] = max(e[0] for e in errs)
+    r["max_rel_err"] = max(e[1] for e in r["errs"])
+    grads = ""
+    if r.get("grad_errs"):
+        r["max_rel_err_grads"] = max(e[1] for e in r["grad_errs"])
+        grads = f", weight gradients {r['max_rel_err_grads']:.3e} (tol {GRAD_TOL:.0e})"
+    print(f"{name}: max abs err {r['max_abs_err']:.3e}, relative {r['max_rel_err']:.3e} "
+          f"(tol {tol:.0e}){grads}, {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, "
+          f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}){where} [{card}]")
+    return r["max_rel_err"] <= tol and r.get("max_rel_err_grads", 0.0) <= GRAD_TOL
 
 
 def bound(flops, nbytes):
@@ -565,7 +597,7 @@ def backward_kernel_checks(params, device):
     rng = np.random.default_rng(SEED + 3)
     cases = {"train": ([(50, 256)] * 4, 50, 256), "ragged": ([(45, 230), (50, 256)], 50, 256)}
     results = {k: {"errs": [], "grad_errs": []} for k in ("kernel_c", "kernel_d", "kernel_e")}
-    results["reduce_partials"] = {"errs": [], "grad_errs": []}
+    results["reduce_partials"] = {"errs": []}
     shapes, same_bits = {}, True
     for case, (dims, pad_n, pad_l) in cases.items():
         _, _, _, smask, pmask, pcount, x = block0_inputs(pw, rng, dims, pad_n, pad_l, device)
@@ -653,6 +685,103 @@ def backward_kernel_checks(params, device):
     return results, same_bits
 
 
+def long_backward_kernel_checks(params, device):
+    """Kernels E1 and E2 against their plain versions on the input the fused
+    backward gives them above 1024 sites (layer 0 of pf_mre_r5, the block-0
+    input of random alignments, g1 from kernels C and D on a seeded masked
+    cotangent): at the (50, 1536) training bucket, 2 x 1225 pairs, and on a
+    ragged batch (45 of 50 tips, 1100 of 1280 sites), every output compared
+    on its own (E1 has no weight gradients); E1 + E2 against kernel E at 1024
+    sites (the same function, written twice); the same bits from two runs of
+    the whole block backward.  Times at the training bucket."""
+    import torch
+
+    from phyloformer_tpu_torch.ops.kernels import axial_block_bwd as bw
+    from phyloformer_tpu_torch.ops.kernels import fused
+    from phyloformer_tpu_torch.ops.kernels.autodiff import layer_leaves
+    from phyloformer_tpu_torch.ops.kernels.pipeline import PipelineWeights
+
+    layer = params["layers"][0]
+    w = bw.BwdWeights.of(layer)
+    pw = PipelineWeights.from_params(params)
+    rng = np.random.default_rng(SEED + 5)
+    cases = {"train": ([(50, 1536)] * 2, 50, 1536), "ragged": ([(45, 1100), (50, 1280)], 50, 1280),
+             "l1024": ([(50, 1024), (47, 1000)], 50, 1024)}
+    results = {"kernel_e1": {"errs": []}, "kernel_e2": {"errs": [], "grad_errs": []}}
+    out = {"same_bits": True}
+
+    def grad_errs(got, want):
+        g = bw.unpack_grads("kernel_e", got, D, H, {})
+        r = bw.unpack_grads("kernel_e", want, D, H, {})
+        return [errors(g[a][b], r[a][b]) for a in r for b in r[a]]
+
+    for case, (dims, pad_n, pad_l) in cases.items():
+        _, _, _, smask, pmask, pcount, x = block0_inputs(pw, rng, dims, pad_n, pad_l, device)
+        _, x1, stats = fused.fused_axial_block_res(x, layer, smask, pmask)
+        g3 = (torch.randn(x.shape, device=device,
+                          generator=torch.Generator(device).manual_seed(SEED))
+              * smask[:, None, :, None] * pmask[:, :, None, None]).contiguous()
+        g2, a1, _ = bw.kernel_c(x1, g3, stats, pmask, pcount, w.c, 1e-5)
+        g1, _ = bw.kernel_d(x1, g2, stats, a1, pmask, pcount, w.d, 1e-5)
+        del g2, a1
+        rowsums = bw.kernel_e1_plain(x, g1, smask, w.e, 1e-5)
+        want = bw.kernel_e2_plain(x, g1, rowsums, smask, w.e, 1e-5)
+        if case == "l1024":
+            # the two forms of the row backward: E1 + E2 and kernel E
+            got = bw.kernel_e2(x, g1, bw.kernel_e1(x, g1, smask, w.e, 1e-5), smask, w.e, 1e-5)
+            ref = bw.kernel_e(x, g1, smask, w.e, 1e-5)
+            out["e12_vs_e"] = errors(got[0], ref[0])[1]
+            out["e12_vs_e_grads"] = max(e[1] for e in grad_errs(got[1], ref[1]))
+            out["e12_vs_e_bits"] = bool(torch.equal(got[0], ref[0]))
+            out["e12_vs_e_plain"] = max(errors(got[0], want[0])[1],
+                                        max(e[1] for e in grad_errs(got[1], want[1])))
+        else:
+            results["kernel_e1"]["errs"].append(
+                errors(bw.kernel_e1(x, g1, smask, w.e, 1e-5), rowsums))
+            got = bw.kernel_e2(x, g1, rowsums, smask, w.e, 1e-5)
+            results["kernel_e2"]["errs"].append(errors(got[0], want[0]))
+            results["kernel_e2"]["grad_errs"] += grad_errs(got[1], want[1])
+        del got, want
+        if case == "train":
+            first = bw.fused_axial_block_bwd(x, x1, stats, g3, layer, smask, pmask, H)
+            second = bw.fused_axial_block_bwd(x, x1, stats, g3, layer, smask, pmask, H)
+            out["same_bits"] = torch.equal(first[0], second[0]) and all(
+                torch.equal(a, b) for a, b in zip(layer_leaves(first[1]), layer_leaves(second[1])))
+            del first, second
+            shapes = dict(x=x, g1=g1, smask=smask, rowsums=rowsums, b=len(dims), p=x.shape[1],
+                          l=pad_l)
+        torch.cuda.synchronize()
+        del x, x1, g1, g3, stats
+        torch.cuda.empty_cache()
+
+    t = shapes
+    sites = t["b"] * t["p"] * t["l"]
+    act = 4 * D * sites  # bytes of one (B, P, L, d) fp32 tensor
+    rows_b, smask_b = 4 * t["b"] * t["p"] * 4 * D, 4 * t["b"] * t["l"]
+    wb, nw = 4 * bw.group_size(bw.ATT_PARTS, D, H), 4 * bw.grad_size("kernel_e", D, H)
+
+    def e1(plain):
+        f = bw.kernel_e1_plain if plain else bw.kernel_e1
+        return lambda: f(t["x"], t["g1"], t["smask"], w.e, 1e-5)
+
+    def e2(plain):
+        f = bw.kernel_e2_plain if plain else bw.kernel_e2
+        return lambda: f(t["x"], t["g1"], t["rowsums"], t["smask"], w.e, 1e-5)
+
+    timed = {"kernel_e1": (e1(False), e1(True),
+                           bound(FLOPS_E1 * sites, 2 * act + smask_b + wb + rows_b)),
+             "kernel_e2": (e2(False), e2(True),
+                           bound(FLOPS_E * sites, 3 * act + rows_b + smask_b + wb + nw))}
+    for name, (kern, plain, (bound_ms, bound_by)) in timed.items():
+        r = results[name]
+        r["ms"] = time_ms(kern)
+        r["plain_ms"] = time_ms(plain)
+        r["bound_ms"], r["bound_by"] = bound_ms, bound_by
+        r["library_ms"] = None  # no single PyTorch call computes these functions
+        torch.cuda.empty_cache()
+    return results, out
+
+
 def random_newick(rng, names):
     """A random binary tree over ``names`` with exponential branch lengths."""
     nodes = [f"{n}:{rng.exponential(0.1):.6f}" for n in names]
@@ -680,16 +809,20 @@ def write_corpus(root, rng, dims):
                 fh.write(f">{names[i]}\n{bytes(ALPHABET[c] for c in codes[i]).decode()}\n")
 
 
-def expected_train_launches(steps, evals, n_blocks):
+def expected_train_launches(steps, evals, n_blocks, long=False):
     """Per train step 6 A + 6 B + 6 C + 6 D + 6 E, with 6 stats reductions
     and 4 x 6 partial reductions (A1, and C's, D's and E's weight
-    gradients); per eval batch 6 A + 6 B and 6 stats reductions."""
+    gradients); per eval batch 6 A + 6 B and 6 stats reductions.  Above 1024
+    sites (``long``) A1 + A2 take A's place and E1 + E2 E's, with the same
+    reductions (E2's weight gradients take E's)."""
     from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
 
+    fwd = ("kernel_a1", "kernel_a2") if long else ("kernel_a",)
+    bwd = ("kernel_e1", "kernel_e2") if long else ("kernel_e",)
     n = {k: 0 for k in pipe.LAUNCHES}
-    for k in ("kernel_a", "kernel_b", "reduce_stats"):
+    for k in fwd + ("kernel_b", "reduce_stats"):
         n[k] = n_blocks * (steps + evals)
-    for k in ("kernel_c", "kernel_d", "kernel_e"):
+    for k in ("kernel_c", "kernel_d") + bwd:
         n[k] = n_blocks * steps
     n["reduce_partials"] = 4 * n_blocks * steps
     return n
@@ -756,12 +889,113 @@ def training_path(device):
                 corpus=os.path.join(root, "corpus"))
 
 
-def one_step_check(device, corpus):
-    """One training batch (the first example of the corpus, 1 x 50 x 256)
-    through the kernels (forward_fused_ad) and through plain eager autograd,
-    TF32 off: the loss and every gradient leaf.  Batch 1: eager autograd
-    keeps ~25 activation-sized tensors and three 4d-wide ones per block,
-    about 18 GB here and ~70 GB at batch 4."""
+def long_training_path(device, n_timed=5, n_steps=2):
+    """Training on long alignments: a synthetic corpus of 20 examples in the
+    (50, 1536) bucket (42-50 tips, 1290-1536 sites, 2% gaps), packed with
+    pf-preprocess-torch, then ``pf-train-torch --packed-data --base-model
+    pf_mre_r5.ckpt --batch-size 2`` for 4 steps with one validation (a batch
+    of the two held-out examples) at the end.  Then the step's time through
+    ``make_train_step`` on the packed batches of 2 x 50 x 1536 (the median
+    of ``n_timed`` steps after a warm-up, each ended by reading the loss)
+    with the peak device memory of those steps, ``n_steps`` more under
+    ``torch.profiler`` (:func:`profile_steps`), and ``--profile`` (10 traced
+    steps).  Also writes the one-example corpus (20 tips, 1100 sites) of the
+    long one-step check."""
+    import torch
+
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+    from phyloformer_tpu_torch.train import cli, cli_preprocess
+    from phyloformer_tpu_torch.train.data import LoaderConfig
+    from phyloformer_tpu_torch.train.packed import PackedBucketedLoader, PackedDataset, split
+    from phyloformer_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state, make_train_step)
+
+    root = os.path.join(WORK, "train_long")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 6)
+    dims = [(int(rng.integers(42, 51)), int(rng.integers(1290, 1537))) for _ in range(20)]
+    corpus, packed, out = (os.path.join(root, k) for k in ("corpus", "packed", "out"))
+    write_corpus(corpus, rng, dims)
+    write_corpus(os.path.join(root, "step"), rng, [(20, 1100)])
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_preprocess.main(["-t", os.path.join(corpus, "trees"), "-a",
+                                  os.path.join(corpus, "alns"), "-o", packed,
+                                  "--shard-size", "8"])
+    preprocess_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"pf-preprocess-torch exited {rc}")
+    common = ["--packed-data", packed, "--base-model", CKPT, "--batch-size", "2",
+              "--loss", "mre", "--warmup-steps", "2", "--learning-rate", "1e-4",
+              "--hard-loss-ceiling", "1e6", "--log-every", "1", "--check-val-every", "1000",
+              "--device", "cuda", "-o", out, "-n", "long"]
+    pipe.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(common + ["--max-steps", "4"])
+    torch.cuda.synchronize()
+    launches, wall_s = dict(pipe.LAUNCHES), time.perf_counter() - t0
+    if rc != 0:
+        fail(f"pf-train-torch --packed-data exited {rc}")
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    records = [json.loads(line) for line in
+               open(os.path.join(out, "long_metrics.jsonl")).read().splitlines()]
+
+    # the step's time and peak memory at 2 x 50 x 1536
+    params, cfg, _ = load_pretrained(CKPT)
+    tcfg = TrainConfig(loss="mre", learning_rate=1e-4, warmup_steps=2, total_steps=100,
+                       use_pallas=True)
+    state, tx = create_train_state(cfg, tcfg, params=params, device=device)
+    step = make_train_step(cfg, tcfg, tx)
+    train_ds, _ = split(PackedDataset(packed), 0.1, 1337)
+    loader = PackedBucketedLoader(train_ds, LoaderConfig(batch_size=2, shuffle=False))
+    batches = [b for _, b in zip(range(1 + n_timed + n_steps), loader)]
+    if len(batches) != 1 + n_timed + n_steps or any(
+            b["codes"].shape != (2, 50, 1536) for b in batches):
+        fail("long training: the packed corpus does not give batches of 2 x 50 x 1536")
+    state, logs = step(state, batches[0])
+    float(logs["train_loss"])
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for b in batches[1:1 + n_timed]:
+        t0 = time.perf_counter()
+        state, logs = step(state, b)
+        float(logs["train_loss"])
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    breakdown = profile_steps(step, state, batches[1 + n_timed:])
+    del state, tx, step, batches
+    torch.cuda.empty_cache()
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(common + ["--profile"])
+    profile_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"pf-train-torch --profile exited {rc}")
+    prof = json.loads(buf.getvalue().strip().splitlines()[-1])
+    traces = [f for f in os.listdir(prof["profile_dir"]) if f.endswith(".pt.trace.json")]
+    torch.cuda.empty_cache()
+    return dict(launches=launches, expected=expected_train_launches(summary["steps"], 1, 6, True),
+                summary=summary, wall_s=wall_s, preprocess_s=preprocess_s,
+                losses=[r["train_loss"] for r in records if "train_loss" in r],
+                val_steps=[r["step"] for r in records if "val_loss" in r],
+                step_ms=statistics.median(step_ms), steps_ms=step_ms, peak_gb=peak_gb,
+                breakdown=breakdown, profile=prof, traces=traces, profile_s=profile_s,
+                step_corpus=os.path.join(root, "step"))
+
+
+def one_step_check(device, corpus, pad_n, pad_l):
+    """One training batch (the first example of the corpus in its
+    ``(pad_n, pad_l)`` bucket) through the kernels (forward_fused_ad) and
+    through plain eager autograd, TF32 off: the loss and every gradient
+    leaf.  Batch 1: eager autograd keeps ~25 activation-sized tensors and
+    three 4d-wide ones per block, about 18 GB at 1 x 50 x 256 and ~70 GB at
+    batch 4."""
     import torch
 
     from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
@@ -775,7 +1009,7 @@ def one_step_check(device, corpus):
     params, cfg, _ = load_pretrained(CKPT)
     aln, vec = load_example(os.path.join(corpus, "trees", "ex00.nwk"),
                             os.path.join(corpus, "alns", "ex00.fa"))
-    batch = batch_to_device(make_batch([aln], [vec], 50, 256), device)
+    batch = batch_to_device(make_batch([aln], [vec], pad_n, pad_l), device)
     out = {}
     for fused_path in (True, False):
         p = map_params(lambda t: t.to(device).requires_grad_(True), params)
@@ -801,7 +1035,6 @@ def profile_training(device, corpus, n_timed=5, n_steps=3):
     device's busy share of the wall time (one stream, so the kernels' time
     sum is the busy time), and the peak device memory of a step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
     from phyloformer_tpu_torch.train.data import BucketedLoader, LoaderConfig, make_pairs
@@ -829,23 +1062,33 @@ def profile_training(device, corpus, n_timed=5, n_steps=3):
         float(logs["train_loss"])
         step_ms.append(1e3 * (time.perf_counter() - t0))
     torch.cuda.reset_peak_memory_stats()
+    prof = profile_steps(step, state, batches[1 + n_timed:])
+    return dict(step_ms=statistics.median(step_ms), steps_ms=step_ms,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, **prof)
+
+
+def profile_steps(step, state, batches):
+    """``len(batches)`` train steps under ``torch.profiler``: the wall time
+    per step, the device time per kernel name and step, and their sum, the
+    device's busy time (one stream)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for b in batches[1 + n_timed:]:
+        for b in batches:
             state, logs = step(state, b)
             float(logs["train_loss"])
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / n_steps
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        wall_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
     by_name = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / n_steps
-    return dict(step_ms=statistics.median(step_ms), steps_ms=step_ms, wall_ms=wall_ms,
-                device_ms=sum(by_name.values()), peak_gb=peak_gb,
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / len(batches)
+    return dict(wall_ms=wall_ms, device_ms=sum(by_name.values()),
                 top=sorted(by_name.items(), key=lambda kv: -kv[1])[:14])
 
 
@@ -864,6 +1107,8 @@ KERNELS = {
     "kernel_c": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:176"),
     "kernel_d": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:281"),
     "kernel_e": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:372"),
+    "kernel_e1": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:492"),
+    "kernel_e2": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:534"),
     "reduce_partials": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:241"),
 }
 
@@ -946,20 +1191,24 @@ def main() -> int:
 
     # the fused backward's kernels against their plain versions
     bwd, same_bits = backward_kernel_checks(dev_params, device)
-    for name, r in bwd.items():
-        errs = r["errs"] + r["grad_errs"]
-        r["max_abs_err"] = max(e[0] for e in errs)
-        r["max_rel_err"] = max(e[1] for e in r["errs"])
-        r["max_rel_err_grads"] = max((e[1] for e in r["grad_errs"]), default=0.0)
-        print(f"{name}: max abs err {r['max_abs_err']:.3e}, relative {r['max_rel_err']:.3e} "
-              f"(tol {KERNEL_TOL:.0e}), weight gradients {r['max_rel_err_grads']:.3e} "
-              f"(tol {GRAD_TOL:.0e}), {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}) [{card}]")
+    bad = [n for n, r in bwd.items() if not summarize(n, r, KERNEL_TOL, "", card)]
     print(f"backward: two runs give the same bits: {same_bits}")
-    bad = [n for n, r in bwd.items()
-           if not (r["max_rel_err"] <= KERNEL_TOL and r["max_rel_err_grads"] <= GRAD_TOL)]
     if bad or not same_bits:
         fail(f"backward kernels disagree with their plain versions or between runs: {bad}")
+
+    # the L-tiled row backward (above 1024 sites) against its plain versions
+    # and against kernel E
+    bwd_long, e12 = long_backward_kernel_checks(dev_params, device)
+    bad = [n for n, r in bwd_long.items()
+           if not summarize(n, r, E12_TOL, " at 2 x 1225 x 1536", card)]
+    print(f"E1 + E2 vs kernel E at 1024 sites: gx {e12['e12_vs_e']:.3e} (same bits: "
+          f"{e12['e12_vs_e_bits']}), weight gradients {e12['e12_vs_e_grads']:.3e}; vs the plain "
+          f"versions {e12['e12_vs_e_plain']:.3e}; two runs of the long block backward give "
+          f"the same bits: {e12['same_bits']}")
+    if (bad or not e12["same_bits"] or not e12["e12_vs_e"] <= E12_TOL
+            or not e12["e12_vs_e_grads"] <= GRAD_TOL or not e12["e12_vs_e_plain"] <= GRAD_TOL):
+        fail(f"E1/E2 disagree with their plain versions, with kernel E or between runs: {bad}")
+    bwd.update(bwd_long)
 
     # training through the CLI, then resumed
     tp = training_path(device)
@@ -981,7 +1230,7 @@ def main() -> int:
             or not all(s["use_pallas"] for s in tp["summaries"])):
         fail("training: steps, resume, validations, checkpoints or losses are not as expected")
 
-    st = one_step_check(device, tp["corpus"])
+    st = one_step_check(device, tp["corpus"], 50, 256)
     print(f"one step, kernels vs plain autograd (1 x 50 x 256, {st['n_leaves']} leaves): "
           f"loss {st['loss']:.6f} rel err {st['loss_rel']:.3e} (tol {STEP_LOSS_TOL:.0e}), "
           f"gradients {st['grad_err']:.3e} (tol {STEP_GRAD_TOL:.0e})")
@@ -1001,21 +1250,63 @@ def main() -> int:
     if prof["device_ms"] <= 0:
         fail("profile: the trace holds no device time")
 
+    # training on long alignments from a packed corpus
+    lt = long_training_path(device)
+    print(f"long training: pf-preprocess-torch {lt['preprocess_s']:.1f} s; pf-train-torch "
+          f"--packed-data launches {lt['launches']}, expected {lt['expected']}, "
+          f"{lt['wall_s']:.1f} s")
+    print(f"long training: summary {json.dumps(lt['summary'])}, losses {lt['losses']}, "
+          f"validations at {lt['val_steps']}")
+    print(f"long training: {lt['step_ms']:.3f} ms per optimizer step (median after the first; "
+          f"steps {[round(v, 3) for v in lt['steps_ms']]}), {2e3 / lt['step_ms']:.3f} "
+          f"examples/s at batch 2 x 50 x 1536, peak device memory {lt['peak_gb']:.2f} GB "
+          f"[{card}]")
+    bd = lt["breakdown"]
+    print(f"long profile: {bd['wall_ms']:.3f} ms per step under the profiler, device busy "
+          f"{bd['device_ms']:.3f} ms ({100 * bd['device_ms'] / bd['wall_ms']:.1f}%) [{card}]")
+    for name, ms in bd["top"]:
+        print(f"  long profile: {ms:9.3f} ms/step  {name[:110]}")
+    print(f"long training: --profile {json.dumps(lt['profile'])} in {lt['profile_s']:.1f} s, "
+          f"traces {lt['traces']}")
+    if lt["launches"] != lt["expected"]:
+        fail("long training: launch counts differ from 6 A1 + 6 A2 + 6 B + 6 C + 6 D + 6 E1 "
+             "+ 6 E2 per step and 6 A1 + 6 A2 + 6 B per eval batch")
+    if (lt["summary"]["steps"] != 4 or not lt["summary"]["use_pallas"]
+            or lt["val_steps"] != [4] or len(lt["losses"]) != 4
+            or not all(math.isfinite(v) for v in lt["losses"])):
+        fail("long training: steps, validation or losses are not as expected")
+    if lt["profile"]["steps"] != 10 or len(lt["traces"]) != 1:
+        fail("long training: --profile did not trace 10 steps into one trace file")
+
+    st = one_step_check(device, lt["step_corpus"], 20, 1280)
+    print(f"one step, kernels vs plain autograd (1 x 20 x 1100 in the (20, 1280) bucket, "
+          f"{st['n_leaves']} leaves): loss {st['loss']:.6f} rel err {st['loss_rel']:.3e} "
+          f"(tol {STEP_LOSS_TOL:.0e}), gradients {st['grad_err']:.3e} "
+          f"(tol {STEP_GRAD_TOL:.0e}), launches {st['launches']}")
+    if not (st["loss_rel"] <= STEP_LOSS_TOL and st["grad_err"] <= STEP_GRAD_TOL):
+        fail("long one step: the kernel path's loss or gradients disagree with plain autograd")
+    if st["launches"] != expected_train_launches(1, 0, 6, True):
+        fail("long one step: the kernel path did not run A1, A2, B, C, D, E1 and E2 per block")
+
     results.update(bwd)
-    train_launches = {k: sum(run["launches"][k] for run in tp["runs"]) for k in KERNELS}
+    train_launches = {k: sum(run["launches"][k] for run in tp["runs"]) + lt["launches"][k]
+                      for k in KERNELS}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE + KERNELS[name][0],
          "replaces": KERNELS[name][1],
          "launches": mp["launches"][name] + launches2[name] + train_launches[name],
          "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
-         "tolerance": KERNEL_TOL, "ms": r["ms"],
+         "tolerance": E12_TOL if name in ("kernel_e1", "kernel_e2") else KERNEL_TOL,
+         "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
          **({"max_rel_err_grads": r["max_rel_err_grads"], "tolerance_grads": GRAD_TOL}
-            if "grad_errs" in r else {})}
+            if "max_rel_err_grads" in r else {})}
         for name, r in results.items()],
         "card": card, "aln_per_s": mp["aln_per_s"], "long_aln_per_s": mp["long_aln_per_s"],
-        "train_ms_per_step": ms_step, "train_examples_per_s": 4e3 / ms_step}
+        "train_ms_per_step": ms_step, "train_examples_per_s": 4e3 / ms_step,
+        "long_train_ms_per_step": lt["step_ms"], "long_train_examples_per_s": 2e3 / lt["step_ms"],
+        "long_train_peak_gb": lt["peak_gb"]}
     if any(k["launches"] <= 0 for k in line["kernels"]):
         fail("a kernel of the paths was not launched on them")
     print(json.dumps(line))

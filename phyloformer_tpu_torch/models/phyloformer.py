@@ -148,13 +148,15 @@ def forward_fused_ad(
     seq_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The training forward through the fused kernels, differentiable: per
-    block kernels A and B forward and C, D and E backward
+    block kernels A and B forward and C, D and E backward, or above
+    ``RESIDENT_SITES_MAX`` sites A1, A2, B and C, D, E1, E2
     (:class:`..ops.kernels.autodiff.FusedAxialBlock`);
     ``PF_PALLAS_BWD=remat`` backpropagates through the eager block instead.
     The embedding, pair build and head are tensor code, as in the JAX
     package's ``_forward_pallas_ad``.  CUDA tensors run the kernels, CPU
-    tensors their plain versions.  Up to ``RESIDENT_SITES_MAX`` sites with
-    the fused backward.  Returns ``(B, P)`` distances."""
+    tensors their plain versions.  No site cap, and no counterpart of the
+    JAX trainer's ``PF_PALLAS_TRAIN_MAX_SITES`` fallback.  Returns ``(B, P)``
+    distances."""
     mode = os.environ.get("PF_PALLAS_BWD", "fused")
     if mode not in ("fused", "remat"):
         raise ValueError(f"PF_PALLAS_BWD={mode!r}: expected 'fused' or 'remat'")

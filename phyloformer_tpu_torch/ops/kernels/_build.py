@@ -50,6 +50,8 @@ _SIGNATURES = {
     "pf_kernel_c": [_p] * 9 + [_i] * 4 + [_f, _p],
     "pf_kernel_d": [_p] * 9 + [_i] * 4 + [_f, _p],
     "pf_kernel_e": [_p] * 6 + [_i] * 4 + [_f, _p],
+    "pf_kernel_e1": [_p] * 5 + [_i] * 4 + [_f, _p],
+    "pf_kernel_e2": [_p] * 7 + [_i] * 5 + [_f, _p],
     "pf_reduce_partials": [_p, _p, _i, _i, _i, _p],
 }
 

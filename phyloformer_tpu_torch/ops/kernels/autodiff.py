@@ -5,8 +5,9 @@ The counterpart of ``phyloformer_tpu/ops/pallas/autodiff.py``:
 - :class:`FusedAxialBlock`: the forward runs the fused kernels
   (:func:`.fused.fused_axial_block_res`) and keeps the residuals they
   produce, the block input ``x``, the post-row-attention ``x1`` and the
-  column sums ``stats``; the backward runs kernels C, D and E
-  (:func:`.axial_block_bwd.fused_axial_block_bwd`).  No forward recompute.
+  column sums ``stats``; the backward runs kernels C, D and E, or E1 and E2
+  on long rows (:func:`.axial_block_bwd.fused_axial_block_bwd`).  No forward
+  recompute, and no site cap.
 - :class:`FusedAxialBlockRemat`: the forward fused, the backward through
   autograd of the eager block (:func:`..models.phyloformer.axial_block`),
   one extra forward; ``PF_PALLAS_BWD=remat`` selects it.
@@ -22,7 +23,6 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from . import axial_block
 from .axial_block_bwd import fused_axial_block_bwd
 from .fused import fused_axial_block, fused_axial_block_res
 
@@ -49,18 +49,12 @@ def layer_tree(leaves) -> Dict[str, Dict[str, torch.Tensor]]:
     return tree
 
 
-def _check_sites(x: torch.Tensor) -> None:
-    if x.shape[2] > axial_block.RESIDENT_SITES_MAX:
-        raise ValueError(f"fused training above {axial_block.RESIDENT_SITES_MAX} sites "
-                         f"({x.shape[2]}) is not yet ported, see ROADMAP.md")
-
-
 class FusedAxialBlock(torch.autograd.Function):
-    """Fused forward (kernels A, B) and fused backward (kernels C, D, E)."""
+    """Fused forward (kernels A, B; A1, A2, B above ``RESIDENT_SITES_MAX``
+    sites) and fused backward (kernels C, D, E; C, D, E1, E2 above it)."""
 
     @staticmethod
     def forward(ctx, x, site_mask, pair_mask, cfg, *leaves):
-        _check_sites(x)
         x3, x1, stats = fused_axial_block_res(x, layer_tree(leaves), site_mask, pair_mask,
                                               cfg.ln_eps)
         ctx.cfg = cfg

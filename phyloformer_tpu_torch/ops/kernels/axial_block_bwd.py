@@ -1,7 +1,8 @@
-"""The fused backward of one axial block: kernels C, D and E.
+"""The fused backward of one axial block: kernels C, D and E (or E1, E2).
 
-The PyTorch side of ``pf_kernel_c`` / ``pf_kernel_d`` / ``pf_kernel_e`` and
-``pf_reduce_partials`` (``csrc/axial_bwd.cu``), and the counterpart of
+The PyTorch side of ``pf_kernel_c`` / ``pf_kernel_d`` / ``pf_kernel_e`` /
+``pf_kernel_e1`` / ``pf_kernel_e2`` and ``pf_reduce_partials``
+(``csrc/axial_bwd.cu``), and the counterpart of
 ``phyloformer_tpu/ops/pallas/axial_block_bwd.py``:
 
 - :func:`kernel_c` (``_kernel_c``): x2 and the FFN recomputed from x1 and the
@@ -11,8 +12,12 @@ The PyTorch side of ``pf_kernel_c`` / ``pf_kernel_d`` / ``pf_kernel_e`` and
 - :func:`kernel_d` (``_kernel_d``): the column-attention backward from A1
   and the stats → g1, with the column LN and q/k/v weight gradients;
 - :func:`kernel_e` (``_kernel_e``): the row-attention backward on whole rows
-  → gx, with the row LN and q/k/v/o weight gradients;
-- :func:`fused_axial_block_bwd`: the three in turn, ``(gx, dlayer)``.
+  → gx, with the row LN and q/k/v/o weight gradients, up to
+  ``axial_block.RESIDENT_SITES_MAX`` sites;
+- :func:`kernel_e1` (``_kernel_e1``) and :func:`kernel_e2` (``_kernel_e2``):
+  the same function above that length in two passes, each pair's raw row
+  sums ``(B, P, 4d)`` first, then gx and the gradients from them;
+- :func:`fused_axial_block_bwd`: C, D, then E or E1 and E2, ``(gx, dlayer)``.
 
 The plain versions (``*_plain``) follow the op order of the JAX kernels,
 with real ``erf`` in the GELU derivative and the head expand / contract as a
@@ -44,6 +49,7 @@ from .axial_block import phi
 from .pipeline import (
     D_KERNEL,
     LAUNCHES,
+    TILE_SITES,
     WeightGroup,
     _check_width,
     _lib,
@@ -58,9 +64,10 @@ _INV_SQRT2PI = 0.3989422804014327
 PARTIAL_BUDGET_BYTES = 256 * 1024 * 1024
 # Blocks per SM that each kernel's grid aims at (pair slots = this x SMs /
 # B).  C holds its weight gradients in 216 KB of shared memory, so one block
-# fits an SM; D and E take three, which run in waves where their registers
-# (141 and 128 per thread, ptxas) let fewer fit at once.
-BLOCKS_PER_SM = {"kernel_c": 1, "kernel_d": 3, "kernel_e": 3}
+# fits an SM; D, E and E2 take three, which run in waves where their
+# registers (141 and 128 per thread, ptxas) let fewer fit at once.  E1 keeps
+# no gradients and takes the forward's eight, as A1 does.
+BLOCKS_PER_SM = {"kernel_c": 1, "kernel_d": 3, "kernel_e": 3, "kernel_e1": 8, "kernel_e2": 3}
 
 
 # ---- weight groups --------------------------------------------------------
@@ -356,19 +363,90 @@ def kernel_e_plain(x, g1, smask, we: WeightGroup, eps):
     return g1 + d_x_ln, _flat(ds, db, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo)
 
 
+def kernel_e1_plain(x, g1, smask, we: WeightGroup, eps):
+    """``_kernel_e1``: each pair's raw row sums ``(B, P, 4d)``
+    ``[Σq_e | Σk_e | Σk_e·v | Σ d_attn⊙q_e]`` over the masked site axis."""
+    p = _parts(we, ATT_PARTS)
+    hd = x.shape[-1] // p["wq"].shape[1]
+    m = smask[:, None, :, None]
+    h = ln_fwd(x, p["ln_s"], p["ln_b"], eps)[0]
+    q_e = expand_heads(phi(h @ p["wq"] + p["bq"]), hd) * m
+    k_e = expand_heads(phi(h @ p["wk"] + p["bk"]), hd) * m
+    v = h @ p["wv"] + p["bv"]
+    d_attn = g1 @ p["wo_t"]
+    return torch.cat([q_e.sum(dim=2), k_e.sum(dim=2), (k_e * v).sum(dim=2),
+                      (d_attn * q_e).sum(dim=2)], dim=-1)
+
+
+def kernel_e2_plain(x, g1, rowsums, smask, we: WeightGroup, eps):
+    """``_kernel_e2``: the row backward finalized from the raw row sums of
+    :func:`kernel_e1_plain` and the site count: ``(gx, flat weight
+    gradients)``, the function of :func:`kernel_e_plain`."""
+    p = _parts(we, ATT_PARTS)
+    d = x.shape[-1]
+    n_heads = p["wq"].shape[1]
+    hd = d // n_heads
+    m = smask[:, None, :, None]
+    h, xhat_r, r_r = ln_fwd(x, p["ln_s"], p["ln_b"], eps)
+    zq = h @ p["wq"] + p["bq"]
+    zk = h @ p["wk"] + p["bk"]
+    q_e = expand_heads(phi(zq), hd) * m
+    k_e = expand_heads(phi(zk), hd) * m
+    v = h @ p["wv"] + p["bv"]
+    d_attn = g1 @ p["wo_t"]
+
+    count = smask.sum(dim=-1).clamp_min(1.0)[:, None, None, None]
+    rs = rowsums[:, :, None, :]  # (B, P, 1, 4d)
+    sq_raw = rs[..., :d] / count  # q-mean, raw
+    sk_raw = rs[..., d:2 * d]
+    skv = rs[..., 2 * d:3 * d]
+    sdq = rs[..., 3 * d:]  # Σ_L d_attn ⊙ q_e
+    qm_r = _guard(sq_raw)
+    sk_r = _guard(sk_raw)
+    ctx_r = skv / sk_r
+
+    d_ctx = sdq / qm_r  # = Σ_L d_attn ⊙ qn
+    d_skv_r = d_ctx / sk_r
+    sk_rh = contract_heads(sk_r, n_heads) / hd
+    d_sk_rh = -contract_heads(d_ctx * ctx_r, n_heads) / sk_rh
+    d_sk_rh = d_sk_rh * (contract_heads(sk_raw, n_heads) > 0)
+    qm_rh = contract_heads(qm_r, n_heads) / hd
+    d_qm_rh = -contract_heads(ctx_r * sdq, n_heads) / (qm_rh * qm_rh)
+    d_qm_rh = d_qm_rh * (contract_heads(sq_raw, n_heads) > 0)
+    d_sq_rh = d_qm_rh / count
+
+    d_qn_e = d_attn * ctx_r
+    d_zq = (contract_heads(d_qn_e, n_heads) / qm_rh + d_sq_rh) * phi_grad(zq) * m
+    d_zk = (d_sk_rh + contract_heads(d_skv_r * v, n_heads)) * phi_grad(zk) * m
+    d_v = d_skv_r * k_e
+    d_h = d_zq @ p["wq"].t() + d_zk @ p["wk"].t() + d_v @ p["wv_t"]
+    d_x_ln, ds, db = ln_bwd(d_h, xhat_r, r_r, p["ln_s"])
+
+    attn_r = (q_e / qm_r) * ctx_r
+    dwq, dbq = _mm_at(h, d_zq), d_zq.reshape(-1, n_heads).sum(0)
+    dwk, dbk = _mm_at(h, d_zk), d_zk.reshape(-1, n_heads).sum(0)
+    dwv, dbv = _mm_at(h, d_v), d_v.reshape(-1, d).sum(0)
+    dwo, dbo = _mm_at(attn_r, g1), g1.reshape(-1, d).sum(0)
+    return g1 + d_x_ln, _flat(ds, db, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo)
+
+
 def reduce_partials_plain(partial):
     return partial.sum(dim=1)
 
 
 # ---- CUDA wrappers --------------------------------------------------------
 
+def _bwd_blocks(name: str, B: int, device) -> int:
+    """Blocks per batch element that fill the card with ``name``'s grid."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return math.ceil(BLOCKS_PER_SM[name] * sms / B)
+
+
 def _bwd_slots(name: str, B: int, P: int, per_slot_bytes: int, device) -> int:
     """Pair slots (blocks) per batch element: one wave of the card, never
     more than the pairs, and partials under ``PARTIAL_BUDGET_BYTES``."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = math.ceil(BLOCKS_PER_SM[name] * sms / B)
     budget = max(1, PARTIAL_BUDGET_BYTES // max(1, B * per_slot_bytes))
-    return max(1, min(P, want, budget))
+    return max(1, min(P, _bwd_blocks(name, B, device), budget))
 
 
 _sizes_checked = False
@@ -379,12 +457,12 @@ def _bwd_lib():
     global _sizes_checked
     lib = _lib()
     if not _sizes_checked:
-        sizes = (ctypes.c_int * 5)()
+        sizes = (ctypes.c_int * 6)()
         lib.pf_bwd_sizes(ctypes.addressof(sizes))
         d, h = D_KERNEL, N_HEADS_KERNEL
         want = (group_size(C_PARTS, d, h), group_size(ATT_PARTS, d, h),
                 grad_size("kernel_c", d, h), grad_size("kernel_d", d, h),
-                grad_size("kernel_e", d, h))
+                grad_size("kernel_e", d, h), 4 * d)
         if tuple(sizes) != want:
             raise RuntimeError(f"backward layout mismatch: library {tuple(sizes)}, "
                                f"wrapper {want}")
@@ -480,8 +558,8 @@ def kernel_e(x, g1, smask, we: WeightGroup, eps):
     if P < 1:
         raise ValueError("kernel E needs at least one pair (two sequences)")
     if L > axial_block.RESIDENT_SITES_MAX:
-        raise ValueError(f"kernel E on {L} sites: the L-tiled row backward (E1/E2) "
-                         "is not yet ported, see ROADMAP.md")
+        raise ValueError(f"kernel E takes up to {axial_block.RESIDENT_SITES_MAX} sites, got "
+                         f"{L}: longer rows go through kernel_e1 and kernel_e2")
     nw = grad_size("kernel_e", d, N_HEADS_KERNEL)
     S = _bwd_slots("kernel_e", B, P, 4 * nw, x.device)
     gx = torch.empty_like(x)
@@ -491,6 +569,57 @@ def kernel_e(x, g1, smask, we: WeightGroup, eps):
         x.data_ptr(), g1.data_ptr(), smask.data_ptr(), we.flat.data_ptr(), gx.data_ptr(),
         w_part.data_ptr(), B, P, L, S, float(eps), _stream()), "kernel_e")
     LAUNCHES["kernel_e"] += 1
+    return gx, reduce_partials(w_part)[0]
+
+
+def kernel_e1(x, g1, smask, we: WeightGroup, eps):
+    """``_kernel_e1``: each pair's raw row sums ``(B, P, 4d)``."""
+    if _on_cpu(x, g1, smask, we.flat):
+        return kernel_e1_plain(x, g1, smask, we, eps)
+    B, P, L, d = x.shape
+    _check_width(d)
+    _require(x, "x", (B, P, L, d))
+    _require(g1, "g1", (B, P, L, d))
+    _require(smask, "smask", (B, L))
+    _require_group(we, "e", ATT_PARTS)
+    if P < 1:
+        raise ValueError("kernel E1 needs at least one pair (two sequences)")
+    S = _bwd_slots("kernel_e1", B, P, 0, x.device)
+    rowsums = torch.empty((B, P, 4 * d), device=x.device, dtype=torch.float32)
+    lib = _bwd_lib()
+    _build.check(lib, lib.pf_kernel_e1(
+        x.data_ptr(), g1.data_ptr(), smask.data_ptr(), we.flat.data_ptr(), rowsums.data_ptr(),
+        B, P, L, S, float(eps), _stream()), "kernel_e1")
+    LAUNCHES["kernel_e1"] += 1
+    return rowsums
+
+
+def kernel_e2(x, g1, rowsums, smask, we: WeightGroup, eps):
+    """``_kernel_e2``: ``(gx, flat weight gradients)`` from the row sums of
+    :func:`kernel_e1`.  The grid splits pairs into slots and, where the pairs
+    alone leave the card idle, the site axis into chunks (as kernel A2)."""
+    if _on_cpu(x, g1, rowsums, smask, we.flat):
+        return kernel_e2_plain(x, g1, rowsums, smask, we, eps)
+    B, P, L, d = x.shape
+    _check_width(d)
+    _require(x, "x", (B, P, L, d))
+    _require(g1, "g1", (B, P, L, d))
+    _require(rowsums, "rowsums", (B, P, 4 * d))
+    _require(smask, "smask", (B, L))
+    _require_group(we, "e", ATT_PARTS)
+    if P < 1:
+        raise ValueError("kernel E2 needs at least one pair (two sequences)")
+    nw = grad_size("kernel_e", d, N_HEADS_KERNEL)
+    sp = _bwd_slots("kernel_e2", B, P, 4 * nw, x.device)
+    sc = max(1, min(-(-L // TILE_SITES), -(-_bwd_blocks("kernel_e2", B, x.device) // sp),
+                    PARTIAL_BUDGET_BYTES // (B * sp * 4 * nw)))
+    gx = torch.empty_like(x)
+    w_part = torch.empty((1, B * sp * sc, nw), device=x.device, dtype=torch.float32)
+    lib = _bwd_lib()
+    _build.check(lib, lib.pf_kernel_e2(
+        x.data_ptr(), g1.data_ptr(), rowsums.data_ptr(), smask.data_ptr(), we.flat.data_ptr(),
+        gx.data_ptr(), w_part.data_ptr(), B, P, L, sp, sc, float(eps), _stream()), "kernel_e2")
+    LAUNCHES["kernel_e2"] += 1
     return gx, reduce_partials(w_part)[0]
 
 
@@ -506,13 +635,10 @@ def fused_axial_block_bwd(x, x1, stats, g3, layer, site_mask, pair_mask, n_heads
     of the block output; ``layer`` one element of ``params["layers"]`` (or
     its :class:`BwdWeights`); masks bool or 0/1 float; ``pair_count``
     ``(B,)`` an optional override of the real pair counts.  Returns
-    ``(gx, dlayer)``, ``dlayer`` in the layout of ``layer``.  Up to
-    ``RESIDENT_SITES_MAX`` sites; above it the L-tiled row backward (E1/E2)
-    is not yet ported and this raises."""
+    ``(gx, dlayer)``, ``dlayer`` in the layout of ``layer``.  Any length: the
+    row backward is kernel E up to ``axial_block.RESIDENT_SITES_MAX`` sites
+    (read at call time) and the L-tiled E1 then E2 above it."""
     b, p, l, d = x.shape
-    if l > axial_block.RESIDENT_SITES_MAX:
-        raise ValueError(f"fused training above {axial_block.RESIDENT_SITES_MAX} sites "
-                         f"({l}) is not yet ported, see ROADMAP.md")
     w = layer if isinstance(layer, BwdWeights) else BwdWeights.of(layer)
     if w.n_heads != n_heads or d % n_heads:
         raise ValueError(f"n_heads={n_heads} does not match the layer "
@@ -529,7 +655,10 @@ def fused_axial_block_bwd(x, x1, stats, g3, layer, site_mask, pair_mask, n_heads
 
     g2, a1, dc = kernel_c(x1, g3, stats, pmask, pair_count, w.c, eps)
     g1, dd = kernel_d(x1, g2, stats, a1, pmask, pair_count, w.d, eps)
-    gx, de = kernel_e(x, g1, smask, w.e, eps)
+    if l > axial_block.RESIDENT_SITES_MAX:
+        gx, de = kernel_e2(x, g1, kernel_e1(x, g1, smask, w.e, eps), smask, w.e, eps)
+    else:
+        gx, de = kernel_e(x, g1, smask, w.e, eps)
     dlayer: Dict[str, Dict[str, torch.Tensor]] = {}
     for name, flat in (("kernel_e", de), ("kernel_d", dd), ("kernel_c", dc)):
         unpack_grads(name, flat, d, n_heads, dlayer)

@@ -2,7 +2,7 @@
 //
 // Hand-written CUDA counterparts of the Pallas TPU kernels of
 // phyloformer_tpu/ops/pallas/axial_block_bwd.py that the fused training step
-// runs up to 1024 sites:
+// runs:
 //
 //   pf_kernel_c  <- _kernel_c (axial_block_bwd.py:176): x2 and the FFN
 //                   recomputed from x1 and the column stats; the FFN backward
@@ -11,20 +11,26 @@
 //   pf_kernel_d  <- _kernel_d (:281): the column-attention backward from A1
 //                   and the stats -> g1; the column LN and q/k/v gradients
 //   pf_kernel_e  <- _kernel_e (:372): the row-attention backward on whole
-//                   rows -> gx; the row LN and q/k/v/o gradients
+//                   rows -> gx; the row LN and q/k/v/o gradients (up to 1024
+//                   sites, as in JAX)
+//   pf_kernel_e1 <- _kernel_e1 (:492): above 1024 sites, each pair's raw row
+//                   sums [Σq | Σk | Σk·v | Σd_attn·q] (B, P, 4d)
+//   pf_kernel_e2 <- _kernel_e2 (:534): the row backward finalized from those
+//                   sums, site tile by site tile -> gx and the row gradients
 //   pf_reduce_partials <- the accumulation of A1 and of every weight
 //                   gradient across sequential grid steps (pl.when(first)
-//                   init, then +=; :241-274, :340-365, :450-476)
+//                   init, then +=; :241-274, :340-365, :450-476, :610-639)
 //
-// The plain PyTorch versions are kernel_c_plain, kernel_d_plain and
-// kernel_e_plain in ops/kernels/axial_block_bwd.py.  The device helpers
-// (LayerNorm, the d-wide and 4d-wide products, tile loads) are those of
-// axial_bodies.cuh.
+// The plain PyTorch versions are kernel_c_plain, kernel_d_plain,
+// kernel_e_plain, kernel_e1_plain and kernel_e2_plain in
+// ops/kernels/axial_block_bwd.py.  The device helpers (LayerNorm, the d-wide
+// and 4d-wide products, tile loads) are those of axial_bodies.cuh.
 //
 // What bounds them on the card.  Per pair-site, C does 5 d x 4d + 3 d x d +
 // 1 d x H products (~189 kFLOP), D 4 d x d + 6 d x H (~36 kFLOP), E 5 d x d +
-// 6 d x H (~44 kFLOP), each moving at most 768 B of activations: fp32
-// arithmetic, not HBM, is the bound.
+// 6 d x H (~44 kFLOP), E1 2 d x d + 2 d x H (~17 kFLOP), E2 the same as E,
+// each moving at most 768 B of activations: fp32 arithmetic, not HBM, is the
+// bound.
 //
 // Design.
 // - Blocks of 256 threads own a contiguous range of pairs of one batch
@@ -56,6 +62,15 @@
 //   sites, a finalize turns them into the pair's ctx, q-mean and the d_ctx /
 //   d_qm terms (the E1/E2 algebra of axial_block_bwd.py:483-490), and pass
 //   2 emits gx and the weight gradients tile by tile.
+// - Above 1024 sites, as in JAX, the passes are two kernels.  E1 is pass 1:
+//   one block walks the whole rows of a contiguous range of pairs (grid:
+//   pair slots x B, as A1), so each pair's sums come from one block, in
+//   registers, combined over the four site groups in a fixed order; no
+//   atomics.  E2 reads the sums from device memory, so a row need not be
+//   walked whole by one block: its grid is (pair slots x site chunks, B), as
+//   A2's, with one weight-gradient partial per block.  Their stages are
+//   kernel E's passes written as device functions; kernel E keeps its own
+//   body, so its register allocation is that of the whole-row kernel.
 // - Kernel D's per-site terms (from the stats and A1) are the same for every
 //   pair, so D walks tiles outermost and builds them once per tile.
 // - A ragged last tile is zero-filled on load and every sum stops at the
@@ -180,6 +195,13 @@ struct SmemE {
   float wsum[NWARP];
   float dwv[D * D];
   float dwo[D * D];
+};
+
+struct SmemE1 {
+  float xs[TS * D];  // x
+  float hs[TS * D];  // row LN output
+  float gs[TS * D];  // g1
+  float red[4 * NG * D];  // the site groups' sums
 };
 
 // Sum over the 16 lanes of a head (neighbouring lanes of one warp).
@@ -752,6 +774,246 @@ __global__ void __launch_bounds__(NT) kernel_e(
   }
 }
 
+// ---- the L-tiled row backward: the stages of kernel E as device functions ----
+// E1 runs stage 1 (kernel E's pass 1) and writes the raw sums; E2 reads them
+// and runs stages 2 and 3 (the finalize and pass 2) on a chunk of the site
+// tiles.
+
+// max(real site count, 1) of the block's batch element, summed in a fixed
+// order; S.wsum holds NWARP floats.
+__device__ __forceinline__ float row_site_count(SmemE& S, const float* __restrict__ smask_b,
+                                                int L) {
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  float v = 0.f;
+  for (int l = t; l < L; l += NT) v += smask_b[l];
+  v = warp_sum(v);
+  if (lane == 0) S.wsum[warp] = v;
+  __syncthreads();
+  float count = 0.f;
+#pragma unroll
+  for (int ww = 0; ww < NWARP; ++ww) count += S.wsum[ww];
+  return fmaxf(count, 1.f);
+}
+
+// Stage 1 over the whole row of one pair (x_row, g_row: L x D): the thread's
+// masked sums of column c over its site group, r = [q, k, k*v, d_attn*q].
+__device__ __forceinline__ void row_bwd_sums(SmemE1& S, const float* x_row, const float* g_row,
+                                             const float* __restrict__ smask_b,
+                                             const float* __restrict__ w, int L, float eps,
+                                             float (&r)[4]) {
+  const int c = threadIdx.x & (D - 1);
+  const float bq = w[AG_BQE + c], bk = w[AG_BKE + c], bv = w[AG_BV + c];
+  for (int l0 = 0; l0 < L; l0 += TS) {
+    const int nv = min(TS, L - l0);
+    load_tile(S.xs, x_row + (size_t)l0 * D, nullptr, nv);
+    load_tile(S.gs, g_row + (size_t)l0 * D, nullptr, nv);
+    __syncthreads();
+    ln_tile(S.xs, S.hs, w + AG_LNS, w + AG_LNB, eps);
+    __syncthreads();
+    float acc[3][SPT], da[1][SPT];
+    mm_d<D, 3>(S.hs, w + AG_WQE, w + AG_WKE, w + AG_WV, acc);
+    mm_d<D, 1>(S.gs, w + AG_WOT, nullptr, nullptr, da);  // d_attn = g1 Wo^T
+#pragma unroll
+    for (int i = 0; i < SPT; ++i) {
+      const int s = site_of(i);
+      const float m = s < nv ? smask_b[l0 + s] : 0.f;
+      const float q = phi(acc[0][i] + bq) * m, k = phi(acc[1][i] + bk) * m;
+      r[0] += q;
+      r[1] += k;
+      r[2] += k * (acc[2][i] + bv);
+      r[3] += da[0][i] * q;
+    }
+    __syncthreads();
+  }
+}
+
+// The pair's raw sums [Σq | Σk | Σk·v | Σd_attn·q] of column t, the NG site
+// groups' sums r added in a fixed order; valid in threads t < D.
+__device__ __forceinline__ void row_bwd_pair_sums(SmemE1& S, const float (&r)[4],
+                                                  float (&sum)[4]) {
+  const int c = threadIdx.x & (D - 1), g = threadIdx.x / D;
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    S.red[(v * NG + g) * D + c] = r[v];
+    sum[v] = 0.f;
+  }
+  __syncthreads();
+  if (threadIdx.x < D) {
+#pragma unroll
+    for (int gg = 0; gg < NG; ++gg)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) sum[v] += S.red[(v * NG + gg) * D + threadIdx.x];
+  }
+}
+
+// Stage 2, in threads t < D (warps 0 and 1: whole warps, so the head shuffles
+// are safe): the pair's ctx, q-mean and d_ctx / d_qm terms from its raw sums
+// and the site count (_kernel_e2, axial_block_bwd.py:563-581), into S.p*.
+__device__ __forceinline__ void row_bwd_finalize(SmemE& S, const float (&sum)[4], float count) {
+  const int c = threadIdx.x;
+  const float sq_raw = sum[0] / count, sk_raw = sum[1], skv = sum[2], sdq = sum[3];
+  const float qm = guard(sq_raw), sk = guard(sk_raw);
+  const float ctx = skv / sk;
+  const float d_ctx = sdq / qm;
+  const float sk_h = head_sum(sk) / HD;
+  const float d_sk_h = -head_sum(d_ctx * ctx) / sk_h * gate(head_sum(sk_raw));
+  const float qm_h = head_sum(qm) / HD;
+  const float d_qm_h = -head_sum(ctx * sdq) / (qm_h * qm_h) * gate(head_sum(sq_raw));
+  S.pqm[c] = qm;
+  S.pctx[c] = ctx;
+  S.pskv[c] = d_ctx / sk;
+  S.pqmh[c] = qm_h;
+  S.pskh[c] = d_sk_h;
+  S.psqh[c] = d_qm_h / count;
+}
+
+// The row weight gradients a block sums in registers (the rest are in SmemE).
+struct RowGrads {
+  float vds[2] = {0.f, 0.f}, vdb[2] = {0.f, 0.f}, vbo[2] = {0.f, 0.f};
+  float dwq = 0.f, dwk = 0.f, dbq = 0.f, dbk = 0.f, dbv = 0.f;
+};
+
+// Stage 3 over the site tiles [t0, t1) of one pair row, from the pair's
+// constants in S.p* (visible to every thread): gx to gx_row and the tiles'
+// weight gradients added to a and to S.dwv / S.dwo.
+__device__ __forceinline__ void row_bwd_emit(SmemE& S, const float* x_row, const float* g_row,
+                                             float* gx_row, const float* __restrict__ smask_b,
+                                             const float* __restrict__ w, int L, int t0, int t1,
+                                             float eps, RowGrads& a) {
+  const int c = threadIdx.x & (D - 1);
+  const float bq = w[AG_BQE + c], bk = w[AG_BKE + c], bv = w[AG_BV + c];
+  const float qm = S.pqm[c], ctx = S.pctx[c], skv = S.pskv[c];
+  const float qm_h = S.pqmh[c], d_sk_h = S.pskh[c], d_sq_h = S.psqh[c];
+  float unused[2] = {0.f, 0.f};
+  for (int tile = t0; tile < t1; ++tile) {
+    const int l0 = tile * TS, nv = min(TS, L - l0);
+    const size_t off = (size_t)l0 * D;
+    load_tile(S.xs, x_row + off, nullptr, nv);
+    load_tile(S.gs, g_row + off, nullptr, nv);
+    __syncthreads();
+    ln_tile(S.xs, S.hs, w + AG_LNS, w + AG_LNB, eps);
+    __syncthreads();
+    {
+      float acc[3][SPT], da[1][SPT];
+      mm_d<D, 3>(S.hs, w + AG_WQE, w + AG_WKE, w + AG_WV, acc);
+      mm_d<D, 1>(S.gs, w + AG_WOT, nullptr, nullptr, da);
+#pragma unroll
+      for (int i = 0; i < SPT; ++i) {
+        const int s = site_of(i);
+        const float m = s < nv ? smask_b[l0 + s] : 0.f;
+        const float zq = acc[0][i] + bq, zk = acc[1][i] + bk, v = acc[2][i] + bv;
+        const float q = phi(zq) * m, k = phi(zk) * m;
+        const float d_q = head_sum(da[0][i] * ctx) / qm_h + d_sq_h;
+        const float d_k = d_sk_h + head_sum(skv * v);
+        const float dzq = d_q * phi_grad(zq) * m, dzk = d_k * phi_grad(zk) * m;
+        const float dv = skv * k;
+        S.vs[s * D + c] = dv;
+        S.as[s * D + c] = (q / qm) * ctx;
+        if ((c & (HD - 1)) == 0) {
+          S.dzq[s * H + c / HD] = dzq;
+          S.dzk[s * H + c / HD] = dzk;
+        }
+        a.dbv += dv;
+      }
+    }
+    __syncthreads();
+    outer_acc<D, D>(S.hs, S.vs, S.dwv, nv);  // dWv += h^T d_v
+    outer_acc<D, D>(S.as, S.gs, S.dwo, nv);  // dWo += attn^T g1
+    dh_grad(S.hs, S.dzq, S.dzk, nv, a.dwq, a.dwk, a.dbq, a.dbk);
+    {
+      float dh[SPT];
+      dh_from_qkv(S.vs, S.dzq, S.dzk, w, dh);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < SPT; ++i) S.hs[site_of(i) * D + c] = dh[i];
+    }
+    __syncthreads();
+    ln_bwd_rows(S.xs, S.hs, S.gs, w + AG_LNS, eps, nv, gx_row + off, a.vds, a.vdb, a.vbo,
+                unused);
+    __syncthreads();
+  }
+}
+
+// The block's row weight gradients (layout WA_*, NWE floats) to wp.
+__device__ __forceinline__ void store_row_grads(SmemE& S, const RowGrads& a, float* wp) {
+  const int t = threadIdx.x;
+  const float dbv_total = group_sums_total(S.vs, a.dbv);
+  put_warp_sums(S.vs, 0, a.vds);
+  put_warp_sums(S.vs, 1, a.vdb);
+  put_warp_sums(S.vs, 2, a.vbo);
+  __syncthreads();
+  for (int e = t; e < D * D; e += NT) {
+    wp[WA_WV + e] = S.dwv[e];
+    wp[WA_WO + e] = S.dwo[e];
+  }
+  wp[WA_WQ + t] = a.dwq;
+  wp[WA_WK + t] = a.dwk;
+  if (t < H) {
+    wp[WA_BQ + t] = a.dbq;
+    wp[WA_BK + t] = a.dbk;
+  }
+  if (t < D) {
+    wp[WA_LNS + t] = warp_sums_total(S.vs, 0);
+    wp[WA_LNB + t] = warp_sums_total(S.vs, 1);
+    wp[WA_BO + t] = warp_sums_total(S.vs, 2);
+    wp[WA_BV + t] = dbv_total;
+  }
+}
+
+// ---- kernel E1: each pair's raw row sums (B, P, 4D) ----
+__global__ void __launch_bounds__(NT) kernel_e1(
+    const float* __restrict__ x, const float* __restrict__ g1, const float* __restrict__ smask,
+    const float* __restrict__ w, float* __restrict__ rowsums, int P, int L, int S_,
+    float eps) {
+  extern __shared__ float4 smem_raw[];
+  SmemE1& S = *reinterpret_cast<SmemE1*>(smem_raw);
+  const int b = blockIdx.y;
+  int p0, p1;
+  split_range(blockIdx.x, P, S_, p0, p1);
+  const float* smask_b = smask + (size_t)b * L;
+  for (int p = p0; p < p1; ++p) {
+    const size_t row = ((size_t)b * P + p) * L * D;
+    float r[4] = {0.f, 0.f, 0.f, 0.f}, sum[4];
+    row_bwd_sums(S, x + row, g1 + row, smask_b, w, L, eps, r);
+    row_bwd_pair_sums(S, r, sum);
+    if (threadIdx.x < D) {
+      float* rs = rowsums + ((size_t)b * P + p) * 4 * D;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) rs[v * D + threadIdx.x] = sum[v];
+    }
+  }
+}
+
+// ---- kernel E2: gx and the row weight gradients of a pair slot / site chunk ----
+__global__ void __launch_bounds__(NT) kernel_e2(
+    const float* __restrict__ x, const float* __restrict__ g1,
+    const float* __restrict__ rowsums, const float* __restrict__ smask,
+    const float* __restrict__ w, float* __restrict__ gx, float* __restrict__ w_part, int P,
+    int L, int SP, int SC, float eps) {
+  extern __shared__ float4 smem_raw[];
+  SmemE& S = *reinterpret_cast<SmemE*>(smem_raw);
+  const int b = blockIdx.y, slot = blockIdx.x / SC, chunk = blockIdx.x % SC;
+  int p0, p1, t0, t1;
+  split_range(slot, P, SP, p0, p1);
+  split_range(chunk, n_tiles_of(L), SC, t0, t1);
+  for (int e = threadIdx.x; e < D * D; e += NT) S.dwv[e] = S.dwo[e] = 0.f;
+  RowGrads a;
+  const float* smask_b = smask + (size_t)b * L;
+  const float count = row_site_count(S, smask_b, L);
+  for (int p = p0; p < p1; ++p) {
+    const size_t row = ((size_t)b * P + p) * L * D;
+    if (threadIdx.x < D) {
+      const float* rs = rowsums + ((size_t)b * P + p) * 4 * D;
+      const float sum[4] = {rs[threadIdx.x], rs[D + threadIdx.x], rs[2 * D + threadIdx.x],
+                            rs[3 * D + threadIdx.x]};
+      row_bwd_finalize(S, sum, count);
+    }
+    __syncthreads();
+    row_bwd_emit(S, x + row, g1 + row, gx + row, smask_b, w, L, t0, t1, eps, a);
+  }
+  store_row_grads(S, a, w_part + ((size_t)b * SP * SC + blockIdx.x) * NWE);
+}
+
 // ---- partials: out[g] = sum_s partial[g, s] in slot order ----
 __global__ void reduce_partials(const float* __restrict__ partial, float* __restrict__ out,
                                 int S_, int N) {
@@ -783,6 +1045,7 @@ int pf_bwd_sizes(int* out) {
   out[2] = NWC;
   out[3] = NWD;
   out[4] = NWE;
+  out[5] = 4 * D;  // floats of one pair's row sums (E1 -> E2)
   return 0;
 }
 
@@ -813,6 +1076,25 @@ int pf_kernel_e(const float* x, const float* g1, const float* smask, const float
   if (e != cudaSuccess) return (int)e;
   kernel_e<<<dim3(S_, B), NT, sizeof(SmemE), (cudaStream_t)stream>>>(x, g1, smask, w, gx,
                                                                      w_part, P, L, S_, eps);
+  return (int)cudaGetLastError();
+}
+
+int pf_kernel_e1(const float* x, const float* g1, const float* smask, const float* w,
+                 float* rowsums, int B, int P, int L, int S_, float eps, void* stream) {
+  cudaError_t e = allow_smem_of<SmemE1>(kernel_e1);
+  if (e != cudaSuccess) return (int)e;
+  kernel_e1<<<dim3(S_, B), NT, sizeof(SmemE1), (cudaStream_t)stream>>>(x, g1, smask, w,
+                                                                       rowsums, P, L, S_, eps);
+  return (int)cudaGetLastError();
+}
+
+int pf_kernel_e2(const float* x, const float* g1, const float* rowsums, const float* smask,
+                 const float* w, float* gx, float* w_part, int B, int P, int L, int SP, int SC,
+                 float eps, void* stream) {
+  cudaError_t e = allow_smem_of<SmemE>(kernel_e2);
+  if (e != cudaSuccess) return (int)e;
+  kernel_e2<<<dim3(SP * SC, B), NT, sizeof(SmemE), (cudaStream_t)stream>>>(
+      x, g1, rowsums, smask, w, gx, w_part, P, L, SP, SC, eps);
   return (int)cudaGetLastError();
 }
 

@@ -60,12 +60,13 @@ HEAD_SIZE = D_KERNEL + 1
 
 # Launches of each kernel in this process (the CPU path counts nothing);
 # kernel_a, kernel_b, kernel_a1 and kernel_a2 are the fused forward's
-# (ops/kernels/fused.py), kernel_c, kernel_d, kernel_e and reduce_partials
-# the fused backward's (ops/kernels/axial_block_bwd.py).
+# (ops/kernels/fused.py), kernel_c, kernel_d, kernel_e, kernel_e1, kernel_e2
+# and reduce_partials the fused backward's (ops/kernels/axial_block_bwd.py).
 LAUNCHES: Dict[str, int] = {
     "kernel_p0": 0, "kernel_a_only": 0, "kernel_m": 0, "kernel_z": 0, "reduce_stats": 0,
     "kernel_a": 0, "kernel_b": 0, "kernel_a1": 0, "kernel_a2": 0,
-    "kernel_c": 0, "kernel_d": 0, "kernel_e": 0, "reduce_partials": 0,
+    "kernel_c": 0, "kernel_d": 0, "kernel_e": 0, "kernel_e1": 0, "kernel_e2": 0,
+    "reduce_partials": 0,
 }
 
 

@@ -2,16 +2,21 @@
 
     pf-train-torch -t trees/ -a msas/ [-T val_trees/ -A val_msas/] \\
         [--batch-size 4] [--learning-rate 1e-4] [--warmup-steps 5000] ...
+    pf-train-torch --packed-data packed/ [--packed-val-fraction 0.1] ...
     python -m phyloformer_tpu_torch.train.cli ...
 
 Runs on the card unless ``--device cpu`` is given.  ``--use-pallas auto``
 runs the fused kernels forward and backward on ``cuda`` when dropout is 0
-and ``--remat`` is off.  ``--base-model`` takes a reference ``.ckpt`` or an
-``.npz`` parameter file; ``--load-checkpoint`` resumes from the latest
-checkpoint of a directory (``<output-dir>/checkpoints_<run-name>``).  Not
-yet ported, and refused: ``--packed-data``, the mesh flags,
-``--shard-pairs``, ``--distributed-init``, ``--profile``, ``--debug-nans``,
-dropout > 0 and ``--matmul-precision`` other than ``float32``.
+and ``--remat`` is off, at any alignment length.  ``--base-model`` takes a
+reference ``.ckpt`` or an ``.npz`` parameter file; ``--load-checkpoint``
+resumes from the latest checkpoint of a directory
+(``<output-dir>/checkpoints_<run-name>``).  ``--packed-data`` reads shards
+written by ``pf-preprocess-torch`` (or the JAX package's ``pf-preprocess``);
+``--profile`` traces 10 steps into ``<output-dir>/profile`` and exits;
+``--debug-nans`` stops at the first non-finite loss or gradient.  Not yet
+ported, and refused: the mesh flags, ``--shard-pairs``,
+``--distributed-init``, dropout > 0 and ``--matmul-precision`` other than
+``float32``.
 """
 
 from __future__ import annotations
@@ -31,8 +36,9 @@ def build_parser() -> argparse.ArgumentParser:
     data.add_argument("--train-trees", "-t", default=None)
     data.add_argument("--train-alignments", "-a", default=None)
     data.add_argument("--packed-data", default=None,
-                      help="preprocessed shard directory (not yet ported)")
-    data.add_argument("--packed-val-fraction", type=float, default=0.1)
+                      help="shard directory from pf-preprocess-torch (instead of -t/-a)")
+    data.add_argument("--packed-val-fraction", type=float, default=0.1,
+                      help="share of the packed examples held out for validation")
     data.add_argument("--val-trees", "-T", default=None)
     data.add_argument("--val-alignments", "-A", default=None)
     data.add_argument("--train-regex", "-r", default=None)
@@ -97,8 +103,10 @@ def build_parser() -> argparse.ArgumentParser:
                       help="search the largest fitting batch size, print, exit")
     util.add_argument("--dry-run", action="store_true",
                       help="set up everything, run one step, print summary, exit")
-    util.add_argument("--profile", action="store_true", help="(not yet ported)")
-    util.add_argument("--debug-nans", action="store_true", help="(not yet ported)")
+    util.add_argument("--profile", action="store_true",
+                      help="trace 10 train steps into <output-dir>/profile, then exit")
+    util.add_argument("--debug-nans", action="store_true",
+                      help="raise at the first non-finite loss or gradient")
     util.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                       help="cuda = the hand-written kernels on the card (default); "
                            "cpu = their plain PyTorch versions")
@@ -113,13 +121,10 @@ def identifier_from_args(args) -> str:
 
 def _refuse_unported(args) -> None:
     unported = {
-        "--packed-data": args.packed_data is not None,
         "--mesh-data": args.mesh_data is not None,
         "--mesh-pair": args.mesh_pair != 1,
         "--shard-pairs": args.shard_pairs,
         "--distributed-init": args.distributed_init,
-        "--profile": args.profile,
-        "--debug-nans": args.debug_nans,
         f"--matmul-precision {args.matmul_precision}": args.matmul_precision != "float32",
         f"--dropout {args.dropout}": args.dropout != 0.0,
     }
@@ -155,20 +160,28 @@ def main(argv=None) -> int:
                             embed_dim=args.embed_dim, dropout=args.dropout,
                             matmul_precision=args.matmul_precision)
 
-    if not (args.train_trees and args.train_alignments):
-        print("need --train-trees/--train-alignments", file=sys.stderr)
+    if args.packed_data:
+        from .packed import PackedDataset, split
+
+        train_data, val_data = split(PackedDataset(args.packed_data),
+                                     args.packed_val_fraction, args.seed)
+        print(f"packed train examples: {len(train_data)}"
+              + (f", val examples: {len(val_data)}" if val_data is not None else ""))
+    else:
+        if not (args.train_trees and args.train_alignments):
+            print("need --train-trees/--train-alignments or --packed-data", file=sys.stderr)
+            return 1
+        train_data, val_data = choose_data(args.train_trees, args.train_alignments,
+                                           args.val_trees, args.val_alignments,
+                                           args.train_regex, args.val_regex, seed=args.seed)
+        print(f"train examples: {len(train_data)}, val examples: {len(val_data)}")
+    if not len(train_data):
+        print("no training examples found", file=sys.stderr)
         return 1
-    train_pairs, val_pairs = choose_data(args.train_trees, args.train_alignments,
-                                         args.val_trees, args.val_alignments,
-                                         args.train_regex, args.val_regex, seed=args.seed)
-    if not train_pairs:
-        print("no training pairs found", file=sys.stderr)
-        return 1
-    print(f"train examples: {len(train_pairs)}, val examples: {len(val_pairs)}")
 
     # The decay's horizon is counted in applied updates: micro-batches
     # divided by --grad-accum, as is --warmup-steps.
-    steps_per_epoch = -(-len(train_pairs) // args.batch_size)
+    steps_per_epoch = -(-len(train_data) // args.batch_size)
     total_steps = args.max_steps or steps_per_epoch * args.nb_epochs
     accum = max(1, args.grad_accum)
     total_steps = max(1, total_steps // accum)
@@ -207,12 +220,36 @@ def main(argv=None) -> int:
             nw = max(1, min(8, (os.cpu_count() or 2) - 1))
     lcfg = LoaderConfig(batch_size=args.batch_size, num_workers=nw, seed=args.seed,
                         max_batch_tokens=args.max_batch_tokens)
-    train_loader = BucketedLoader(train_pairs, lcfg)
-    val_loader = (BucketedLoader(val_pairs, dataclasses.replace(lcfg, shuffle=False))
-                  if val_pairs else None)
+    if args.packed_data:
+        from .packed import PackedBucketedLoader as Loader
+    else:
+        Loader = BucketedLoader
+    train_loader = Loader(train_data, lcfg)
+    val_loader = (Loader(val_data, dataclasses.replace(lcfg, shuffle=False))
+                  if val_data else None)
+
+    if args.debug_nans:
+        from .profiling import enable_nan_checks
+
+        enable_nan_checks()
 
     if args.find_batch_size:
         print(json.dumps({"max_batch_size": find_batch_size(cfg, tcfg, device)}))
+        return 0
+
+    if args.profile:
+        import itertools
+
+        from .profiling import profile_n_steps
+        from .trainer import create_train_state, make_train_step
+
+        state, tx = create_train_state(cfg, tcfg, params=init_params, device=device)
+        step = make_train_step(cfg, tcfg, tx)
+        log_dir = os.path.join(args.output_dir, "profile")
+        # as many epochs as 10 steps take
+        batches = itertools.chain.from_iterable(iter(train_loader) for _ in itertools.count())
+        _, _, done = profile_n_steps(step, state, batches, n_steps=10, log_dir=log_dir)
+        print(json.dumps({"profile_dir": log_dir, "steps": done}))
         return 0
 
     fcfg = FitConfig(

@@ -17,7 +17,7 @@ import random
 import re
 import threading
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -107,26 +107,31 @@ class LoaderConfig:
 class BucketedLoader:
     """Iterates host-side padded batches grouped by (pad_n, pad_l) bucket.
 
-    Each epoch shuffles the examples, parses them in a thread pool, collects
+    Each epoch shuffles the examples, loads them in a thread pool, collects
     them per bucket and emits a batch once a bucket holds its batch size;
-    the rest are flushed at the end of the epoch unless ``drop_last``."""
+    the rest are flushed at the end of the epoch unless ``drop_last``.
+    ``load(item)`` gives an item's ``(Alignment, target distances)``; by
+    default the items are ``(tree file, alignment file)`` pairs, parsed with
+    :func:`load_example`."""
 
-    def __init__(self, pairs: Sequence[Tuple[str, str]], cfg: LoaderConfig):
-        if not pairs:
+    def __init__(self, items: Sequence, cfg: LoaderConfig,
+                 load: Optional[Callable] = None):
+        if not items:
             raise ValueError("no (tree, alignment) pairs to load")
-        self.pairs = list(pairs)
+        self.items = list(items)
         self.cfg = cfg
+        self.load = load or (lambda pair: load_example(*pair))
         self._epoch = 0
 
     def __len__(self):  # number of examples
-        return len(self.pairs)
+        return len(self.items)
 
     def batches_per_epoch(self) -> int:
-        return -(-len(self.pairs) // self.cfg.batch_size)
+        return -(-len(self.items) // self.cfg.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         cfg = self.cfg
-        order = list(range(len(self.pairs)))
+        order = list(range(len(self.items)))
         if cfg.shuffle:
             random.Random(cfg.seed + self._epoch).shuffle(order)
         self._epoch += 1
@@ -139,9 +144,8 @@ class BucketedLoader:
                 for i in indices:
                     if stop.is_set():
                         return
-                    tree_path, aln_path = self.pairs[i]
                     try:
-                        out_q.put((i, load_example(tree_path, aln_path)))
+                        out_q.put((i, self.load(self.items[i])))
                     except Exception as err:  # surface parse errors with context
                         out_q.put((i, err))
             finally:
@@ -162,7 +166,7 @@ class BucketedLoader:
                     finished += 1
                     continue
                 if isinstance(item, Exception):
-                    raise RuntimeError(f"failed loading {self.pairs[idx]}") from item
+                    raise RuntimeError(f"failed loading {self.items[idx]}") from item
                 aln, vec = item
                 key = (_bucketize(aln.n_seqs, cfg.n_buckets, True),
                        _bucketize(aln.seq_len, cfg.l_buckets, True))

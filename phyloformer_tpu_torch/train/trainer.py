@@ -25,6 +25,7 @@ from ..infer.engine import real_pair_selector
 from ..models.params import Params, PhyloformerConfig, init_params, map_params
 from ..models.phyloformer import forward, forward_fused_ad, pair_mask_from_seq_mask
 from .losses import get_loss, metrics as compute_metrics
+from .profiling import check_finite, nan_checks_enabled
 from .schedule import clip_by_global_norm, global_norm, linear_warmup_decay, make_optimizer
 
 
@@ -133,7 +134,7 @@ def create_train_state(
         return t.to(dev, torch.float32).detach().clone().requires_grad_(True)
 
     params = map_params(leaf, params)
-    tx =Optimizer(param_leaves(params), tcfg)
+    tx = Optimizer(param_leaves(params), tcfg)
     return {"params": params, "opt_state": tx, "step": 0}, tx
 
 
@@ -189,7 +190,8 @@ def make_train_step(
     ``site_mask (B,L)`` and ``seq_mask (B,n)`` bool.  ``logs``: the loss,
     the global norm of the micro-batch gradients and the learning rate of
     the update, ``sched(step // grad_accum)``.  The state is updated in
-    place."""
+    place.  After :func:`.profiling.enable_nan_checks` a non-finite loss or
+    gradient raises ``FloatingPointError`` before the update."""
     _check_supported(cfg, tcfg, mesh)
     loss_fn = get_loss(tcfg.loss)
     sched = linear_warmup_decay(tcfg.learning_rate, tcfg.warmup_steps, tcfg.total_steps)
@@ -200,7 +202,12 @@ def make_train_step(
         leaves = param_leaves(state["params"])
         b = batch_to_device(batch, leaves[0].device)
         loss, _ = _batch_loss(state["params"], b, cfg, tcfg, loss_fn)
+        checks = nan_checks_enabled()
+        if checks:
+            check_finite(loss)  # a NaN from the forward, before the backward sees it
         grads = torch.autograd.grad(loss, leaves)
+        if checks:
+            check_finite(loss, grads)
         logs = {"train_loss": loss.detach(), "grad_norm": global_norm(grads).detach(),
                 "learning_rate": sched(state["step"] // every_k)}
         state["opt_state"].update(grads)

@@ -9,7 +9,8 @@ Shapes are small and chosen for the edges the main path's buckets rarely
 reach: a site axis that ends in a partial tile, fewer pairs than blocks, a
 batch element with every sequence but two masked, batch size one, a single
 pair.  The fused kernels (A, B, A1, A2) are checked on site axes above 1024
-(the L-tiled forward) and below it (the two-kernel forward).  The kernels
+(the L-tiled forward) and below it (the two-kernel forward), and so is the
+backward (C, D and E below; C, D, E1 and E2 above).  The kernels
 sum in another order than the plain versions (tiles, blocks, the one-pass
 ctx = Σk·v/Σk): tolerance 2e-5 relative to max(1, max|ref|) per kernel,
 1e-4 on distances after six blocks against the eager model.
@@ -217,7 +218,12 @@ for name, (dims, pad_n, pad_l) in {
         "l1024": ([(5, 1024)], 5, 1024),
         "few_pairs": ([(3, 70)], 3, 70),
         "two_seqs": ([(12, 33), (2, 33)], 12, 40),
-        "masked_row": ([(8, 50), (0, 0)], 8, 50)}.items():
+        "masked_row": ([(8, 50), (0, 0)], 8, 50),
+        # above 1024 sites: the L-tiled row backward, E1 then E2
+        "long_partial_tile": ([(9, 1100), (6, 1077)], 9, 1100),
+        "l1025": ([(5, 1025)], 5, 1025),
+        "long_three_pairs": ([(3, 1200)], 3, 1200),
+        "long_masked_row": ([(8, 1050), (0, 0)], 8, 1050)}.items():
     b = len(dims)
     codes = np.zeros((b, pad_n, pad_l), np.int32)
     smask = np.zeros((b, pad_l), bool)
@@ -246,8 +252,15 @@ for name, (dims, pad_n, pad_l) in {
     want = bw.kernel_d_plain(x1, g2, stats, a1, pm, pc, w.d, 1e-5)
     e["act"] = max(e["act"], rel(got[0], want[0]))
     e["grad"] = max(e["grad"], rel(got[1], want[1]))
-    got = bw.kernel_e(x, want[0], sm, w.e, 1e-5)
-    want = bw.kernel_e_plain(x, want[0], sm, w.e, 1e-5)
+    g1 = want[0]
+    if pad_l > 1024:
+        rs = bw.kernel_e1_plain(x, g1, sm, w.e, 1e-5)
+        got = bw.kernel_e2(x, g1, rs, sm, w.e, 1e-5)
+        want = bw.kernel_e2_plain(x, g1, rs, sm, w.e, 1e-5)
+        e["e12"] = max(rel(bw.kernel_e1(x, g1, sm, w.e, 1e-5), rs), rel(got[0], want[0]))
+    else:
+        got = bw.kernel_e(x, g1, sm, w.e, 1e-5)
+        want = bw.kernel_e_plain(x, g1, sm, w.e, 1e-5)
     e["act"] = max(e["act"], rel(got[0], want[0]))
     e["grad"] = max(e["grad"], rel(got[1], want[1]))
     # the whole block backward: launch counts, same bits twice, and the
@@ -296,3 +309,21 @@ def test_backward_kernels_match_plain_on_card(case, bwd_results):
     n = res["launches"]
     assert n["kernel_c"] == n["kernel_d"] == n["kernel_e"] == 1, n
     assert n["reduce_partials"] == 4, n
+
+
+@pytest.mark.parametrize("case", ["long_partial_tile", "l1025", "long_three_pairs",
+                                  "long_masked_row"])
+def test_ltiled_backward_kernels_match_plain_on_card(case, bwd_results):
+    """Above 1024 sites: C, D, E1 (row sums) and E2 against their plain
+    versions (1e-5 on the row sums and gx, 2e-5 on g2, A1 and g1, 1e-4 on the
+    weight gradients), the block backward through E1 and E2 (no E) against
+    autograd of the eager block (1e-4), and the same bits from two runs."""
+    res = bwd_results[case]
+    assert res["errs"]["e12"] <= 1e-5, res
+    assert res["errs"]["act"] <= 2e-5, res
+    assert res["errs"]["grad"] <= 1e-4, res
+    assert res["errs"]["autograd"] <= 1e-4, res
+    assert res["finite"] and res["same_bits"], res
+    n = res["launches"]
+    assert n["kernel_c"] == n["kernel_d"] == n["kernel_e1"] == n["kernel_e2"] == 1, n
+    assert n["kernel_e"] == 0 and n["reduce_partials"] == 4, n

@@ -6,7 +6,11 @@ Tolerances: predictions 5e-5 max-abs (fp32 sums in another order after six
 blocks); the values parsed from the 10-decimal ``.phy`` files 1e-4, since two
 fp32 programs that sum in different orders cannot promise identical bytes.
 The port runs with ``device="cpu"`` in a subprocess
-(:func:`test_torch_model.run_port`).
+(:func:`test_torch_model.run_port`), the JAX engine in another
+(:func:`test_torch_model.run_jax`), each with its CPU thread counts pinned:
+these distances (up to ~13) move by 1–2e-5 for a 1e-7 relative change of the
+embedding, so a sum order that followed the machine's load could cost the
+5e-5 bar.
 """
 
 import json
@@ -14,7 +18,7 @@ import json
 import numpy as np
 import pytest
 
-from test_torch_model import CKPT, run_port
+from test_torch_model import CKPT, run_jax, run_port
 
 # (n, L, gap fraction): ragged, all in the engine's (10, 128) bucket
 ALIGNMENTS = {"a": (7, 30, 0.0), "b": (10, 57, 0.0), "c": (5, 20, 0.0), "gapped": (8, 41, 0.35)}
@@ -32,8 +36,6 @@ def _write_fasta(path, rng, n, l, gap):
 @pytest.fixture(scope="module")
 def engine_case(tmp_path_factory):
     from phyloformer_tpu.data.fasta import read_fasta
-    from phyloformer_tpu.infer.engine import InferenceConfig, InferenceEngine
-    from phyloformer_tpu.io.ckpt_import import load_pretrained
 
     root = tmp_path_factory.mktemp("engine")
     aln_dir = root / "alns"
@@ -43,9 +45,19 @@ def engine_case(tmp_path_factory):
         _write_fasta(aln_dir / f"{stem}.fa", rng, n, l, gap)
     stems = sorted(ALIGNMENTS)
 
-    params, cfg, _ = load_pretrained(CKPT)
     alns = [read_fasta(str(aln_dir / f"{s}.fa")) for s in stems]
-    want = InferenceEngine(params, cfg, InferenceConfig(use_pallas=True)).predict(alns)
+    # the reference in a subprocess of its own, XLA's threads pinned
+    ref = run_jax(f"""
+from phyloformer_tpu.data.fasta import read_fasta
+from phyloformer_tpu.infer.engine import InferenceConfig, InferenceEngine
+from phyloformer_tpu.io.ckpt_import import load_pretrained
+params, cfg, _ = load_pretrained({str(CKPT)!r})
+alns = [read_fasta({str(aln_dir)!r} + f"/{{s}}.fa") for s in {stems!r}]
+for s, p in zip({stems!r}, InferenceEngine(params, cfg, InferenceConfig(use_pallas=True))
+                .predict(alns)):
+    OUT["pred." + s] = p
+""", {}, root / "jax")
+    want = [ref["pred." + s] for s in stems]
 
     got = run_port(f"""
 import contextlib, io, json

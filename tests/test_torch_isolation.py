@@ -140,8 +140,8 @@ print(json.dumps({"names": [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                                     pkg.__name__ + ".")]}))
 """)
     for name in ("train.cli", "train.data", "train.loop", "train.losses", "train.schedule",
-                 "train.trainer", "io.checkpoint", "ops.kernels.autodiff",
-                 "ops.kernels.axial_block_bwd"):
+                 "train.trainer", "train.packed", "train.cli_preprocess", "train.profiling",
+                 "io.checkpoint", "ops.kernels.autodiff", "ops.kernels.axial_block_bwd"):
         assert "phyloformer_tpu_torch." + name in out["names"], name
 
 
@@ -174,10 +174,12 @@ print(json.dumps(res))
         assert "no CUDA device" in out["state"], out
 
 
-@pytest.mark.parametrize("flags", [["--packed-data", "x"], ["--mesh-data", "2"],
+@pytest.mark.parametrize("flags", [["--mesh-data", "2"], ["--mesh-data", "1"],
                                    ["--mesh-pair", "2"], ["--shard-pairs"],
-                                   ["--distributed-init"], ["--profile"], ["--debug-nans"],
-                                   ["--dropout", "0.1"], ["--matmul-precision", "default"]])
+                                   ["--distributed-init"], ["--dropout", "0.1"],
+                                   ["--matmul-precision", "default"],
+                                   ["--matmul-precision", "tensorfloat32"],
+                                   ["--packed-data", "x", "--shard-pairs"]])
 def test_train_cli_refuses_unported_flags(flags, tmp_path):
     out = _run(f"""
 import json
@@ -193,8 +195,9 @@ print(json.dumps({{"msg": msg}}))
 
 
 def test_training_knobs_refuse_what_is_not_ported():
-    """Dropout, pair sharding and a mesh in the train step; fused training
-    above 1024 sites, in the block and in the backward host function."""
+    """Dropout, pair sharding and a mesh in the train step refuse; fused
+    training above 1024 sites runs, in the block and in the backward host
+    function."""
     out = _run("""
 import json
 import torch
@@ -216,11 +219,17 @@ attempt(lambda: make_train_step(PhyloformerConfig(n_blocks=1, embed_dim=32, drop
 attempt(lambda: make_train_step(cfg, TrainConfig(shard_pairs=True), tx))
 attempt(lambda: make_train_step(cfg, TrainConfig(), tx, mesh=object()))
 layer = init_params(cfg)["layers"][0]
-x = torch.zeros(1, 1, 1025, 32)
+x = torch.randn(1, 1, 1025, 32, generator=torch.Generator().manual_seed(0))
 sm, pm = torch.ones(1, 1025), torch.ones(1, 1)
-attempt(lambda: fused_axial_block_ad(x, layer, sm, pm, cfg))
-attempt(lambda: fused_axial_block_bwd(x, x, torch.zeros(1, 1025, 96), x, layer, sm, pm, 4))
-print(json.dumps({"msgs": msgs}))
+out = fused_axial_block_ad(x.requires_grad_(True), layer, sm, pm, cfg)
+gx, = torch.autograd.grad(out.square().sum(), [x])
+from phyloformer_tpu_torch.ops.kernels.fused import fused_axial_block_res
+_, x1, stats = fused_axial_block_res(x.detach(), layer, sm, pm)
+gx2, dl = fused_axial_block_bwd(x.detach(), x1, stats, out.detach(), layer, sm, pm, 4)
+print(json.dumps({"msgs": msgs, "finite": [bool(torch.isfinite(gx).all()),
+                                           bool(torch.isfinite(gx2).all())],
+                  "same": bool(torch.allclose(2 * gx2, gx, rtol=1e-5, atol=1e-5))}))
 """)
-    assert len(out["msgs"]) == 5, out
+    assert len(out["msgs"]) == 3, out
     assert all("not yet ported, see ROADMAP.md" in m for m in out["msgs"]), out
+    assert out["finite"] == [True, True] and out["same"], out

@@ -10,6 +10,7 @@ for single operators.
 :func:`run_port` is the exchange the other ``test_torch_*`` files use too.
 """
 
+import os
 import pathlib
 import subprocess
 import sys
@@ -30,6 +31,15 @@ import sys
 import numpy as np
 import torch
 torch.set_num_threads(2)
+# On a loaded machine the first exp over a large tensor in a fresh process
+# has come out up to 1e-4 relative off on part of the tensor (reproduced with
+# torch.exp alone), once in some 20 processes; the model amplifies that past
+# the tests' bars.  The first call of each transcendental the plain versions
+# use is made here, serially and then on both threads.
+for _f in (torch.exp, torch.erf, torch.log1p, torch.tanh):
+    _f(torch.zeros(8))
+    _f(torch.zeros(1 << 21))
+del _f
 IN = dict(np.load(sys.argv[1]))
 OUT = {}
 
@@ -80,19 +90,53 @@ def flatten(tree, prefix):
     return out
 
 
+# CPU thread counts of the subprocesses, fixed so that the order of every
+# parallel sum does not depend on the load of the machine (the test workers
+# run side by side): the port's OpenMP / MKL pools at the prelude's two
+# threads, with dynamic adjustment off; XLA's CPU backend on one thread.
+PORT_THREAD_ENV = {"OMP_NUM_THREADS": "2", "MKL_NUM_THREADS": "2", "OMP_DYNAMIC": "FALSE",
+                   "MKL_DYNAMIC": "FALSE"}
+JAX_THREAD_FLAGS = "--xla_cpu_multi_thread_eigen=false"
+
+_JAX_PRELUDE = """
+import sys
+import numpy as np
+import jax
+IN = dict(np.load(sys.argv[1]))
+OUT = {}
+"""
+
+_JAX_EPILOGUE = """
+np.savez(sys.argv[2], **{k: np.asarray(v) for k, v in OUT.items()})
+"""
+
+
+def _run(prelude, code, epilogue, inputs, tmp_path, name, env):
+    tmp_path.mkdir(parents=True, exist_ok=True)
+    src, dst = tmp_path / f"{name}_in.npz", tmp_path / f"{name}_out.npz"
+    np.savez(src, **inputs)
+    r = subprocess.run([sys.executable, "-c", prelude + code + epilogue, str(src), str(dst)],
+                       capture_output=True, text=True, cwd=str(REPO), timeout=300,
+                       env={**os.environ, **env})
+    assert r.returncode == 0, r.stderr[-4000:]
+    return dict(np.load(dst))
+
+
 def run_port(code, inputs, tmp_path):
     """Run ``code`` in a fresh interpreter with the port importable.
 
     ``inputs`` (name → array) arrive as ``IN``; ``tree(prefix)`` rebuilds a
     parameter tree flattened with :func:`flatten`; the code fills ``OUT``
     (name → tensor or array), which comes back as numpy arrays."""
-    tmp_path.mkdir(parents=True, exist_ok=True)
-    src, dst = tmp_path / "port_in.npz", tmp_path / "port_out.npz"
-    np.savez(src, **inputs)
-    r = subprocess.run([sys.executable, "-c", _PRELUDE + code + _EPILOGUE, str(src), str(dst)],
-                       capture_output=True, text=True, cwd=str(REPO), timeout=300)
-    assert r.returncode == 0, r.stderr[-4000:]
-    return dict(np.load(dst))
+    return _run(_PRELUDE, code, _EPILOGUE, inputs, tmp_path, "port", PORT_THREAD_ENV)
+
+
+def run_jax(code, inputs, tmp_path):
+    """Like :func:`run_port`, for JAX package code on the CPU with XLA on
+    one thread: ``IN`` and ``OUT`` as there (no ``tree``)."""
+    flags = (os.environ.get("XLA_FLAGS", "") + " " + JAX_THREAD_FLAGS).strip()
+    return _run(_JAX_PRELUDE, code, _JAX_EPILOGUE, inputs, tmp_path, "jax",
+                {"JAX_PLATFORMS": "cpu", "XLA_FLAGS": flags})
 
 
 def random_params(seed, n_blocks):
