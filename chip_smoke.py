@@ -1,15 +1,21 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--reductions]
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written CUDA kernels from this checkout's sources (one
    nvcc per source, all in parallel);
-3. holds every kernel of the inference paths against its plain PyTorch
+3. holds the two slot reductions (``reduce_stats``, ``reduce_partials``) at
+   every shape the paths give them, derived from the wrappers' slot rules,
+   and at their edges (N = 4999, S = 1, a start 4 bytes into a buffer,
+   G = 3) against their ordered twin bit for bit, against
+   ``partial.sum(dim=1)`` and against a second run; times each beside
+   ``torch.sum``, the twin and the bound (``--reductions``: only this, with
+   the rows printed as JSON);
+   then holds every kernel of the inference paths against its plain PyTorch
    version on the card (TF32 off) and times both with CUDA events:
-   - the pipeline's P0, A-only, M, Z and the stats reduction at the headline
-     bucket (60 tips, 256 sites, real pf_mre_r5 weights) and on ragged
-     batches;
+   - the pipeline's P0, A-only, M and Z at the headline bucket (60 tips,
+     256 sites, real pf_mre_r5 weights) and on ragged batches;
    - the fused forward's A and B at the headline bucket, A1, A2 and B at a
      long bucket (60 tips x 1500 sites -> (60, 1536)) and all four on a
      ragged unbucketed pair of alignments of 1100 and 1031 sites;
@@ -54,6 +60,7 @@ the CPU or to a plain version.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
@@ -106,6 +113,12 @@ STEP_LOSS_TOL = 1e-5
 STEP_GRAD_TOL = 1e-4
 # Distances after 6 blocks against the plain eager model on the card.
 DIST_TOL = 1e-4
+# The slot reductions are timed over this many back-to-back launches.  A
+# partial of at most L2_MB stays in the 50 MB L2 between its producer and
+# the reduction, as on the paths, so a share of the HBM bound above 100%
+# there is reported as L2-resident.
+REDUCE_LAUNCHES = 20
+L2_MB = 50.0
 
 
 def fail(msg: str) -> None:
@@ -231,8 +244,7 @@ def kernel_checks(weights, device):
     }
     w = weights
     eps = 1e-5
-    results = {k: {"errs": []} for k in
-               ("kernel_p0", "kernel_a_only", "kernel_m", "kernel_z", "reduce_stats")}
+    results = {k: {"errs": []} for k in ("kernel_p0", "kernel_a_only", "kernel_m", "kernel_z")}
     timing_inputs = {}
     for case, (dims, pad_n, pad_l) in cases.items():
         b = len(dims)
@@ -265,10 +277,6 @@ def kernel_checks(weights, device):
             got = pipe.kernel_z(xz, sz, smask, pcount, w.b[-1], w.head, eps, gelu)
             want = pipe.kernel_z_plain(xz, sz, smask, pcount, w.b[-1], w.head, eps, gelu)
             results["kernel_z"]["errs"].append(errors(got, want))
-        partial = torch.randn((b, 23, pad_l, 3 * D), device=device,
-                              generator=torch.Generator(device).manual_seed(SEED))
-        results["reduce_stats"]["errs"].append(
-            errors(pipe.reduce_stats(partial), pipe.reduce_stats_plain(partial)))
         torch.cuda.synchronize()
         if case in ("headline", "wide"):
             timing_inputs[case] = dict(emb=emb, ii=ii, jj=jj, smask=smask, pmask=pmask,
@@ -277,9 +285,6 @@ def kernel_checks(weights, device):
 
     # timing at the main path's shapes
     h, wd = timing_inputs["headline"], timing_inputs["wide"]
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    partial = torch.randn((h["b"], math.ceil(8 * sms / h["b"]), h["l"], 3 * D),
-                          device=device)
 
     def p0(plain):
         f = pipe.kernel_p0_plain if plain else pipe.kernel_p0
@@ -315,9 +320,6 @@ def kernel_checks(weights, device):
                      bound((FLOPS_A + FLOPS_B) * hs, 2 * act * hs + 2 * stats_b)),
         "kernel_z": (z(False), z(True), None,
                      bound((FLOPS_B + FLOPS_HEAD) * hs, act * hs + stats_b + 4 * h["b"] * h["p"])),
-        "reduce_stats": (lambda: pipe.reduce_stats(partial),
-                         lambda: pipe.reduce_stats_plain(partial), None,
-                         bound(partial.numel(), 4 * partial.numel() + stats_b)),
     }
     for name, (kern, plain, setup, (bound_ms, bound_by)) in timed.items():
         r = results[name]
@@ -325,9 +327,7 @@ def kernel_checks(weights, device):
         r["plain_ms"] = time_ms(plain, setup)
         r["bound_ms"] = bound_ms
         r["bound_by"] = bound_by
-        # one PyTorch call computing the same function exists only for the sum
-        r["library_ms"] = (time_ms(lambda: torch.sum(partial, dim=1))
-                           if name == "reduce_stats" else None)
+        r["library_ms"] = None  # no single PyTorch call computes these functions
     return results
 
 
@@ -428,6 +428,180 @@ def fused_kernel_checks(weights, device):
     results["kernel_b"]["headline_bound_ms"] = bound(
         FLOPS_B * sites(h), 2 * act * sites(h) + stats_bytes(h))[0]
     return results
+
+
+def time_launches(fns, n=REDUCE_LAUNCHES, reps=9):
+    """Device milliseconds per launch of each of ``fns`` (name -> callable),
+    taken in turns: per rep, for each in order, one CUDA-event pair around
+    ``n`` back-to-back launches; the median over ``reps``, after a warm-up.
+    A 10-us kernel timed one launch at a time measures the events and the
+    host's dispatch, so the stream first runs a sleep kernel twice as long as
+    the host took to issue the ``n`` launches (at most 0.2 s, ~2 GHz clock):
+    the launches queue behind it and the events see the device's time only.
+    Where the host is still slower, its gaps count."""
+    import torch
+
+    sleep = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        sleep[name] = int(min(2e6 * 2e3 * (time.perf_counter() - t0), 4e8))
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(sleep[name])
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / n)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def reduction_shapes(device):
+    """``(label, wrapper, partial shape)`` of every slot reduction the paths
+    launch, from the wrappers' own slot rules at the shapes of section 4 of
+    PERF.md (headline, A-only, long inference, training, long training)."""
+    from phyloformer_tpu_torch.ops.kernels import axial_block_bwd as bw
+    from phyloformer_tpu_torch.ops.kernels import fused
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+
+    def pairs(n):
+        return n * (n - 1) // 2
+
+    def a_slots(b, n, l):  # kernel A (two-kernel form, training)
+        return min(pipe._slots(pairs(n), b, device), fused._budget_slots(b, l))
+
+    def a2_slots(b, n, l):
+        return min(pairs(n), fused.A2_MAX_PAIR_SLOTS, fused._budget_slots(b, l))
+
+    nw = {k: bw.grad_size(k, D, H) for k in ("kernel_c", "kernel_d", "kernel_e")}
+
+    def bwd_slots(name, b, n, l=0):  # per_slot_bytes as the wrappers give them
+        per_slot = 4 * (l * D + nw["kernel_c"]) if name == "kernel_c" else 4 * nw[name]
+        return bw._bwd_slots(name, b, pairs(n), per_slot, device)
+
+    s3 = (3 * D,)
+    return [
+        ("stats, headline P0/M/A (9 x 60 x 256)", "reduce_stats",
+         (9, pipe._slots(pairs(60), 9, device), 256) + s3),
+        ("stats, A-only (1 x 120 x 256)", "reduce_stats",
+         (1, pipe._slots(pairs(120), 1, device), 256) + s3),
+        ("stats, long A2 inference (1 x 60 x 1536)", "reduce_stats",
+         (1, a2_slots(1, 60, 1536), 1536) + s3),
+        ("stats, training A (4 x 50 x 256)", "reduce_stats", (4, a_slots(4, 50, 256), 256) + s3),
+        ("stats, long training A2 (2 x 50 x 1536)", "reduce_stats",
+         (2, a2_slots(2, 50, 1536), 1536) + s3),
+        ("partials, C's A1 (4 x 50 x 256)", "reduce_partials",
+         (4, bwd_slots("kernel_c", 4, 50, 256), 256 * D)),
+        ("partials, C's A1 (2 x 50 x 1536)", "reduce_partials",
+         (2, bwd_slots("kernel_c", 2, 50, 1536), 1536 * D)),
+        ("partials, C's weight gradients (4 x 50 x 256)", "reduce_partials",
+         (1, 4 * bwd_slots("kernel_c", 4, 50, 256), nw["kernel_c"])),
+        ("partials, D's weight gradients (4 x 50 x 256)", "reduce_partials",
+         (1, 4 * bwd_slots("kernel_d", 4, 50), nw["kernel_d"])),
+        # E2's at 2 x 50 x 1536 are the same shape: 2 x 198 pair slots x 1 site chunk
+        ("partials, E's and E2's weight gradients (4 x 50 x 256)", "reduce_partials",
+         (1, 4 * bwd_slots("kernel_e", 4, 50), nw["kernel_e"])),
+    ]
+
+
+# The edges of the slot reduction, checked and not timed: (label, wrapper,
+# shape, start offset in floats).
+REDUCTION_EDGES = [
+    ("N = 4999: the scalar path", "reduce_partials", (1, 37, 4999), 0),
+    ("S = 1", "reduce_stats", (2, 1, 256, 3 * D), 0),
+    ("start 4 bytes into a buffer: the scalar path", "reduce_partials", (1, 132, 37376), 1),
+    ("G = 3, a ragged (40, 345) bucket", "reduce_stats", (3, 23, 345, 3 * D), 0),
+    ("G = 3, N = 5000", "reduce_partials", (3, 37, 5000), 0),
+]
+# The shape of each reduction's row in the kernels line (the one used so far).
+REDUCTION_ROW = {"reduce_stats": "stats, headline P0/M/A (9 x 60 x 256)",
+                 "reduce_partials": "partials, C's weight gradients (4 x 50 x 256)"}
+
+
+def reduction_checks(device, card):
+    """Both slot reductions at every shape the paths give them and at the
+    edges: against the ordered twin (``reduce.reduce_slots_ordered`` on the
+    wrapper's plan) bit for bit, within KERNEL_TOL of ``partial.sum(dim=1)``,
+    and the same bits from two runs; at the paths' shapes timed
+    (:func:`time_launches`) in turns with ``torch.sum(partial, dim=1)``, the
+    twin on its own, beside the bound.  Returns the kernels-line results of
+    both reductions and the table rows."""
+    import torch
+
+    from phyloformer_tpu_torch.ops.kernels import axial_block_bwd as bw
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+    from phyloformer_tpu_torch.ops.kernels import reduce as red
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    wrappers = {"reduce_stats": pipe.reduce_stats, "reduce_partials": bw.reduce_partials}
+    gen = torch.Generator(device).manual_seed(SEED + 7)
+    rows = []
+    cases = [(label, name, shape, 0, True) for label, name, shape in reduction_shapes(device)]
+    cases += [(label, name, shape, off, False) for label, name, shape, off in REDUCTION_EDGES]
+    for label, name, shape, off, timed in cases:
+        wrap = wrappers[name]
+        numel = math.prod(shape)
+        partial = torch.randn(numel + off, device=device, generator=gen)[off:].view(shape)
+        G, S, N = shape[0], shape[1], numel // (shape[0] * shape[1])
+        got, again = wrap(partial), wrap(partial)
+        row = dict(label=label, name=name, shape=list(shape), mb=4 * numel / 1e6,
+                   err=errors(got, partial.sum(dim=1)), same_bits=torch.equal(got, again))
+        plan = red.reduce_plan(G, S, N, sms)
+        row["plan"] = dict(tiles=plan.tiles, warps=plan.warps, blocks=plan.blocks)
+
+        def twin(p=partial.view(G, S, N), plan=plan):
+            return red.reduce_slots_ordered(p, plan)
+
+        row["twin_bits"] = torch.equal(got.view(G, N), twin())
+        if timed:
+            row.update(time_launches({"ms": lambda: wrap(partial),
+                                      "library_ms": lambda: torch.sum(partial, dim=1)}))
+            # the twin apart: in turns, the L2 lines its writes leave dirty were
+            # written back during the next function's launches
+            row.update(time_launches({"twin_ms": twin}, reps=3))
+            row["bound_ms"], row["bound_by"] = bound(G * (S - 1) * N, 4 * (numel + G * N))
+            row["vs_library"] = row["ms"] / row["library_ms"]
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        del partial, got, again
+        torch.cuda.empty_cache()
+
+    for row in rows:
+        plan = row["plan"]
+        checks = (f"vs sum {row['err'][1]:.2e}, same bits twice {row['same_bits']}, twin bits "
+                  f"{row['twin_bits']}, plan {plan['warps']} warps x {plan['blocks']} blocks")
+        if "ms" not in row:
+            print(f"{row['name']} {row['shape']} ({row['label']}): {checks}")
+            continue
+        share = 100 * row["bound_share"]
+        where = " (L2-resident)" if share > 100 and row["mb"] <= L2_MB else ""
+        print(f"{row['name']} {row['shape']} {row['mb']:.1f} MB ({row['label']}): "
+              f"{row['ms']:.4f} ms, torch.sum {row['library_ms']:.4f} ms "
+              f"({row['vs_library']:.2f}x), twin {row['twin_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}, {share:.0f}% of it{where}); {checks} [{card}]")
+
+    results = {}
+    for name, label in REDUCTION_ROW.items():
+        mine = [r for r in rows if r["name"] == name]
+        row = next(r for r in mine if r["label"] == label)
+        worst = max((r for r in mine if "ms" in r), key=lambda r: r["vs_library"])
+        results[name] = dict(
+            errs=[r["err"] for r in mine], ms=row["ms"], plain_ms=row["twin_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+            shape=row["shape"], twin_bits=all(r["twin_bits"] for r in mine),
+            same_bits=all(r["same_bits"] for r in mine), worst_vs_library=worst["vs_library"],
+            worst_vs_library_shape=worst["shape"])
+    return results, rows
 
 
 def write_fasta(path, codes, rng_ids):
@@ -597,7 +771,6 @@ def backward_kernel_checks(params, device):
     rng = np.random.default_rng(SEED + 3)
     cases = {"train": ([(50, 256)] * 4, 50, 256), "ragged": ([(45, 230), (50, 256)], 50, 256)}
     results = {k: {"errs": [], "grad_errs": []} for k in ("kernel_c", "kernel_d", "kernel_e")}
-    results["reduce_partials"] = {"errs": []}
     shapes, same_bits = {}, True
     for case, (dims, pad_n, pad_l) in cases.items():
         _, _, _, smask, pmask, pcount, x = block0_inputs(pw, rng, dims, pad_n, pad_l, device)
@@ -626,10 +799,6 @@ def backward_kernel_checks(params, device):
         want = bw.kernel_e_plain(x, g1, smask, w.e, 1e-5)
         results["kernel_e"]["errs"].append(errors(got[0], want[0]))
         results["kernel_e"]["grad_errs"] += grad_errs("kernel_e", got[1], want[1])
-        partial = torch.randn((3, 37, 5000), device=device,
-                              generator=torch.Generator(device).manual_seed(SEED))
-        results["reduce_partials"]["errs"].append(
-            errors(bw.reduce_partials(partial), bw.reduce_partials_plain(partial)))
         first = bw.fused_axial_block_bwd(x, x1, stats, g3, layer, smask, pmask, H)
         second = bw.fused_axial_block_bwd(x, x1, stats, g3, layer, smask, pmask, H)
         same_bits &= torch.equal(first[0], second[0]) and all(
@@ -647,7 +816,6 @@ def backward_kernel_checks(params, device):
     stats_b, a1_b = 4 * t["b"] * t["l"] * 3 * D, 4 * t["b"] * t["l"] * D
     nw = {k: 4 * bw.grad_size(k, D, H) for k in ("kernel_c", "kernel_d", "kernel_e")}
     wb = 4 * bw.group_size(bw.C_PARTS, D, H), 4 * bw.group_size(bw.ATT_PARTS, D, H)
-    partial = torch.randn((1, 132, bw.grad_size("kernel_c", D, H)), device=device)
 
     def c(plain):
         f = bw.kernel_c_plain if plain else bw.kernel_c
@@ -670,17 +838,13 @@ def backward_kernel_checks(params, device):
         "kernel_e": (e(False), e(True),
                      bound(FLOPS_E * sites, 3 * act + 4 * t["b"] * t["l"] + wb[1]
                            + nw["kernel_e"])),
-        "reduce_partials": (lambda: bw.reduce_partials(partial),
-                            lambda: bw.reduce_partials_plain(partial),
-                            bound(partial.numel(), 4 * partial.numel() + 4 * partial.shape[2])),
     }
     for name, (kern, plain, (bound_ms, bound_by)) in timed.items():
         r = results[name]
         r["ms"] = time_ms(kern)
         r["plain_ms"] = time_ms(plain)
         r["bound_ms"], r["bound_by"] = bound_ms, bound_by
-        r["library_ms"] = (time_ms(lambda: torch.sum(partial, dim=1))
-                           if name == "reduce_partials" else None)
+        r["library_ms"] = None  # no single PyTorch call computes these functions
         torch.cuda.empty_cache()
     return results, same_bits
 
@@ -1099,7 +1263,7 @@ KERNELS = {
     "kernel_a_only": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/pipeline.py:145"),
     "kernel_m": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/pipeline.py:176"),
     "kernel_z": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/pipeline.py:214"),
-    "reduce_stats": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/pipeline.py:136"),
+    "reduce_stats": ("slot_reduce.cu", "phyloformer_tpu/ops/pallas/pipeline.py:136"),
     "kernel_a": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/axial_block.py:252"),
     "kernel_b": ("axial_fused.cu", "phyloformer_tpu/ops/pallas/axial_block.py:294"),
     "kernel_a1": ("axial_fused.cu", "phyloformer_tpu/ops/pallas/axial_block.py:314"),
@@ -1109,11 +1273,16 @@ KERNELS = {
     "kernel_e": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:372"),
     "kernel_e1": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:492"),
     "kernel_e2": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:534"),
-    "reduce_partials": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:241"),
+    "reduce_partials": ("slot_reduce.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:241"),
 }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reductions", action="store_true",
+                    help="only build the kernels and check and time the two slot reductions "
+                         "at every shape the paths give them, then print their rows as JSON")
+    reductions_only = ap.parse_args(argv).reductions
     sys.path.insert(0, ROOT)
     import torch
 
@@ -1142,6 +1311,21 @@ def main() -> int:
         if "entry function" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
+    # the two slot reductions at every shape the paths give them
+    red, red_rows = reduction_checks(device, card)
+    if reductions_only:
+        print(json.dumps({"reductions": red_rows, "card": card}))
+        return 0
+    bad = [n for n, r in red.items() if not (r["twin_bits"] and r["same_bits"]
+                                             and max(e[1] for e in r["errs"]) <= KERNEL_TOL)]
+    for name, r in red.items():
+        print(f"{name}: equal to its ordered twin bit for bit at every shape: {r['twin_bits']}, "
+              f"same bits twice: {r['same_bits']}; worst time over torch.sum "
+              f"{r['worst_vs_library']:.2f}x at {r['worst_vs_library_shape']}")
+    if bad:
+        fail(f"slot reductions differ from their ordered twin, between runs or from the sum: "
+             f"{bad}")
+
     params, cfg, _ = load_pretrained(CKPT)
     dev_params = map_params(lambda t: t.to(device), params)
     weights = pipe.PipelineWeights.from_params(dev_params)
@@ -1162,6 +1346,10 @@ def main() -> int:
     bad = [n for n, r in results.items() if not r["max_rel_err"] <= KERNEL_TOL]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
+    for r in red.values():
+        r["max_abs_err"] = max(e[0] for e in r["errs"])
+        r["max_rel_err"] = max(e[1] for e in r["errs"])
+    results.update(red)
 
     # each path is driven with the counts set to 0 just before it
     mp = main_path(device)
@@ -1301,7 +1489,9 @@ def main() -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
          **({"max_rel_err_grads": r["max_rel_err_grads"], "tolerance_grads": GRAD_TOL}
-            if "max_rel_err_grads" in r else {})}
+            if "max_rel_err_grads" in r else {}),
+         **({k: r[k] for k in ("shape", "twin_bits", "same_bits", "worst_vs_library",
+                               "worst_vs_library_shape")} if name in REDUCTION_ROW else {})}
         for name, r in results.items()],
         "card": card, "aln_per_s": mp["aln_per_s"], "long_aln_per_s": mp["long_aln_per_s"],
         "train_ms_per_step": ms_step, "train_examples_per_s": 4e3 / ms_step,

@@ -23,7 +23,7 @@ from typing import Optional
 _HERE = pathlib.Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
-SOURCES = ("axial_pipeline.cu", "axial_fused.cu", "axial_bwd.cu")
+SOURCES = ("axial_pipeline.cu", "axial_fused.cu", "axial_bwd.cu", "slot_reduce.cu")
 HEADERS = ("axial_pipeline.cuh", "axial_bodies.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,7 +42,6 @@ _SIGNATURES = {
     "pf_kernel_a": [_p] * 8 + [_i] * 4 + [_f, _p],
     "pf_kernel_m": [_p] * 10 + [_i] * 4 + [_f, _i, _p],
     "pf_kernel_z": [_p] * 7 + [_i] * 4 + [_f, _i, _p],
-    "pf_reduce_stats": [_p, _p, _i, _i, _i, _p],
     "pf_kernel_a1": [_p] * 4 + [_i] * 4 + [_f, _p],
     "pf_kernel_a2": [_p] * 8 + [_i] * 5 + [_f, _p],
     "pf_kernel_b": [_p] * 5 + [_i] * 4 + [_f, _p],
@@ -52,7 +51,7 @@ _SIGNATURES = {
     "pf_kernel_e": [_p] * 6 + [_i] * 4 + [_f, _p],
     "pf_kernel_e1": [_p] * 5 + [_i] * 4 + [_f, _p],
     "pf_kernel_e2": [_p] * 7 + [_i] * 5 + [_f, _p],
-    "pf_reduce_partials": [_p, _p, _i, _i, _i, _p],
+    "pf_reduce_slots": [_p] * 2 + [_i] * 5 + [_p],
 }
 
 

@@ -1,9 +1,9 @@
 """The fused backward of one axial block: kernels C, D and E (or E1, E2).
 
 The PyTorch side of ``pf_kernel_c`` / ``pf_kernel_d`` / ``pf_kernel_e`` /
-``pf_kernel_e1`` / ``pf_kernel_e2`` and ``pf_reduce_partials``
-(``csrc/axial_bwd.cu``), and the counterpart of
-``phyloformer_tpu/ops/pallas/axial_block_bwd.py``:
+``pf_kernel_e1`` / ``pf_kernel_e2`` (``csrc/axial_bwd.cu``) and of
+``pf_reduce_slots`` for the partials (``csrc/slot_reduce.cu``), and the
+counterpart of ``phyloformer_tpu/ops/pallas/axial_block_bwd.py``:
 
 - :func:`kernel_c` (``_kernel_c``): x2 and the FFN recomputed from x1 and the
   column stats, the FFN backward → g2, ``d_attn = g2·Wo_cᵀ`` and the
@@ -56,6 +56,7 @@ from .pipeline import (
     _on_cpu,
     _require,
     _stream,
+    reduce_slots,
 )
 
 N_HEADS_KERNEL = 4  # the only head count the CUDA kernels are built for
@@ -471,15 +472,13 @@ def _bwd_lib():
 
 
 def reduce_partials(partial: torch.Tensor) -> torch.Tensor:
-    """``(G, S, N)`` per-block partials → ``(G, N)``, summed in slot order."""
+    """``(G, S, N)`` per-block partials → ``(G, N)``, summed over the slots
+    in the order of :func:`.reduce.reduce_plan`."""
     if _on_cpu(partial):
         return reduce_partials_plain(partial)
     G, S, N = partial.shape
     _require(partial, "partial", (G, S, N))
-    out = torch.empty((G, N), device=partial.device, dtype=torch.float32)
-    lib = _bwd_lib()
-    _build.check(lib, lib.pf_reduce_partials(partial.data_ptr(), out.data_ptr(), G, S, N,
-                                             _stream()), "reduce_partials")
+    out = reduce_slots(partial)
     LAUNCHES["reduce_partials"] += 1
     return out
 

@@ -17,9 +17,11 @@
 //                   sums [Σq | Σk | Σk·v | Σd_attn·q] (B, P, 4d)
 //   pf_kernel_e2 <- _kernel_e2 (:534): the row backward finalized from those
 //                   sums, site tile by site tile -> gx and the row gradients
-//   pf_reduce_partials <- the accumulation of A1 and of every weight
-//                   gradient across sequential grid steps (pl.when(first)
-//                   init, then +=; :241-274, :340-365, :450-476, :610-639)
+//
+// The accumulation of A1 and of every weight gradient across sequential grid
+// steps (pl.when(first) init, then +=; :241-274, :340-365, :450-476,
+// :610-639) is pf_reduce_slots of slot_reduce.cu, the slot reduction it
+// shares with the forward's column stats.
 //
 // The plain PyTorch versions are kernel_c_plain, kernel_d_plain,
 // kernel_e_plain, kernel_e1_plain and kernel_e2_plain in
@@ -30,7 +32,12 @@
 // 1 d x H products (~189 kFLOP), D 4 d x d + 6 d x H (~36 kFLOP), E 5 d x d +
 // 6 d x H (~44 kFLOP), E1 2 d x d + 2 d x H (~17 kFLOP), E2 the same as E,
 // each moving at most 768 B of activations: fp32 arithmetic, not HBM, is the
-// bound.
+// bound.  The partial reduction is bound by bytes instead: one add per 4
+// bytes read.  Its weight-gradient partials are narrow, (1, 396, 4808) for D
+// and (1, 396, 8968) for E and E2, so its 128-column tiles give only 38 and 71
+// blocks on 132 SMs; those partials come from L2, where 8 warps a block with
+// four 16-byte loads in flight a thread beat torch.sum without splitting the
+// slots over blocks (slot_reduce.cu).
 //
 // Design.
 // - Blocks of 256 threads own a contiguous range of pairs of one batch
@@ -42,11 +49,12 @@
 // - Sums across the grid.  Pallas adds A1 and the weight gradients over
 //   sequential grid steps; CUDA blocks run in parallel, so every block keeps
 //   its own sums and writes them to its slot of a partial buffer, and
-//   pf_reduce_partials sums the slots in a fixed order.  No float atomics:
-//   two runs give the same bits.  A1 follows the column-stats pattern (C
-//   walks site tiles outermost and its pairs innermost, summing each
-//   thread's sites over the pairs in registers, one (L, d) partial per
-//   block).  The slot counts depend only on the shapes.
+//   pf_reduce_slots sums the slots in an order fixed by the shapes and
+//   the SM count (reduce.reduce_plan).  No float atomics: two runs give the
+//   same bits, equal to reduce.reduce_slots_ordered's.  A1 follows the
+//   column-stats pattern (C walks site tiles outermost and its pairs
+//   innermost, summing each thread's sites over the pairs in registers, one
+//   (L, d) partial per block).  The slot counts depend only on the shapes.
 // - Weight gradients are products a^T b over pair-sites.  Per tile, each
 //   thread sums a fixed strip of the gradient matrix over the tile's sites in
 //   registers (float4 broadcasts of a, one column of b) and adds the strip to
@@ -1014,18 +1022,6 @@ __global__ void __launch_bounds__(NT) kernel_e2(
   store_row_grads(S, a, w_part + ((size_t)b * SP * SC + blockIdx.x) * NWE);
 }
 
-// ---- partials: out[g] = sum_s partial[g, s] in slot order ----
-__global__ void reduce_partials(const float* __restrict__ partial, float* __restrict__ out,
-                                int S_, int N) {
-  const int g = blockIdx.y;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= N) return;
-  const float* p = partial + (size_t)g * S_ * N + idx;
-  float acc = 0.f;
-  for (int s = 0; s < S_; ++s) acc += p[(size_t)s * N];
-  out[(size_t)g * N + idx] = acc;
-}
-
 template <typename Sm, typename K>
 static cudaError_t allow_smem_of(K kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1095,12 +1091,6 @@ int pf_kernel_e2(const float* x, const float* g1, const float* rowsums, const fl
   if (e != cudaSuccess) return (int)e;
   kernel_e2<<<dim3(SP * SC, B), NT, sizeof(SmemE), (cudaStream_t)stream>>>(
       x, g1, rowsums, smask, w, gx, w_part, P, L, SP, SC, eps);
-  return (int)cudaGetLastError();
-}
-
-int pf_reduce_partials(const float* partial, float* out, int G, int S_, int N, void* stream) {
-  reduce_partials<<<dim3((N + 255) / 256, G), 256, 0, (cudaStream_t)stream>>>(partial, out, S_,
-                                                                             N);
   return (int)cudaGetLastError();
 }
 

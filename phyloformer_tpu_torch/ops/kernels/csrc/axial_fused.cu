@@ -14,9 +14,9 @@
 //
 // Kernel A of the two-kernel form (_kernel_a, :252) is pf_kernel_a in
 // axial_pipeline.cu: the pipeline's kernel A, written out of place.  The
-// column-stat partials are summed by pf_reduce_stats there.  The device
-// bodies are those of axial_bodies.cuh, shared with the pipeline.  The plain
-// PyTorch versions are row_sums, row_finalize_col_stats and body_b in
+// column-stat partials are summed by pf_reduce_slots (slot_reduce.cu).  The
+// device bodies are those of axial_bodies.cuh, shared with the pipeline.  The
+// plain PyTorch versions are row_sums, row_finalize_col_stats and body_b in
 // ops/kernels/axial_block.py.
 //
 // What bounds them on the card.  Per pair-site, A1 does 3 d x d products
@@ -35,7 +35,7 @@
 //   owns a contiguous range of pairs and a contiguous range of site tiles,
 //   and runs the pipeline's pass 2 over them (tiles outermost, pairs
 //   innermost), writing x1 and one (L, 3d) column-stat partial per pair slot
-//   (each block fills its chunk's rows).  pf_reduce_stats sums the slots in a
+//   (each block fills its chunk's rows).  pf_reduce_slots sums the slots in a
 //   fixed order.  The partials are what limits the grid at long L: the 1056
 //   blocks of the pipeline's rule would need 1.2 GB at L = 1536 and 3.3 GB at
 //   L = 4096 (B = 1), all of which the reduction reads.  The wrapper

@@ -9,8 +9,10 @@
 //   pf_kernel_a       <- _kernel_a       (axial_block.py:252): the same function, out of place
 //   pf_kernel_m       <- _kernel_m       (pipeline.py:176): kernel B of block i + kernel A of i+1
 //   pf_kernel_z       <- _kernel_z       (pipeline.py:214): last kernel B + softplus head + site mean
-//   pf_reduce_stats   <- the stats accumulation across sequential grid steps
-//                        (pl.when(pi == 0) init, then +=; pipeline.py:136-142)
+//
+// The stats accumulation across sequential grid steps (pl.when(pi == 0) init,
+// then +=; pipeline.py:136-142) is pf_reduce_slots of slot_reduce.cu, the
+// slot reduction it shares with the backward's partials.
 //
 // They are built from the device bodies of axial_bodies.cuh, which mirror
 // phyloformer_tpu/ops/pallas/axial_block.py: row attention (_body_row_attn,
@@ -22,7 +24,12 @@
 // What bounds them on the card.  Per pair-site, kernel A does 7 d x d
 // products (~57 kFLOP), kernel B 2 d x d + 2 d x 4d (~82 kFLOP), M both
 // (~139 kFLOP), while M moves ~1 KB of activations per pair-site: fp32
-// arithmetic, not HBM, is the bound (the card's fp32 SIMT peak).
+// arithmetic, not HBM, is the bound (the card's fp32 SIMT peak).  The stats
+// reduction is the exception: it reads each (B, S, L, 3d) partial once, up to
+// 209 MB, for one add per 4 bytes, so device memory bounds it.  It keeps
+// enough 16-byte loads in flight to reach that bound: 128-column tiles, the
+// slots split over the warps of a block, four accumulators a thread
+// (slot_reduce.cu).
 //
 // Design.
 // - One block of 256 threads owns a contiguous range of pairs of one batch
@@ -46,10 +53,12 @@
 // - Column stats are sums over pairs, which CUDA blocks cannot carry across
 //   one another.  Pass 2 runs tiles outermost and the block's pairs
 //   innermost, so each thread sums its sites' stats over the block's pairs
-//   in registers and writes one (L, 3d) partial per block.  pf_reduce_stats
-//   then sums the partials in a fixed order: no float atomics, so two runs
-//   give the same bits.  The wrapper of pf_kernel_a caps the block count so
-//   that the partials stay under a fixed budget (ops/kernels/fused.py).
+//   in registers and writes one (L, 3d) partial per block.  pf_reduce_slots
+//   then sums the partials in an order fixed by the shapes and the SM count
+//   (reduce.reduce_plan): no float atomics, so two runs give the same bits,
+//   equal to reduce.reduce_slots_ordered's.  The wrapper of pf_kernel_a caps
+//   the block count so that the partials stay under a fixed budget
+//   (ops/kernels/fused.py).
 // - x1 is updated in place (A-only and M): a block reads each tile of its
 //   own pair rows before it writes that tile and never reads it again.  The
 //   incoming stats are read-only; the wrapper gives every kernel a fresh
@@ -193,19 +202,6 @@ __global__ void __launch_bounds__(NT) kernel_z(const float* x, const float* __re
   }
 }
 
-// ---- stats reduction: stats[b] = Σ_s partial[b, s] in slot order ----
-__global__ void reduce_stats(const float* __restrict__ partial, float* __restrict__ stats,
-                             int S_, int L) {
-  const int b = blockIdx.y;
-  const size_t n = (size_t)L * 3 * D;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const float* p = partial + (size_t)b * S_ * n + idx;
-  float acc = 0.f;
-  for (int s = 0; s < S_; ++s) acc += p[(size_t)s * n];
-  stats[(size_t)b * n + idx] = acc;
-}
-
 }  // namespace pf
 
 using namespace pf;
@@ -282,13 +278,6 @@ int pf_kernel_z(const float* x, const float* stats, const float* smask,
     kernel_z<1><<<grid, NT, sizeof(Smem), (cudaStream_t)stream>>>(
         x, stats, smask, pair_count, bw, hw, out, P, L, S_, eps);
   }
-  return (int)cudaGetLastError();
-}
-
-int pf_reduce_stats(const float* partial, float* stats, int B, int S_, int L, void* stream) {
-  const int n = L * 3 * D;
-  reduce_stats<<<dim3((n + 255) / 256, B), 256, 0, (cudaStream_t)stream>>>(partial, stats, S_,
-                                                                          L);
   return (int)cudaGetLastError();
 }
 

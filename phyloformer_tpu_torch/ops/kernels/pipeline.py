@@ -12,7 +12,8 @@ counterpart of ``phyloformer_tpu/ops/pallas/pipeline.py``:
 - :func:`kernel_z`: the last kernel B, the softplus head and the masked site
   mean;
 - :func:`reduce_stats`: the per-block column-stat partials summed in a fixed
-  order.
+  order (:func:`reduce_slots`, the slot reduction it shares with the
+  backward's partials; its plan and ordered twin are in ``reduce.py``).
 
 Each wrapper takes its plain PyTorch version only for tensors on the CPU.
 For CUDA tensors it checks device, dtype, shape and contiguity, launches its
@@ -41,6 +42,7 @@ from .axial_block import (
     expand_qk_weights,
     head,
 )
+from .reduce import reduce_plan
 
 # Block 0 gathers pairs inside the kernel when one batch element's (n, L, d)
 # fp32 embedding is at most this size and the pair count at most 8192 (the
@@ -204,10 +206,13 @@ def _require_groups(**groups: Tuple[WeightGroup, int]) -> None:
         _require(g.flat, name, (size,))
 
 
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _grid_blocks(B: int, device: torch.device) -> int:
     """Blocks per batch element that give about 8 per SM over the grid."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return math.ceil(8 * sms / B)
+    return math.ceil(8 * _sms(device) / B)
 
 
 def _slots(P: int, B: int, device: torch.device) -> int:
@@ -225,19 +230,32 @@ def _check_width(d: int) -> None:
         raise ValueError(f"the CUDA kernels are built for d={D_KERNEL}, got d={d}")
 
 
+def reduce_slots(partial: torch.Tensor) -> torch.Tensor:
+    """``(G, S, N)`` → ``(G, N)`` through ``pf_reduce_slots``
+    (``csrc/slot_reduce.cu``) on the plan of :func:`.reduce.reduce_plan`:
+    the sum of :func:`.reduce.reduce_slots_ordered` on that plan, bit for
+    bit."""
+    G, S, N = partial.shape
+    plan = reduce_plan(G, S, N, _sms(partial.device))
+    out = torch.empty((G, N), device=partial.device, dtype=torch.float32)
+    lib = _lib()
+    _build.check(lib, lib.pf_reduce_slots(partial.data_ptr(), out.data_ptr(), G, S, N,
+                                          plan.warps, int(plan.streaming), _stream()),
+                 "reduce_slots")
+    return out
+
+
 def reduce_stats(partial: torch.Tensor) -> torch.Tensor:
-    """``(B, S, L, 3d)`` per-block partials → ``(B, L, 3d)`` in slot order."""
+    """``(B, S, L, 3d)`` per-block partials → ``(B, L, 3d)``, summed over
+    the slots in the order of :func:`.reduce.reduce_plan`."""
     if _on_cpu(partial):
         return reduce_stats_plain(partial)
     B, S, L, d3 = partial.shape
     _check_width(d3 // 3)
     _require(partial, "partial", (B, S, L, 3 * D_KERNEL))
-    stats = torch.empty((B, L, d3), device=partial.device, dtype=torch.float32)
-    lib = _lib()
-    _build.check(lib, lib.pf_reduce_stats(partial.data_ptr(), stats.data_ptr(), B, S, L,
-                                          _stream()), "reduce_stats")
+    stats = reduce_slots(partial.view(B, S, L * d3))
     LAUNCHES["reduce_stats"] += 1
-    return stats
+    return stats.view(B, L, d3)
 
 
 def _scratch(B: int, P: int, L: int, device, max_slots: int = 1 << 30

@@ -13,7 +13,9 @@ pair.  The fused kernels (A, B, A1, A2) are checked on site axes above 1024
 backward (C, D and E below; C, D, E1 and E2 above).  The kernels
 sum in another order than the plain versions (tiles, blocks, the one-pass
 ctx = Σk·v/Σk): tolerance 2e-5 relative to max(1, max|ref|) per kernel,
-1e-4 on distances after six blocks against the eager model.
+1e-4 on distances after six blocks against the eager model.  The two slot
+reductions sum in the order of their launch plan, so they are held to their
+ordered twin bit for bit.
 """
 
 import json
@@ -327,3 +329,70 @@ def test_ltiled_backward_kernels_match_plain_on_card(case, bwd_results):
     n = res["launches"]
     assert n["kernel_c"] == n["kernel_d"] == n["kernel_e1"] == n["kernel_e2"] == 1, n
     assert n["kernel_e"] == 0 and n["reduce_partials"] == 4, n
+
+
+_RED_CODE = """
+import json
+import torch
+from phyloformer_tpu_torch.ops.kernels import axial_block_bwd as bw
+from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+from phyloformer_tpu_torch.ops.kernels import reduce as red
+
+dev = torch.device("cuda")
+sms = torch.cuda.get_device_properties(dev).multi_processor_count
+gen = torch.Generator(dev).manual_seed(5)
+res = {}
+for name, (wrap, shape, off) in {
+        "d_grads": (bw.reduce_partials, (1, 396, 4808), 0),
+        "e_grads": (bw.reduce_partials, (1, 396, 8968), 0),
+        "c_grads": (bw.reduce_partials, (1, 132, 37376), 0),
+        "stats_a_only": (pipe.reduce_stats, (1, 1056, 256, 192), 0),
+        "stats_headline": (pipe.reduce_stats, (9, 118, 256, 192), 0),
+        "n4999": (bw.reduce_partials, (1, 37, 4999), 0),
+        "s1": (pipe.reduce_stats, (2, 1, 256, 192), 0),
+        "offset4": (bw.reduce_partials, (1, 132, 37376), 1),
+        "g3": (bw.reduce_partials, (3, 37, 5000), 0),
+        "one_tile": (bw.reduce_partials, (1, 300, 100), 0)}.items():
+    numel = 1
+    for n in shape:
+        numel *= n
+    partial = torch.randn(numel + off, device=dev, generator=gen)[off:].view(shape)
+    G, S = shape[0], shape[1]
+    N = numel // (G * S)
+    pipe.reset_launch_counts()
+    got = wrap(partial)
+    launches = sum(pipe.LAUNCHES.values())
+    again = wrap(partial)
+    twin = red.reduce_slots_ordered(partial.view(G, S, N), red.reduce_plan(G, S, N, sms))
+    want = partial.double().sum(dim=1)
+    torch.cuda.synchronize()
+    res[name] = {"twin_bits": torch.equal(got.view(G, N), twin),
+                 "same_bits": torch.equal(got, again), "launches": launches,
+                 "shape": list(got.shape),
+                 "err": ((got.double() - want).abs().max() / want.abs().max().clamp_min(1)).item()}
+print(json.dumps(res))
+"""
+
+
+@pytest.fixture(scope="module")
+def red_results(card):
+    r = subprocess.run([sys.executable, "-c", _RED_CODE], capture_output=True, text=True,
+                       cwd=str(REPO), timeout=900)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("case", ["d_grads", "e_grads", "c_grads", "stats_a_only",
+                                  "stats_headline", "n4999", "s1", "offset4", "g3",
+                                  "one_tile"])
+def test_slot_reductions_match_ordered_twin_on_card(case, red_results):
+    """reduce_partials and reduce_stats (both pf_reduce_slots) at the
+    weight-gradient and stats shapes of the paths and at the edges (N = 4999,
+    S = 1, a start 4 bytes into a buffer, G = 3, one column tile of 300
+    slots): equal to the ordered twin on the same plan bit for bit, the same
+    bits from two runs, within 2e-5 of the float64 sum, one launch per
+    call."""
+    res = red_results[case]
+    assert res["twin_bits"] and res["same_bits"], res
+    assert res["err"] <= 2e-5, res
+    assert res["launches"] == 1, res
