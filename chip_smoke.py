@@ -12,11 +12,18 @@
    ``partial.sum(dim=1)`` and against a second run; times each beside
    ``torch.sum``, the twin and the bound (``--reductions``: only this, with
    the rows printed as JSON);
-   then holds every kernel of the inference paths against its plain PyTorch
-   version on the card (TF32 off) and times both with CUDA events:
+   then counts the tensor-core (HMMA) and fp32 FMA instructions of each
+   forward kernel in the built library (``cuobjdump -sass``), holds every
+   kernel of the inference paths against its plain PyTorch version on the
+   card (TF32 off for PyTorch; the kernels' own products are split TF32 on
+   the tensor cores) and times both with CUDA events, beside the bound of
+   the units each uses (the forward kernels: three TF32 passes on the
+   tensor cores, with the fp32 SIMT bound for reference):
    - the pipeline's P0, A-only, M and Z at the headline bucket (60 tips,
      256 sites, real pf_mre_r5 weights) and on ragged batches;
-   - the fused forward's A and B at the headline bucket, A1, A2 and B at a
+   - the fused forward's A and B at the headline bucket, at the training
+     shape (4 x 50 tips x 256 sites) and on a 250-site batch (a partial
+     64-site tile), each run twice for the same bits; A1, A2 and B at a
      long bucket (60 tips x 1500 sites -> (60, 1536)) and all four on a
      ragged unbucketed pair of alignments of 1100 and 1031 sites;
 4. drives the main path through the CLI (``pf-infer`` with ``--trees
@@ -27,7 +34,7 @@
    the card;
 5. drives the two-kernel fused forward (``InferenceConfig(use_pipeline=
    False)``, kernels A and B) through the engine on the 60 x 250 set, with
-   the same checks;
+   the same checks, and its throughput beside the pipeline's;
 6. holds the fused backward's kernels C, D and E against their plain
    versions on the residuals of the fused forward (real weights, a seeded
    cotangent) at the training shape 4 x 50 tips x 256 sites and on a ragged
@@ -79,9 +86,15 @@ CKPT = os.path.join(ROOT, "artifacts", "pf_mre_r5.ckpt")
 WORK = os.path.join(ROOT, "runs", "chip_smoke")  # git-ignored
 SEED = 1234
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense
+# TF32 on the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
+# The forward kernels (P0, A-only, A, M, Z, A1, A2, B) run their products on
+# the tensor cores in split TF32: three passes, so the card does 3x the
+# products' FLOPs.
+TF32_PASSES = 3
 # Matmul FLOPs per pair-site: kernel A = 7 d x d products (A1 3 of them, A2
 # the other 4 and the q projection again: 5), kernel B = 2 d x d + 2 d x 4d
 # products, the head one d-vector.
@@ -177,11 +190,42 @@ def summarize(name, r, tol, where, card) -> bool:
     return r["max_rel_err"] <= tol and r.get("max_rel_err_grads", 0.0) <= GRAD_TOL
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, peak=PEAK_FP32_FLOPS):
     """(least ms on the card, "operations" or "bytes"): the larger of the
-    matmul FLOPs over the fp32 peak and the bytes over the HBM rate."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    matmul FLOPs over ``peak`` (by default the fp32 SIMT peak) and the bytes
+    over the HBM rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_tc(flops, nbytes):
+    """The bound of a forward kernel, whose products run on the tensor
+    cores: TF32_PASSES x the FLOPs over the dense TF32 peak, or the bytes;
+    with the fp32 SIMT bound of the same work (what the kernels ran on
+    before the tensor cores), for reference."""
+    ms, by = bound(TF32_PASSES * flops, nbytes, PEAK_TF32_FLOPS)
+    return ms, by, bound(flops, nbytes)[0]
+
+
+def sass_counts(lib_path):
+    """Tensor-core (HMMA) and fp32 FMA (FFMA) instructions of each forward
+    kernel in the built library, from ``cuobjdump -sass``; None where the
+    toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    res = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                         timeout=300)
+    counts, cur = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :")[1].strip()
+            counts[cur] = {"HMMA": 0, "FFMA": 0}
+        elif cur is not None:
+            for op in ("HMMA", "FFMA"):
+                counts[cur][op] += (" " + op + ".") in line or (" " + op + " ") in line
+    return {k: v for k, v in counts.items() if "kernel_" in k and "kernel_c" not in k
+            and "kernel_d" not in k and "kernel_e" not in k}
 
 
 def random_alignment(rng, n, l, gap_frac=0.02):
@@ -225,6 +269,14 @@ def block0_inputs(w, rng, dims, pad_n, pad_l, device):
     return emb, ii, jj, smask, pmask, pmask.sum(1), x0
 
 
+def case_errors(results, case, start):
+    """Each kernel's largest relative error over the comparisons of ``case``
+    (those after ``start[name]`` in its list), kept under ``cases``."""
+    for name, r in results.items():
+        if len(r["errs"]) > start[name]:
+            r["cases"][case] = max(e[1] for e in r["errs"][start[name]:])
+
+
 def kernel_checks(weights, device):
     """Each kernel against its plain version on the card, at the headline
     bucket and on a ragged batch; times at the headline shapes."""
@@ -244,10 +296,12 @@ def kernel_checks(weights, device):
     }
     w = weights
     eps = 1e-5
-    results = {k: {"errs": []} for k in ("kernel_p0", "kernel_a_only", "kernel_m", "kernel_z")}
+    results = {k: {"errs": [], "cases": {}}
+               for k in ("kernel_p0", "kernel_a_only", "kernel_m", "kernel_z")}
     timing_inputs = {}
     for case, (dims, pad_n, pad_l) in cases.items():
         b = len(dims)
+        start = {k: len(r["errs"]) for k, r in results.items()}
         emb, ii, jj, smask, pmask, pcount, x0 = block0_inputs(w, rng, dims, pad_n, pad_l,
                                                               device)
 
@@ -278,6 +332,7 @@ def kernel_checks(weights, device):
             want = pipe.kernel_z_plain(xz, sz, smask, pcount, w.b[-1], w.head, eps, gelu)
             results["kernel_z"]["errs"].append(errors(got, want))
         torch.cuda.synchronize()
+        case_errors(results, case, start)
         if case in ("headline", "wide"):
             timing_inputs[case] = dict(emb=emb, ii=ii, jj=jj, smask=smask, pmask=pmask,
                                        pcount=pcount, x0=x0, x1=x1, stats=stats, xz=xz,
@@ -313,29 +368,33 @@ def kernel_checks(weights, device):
     stats_b = 4 * h["b"] * h["l"] * 3 * D
     timed = {
         "kernel_p0": (p0(False), p0(True), None,
-                      bound(FLOPS_A * hs, 4 * h["b"] * h["n"] * h["l"] * D + act * hs + stats_b)),
+                      bound_tc(FLOPS_A * hs,
+                               4 * h["b"] * h["n"] * h["l"] * D + act * hs + stats_b)),
         "kernel_a_only": (a_only(False), a_only(True), clone_of(wd["x0"]),
-                          bound(FLOPS_A * ws, 2 * act * ws + 4 * wd["b"] * wd["l"] * 3 * D)),
+                          bound_tc(FLOPS_A * ws, 2 * act * ws + 4 * wd["b"] * wd["l"] * 3 * D)),
         "kernel_m": (m(False), m(True), clone_of(h["x1"]),
-                     bound((FLOPS_A + FLOPS_B) * hs, 2 * act * hs + 2 * stats_b)),
+                     bound_tc((FLOPS_A + FLOPS_B) * hs, 2 * act * hs + 2 * stats_b)),
         "kernel_z": (z(False), z(True), None,
-                     bound((FLOPS_B + FLOPS_HEAD) * hs, act * hs + stats_b + 4 * h["b"] * h["p"])),
+                     bound_tc((FLOPS_B + FLOPS_HEAD) * hs,
+                              act * hs + stats_b + 4 * h["b"] * h["p"])),
     }
-    for name, (kern, plain, setup, (bound_ms, bound_by)) in timed.items():
+    for name, (kern, plain, setup, (bound_ms, bound_by, simt_ms)) in timed.items():
         r = results[name]
         r["ms"] = time_ms(kern, setup)
         r["plain_ms"] = time_ms(plain, setup)
-        r["bound_ms"] = bound_ms
-        r["bound_by"] = bound_by
+        r["bound_ms"], r["bound_by"], r["bound_fp32_simt_ms"] = bound_ms, bound_by, simt_ms
         r["library_ms"] = None  # no single PyTorch call computes these functions
     return results
 
 
 def fused_kernel_checks(weights, device):
     """The fused forward's kernels A, B, A1 and A2 against their plain
-    versions: A and B at the headline bucket, A1, A2 and B at the long one,
-    all four on a ragged unbucketed batch; times at the main paths' shapes
-    (A at the headline, A1, A2 and B at the long bucket)."""
+    versions: A and B at the headline bucket, at the training shape and on
+    a 250-site batch (a partial 64-site tile), A1, A2 and B at the long
+    bucket, all four on a ragged unbucketed batch; A and B also run twice
+    on each, for the same bits.  Times at the main paths' shapes (A at the
+    headline and the training shape, B at the long bucket and the headline,
+    A1 and A2 at the long bucket)."""
     import torch
 
     from phyloformer_tpu_torch.ops.kernels import fused
@@ -345,6 +404,10 @@ def fused_kernel_checks(weights, device):
     cases = {
         # name: (real dims, pad_n, pad_l, kernels checked)
         "headline": ([(60, 250)] * 9, 60, 256, ("kernel_a", "kernel_b")),
+        # a training batch: 4 x 1225 pairs x 256 sites
+        "train": ([(50, 256)] * 4, 50, 256, ("kernel_a", "kernel_b")),
+        # --no-bucketing at 250 sites: the last 64-site tile holds 58
+        "ragged250": ([(60, 250), (41, 233)], 60, 250, ("kernel_a", "kernel_b")),
         # one 60 x 1500 alignment in the (60, 1536) bucket: B = 1, P = 1770
         "long": ([(60, 1500)], 60, 1536, ("kernel_a1", "kernel_a2", "kernel_b")),
         # --no-bucketing: 1100 sites end in a partial tile of 12, the second
@@ -353,14 +416,20 @@ def fused_kernel_checks(weights, device):
                    ("kernel_a", "kernel_a1", "kernel_a2", "kernel_b")),
     }
     w, eps = weights, 1e-5
-    results = {k: {"errs": []} for k in ("kernel_a", "kernel_b", "kernel_a1", "kernel_a2")}
+    results = {k: {"errs": [], "cases": {}, "same_bits": True}
+               for k in ("kernel_a", "kernel_b", "kernel_a1", "kernel_a2")}
     shapes = {}
     for case, (dims, pad_n, pad_l, names) in cases.items():
+        start = {k: len(r["errs"]) for k, r in results.items()}
         _, _, _, smask, pmask, pcount, x0 = block0_inputs(w, rng, dims, pad_n, pad_l, device)
         if "kernel_a" in names:
             got = fused.kernel_a(x0, smask, pmask, w.row[0], w.col[0], eps)
+            again = fused.kernel_a(x0, smask, pmask, w.row[0], w.col[0], eps)
             want = pipe.kernel_a_only_plain(x0, smask, pmask, w.row[0], w.col[0], eps)
             results["kernel_a"]["errs"] += [errors(got[0], want[0]), errors(got[1], want[1])]
+            results["kernel_a"]["same_bits"] &= bool(torch.equal(got[0], again[0])
+                                                     and torch.equal(got[1], again[1]))
+            del got, again
         rowstats = fused.kernel_a1_plain(x0, smask, w.row[0], eps)
         if "kernel_a1" in names:
             results["kernel_a1"]["errs"].append(
@@ -370,19 +439,23 @@ def fused_kernel_checks(weights, device):
             got = fused.kernel_a2(x0, rowstats, smask, pmask, w.row[0], w.col[0], eps)
             results["kernel_a2"]["errs"] += [errors(got[0], want[0]), errors(got[1], want[1])]
         x1, stats = want
+        got = fused.kernel_b(x1, stats, pcount, w.b[0], eps)
         results["kernel_b"]["errs"].append(
-            errors(fused.kernel_b(x1, stats, pcount, w.b[0], eps),
-                   fused.kernel_b_plain(x1, stats, pcount, w.b[0], eps)))
+            errors(got, fused.kernel_b_plain(x1, stats, pcount, w.b[0], eps)))
+        results["kernel_b"]["same_bits"] &= bool(
+            torch.equal(got, fused.kernel_b(x1, stats, pcount, w.b[0], eps)))
+        del got
         torch.cuda.synchronize()
+        case_errors(results, case, start)
         shapes[case] = dict(smask=smask, pmask=pmask, pcount=pcount, x0=x0, rowstats=rowstats,
                             x1=x1, stats=stats, b=len(dims), p=x0.shape[1], l=pad_l)
         del want, x1, stats
 
-    h, lg = shapes["headline"], shapes["long"]
+    h, lg, tr = shapes["headline"], shapes["long"], shapes["train"]
 
-    def a(plain):
+    def a(plain, s=h):
         f = pipe.kernel_a_only_plain if plain else fused.kernel_a
-        return lambda: f(h["x0"], h["smask"], h["pmask"], w.row[0], w.col[0], eps)
+        return lambda: f(s["x0"], s["smask"], s["pmask"], w.row[0], w.col[0], eps)
 
     def b(plain, s):
         f = fused.kernel_b_plain if plain else fused.kernel_b
@@ -408,25 +481,31 @@ def fused_kernel_checks(weights, device):
     rowstats_b = 4 * lg["b"] * lg["p"] * 3 * D
     timed = {
         "kernel_a": (a(False), a(True),
-                     bound(FLOPS_A * sites(h), 2 * act * sites(h) + stats_bytes(h))),
+                     bound_tc(FLOPS_A * sites(h), 2 * act * sites(h) + stats_bytes(h))),
         "kernel_b": (b(False, lg), b(True, lg),
-                     bound(FLOPS_B * sites(lg), 2 * act * sites(lg) + stats_bytes(lg))),
+                     bound_tc(FLOPS_B * sites(lg), 2 * act * sites(lg) + stats_bytes(lg))),
         "kernel_a1": (a1(False), a1(True),
-                      bound(FLOPS_A1 * sites(lg), act * sites(lg) + rowstats_b)),
+                      bound_tc(FLOPS_A1 * sites(lg), act * sites(lg) + rowstats_b)),
         "kernel_a2": (a2(False), a2(True),
-                      bound(FLOPS_A2 * sites(lg),
-                            2 * act * sites(lg) + rowstats_b + stats_bytes(lg))),
+                      bound_tc(FLOPS_A2 * sites(lg),
+                               2 * act * sites(lg) + rowstats_b + stats_bytes(lg))),
     }
-    for name, (kern, plain, (bound_ms, bound_by)) in timed.items():
+    for name, (kern, plain, (bound_ms, bound_by, simt_ms)) in timed.items():
         r = results[name]
         r["ms"] = time_ms(kern)
         r["plain_ms"] = time_ms(plain)
-        r["bound_ms"], r["bound_by"] = bound_ms, bound_by
+        r["bound_ms"], r["bound_by"], r["bound_fp32_simt_ms"] = bound_ms, bound_by, simt_ms
         r["library_ms"] = None  # no single PyTorch call computes these functions
-    # kernel B also runs at the headline bucket on the two-kernel path
-    results["kernel_b"]["headline_ms"] = time_ms(b(False, h))
-    results["kernel_b"]["headline_bound_ms"] = bound(
-        FLOPS_B * sites(h), 2 * act * sites(h) + stats_bytes(h))[0]
+    # kernel B also runs at the headline bucket on the two-kernel path, and
+    # both at the training shape
+    ra, rb = results["kernel_a"], results["kernel_b"]
+    rb["headline_ms"] = time_ms(b(False, h))
+    rb["headline_bound_ms"], _, rb["headline_bound_fp32_simt_ms"] = bound_tc(
+        FLOPS_B * sites(h), 2 * act * sites(h) + stats_bytes(h))
+    ra["train_ms"] = time_ms(a(False, tr))
+    rb["train_ms"] = time_ms(b(False, tr))
+    ra["train_bound_ms"] = bound_tc(FLOPS_A * sites(tr), 2 * act * sites(tr) + stats_bytes(tr))[0]
+    rb["train_bound_ms"] = bound_tc(FLOPS_B * sites(tr), 2 * act * sites(tr) + stats_bytes(tr))[0]
     return results
 
 
@@ -731,8 +810,8 @@ def main_path(device):
 
 def two_kernel_path(device, alns, refs):
     """The engine with use_pipeline=False: kernels A and B per block on the
-    60 x 250 set.  Returns launches, expected launches and the distance
-    error against the plain model."""
+    60 x 250 set.  Returns launches, expected launches, the distance error
+    against the plain model and the throughput (aln/s after a warm run)."""
     import torch
 
     from phyloformer_tpu_torch.infer.engine import InferenceConfig, InferenceEngine
@@ -748,7 +827,8 @@ def two_kernel_path(device, alns, refs):
     launches = dict(pipe.LAUNCHES)
     if not all(np.isfinite(p).all() for p in preds):
         fail("two-kernel path: non-finite distances")
-    return launches, expected, max(rel_err(p, r) for p, r in zip(preds, refs))
+    return (launches, expected, max(rel_err(p, r) for p, r in zip(preds, refs)),
+            throughput(engine, alns))
 
 
 def backward_kernel_checks(params, device):
@@ -1330,22 +1410,38 @@ def main(argv=None) -> int:
     dev_params = map_params(lambda t: t.to(device), params)
     weights = pipe.PipelineWeights.from_params(dev_params)
 
+    sass = sass_counts(lib_path)
+    if sass is None:
+        print("sass: no cuobjdump in this toolkit")
+    for fn, n in (sass or {}).items():
+        print(f"sass: {fn}: {n['HMMA']} HMMA (tensor-core mma), {n['FFMA']} FFMA")
+
     results = kernel_checks(weights, device)
     results.update(fused_kernel_checks(weights, device))
     torch.cuda.empty_cache()
     for name, r in results.items():
         r["max_abs_err"] = max(e[0] for e in r["errs"])
         r["max_rel_err"] = max(e[1] for e in r["errs"])
+        cases = ", ".join(f"{c} {e:.2e}" for c, e in r["cases"].items())
         print(f"{name}: max abs err {r['max_abs_err']:.3e}, relative {r['max_rel_err']:.3e} "
-              f"(tol {KERNEL_TOL:.0e}), "
+              f"(tol {KERNEL_TOL:.0e}; {cases}), "
               f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-              f"({r['bound_by']}) [{card}]")
-    b = results["kernel_b"]
+              f"({r['bound_by']}, split TF32 on the tensor cores; fp32 SIMT bound "
+              f"{r['bound_fp32_simt_ms']:.3f} ms) [{card}]")
+    a, b = results["kernel_a"], results["kernel_b"]
     print(f"kernel_b at the headline bucket: {b['headline_ms']:.3f} ms, bound "
-          f"{b['headline_bound_ms']:.3f} ms [{card}]")
+          f"{b['headline_bound_ms']:.3f} ms (fp32 SIMT {b['headline_bound_fp32_simt_ms']:.3f}) "
+          f"[{card}]")
+    print(f"at the training shape 4 x 1225 x 256: kernel_a {a['train_ms']:.3f} ms (bound "
+          f"{a['train_bound_ms']:.3f}), kernel_b {b['train_ms']:.3f} ms (bound "
+          f"{b['train_bound_ms']:.3f}) [{card}]")
+    print(f"kernel_a, kernel_b: two runs give the same bits at every case: "
+          f"{a['same_bits']}, {b['same_bits']}")
     bad = [n for n, r in results.items() if not r["max_rel_err"] <= KERNEL_TOL]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
+    if not (a["same_bits"] and b["same_bits"]):
+        fail("kernels A or B give other bits on a second run")
     for r in red.values():
         r["max_abs_err"] = max(e[0] for e in r["errs"])
         r["max_rel_err"] = max(e[1] for e in r["errs"])
@@ -1363,10 +1459,12 @@ def main(argv=None) -> int:
     if not mp["dist_err"] <= DIST_TOL:
         fail("main path: kernel-path distances disagree with the plain model")
 
-    launches2, expected2, dist_err2 = two_kernel_path(device, mp["head_alns"], mp["head_refs"])
+    launches2, expected2, dist_err2, aln_per_s2 = two_kernel_path(device, mp["head_alns"],
+                                                                  mp["head_refs"])
     print(f"two-kernel path: launches {launches2}, expected {expected2}")
     print(f"two-kernel path: distances vs plain model rel max err {dist_err2:.3e} "
-          f"(tol {DIST_TOL:.0e})")
+          f"(tol {DIST_TOL:.0e}), {aln_per_s2:.3f} aln/s on {mp['n_head']} alignments of "
+          f"60 x 250 [{card}]")
     if launches2 != expected2:
         fail("two-kernel path: launch counts differ from 6 A + 6 B per batch")
     if not dist_err2 <= DIST_TOL:
@@ -1490,10 +1588,12 @@ def main(argv=None) -> int:
          "library_ms": r["library_ms"],
          **({"max_rel_err_grads": r["max_rel_err_grads"], "tolerance_grads": GRAD_TOL}
             if "max_rel_err_grads" in r else {}),
+         **({k: r[k] for k in ("bound_fp32_simt_ms", "cases") if k in r}),
          **({k: r[k] for k in ("shape", "twin_bits", "same_bits", "worst_vs_library",
                                "worst_vs_library_shape")} if name in REDUCTION_ROW else {})}
         for name, r in results.items()],
         "card": card, "aln_per_s": mp["aln_per_s"], "long_aln_per_s": mp["long_aln_per_s"],
+        "two_kernel_aln_per_s": aln_per_s2,
         "train_ms_per_step": ms_step, "train_examples_per_s": 4e3 / ms_step,
         "long_train_ms_per_step": lt["step_ms"], "long_train_examples_per_s": 2e3 / lt["step_ms"],
         "long_train_peak_gb": lt["peak_gb"]}

@@ -37,14 +37,14 @@ ptxas_log = ""
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "pf_weight_sizes": [_p],
-    "pf_kernel_p0": [_p] * 10 + [_i] * 5 + [_f, _p],
-    "pf_kernel_a_only": [_p] * 7 + [_i] * 4 + [_f, _p],
-    "pf_kernel_a": [_p] * 8 + [_i] * 4 + [_f, _p],
-    "pf_kernel_m": [_p] * 10 + [_i] * 4 + [_f, _i, _p],
-    "pf_kernel_z": [_p] * 7 + [_i] * 4 + [_f, _i, _p],
-    "pf_kernel_a1": [_p] * 4 + [_i] * 4 + [_f, _p],
-    "pf_kernel_a2": [_p] * 8 + [_i] * 5 + [_f, _p],
-    "pf_kernel_b": [_p] * 5 + [_i] * 4 + [_f, _p],
+    "pf_kernel_p0": [_p] * 12 + [_i] * 5 + [_f, _p],
+    "pf_kernel_a_only": [_p] * 9 + [_i] * 4 + [_f, _p],
+    "pf_kernel_a": [_p] * 10 + [_i] * 4 + [_f, _p],
+    "pf_kernel_m": [_p] * 13 + [_i] * 4 + [_f, _i, _p],
+    "pf_kernel_z": [_p] * 8 + [_i] * 4 + [_f, _i, _p],
+    "pf_kernel_a1": [_p] * 5 + [_i] * 4 + [_f, _p],
+    "pf_kernel_a2": [_p] * 10 + [_i] * 5 + [_f, _p],
+    "pf_kernel_b": [_p] * 6 + [_i] * 4 + [_f, _p],
     "pf_bwd_sizes": [_p],
     "pf_kernel_c": [_p] * 9 + [_i] * 4 + [_f, _p],
     "pf_kernel_d": [_p] * 9 + [_i] * 4 + [_f, _p],

@@ -1,5 +1,5 @@
-// The two-kernel fused block and its L-tiled form for Hopper (sm_90a), fp32
-// SIMT.
+// The two-kernel fused block and its L-tiled form for Hopper (sm_90a):
+// split-TF32 products on the tensor cores.
 //
 // Hand-written CUDA counterparts of the Pallas TPU kernels of
 // phyloformer_tpu/ops/pallas/axial_block.py that the fused forward runs when
@@ -15,18 +15,23 @@
 // Kernel A of the two-kernel form (_kernel_a, :252) is pf_kernel_a in
 // axial_pipeline.cu: the pipeline's kernel A, written out of place.  The
 // column-stat partials are summed by pf_reduce_slots (slot_reduce.cu).  The
-// device bodies are those of axial_bodies.cuh, shared with the pipeline.  The
-// plain PyTorch versions are row_sums, row_finalize_col_stats and body_b in
+// device bodies are those of axial_bodies.cuh, shared with the pipeline; the
+// products, their three TF32 passes, the packed weights and the tile
+// staging are described in the note of axial_pipeline.cu.  The plain
+// PyTorch versions are row_sums, row_finalize_col_stats and body_b in
 // ops/kernels/axial_block.py.
 //
 // What bounds them on the card.  Per pair-site, A1 does 3 d x d products
-// (~24.6 kFLOP) and reads 256 B, A2 5 d x d products (~41 kFLOP) and moves
-// 512 B, B 2 d x d + 2 d x 4d (~82 kFLOP) and moves 512 B.  At the card's
-// fp32 SIMT peak and HBM rate all three are bound by arithmetic.
+// (24,576 FLOP) and reads 256 B, A2 5 d x d products (40,960 FLOP) and moves
+// 512 B, B 2 d x d + 2 d x 4d (81,920 FLOP) and moves 512 B.  At three TF32
+// passes on 495 TFLOP/s that is 0.15, 0.25 and 0.50 ns a pair-site, against
+// 0.08, 0.15 and 0.15 ns of HBM traffic at 3.35 TB/s: all three are bound by
+// tensor-core arithmetic, and in practice by the fp32 stages and operand
+// feed around it.
 //
 // Design.
 // - A1: one block of 256 threads owns a contiguous range of pairs and walks
-//   each pair's whole row in 32-site tiles (the pipeline's pass 1).  The site
+//   each pair's whole row in 64-site tiles (the pipeline's pass 1).  The site
 //   axis is never split across blocks, so each pair's sums come from one
 //   block in one order: no float atomics, no second reduction.  The raw sums
 //   are written, not the guarded q-mean and ctx: A2 guards them.
@@ -44,7 +49,8 @@
 //   chunks instead.  Slot and chunk counts depend only on the shapes, so the
 //   result is deterministic.
 // - B is local to each pair-site: a block owns a contiguous range of
-//   (pair, site tile) items and runs the kernel-B body on each, reading the
+//   (pair, site tile) items and runs the kernel-B body on each, the next
+//   item's tile in flight (cp.async) while this one computes, reading the
 //   tile's slice of the column stats (a batch element's stats are 3 MB at
 //   L = 4096, more than shared memory) and writing x3 to its own buffer, so
 //   x1 survives for the residual contract (fused_axial_block_res).
@@ -58,67 +64,69 @@
 namespace pf {
 
 // ---- A1: raw row sums of each pair over the whole site axis ----
-__global__ void __launch_bounds__(NT) kernel_a1(const float* __restrict__ x,
-                                                const float* __restrict__ smask,
-                                                const float* __restrict__ rw,
-                                                float* __restrict__ rowstats, int P, int L,
-                                                int S_, float eps) {
+__global__ void __launch_bounds__(NT, 2) kernel_a1(const float* __restrict__ x,
+                                                   const float* __restrict__ smask,
+                                                   const float* __restrict__ rw,
+                                                   const float* __restrict__ rm,
+                                                   float* __restrict__ rowstats, int P, int L,
+                                                   int S_, float eps) {
   extern __shared__ float4 smem_raw[];
   Smem& S = *reinterpret_cast<Smem*>(smem_raw);
   const int b = blockIdx.y;
   int p0, p1;
   split_range(blockIdx.x, P, S_, p0, p1);
-  const float* smask_b = smask + (size_t)b * L;
-  const float* x_b = x + (size_t)b * P * L * D;
-  float* rowstats_b = rowstats + (size_t)b * P * 3 * D;
-  for (int p = p0; p < p1; ++p) {
-    row_pass1(S, x_b + (size_t)p * L * D, nullptr, nullptr, rw, smask_b, L, eps,
-              rowstats_b + (size_t)p * 3 * D);
-  }
+  row_pass1(S, x + (size_t)b * P * L * D, nullptr, nullptr, nullptr, rw, rm,
+            smask + (size_t)b * L, p0, p1, L, eps, rowstats + (size_t)b * P * 3 * D);
 }
 
 // ---- A2: x1 and column-stat partials of pair slot / site chunk ----
-__global__ void __launch_bounds__(NT) kernel_a2(const float* __restrict__ x,
-                                                const float* __restrict__ rowstats,
-                                                const float* __restrict__ smask,
-                                                const float* __restrict__ pmask,
-                                                const float* __restrict__ rw,
-                                                const float* __restrict__ cw, float* x1,
-                                                float* partial, int P, int L, int SP, int SC,
-                                                float eps) {
+__global__ void __launch_bounds__(NT, 2) kernel_a2(
+    const float* __restrict__ x, const float* __restrict__ rowstats,
+    const float* __restrict__ smask, const float* __restrict__ pmask,
+    const float* __restrict__ rw, const float* __restrict__ rm, const float* __restrict__ cw,
+    const float* __restrict__ cm, float* x1, float* partial, int P, int L, int SP, int SC,
+    float eps) {
   extern __shared__ float4 smem_raw[];
   Smem& S = *reinterpret_cast<Smem*>(smem_raw);
   const int b = blockIdx.y, slot = blockIdx.x / SC, chunk = blockIdx.x % SC;
   int p0, p1, t0, t1;
   split_range(slot, P, SP, p0, p1);
-  split_range(chunk, n_tiles_of(L), SC, t0, t1);
+  split_range(chunk, n_ftiles_of(L), SC, t0, t1);
   const float* smask_b = smask + (size_t)b * L;
   set_site_count(smask_b, L, S);
   pass2(S, x + (size_t)b * P * L * D, nullptr, nullptr, nullptr, x1 + (size_t)b * P * L * D,
-        smask_b, pmask + (size_t)b * P, rw, cw, rowstats + (size_t)b * P * 3 * D,
+        smask_b, pmask + (size_t)b * P, rw, rm, cw, cm, rowstats + (size_t)b * P * 3 * D,
         partial + ((size_t)b * SP + slot) * L * 3 * D, p0, p1, t0, t1, L, eps);
 }
 
 // ---- B: x3 of a contiguous range of (pair, site tile) items ----
-__global__ void __launch_bounds__(NT) kernel_b(const float* __restrict__ x1,
-                                               const float* __restrict__ stats,
-                                               const float* __restrict__ pair_count,
-                                               const float* __restrict__ bw,
-                                               float* __restrict__ x3, int P, int L, int S_,
-                                               float eps) {
+__global__ void __launch_bounds__(NT, 2) kernel_b(const float* __restrict__ x1,
+                                                  const float* __restrict__ stats,
+                                                  const float* __restrict__ pair_count,
+                                                  const float* __restrict__ bw,
+                                                  const float* __restrict__ bm,
+                                                  float* __restrict__ x3, int P, int L, int S_,
+                                                  float eps) {
   extern __shared__ float4 smem_raw[];
   Smem& S = *reinterpret_cast<Smem*>(smem_raw);
-  const int b = blockIdx.y, nt = n_tiles_of(L);
+  const int b = blockIdx.y, nt = n_ftiles_of(L);
   int i0, i1;
   split_range(blockIdx.x, P * nt, S_, i0, i1);
   const float n_pairs = fmaxf(pair_count[b], 1.f);
   const float* stats_b = stats + (size_t)b * L * 3 * D;
+  const float* x1_b = x1 + (size_t)b * P * L * D;
+  if (i0 < i1) stage_load(S, row_src(x1_b, nullptr, nullptr, nullptr, i0 / nt, i0 % nt, L));
   for (int i = i0; i < i1; ++i) {
-    const int p = i / nt, l0 = (i % nt) * TS;
-    const size_t off = ((size_t)b * P + p) * L * D + (size_t)l0 * D;
-    load_tile(S.xs, x1 + off, nullptr, min(TS, L - l0));
+    const int p = i / nt, l0 = (i % nt) * FT;
+    const TileSrc cur = row_src(x1_b, nullptr, nullptr, nullptr, p, i % nt, L);
+    const int nv = cur.nv;
+    stage_take(S, cur);
     __syncthreads();
-    body_b<0>(S, bw, stats_b, l0, min(TS, L - l0), n_pairs, eps, x3 + off);
+    if (i + 1 < i1) {
+      stage_load(S, row_src(x1_b, nullptr, nullptr, nullptr, (i + 1) / nt, (i + 1) % nt, L));
+    }
+    body_b<0>(S, bw, bm, stats_b, l0, nv, n_pairs, eps,
+              x3 + ((size_t)b * P + p) * L * D + (size_t)l0 * D);
   }
 }
 
@@ -128,31 +136,32 @@ using namespace pf;
 
 extern "C" {
 
-int pf_kernel_a1(const float* x, const float* smask, const float* rw, float* rowstats, int B,
-                 int P, int L, int S_, float eps, void* stream) {
+int pf_kernel_a1(const float* x, const float* smask, const float* rw, const float* rm,
+                 float* rowstats, int B, int P, int L, int S_, float eps, void* stream) {
   cudaError_t e = allow_smem(kernel_a1);
   if (e != cudaSuccess) return (int)e;
-  kernel_a1<<<dim3(S_, B), NT, sizeof(Smem), (cudaStream_t)stream>>>(x, smask, rw, rowstats, P,
-                                                                     L, S_, eps);
+  kernel_a1<<<dim3(S_, B), NT, sizeof(Smem), (cudaStream_t)stream>>>(x, smask, rw, rm, rowstats,
+                                                                     P, L, S_, eps);
   return (int)cudaGetLastError();
 }
 
 int pf_kernel_a2(const float* x, const float* rowstats, const float* smask, const float* pmask,
-                 const float* rw, const float* cw, float* x1, float* partial, int B, int P,
-                 int L, int SP, int SC, float eps, void* stream) {
+                 const float* rw, const float* rm, const float* cw, const float* cm, float* x1,
+                 float* partial, int B, int P, int L, int SP, int SC, float eps, void* stream) {
   cudaError_t e = allow_smem(kernel_a2);
   if (e != cudaSuccess) return (int)e;
   kernel_a2<<<dim3(SP * SC, B), NT, sizeof(Smem), (cudaStream_t)stream>>>(
-      x, rowstats, smask, pmask, rw, cw, x1, partial, P, L, SP, SC, eps);
+      x, rowstats, smask, pmask, rw, rm, cw, cm, x1, partial, P, L, SP, SC, eps);
   return (int)cudaGetLastError();
 }
 
 int pf_kernel_b(const float* x1, const float* stats, const float* pair_count, const float* bw,
-                float* x3, int B, int P, int L, int S_, float eps, void* stream) {
+                const float* bm, float* x3, int B, int P, int L, int S_, float eps,
+                void* stream) {
   cudaError_t e = allow_smem(kernel_b);
   if (e != cudaSuccess) return (int)e;
   kernel_b<<<dim3(S_, B), NT, sizeof(Smem), (cudaStream_t)stream>>>(x1, stats, pair_count, bw,
-                                                                    x3, P, L, S_, eps);
+                                                                    bm, x3, P, L, S_, eps);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-// Pipelined Phyloformer axial-block kernels for Hopper (sm_90a), fp32 SIMT.
+// Pipelined Phyloformer axial-block kernels for Hopper (sm_90a): split-TF32
+// products on the tensor cores.
 //
 // Hand-written CUDA counterparts of the Pallas TPU kernels of
 // phyloformer_tpu/ops/pallas/pipeline.py and of the resident kernel A of
@@ -22,43 +23,70 @@
 // kernels A1, A2 and the standalone kernel B are in axial_fused.cu.
 //
 // What bounds them on the card.  Per pair-site, kernel A does 7 d x d
-// products (~57 kFLOP), kernel B 2 d x d + 2 d x 4d (~82 kFLOP), M both
-// (~139 kFLOP), while M moves ~1 KB of activations per pair-site: fp32
-// arithmetic, not HBM, is the bound (the card's fp32 SIMT peak).  The stats
-// reduction is the exception: it reads each (B, S, L, 3d) partial once, up to
-// 209 MB, for one add per 4 bytes, so device memory bounds it.  It keeps
-// enough 16-byte loads in flight to reach that bound: 128-column tiles, the
-// slots split over the warps of a block, four accumulators a thread
-// (slot_reduce.cu).
+// products (57,344 FLOP), kernel B 2 d x d + 2 d x 4d (81,920), M both
+// (139,264), while each moves 512 B of activations (M, A-only in place;
+// x is read twice by A, once per pass).  The products run on the TF32
+// tensor cores in three passes, so the card does 3x those FLOPs: at 495
+// TFLOP/s (dense TF32) A needs 0.35 ns a pair-site, B 0.50, M 0.84, against
+// 0.15 ns for 512 B at 3.35 TB/s.  Tensor-core arithmetic stays the bound,
+// and the stages around the products (LayerNorm, phi, GELU's erff, the
+// masks, the operand feed) are what the kernels spend most time on.
+//
+// Why three passes.  The tensor cores read TF32 (10 mantissa bits); one pass
+// on fp32 operands rounded to TF32 keeps about 3 decimal digits (~3e-4
+// relative on these products), far outside the port's fp32 bars (kernel vs
+// plain 2e-5, distances vs the eager model 1e-4).  Each operand is split
+// into big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and the
+// product is a_small·b_big + a_big·b_small + a_big·b_big accumulated in
+// fp32: within ~2^-22 of the fp32 product, about as close as fp32 FMA
+// itself (tests/test_torch_tf32.py).  Reduced-precision modes (one pass,
+// bf16) are not offered.
 //
 // Design.
-// - One block of 256 threads owns a contiguous range of pairs of one batch
-//   element and walks each pair row in tiles of 32 sites held in shared
-//   memory.  In the d-wide products thread (c, g) computes output column c
-//   for 8 sites (g, g+4, ...): a warp shares one site, so activation reads
-//   are shared-memory broadcasts (float4 along k) and weight reads are one
-//   coalesced 128-byte line per k, served from L1/L2 (the ~272 KB of weights
-//   of kernel M exceed a block's shared memory, so they stay in the cache).
+// - One block of 256 threads (8 warps, two blocks an SM: ~104 KB of shared
+//   memory and at most 128 registers a thread) owns a contiguous range of
+//   pairs of one batch element and walks each pair row in tiles of 64 sites.
+// - Products: mma.sync.m16n8k8 TF32.  A tile's product is 64 x 64 (the FFN's
+//   64 x 256 in four 64-wide chunks); warp w owns 32 rows x 16 columns, 2 x 2
+//   fragments.  mma.sync rather than wgmma: wgmma wants its B operand in
+//   shared memory, and the weights of M (272 KB in fp32, twice that split)
+//   do not fit beside the tiles; at three passes a 64 x 64 x 64 product is
+//   96 mma a warp, which mma.sync issues faster than the stages around it
+//   can feed them.
+// - Operands.  A (the LayerNorm output, the attention output, a GELU chunk)
+//   is split once where it is made and kept in shared memory as a big and a
+//   small plane with a 68-float row stride, so each fragment load of 8 rows
+//   x 4 columns hits 32 distinct banks and no warp splits it again (four
+//   warps read each A fragment: splitting in the product loop cost each of
+//   them the split).  The weights are packed once per weight group in the
+//   wrapper (pipeline.pack_mma) in the fragment order the mma reads, already
+//   split: each B fragment is one 16-byte load a lane, coalesced, served
+//   from L1/L2 (all kernels share one layout, including M, whose weights
+//   exceed shared memory).
+// - Tiles arrive asynchronously: cp.async copies the next tile into a stage
+//   buffer while the current one computes (axial_bodies.cuh, stage_load /
+//   stage_take), in pass 1, pass 2 and B's item loop (P0 adds emb[j], which
+//   stays in L2, as it takes the tile); a ragged last tile is zero-filled
+//   and masked, so nothing is read or written past L.
 // - Row attention needs sums over the whole site axis before any output.
 //   Pass 1 walks a pair's row and accumulates Σq, Σk, Σk·v in registers
 //   (the one-pass ctx = Σk·v / Σk, equal to Σ(k/Σk)·v up to rounding); the
-//   pair's raw sums go to a small scratch buffer, and pass 2 finalizes them
-//   with the guards.  Pass 2 walks the row again and writes x1.  In kernel M
-//   the first pass runs kernel B and writes x3 in place over x1, so the
-//   second pass reads x3 back (the TPU kept x3 in VMEM; here a row of up to
-//   1024 sites does not fit shared memory, and the re-read is cheap next to
-//   the arithmetic).  The row is walked in tiles, so no kernel here has a
-//   site cap; the engine sends buckets above 1024 sites to A1/A2/B all the
-//   same, as the JAX engine does.
+//   16 row groups' sums are combined in a fixed order, the pair's raw sums
+//   go to a small scratch buffer, and pass 2 finalizes them with the guards.
+//   Pass 2 walks the row again and writes x1.  In kernel M the first pass
+//   runs kernel B and writes x3 in place over x1, so the second pass reads
+//   x3 back (a row of up to 1024 sites does not fit shared memory).  No
+//   kernel here has a site cap; the engine sends buckets above 1024 sites to
+//   A1/A2/B all the same, as the JAX engine does.
 // - Column stats are sums over pairs, which CUDA blocks cannot carry across
 //   one another.  Pass 2 runs tiles outermost and the block's pairs
-//   innermost, so each thread sums its sites' stats over the block's pairs
-//   in registers and writes one (L, 3d) partial per block.  pf_reduce_slots
-//   then sums the partials in an order fixed by the shapes and the SM count
-//   (reduce.reduce_plan): no float atomics, so two runs give the same bits,
-//   equal to reduce.reduce_slots_ordered's.  The wrapper of pf_kernel_a caps
-//   the block count so that the partials stay under a fixed budget
-//   (ops/kernels/fused.py).
+//   innermost, so each thread sums its 16 (site, column) entries' stats over
+//   the block's pairs in registers and writes one (L, 3d) partial per block.
+//   pf_reduce_slots then sums the partials in an order fixed by the shapes
+//   and the SM count (reduce.reduce_plan): no float atomics, so two runs give
+//   the same bits.  The grid is 8 blocks an SM (four waves of the two that
+//   fit), and the wrapper of pf_kernel_a caps the block count so that the
+//   partials stay under a fixed budget (ops/kernels/fused.py).
 // - x1 is updated in place (A-only and M): a block reads each tile of its
 //   own pair rows before it writes that tile and never reads it again.  The
 //   incoming stats are read-only; the wrapper gives every kernel a fresh
@@ -71,8 +99,11 @@
 // Numerics match the JAX bodies: masked q/k, zero-sum guards
 // where(s > 0, s, 1), counts max(count, 1), the column q-mean divided by the
 // number of real pairs, stats laid out [Σk | Σq | Σk·v], row sums laid out
-// [Σq | Σk | Σk·v].  Exact GELU uses erff, φ(x) = x > 0 ? x + 1 : exp(x),
-// softplus = max(x,0) + log1p(exp(-|x|)).
+// [Σq | Σk | Σk·v].  LayerNorm, φ, the masks, the guards and the GELU stay
+// fp32 on the SIMT cores.  Exact GELU uses erff, φ(x) = x > 0 ? x + 1 :
+// exp(x) with exp as exp2f(x · log2 e) (phi_f: within ~2 ulp + |x| 2^-24 of
+// expf, a third of its instructions; φ is five of A's epilogues), softplus =
+// max(x,0) + log1p(exp(-|x|)).
 
 #include "axial_bodies.cuh"
 
@@ -82,14 +113,12 @@ namespace pf {
 // emb[i] + emb[j] (_kernel_p0); else read from x (_kernel_a_only with
 // x_out == x, x1 in place; axial_block.py _kernel_a with x_out != x). ----
 template <bool GATHER>
-__global__ void __launch_bounds__(NT) kernel_a(const float* x, const int* __restrict__ ii,
-                                               const int* __restrict__ jj, float* x_out,
-                                               const float* __restrict__ smask,
-                                               const float* __restrict__ pmask,
-                                               const float* __restrict__ rw,
-                                               const float* __restrict__ cw, float* rowsum,
-                                               float* partial, int n, int P, int L, int S_,
-                                               float eps) {
+__global__ void __launch_bounds__(NT, 2) kernel_a(
+    const float* x, const int* __restrict__ ii, const int* __restrict__ jj, float* x_out,
+    const float* __restrict__ smask, const float* __restrict__ pmask,
+    const float* __restrict__ rw, const float* __restrict__ rm, const float* __restrict__ cw,
+    const float* __restrict__ cm, float* rowsum, float* partial, int n, int P, int L, int S_,
+    float eps) {
   extern __shared__ float4 smem_raw[];
   Smem& S = *reinterpret_cast<Smem*>(smem_raw);
   const int b = blockIdx.y;
@@ -101,32 +130,21 @@ __global__ void __launch_bounds__(NT) kernel_a(const float* x, const int* __rest
   const float* x_b = GATHER ? nullptr : x + (size_t)b * P * L * D;
   float* rowsum_b = rowsum + (size_t)b * P * 3 * D;
 
-  for (int p = p0; p < p1; ++p) {
-    if (GATHER) {
-      row_pass1(S, nullptr, emb_b + (size_t)ii[p] * L * D, emb_b + (size_t)jj[p] * L * D, rw,
-                smask_b, L, eps, rowsum_b + (size_t)p * 3 * D);
-    } else {
-      row_pass1(S, x_b + (size_t)p * L * D, nullptr, nullptr, rw, smask_b, L, eps,
-                rowsum_b + (size_t)p * 3 * D);
-    }
-  }
+  row_pass1(S, x_b, emb_b, ii, jj, rw, rm, smask_b, p0, p1, L, eps, rowsum_b);
   pass2(S, x_b, emb_b, ii, jj, x_out + (size_t)b * P * L * D, smask_b, pmask + (size_t)b * P,
-        rw, cw, rowsum_b, partial + ((size_t)b * S_ + blockIdx.x) * L * 3 * D, p0, p1,
-        0, n_tiles_of(L), L, eps);
+        rw, rm, cw, cm, rowsum_b, partial + ((size_t)b * S_ + blockIdx.x) * L * 3 * D, p0, p1,
+        0, n_ftiles_of(L), L, eps);
 }
 
 // ---- kernel M: kernel B of block i (x3 written in place over x1), then
 // kernel A of block i+1 on x3 ----
 template <int GELU>
-__global__ void __launch_bounds__(NT) kernel_m(float* x, const float* __restrict__ stats,
-                                               const float* __restrict__ smask,
-                                               const float* __restrict__ pmask,
-                                               const float* __restrict__ pair_count,
-                                               const float* __restrict__ bw,
-                                               const float* __restrict__ rw,
-                                               const float* __restrict__ cw, float* rowsum,
-                                               float* partial, int P, int L, int S_,
-                                               float eps) {
+__global__ void __launch_bounds__(NT, 2) kernel_m(
+    float* x, const float* __restrict__ stats, const float* __restrict__ smask,
+    const float* __restrict__ pmask, const float* __restrict__ pair_count,
+    const float* __restrict__ bw, const float* __restrict__ bm, const float* __restrict__ rw,
+    const float* __restrict__ rm, const float* __restrict__ cw, const float* __restrict__ cm,
+    float* rowsum, float* partial, int P, int L, int S_, float eps) {
   extern __shared__ float4 smem_raw[];
   Smem& S = *reinterpret_cast<Smem*>(smem_raw);
   const int b = blockIdx.y;
@@ -139,32 +157,37 @@ __global__ void __launch_bounds__(NT) kernel_m(float* x, const float* __restrict
   float* x_b = x + (size_t)b * P * L * D;
   float* rowsum_b = rowsum + (size_t)b * P * 3 * D;
 
-  for (int p = p0; p < p1; ++p) {
-    float rq = 0.f, rk = 0.f, rkv = 0.f;
-    for (int l0 = 0; l0 < L; l0 += TS) {
-      const int nv = min(TS, L - l0);
-      float* row = x_b + ((size_t)p * L + l0) * D;
-      load_tile(S.xs, row, nullptr, nv);
-      __syncthreads();
-      body_b<GELU>(S, bw, stats_b, l0, nv, n_pairs, eps, row);
-      row_sums(S, rw, smask_b, l0, nv, eps, rq, rk, rkv);
-      __syncthreads();
+  const int nt = n_ftiles_of(L), items = (p1 - p0) * nt;
+  float rq[RC], rk[RC], rkv[RC];
+  if (items > 0) stage_load(S, row_src(x_b, nullptr, nullptr, nullptr, p0, 0, L));
+  for (int i = 0; i < items; ++i) {
+    const int p = p0 + i / nt, t = i % nt, l0 = t * FT;
+    const TileSrc cur = row_src(x_b, nullptr, nullptr, nullptr, p, t, L);
+    const int nv = cur.nv;
+    stage_take(S, cur);
+    __syncthreads();
+    if (i + 1 < items) {
+      stage_load(S, row_src(x_b, nullptr, nullptr, nullptr, p0 + (i + 1) / nt, (i + 1) % nt, L));
     }
-    store_row_sums(S, rq, rk, rkv, rowsum_b + (size_t)p * 3 * D);
+    if (t == 0) {
+#pragma unroll
+      for (int c = 0; c < RC; ++c) rq[c] = rk[c] = rkv[c] = 0.f;
+    }
+    body_b<GELU>(S, bw, bm, stats_b, l0, nv, n_pairs, eps, x_b + ((size_t)p * L + l0) * D);
+    row_sums(S, rw, rm, smask_b, l0, nv, eps, rq, rk, rkv);
+    if (t == nt - 1) store_row_sums(S, rq, rk, rkv, rowsum_b + (size_t)p * 3 * D);
   }
-  pass2(S, x_b, nullptr, nullptr, nullptr, x_b, smask_b, pmask + (size_t)b * P, rw, cw,
-        rowsum_b, partial + ((size_t)b * S_ + blockIdx.x) * L * 3 * D, p0, p1, 0,
-        n_tiles_of(L), L, eps);
+  pass2(S, x_b, nullptr, nullptr, nullptr, x_b, smask_b, pmask + (size_t)b * P, rw, rm, cw, cm,
+        rowsum_b, partial + ((size_t)b * S_ + blockIdx.x) * L * 3 * D, p0, p1, 0, nt, L, eps);
 }
 
 // ---- kernel Z: last kernel B + head (d -> 1) + softplus + masked site mean ----
 template <int GELU>
-__global__ void __launch_bounds__(NT) kernel_z(const float* x, const float* __restrict__ stats,
-                                               const float* __restrict__ smask,
-                                               const float* __restrict__ pair_count,
-                                               const float* __restrict__ bw,
-                                               const float* __restrict__ hw, float* out,
-                                               int P, int L, int S_, float eps) {
+__global__ void __launch_bounds__(NT, 2) kernel_z(
+    const float* x, const float* __restrict__ stats, const float* __restrict__ smask,
+    const float* __restrict__ pair_count, const float* __restrict__ bw,
+    const float* __restrict__ bm, const float* __restrict__ hw, float* out, int P, int L,
+    int S_, float eps) {
   extern __shared__ float4 smem_raw[];
   Smem& S = *reinterpret_cast<Smem*>(smem_raw);
   const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -177,28 +200,36 @@ __global__ void __launch_bounds__(NT) kernel_z(const float* x, const float* __re
   const float* x_b = x + (size_t)b * P * L * D;
   const float h0 = hw[H_W + lane], h1 = hw[H_W + lane + 32], hb = hw[H_B];
 
-  for (int p = p0; p < p1; ++p) {
-    float sum = 0.f;
-    for (int l0 = 0; l0 < L; l0 += TS) {
-      const int nv = min(TS, L - l0);
-      load_tile(S.xs, x_b + ((size_t)p * L + l0) * D, nullptr, nv);
+  const int nt = n_ftiles_of(L), items = (p1 - p0) * nt;
+  float sum = 0.f;
+  if (items > 0) stage_load(S, row_src(x_b, nullptr, nullptr, nullptr, p0, 0, L));
+  for (int i = 0; i < items; ++i) {
+    const int p = p0 + i / nt, t = i % nt, l0 = t * FT;
+    const TileSrc cur = row_src(x_b, nullptr, nullptr, nullptr, p, t, L);
+    const int nv = cur.nv;
+    stage_take(S, cur);
+    __syncthreads();
+    if (i + 1 < items) {
+      stage_load(S, row_src(x_b, nullptr, nullptr, nullptr, p0 + (i + 1) / nt, (i + 1) % nt, L));
+    }
+    if (t == 0) sum = 0.f;
+    body_b<GELU>(S, bw, bm, stats_b, l0, nv, n_pairs, eps, nullptr);
+    for (int s = warp; s < nv; s += NWARP) {
+      const float h = warp_sum(S.xs[s * XS + lane] * h0 + S.xs[s * XS + lane + 32] * h1) + hb;
+      sum += softplus(h) * smask_b[l0 + s];
+    }
+    __syncthreads();
+    if (t == nt - 1) {
+      if (lane == 0) S.wsum[warp] = sum;
       __syncthreads();
-      body_b<GELU>(S, bw, stats_b, l0, nv, n_pairs, eps, nullptr);
-      for (int s = warp; s < nv; s += NWARP) {
-        const float h = warp_sum(S.xs[s * D + lane] * h0 + S.xs[s * D + lane + 32] * h1) + hb;
-        sum += softplus(h) * smask_b[l0 + s];
+      if (threadIdx.x == 0) {
+        float total = 0.f;
+#pragma unroll
+        for (int w = 0; w < NWARP; ++w) total += S.wsum[w];
+        out[(size_t)b * P + p] = total / count;
       }
       __syncthreads();
     }
-    if (lane == 0) S.wsum[warp] = sum;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float total = 0.f;
-#pragma unroll
-      for (int w = 0; w < NWARP; ++w) total += S.wsum[w];
-      out[(size_t)b * P + p] = total / count;
-    }
-    __syncthreads();
   }
 }
 
@@ -208,75 +239,84 @@ using namespace pf;
 
 extern "C" {
 
-// Packed weight sizes, for the wrapper to check its layout against.
+// The layout the kernels were built with, for the wrapper to check its own
+// against: the flat and mma weight-group sizes and the tile sizes.
 int pf_weight_sizes(int* out) {
   out[0] = R_SIZE;
   out[1] = C_SIZE;
   out[2] = B_SIZE;
   out[3] = H_SIZE;
+  out[4] = RM_SIZE;
+  out[5] = CM_SIZE;
+  out[6] = BM_SIZE;
+  out[7] = TS;
+  out[8] = FT;
   return 0;
 }
 
 int pf_kernel_p0(const float* emb, const int* ii, const int* jj, float* x1,
-                 const float* smask, const float* pmask, const float* rw, const float* cw,
-                 float* rowsum, float* partial, int B, int n, int P, int L, int S_, float eps,
-                 void* stream) {
+                 const float* smask, const float* pmask, const float* rw, const float* rm,
+                 const float* cw, const float* cm, float* rowsum, float* partial, int B, int n,
+                 int P, int L, int S_, float eps, void* stream) {
   cudaError_t e = allow_smem(kernel_a<true>);
   if (e != cudaSuccess) return (int)e;
   kernel_a<true><<<dim3(S_, B), NT, sizeof(Smem), (cudaStream_t)stream>>>(
-      emb, ii, jj, x1, smask, pmask, rw, cw, rowsum, partial, n, P, L, S_, eps);
+      emb, ii, jj, x1, smask, pmask, rw, rm, cw, cm, rowsum, partial, n, P, L, S_, eps);
   return (int)cudaGetLastError();
 }
 
 int pf_kernel_a_only(float* x, const float* smask, const float* pmask, const float* rw,
-                     const float* cw, float* rowsum, float* partial, int B, int P, int L,
-                     int S_, float eps, void* stream) {
+                     const float* rm, const float* cw, const float* cm, float* rowsum,
+                     float* partial, int B, int P, int L, int S_, float eps, void* stream) {
   cudaError_t e = allow_smem(kernel_a<false>);
   if (e != cudaSuccess) return (int)e;
   kernel_a<false><<<dim3(S_, B), NT, sizeof(Smem), (cudaStream_t)stream>>>(
-      x, nullptr, nullptr, x, smask, pmask, rw, cw, rowsum, partial, 0, P, L, S_, eps);
+      x, nullptr, nullptr, x, smask, pmask, rw, rm, cw, cm, rowsum, partial, 0, P, L, S_, eps);
   return (int)cudaGetLastError();
 }
 
 int pf_kernel_a(const float* x, float* x1, const float* smask, const float* pmask,
-                const float* rw, const float* cw, float* rowsum, float* partial, int B, int P,
-                int L, int S_, float eps, void* stream) {
+                const float* rw, const float* rm, const float* cw, const float* cm,
+                float* rowsum, float* partial, int B, int P, int L, int S_, float eps,
+                void* stream) {
   cudaError_t e = allow_smem(kernel_a<false>);
   if (e != cudaSuccess) return (int)e;
   kernel_a<false><<<dim3(S_, B), NT, sizeof(Smem), (cudaStream_t)stream>>>(
-      x, nullptr, nullptr, x1, smask, pmask, rw, cw, rowsum, partial, 0, P, L, S_, eps);
+      x, nullptr, nullptr, x1, smask, pmask, rw, rm, cw, cm, rowsum, partial, 0, P, L, S_, eps);
   return (int)cudaGetLastError();
 }
 
 int pf_kernel_m(float* x, const float* stats, const float* smask, const float* pmask,
-                const float* pair_count, const float* bw, const float* rw, const float* cw,
-                float* rowsum, float* partial, int B, int P, int L, int S_, float eps,
-                int gelu, void* stream) {
+                const float* pair_count, const float* bw, const float* bm, const float* rw,
+                const float* rm, const float* cw, const float* cm, float* rowsum,
+                float* partial, int B, int P, int L, int S_, float eps, int gelu, void* stream) {
   cudaError_t e = gelu == 0 ? allow_smem(kernel_m<0>) : allow_smem(kernel_m<1>);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(S_, B);
   if (gelu == 0) {
     kernel_m<0><<<grid, NT, sizeof(Smem), (cudaStream_t)stream>>>(
-        x, stats, smask, pmask, pair_count, bw, rw, cw, rowsum, partial, P, L, S_, eps);
+        x, stats, smask, pmask, pair_count, bw, bm, rw, rm, cw, cm, rowsum, partial, P, L, S_,
+        eps);
   } else {
     kernel_m<1><<<grid, NT, sizeof(Smem), (cudaStream_t)stream>>>(
-        x, stats, smask, pmask, pair_count, bw, rw, cw, rowsum, partial, P, L, S_, eps);
+        x, stats, smask, pmask, pair_count, bw, bm, rw, rm, cw, cm, rowsum, partial, P, L, S_,
+        eps);
   }
   return (int)cudaGetLastError();
 }
 
 int pf_kernel_z(const float* x, const float* stats, const float* smask,
-                const float* pair_count, const float* bw, const float* hw, float* out, int B,
-                int P, int L, int S_, float eps, int gelu, void* stream) {
+                const float* pair_count, const float* bw, const float* bm, const float* hw,
+                float* out, int B, int P, int L, int S_, float eps, int gelu, void* stream) {
   cudaError_t e = gelu == 0 ? allow_smem(kernel_z<0>) : allow_smem(kernel_z<1>);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(S_, B);
   if (gelu == 0) {
     kernel_z<0><<<grid, NT, sizeof(Smem), (cudaStream_t)stream>>>(
-        x, stats, smask, pair_count, bw, hw, out, P, L, S_, eps);
+        x, stats, smask, pair_count, bw, bm, hw, out, P, L, S_, eps);
   } else {
     kernel_z<1><<<grid, NT, sizeof(Smem), (cudaStream_t)stream>>>(
-        x, stats, smask, pair_count, bw, hw, out, P, L, S_, eps);
+        x, stats, smask, pair_count, bw, bm, hw, out, P, L, S_, eps);
   }
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// Shapes and packed weight layouts of the pipelined axial-block kernels.
+// Shapes and packed weight layouts of the axial-block kernels.
 //
 // The kernels are specialised to the repository's one model width, d = 64
 // with 4 heads (head dim 16).  The q/k projections arrive pre-expanded to
@@ -6,23 +6,45 @@
 // `expand_qk_weights` does), so every attention step is a d-wide
 // elementwise operation and the head count does not appear in the kernels.
 //
-// Every weight group is one contiguous fp32 buffer; the offsets below must
-// match `ops/kernels/pipeline.py` (`ROW_SIZE`, `COL_SIZE`, `B_SIZE`,
-// `HEAD_SIZE` there are checked against `pf_weight_sizes` at load time).
+// Every weight group is one contiguous fp32 buffer (the "flat" layout
+// below); the forward kernels also take the group's matrices packed for the
+// tensor cores (the "mma" layout below, made once per group by
+// `pipeline.pack_mma`).  The offsets must match `ops/kernels/pipeline.py`
+// (`ROW_SIZE`, `COL_SIZE`, `B_SIZE`, `HEAD_SIZE`, `ROW_MMA_SIZE`,
+// `COL_MMA_SIZE`, `B_MMA_SIZE`, `TILE_SITES`, `FWD_TILE_SITES` there are
+// checked against `pf_weight_sizes` at load time, and by a CPU test that
+// parses this file).
 #pragma once
 
 namespace pf {
 
 constexpr int D = 64;            // model width
 constexpr int F = 4 * D;         // FFN hidden width
-constexpr int TS = 32;           // sites per tile
 constexpr int NT = 256;          // threads per block
+constexpr int NWARP = NT / 32;
+
+// The backward kernels (axial_bwd.cu): fp32 SIMT products on 32-site tiles.
+constexpr int TS = 32;           // sites per tile
 constexpr int NG = NT / D;       // site groups in the d-wide products (4)
 constexpr int SPT = TS / NG;     // sites per thread in the d-wide products (8)
-constexpr int NWARP = NT / 32;
 
 static_assert(NT == F, "the FFN up-projection maps one thread to one hidden column");
 static_assert(TS % NG == 0, "tile must split evenly over the site groups");
+
+// The forward kernels (P0, A-only, A, M, Z, A1, A2, B): split-TF32
+// tensor-core products on 64-site tiles.
+constexpr int FT = 64;           // sites per tile
+constexpr int XS = D + 4;        // row stride of a tile in shared memory (floats):
+                                 // fragment loads of 8 rows x 4 columns hit 32 banks
+// A product's FT x 64 output is split over the 8 warps in WM x WN tiles of
+// MI x NI fragments of 16 x 8.
+constexpr int WM = 32;           // output rows of a warp
+constexpr int MG = FT / WM;      // warps along the rows
+constexpr int NGW = NWARP / MG;  // warps along the columns
+constexpr int WN = D / NGW;      // output columns of a warp
+constexpr int MI = WM / 16;
+constexpr int NI = WN / 8;
+static_assert(WM == 32 || WM == 16, "the epilogues are written for warp tiles of 32 x 16 or 16 x 32");
 
 // Row group (row LayerNorm + row attention):
 //   ln_s, ln_b, wq (D x D), bq, wk (D x D), bk, wv (D x D), bv, wo (D x D), bo
@@ -71,15 +93,38 @@ constexpr int H_W = 0;
 constexpr int H_B = D;
 constexpr int H_SIZE = D + 1;
 
-// Shared memory of one block: one tile of TS sites of one pair row.
+// The mma layout: each K x N matrix of a group as 2 K N floats, for k-step
+// j < K/8 and n-tile n < N/8 the 32 lanes' B fragments of
+// mma.m16n8k8.tf32, one float4 a lane: (big b0, big b1, small b0, small b1)
+// with b0 = W[8j + t][8n + g], b1 = W[8j + t + 4][8n + g] for lane 4g + t,
+// big = tf32_rna(W), small = tf32_rna(W - big).  Offsets in floats.
+constexpr int MM_D = 2 * D * D;  // one packed d x d matrix
+constexpr int RM_WQ = 0;
+constexpr int RM_WK = RM_WQ + MM_D;
+constexpr int RM_WV = RM_WK + MM_D;
+constexpr int RM_WO = RM_WV + MM_D;
+constexpr int RM_SIZE = RM_WO + MM_D;
+constexpr int CM_WQ = 0;
+constexpr int CM_WK = CM_WQ + MM_D;
+constexpr int CM_WV = CM_WK + MM_D;
+constexpr int CM_SIZE = CM_WV + MM_D;
+constexpr int BM_CWQ = 0;
+constexpr int BM_CWO = BM_CWQ + MM_D;
+constexpr int BM_W1 = BM_CWO + MM_D;
+constexpr int BM_W2 = BM_W1 + 2 * D * F;
+constexpr int BM_SIZE = BM_W2 + 2 * F * D;
+
+// Shared memory of one forward block (~104 KB: two blocks an SM).  The
+// products' A operands are kept split, a big and a small TF32 plane each.
 struct Smem {
-  float xs[TS * D];     // residual stream of the tile
-  float hs[TS * D];     // LayerNorm output
-  float as[TS * D];     // attention output before its projection
-  float fs[TS * F];     // FFN hidden
-  float red[3 * NG * D];  // per-group row sums, combined in a fixed order
+  float xs[FT * XS];        // residual stream of the tile
+  float hs[2][FT * XS];     // LayerNorm output
+  float as[2][FT * XS];     // attention output before its projection; a 64-wide
+                            // chunk of the FFN hidden
+  float stage[FT * XS];     // the next tile, in flight (cp.async)
+  float red[3 * MG * D];    // the row-warp groups' row sums, combined in a fixed order
   float wsum[NWARP];
-  float count;          // max(real site count, 1) of the block's batch element
+  float count;              // max(real site count, 1) of the block's batch element
 };
 
 }  // namespace pf

@@ -32,13 +32,16 @@ from . import _build
 from . import axial_block
 from .axial_block import body_b, expand_qk_weights, row_finalize_col_stats, row_sums
 from .pipeline import (
+    B_MMA_SIZE,
     B_SIZE,
+    COL_MMA_SIZE,
     COL_SIZE,
     D_KERNEL,
+    FWD_TILE_SITES,
     LAUNCHES,
+    ROW_MMA_SIZE,
     ROW_SIZE,
     WeightGroup,
-    TILE_SITES,
     _check_width,
     _grid_blocks,
     _lib,
@@ -113,14 +116,14 @@ def kernel_a(x, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
     _require(x, "x", (B, P, L, d))
     _require(smask, "smask", (B, L))
     _require(pmask, "pmask", (B, P))
-    _require_groups(row=(rw, ROW_SIZE), col=(cw, COL_SIZE))
+    _require_groups(row=(rw, ROW_SIZE, ROW_MMA_SIZE), col=(cw, COL_SIZE, COL_MMA_SIZE))
     S, rowsum, partial = _scratch(B, P, L, x.device, _budget_slots(B, L))
     x1 = torch.empty_like(x)
     lib = _lib()
     _build.check(lib, lib.pf_kernel_a(
         x.data_ptr(), x1.data_ptr(), smask.data_ptr(), pmask.data_ptr(), rw.flat.data_ptr(),
-        cw.flat.data_ptr(), rowsum.data_ptr(), partial.data_ptr(), B, P, L, S, float(eps),
-        _stream()), "kernel_a")
+        rw.mma.data_ptr(), cw.flat.data_ptr(), cw.mma.data_ptr(), rowsum.data_ptr(),
+        partial.data_ptr(), B, P, L, S, float(eps), _stream()), "kernel_a")
     LAUNCHES["kernel_a"] += 1
     return x1, reduce_stats(partial)
 
@@ -135,15 +138,15 @@ def kernel_b(x1, stats, pair_count, bw: WeightGroup, eps):
     _require(x1, "x1", (B, P, L, d))
     _require(stats, "stats", (B, L, 3 * d))
     _require(pair_count, "pair_count", (B,))
-    _require_groups(b=(bw, B_SIZE))
+    _require_groups(b=(bw, B_SIZE, B_MMA_SIZE))
     if P < 1:
         raise ValueError("kernel B needs at least one pair (two sequences)")
-    S = _slots(P * -(-L // TILE_SITES), B, x1.device)
+    S = _slots(P * -(-L // FWD_TILE_SITES), B, x1.device)
     x3 = torch.empty_like(x1)
     lib = _lib()
     _build.check(lib, lib.pf_kernel_b(
         x1.data_ptr(), stats.data_ptr(), pair_count.data_ptr(), bw.flat.data_ptr(),
-        x3.data_ptr(), B, P, L, S, float(eps), _stream()), "kernel_b")
+        bw.mma.data_ptr(), x3.data_ptr(), B, P, L, S, float(eps), _stream()), "kernel_b")
     LAUNCHES["kernel_b"] += 1
     return x3
 
@@ -156,15 +159,15 @@ def kernel_a1(x, smask, rw: WeightGroup, eps):
     _check_width(d)
     _require(x, "x", (B, P, L, d))
     _require(smask, "smask", (B, L))
-    _require_groups(row=(rw, ROW_SIZE))
+    _require_groups(row=(rw, ROW_SIZE, ROW_MMA_SIZE))
     if P < 1:
         raise ValueError("kernel A1 needs at least one pair (two sequences)")
     S = _slots(P, B, x.device)
     rowstats = torch.empty((B, P, 3 * d), device=x.device, dtype=torch.float32)
     lib = _lib()
     _build.check(lib, lib.pf_kernel_a1(
-        x.data_ptr(), smask.data_ptr(), rw.flat.data_ptr(), rowstats.data_ptr(), B, P, L, S,
-        float(eps), _stream()), "kernel_a1")
+        x.data_ptr(), smask.data_ptr(), rw.flat.data_ptr(), rw.mma.data_ptr(),
+        rowstats.data_ptr(), B, P, L, S, float(eps), _stream()), "kernel_a1")
     LAUNCHES["kernel_a1"] += 1
     return rowstats
 
@@ -180,18 +183,18 @@ def kernel_a2(x, rowstats, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
     _require(rowstats, "rowstats", (B, P, 3 * d))
     _require(smask, "smask", (B, L))
     _require(pmask, "pmask", (B, P))
-    _require_groups(row=(rw, ROW_SIZE), col=(cw, COL_SIZE))
+    _require_groups(row=(rw, ROW_SIZE, ROW_MMA_SIZE), col=(cw, COL_SIZE, COL_MMA_SIZE))
     if P < 1:
         raise ValueError("kernel A2 needs at least one pair (two sequences)")
     sp = min(P, A2_MAX_PAIR_SLOTS, _budget_slots(B, L))
-    sc = min(-(-L // TILE_SITES), -(-_grid_blocks(B, x.device) // sp))
+    sc = min(-(-L // FWD_TILE_SITES), -(-_grid_blocks(B, x.device) // sp))
     x1 = torch.empty_like(x)
     partial = torch.empty((B, sp, L, 3 * d), device=x.device, dtype=torch.float32)
     lib = _lib()
     _build.check(lib, lib.pf_kernel_a2(
         x.data_ptr(), rowstats.data_ptr(), smask.data_ptr(), pmask.data_ptr(),
-        rw.flat.data_ptr(), cw.flat.data_ptr(), x1.data_ptr(), partial.data_ptr(), B, P, L, sp,
-        sc, float(eps), _stream()), "kernel_a2")
+        rw.flat.data_ptr(), rw.mma.data_ptr(), cw.flat.data_ptr(), cw.mma.data_ptr(),
+        x1.data_ptr(), partial.data_ptr(), B, P, L, sp, sc, float(eps), _stream()), "kernel_a2")
     LAUNCHES["kernel_a2"] += 1
     return x1, reduce_stats(partial)
 

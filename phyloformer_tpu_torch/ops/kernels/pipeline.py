@@ -52,13 +52,20 @@ P0_EMB_BUDGET_BYTES = 4 * 1024 * 1024
 P0_MAX_PAIRS = 8192
 
 D_KERNEL = 64  # the only width the CUDA kernels are built for
-TILE_SITES = 32  # sites per tile (TS in axial_pipeline.cuh)
+TILE_SITES = 32  # sites per tile of the backward kernels (TS in axial_pipeline.cuh)
+FWD_TILE_SITES = 64  # sites per tile of the forward kernels (FT there)
 # Packed weight sizes (floats) of the kernels' groups; see axial_pipeline.cuh.
 ROW_SIZE = 2 * D_KERNEL + 4 * (D_KERNEL * D_KERNEL + D_KERNEL)
 COL_SIZE = 2 * D_KERNEL + 3 * (D_KERNEL * D_KERNEL + D_KERNEL)
 B_SIZE = (4 * D_KERNEL + 2 * (D_KERNEL * D_KERNEL + D_KERNEL)
           + 2 * 4 * D_KERNEL * D_KERNEL + 4 * D_KERNEL + D_KERNEL)
 HEAD_SIZE = D_KERNEL + 1
+# The same groups' matrices in the mma layout (pack_mma): two floats each.
+ROW_MMA_SIZE = 2 * 4 * D_KERNEL * D_KERNEL
+COL_MMA_SIZE = 2 * 3 * D_KERNEL * D_KERNEL
+B_MMA_SIZE = 2 * (2 * D_KERNEL * D_KERNEL + 2 * 4 * D_KERNEL * D_KERNEL)
+LAYOUT = (ROW_SIZE, COL_SIZE, B_SIZE, HEAD_SIZE, ROW_MMA_SIZE, COL_MMA_SIZE, B_MMA_SIZE,
+          TILE_SITES, FWD_TILE_SITES)
 
 # Launches of each kernel in this process (the CPU path counts nothing);
 # kernel_a, kernel_b, kernel_a1 and kernel_a2 are the fused forward's
@@ -81,44 +88,85 @@ _layout_checked = False
 
 
 def _lib() -> ctypes.CDLL:
-    """The kernel library, its packed weight layout checked on first use."""
+    """The kernel library, its packed weight layout and tile sizes checked
+    on first use."""
     global _layout_checked
     lib = _build.load()
     if not _layout_checked:
-        sizes = (ctypes.c_int * 4)()
+        sizes = (ctypes.c_int * len(LAYOUT))()
         lib.pf_weight_sizes(ctypes.addressof(sizes))
-        if tuple(sizes) != (ROW_SIZE, COL_SIZE, B_SIZE, HEAD_SIZE):
+        if tuple(sizes) != LAYOUT:
             raise RuntimeError(f"packed weight layout mismatch: library {tuple(sizes)}, "
-                               f"wrapper {(ROW_SIZE, COL_SIZE, B_SIZE, HEAD_SIZE)}")
+                               f"wrapper {LAYOUT}")
         _layout_checked = True
     return lib
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 → the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: half of the low 13 bits' weight
+    is added to the magnitude, then the 13 bits are cleared."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_mma(w: torch.Tensor) -> torch.Tensor:
+    """A ``(K, N)`` fp32 matrix → ``2 K N`` floats in the order the forward
+    kernels' ``mma.m16n8k8`` TF32 B fragments are read, split for three
+    passes: for k-step ``j``, n-tile ``n`` and lane ``4 g + t``, the float4
+    ``(big b0, big b1, small b0, small b1)`` with ``b0 = W[8j + t, 8n + g]``,
+    ``b1 = W[8j + t + 4, 8n + g]``, ``big = tf32_rna(W)`` and
+    ``small = tf32_rna(W - big)``."""
+    K, N = w.shape
+    big = tf32_rna(w)
+    small = tf32_rna(w - big)
+    # (s, j, h, t, n, g) with k = 8j + 4h + t, column 8n + g
+    split = torch.stack([big, small]).view(2, K // 8, 2, 4, N // 8, 8)
+    return split.permute(1, 4, 5, 3, 0, 2).reshape(-1)
+
+
+def unpack_mma(packed: torch.Tensor, K: int, N: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The inverse of :func:`pack_mma`'s reordering: ``(big, small)``, each
+    ``(K, N)``."""
+    split = packed.view(K // 8, N // 8, 8, 4, 2, 2).permute(4, 0, 5, 3, 1, 2)
+    split = split.reshape(2, K, N)
+    return split[0], split[1]
 
 
 @dataclass(frozen=True)
 class WeightGroup:
     """One kernel's weight group: the tensors in the kernel's order (for the
-    plain versions) and the same values packed into one buffer (for CUDA)."""
+    plain versions), the same values packed into one buffer (for CUDA) and,
+    for the forward kernels' groups, the matrices among them in the mma
+    layout (:func:`pack_mma`, concatenated in order; empty otherwise)."""
 
     parts: Tuple[torch.Tensor, ...]
     flat: torch.Tensor
+    mma: torch.Tensor
 
     @classmethod
-    def of(cls, parts: Sequence[torch.Tensor]) -> "WeightGroup":
+    def of(cls, parts: Sequence[torch.Tensor], mats: Sequence[int] = ()) -> "WeightGroup":
+        """``mats``: the indices in ``parts`` of the matrices to pack for the
+        tensor cores."""
         parts = tuple(p.contiguous() for p in parts)
-        return cls(parts, torch.cat([p.reshape(-1) for p in parts]).contiguous())
+        flat = torch.cat([p.reshape(-1) for p in parts]).contiguous()
+        mma = (torch.cat([pack_mma(parts[i]) for i in mats]) if mats
+               else flat.new_empty((0,)))
+        return cls(parts, flat, mma)
 
 
 def row_group(layer) -> WeightGroup:
     la = layer["row_attn"]
     return WeightGroup.of((layer["row_norm"]["scale"], layer["row_norm"]["bias"],
                            la["wq"], la["bq"], la["wk"], la["bk"], la["wv"], la["bv"],
-                           la["wo"], la["bo"]))
+                           la["wo"], la["bo"]), mats=(2, 4, 6, 8))
 
 
 def col_group(layer) -> WeightGroup:
     ca = layer["col_attn"]
     return WeightGroup.of((layer["col_norm"]["scale"], layer["col_norm"]["bias"],
-                           ca["wq"], ca["bq"], ca["wk"], ca["bk"], ca["wv"], ca["bv"]))
+                           ca["wq"], ca["bq"], ca["wk"], ca["bk"], ca["wv"], ca["bv"]),
+                          mats=(2, 4, 6))
 
 
 def b_group(layer) -> WeightGroup:
@@ -126,7 +174,7 @@ def b_group(layer) -> WeightGroup:
     return WeightGroup.of((layer["col_norm"]["scale"], layer["col_norm"]["bias"],
                            ca["wq"], ca["bq"], ca["wo"], ca["bo"],
                            layer["ffn_norm"]["scale"], layer["ffn_norm"]["bias"],
-                           ffn["w1"], ffn["b1"], ffn["w2"], ffn["b2"]))
+                           ffn["w1"], ffn["b1"], ffn["w2"], ffn["b2"]), mats=(2, 4, 8, 10))
 
 
 @dataclass(frozen=True)
@@ -201,18 +249,30 @@ def _require(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def _require_groups(**groups: Tuple[WeightGroup, int]) -> None:
-    for name, (g, size) in groups.items():
+def _require_groups(**groups: Tuple[WeightGroup, int, int]) -> None:
+    """Each group's flat buffer and its mma-layout matrices: sizes, and the
+    16-byte alignment of the fragment loads."""
+    for name, (g, size, mma_size) in groups.items():
         _require(g.flat, name, (size,))
+        _require(g.mma, f"{name} (mma layout)", (mma_size,))
+        if g.mma.data_ptr() % 16:
+            raise ValueError(f"{name} (mma layout): not 16-byte aligned")
 
 
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+# The forward kernels fit two blocks an SM (~104 KB of shared memory each);
+# their grids are four such waves.
+RESIDENT_BLOCKS = 2
+WAVES = 4
+
+
 def _grid_blocks(B: int, device: torch.device) -> int:
-    """Blocks per batch element that give about 8 per SM over the grid."""
-    return math.ceil(8 * _sms(device) / B)
+    """Blocks per batch element that give about RESIDENT_BLOCKS x WAVES (8)
+    per SM over the grid."""
+    return math.ceil(RESIDENT_BLOCKS * WAVES * _sms(device) / B)
 
 
 def _slots(P: int, B: int, device: torch.device) -> int:
@@ -283,14 +343,15 @@ def kernel_p0(emb, ii, jj, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
     _require(jj, "jj", (P,), torch.int32)
     _require(smask, "smask", (B, L))
     _require(pmask, "pmask", (B, P))
-    _require_groups(row=(rw, ROW_SIZE), col=(cw, COL_SIZE))
+    _require_groups(row=(rw, ROW_SIZE, ROW_MMA_SIZE), col=(cw, COL_SIZE, COL_MMA_SIZE))
     S, rowsum, partial = _scratch(B, P, L, emb.device)
     x1 = torch.empty((B, P, L, d), device=emb.device, dtype=torch.float32)
     lib = _lib()
     _build.check(lib, lib.pf_kernel_p0(
         emb.data_ptr(), ii.data_ptr(), jj.data_ptr(), x1.data_ptr(), smask.data_ptr(),
-        pmask.data_ptr(), rw.flat.data_ptr(), cw.flat.data_ptr(), rowsum.data_ptr(),
-        partial.data_ptr(), B, n, P, L, S, float(eps), _stream()), "kernel_p0")
+        pmask.data_ptr(), rw.flat.data_ptr(), rw.mma.data_ptr(), cw.flat.data_ptr(),
+        cw.mma.data_ptr(), rowsum.data_ptr(), partial.data_ptr(), B, n, P, L, S, float(eps),
+        _stream()), "kernel_p0")
     LAUNCHES["kernel_p0"] += 1
     return x1, reduce_stats(partial)
 
@@ -305,13 +366,13 @@ def kernel_a_only(x, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
     _require(x, "x", (B, P, L, d))
     _require(smask, "smask", (B, L))
     _require(pmask, "pmask", (B, P))
-    _require_groups(row=(rw, ROW_SIZE), col=(cw, COL_SIZE))
+    _require_groups(row=(rw, ROW_SIZE, ROW_MMA_SIZE), col=(cw, COL_SIZE, COL_MMA_SIZE))
     S, rowsum, partial = _scratch(B, P, L, x.device)
     lib = _lib()
     _build.check(lib, lib.pf_kernel_a_only(
-        x.data_ptr(), smask.data_ptr(), pmask.data_ptr(), rw.flat.data_ptr(),
-        cw.flat.data_ptr(), rowsum.data_ptr(), partial.data_ptr(), B, P, L, S, float(eps),
-        _stream()), "kernel_a_only")
+        x.data_ptr(), smask.data_ptr(), pmask.data_ptr(), rw.flat.data_ptr(), rw.mma.data_ptr(),
+        cw.flat.data_ptr(), cw.mma.data_ptr(), rowsum.data_ptr(), partial.data_ptr(), B, P, L,
+        S, float(eps), _stream()), "kernel_a_only")
     LAUNCHES["kernel_a_only"] += 1
     return x, reduce_stats(partial)
 
@@ -335,14 +396,16 @@ def kernel_m(x1, stats, smask, pmask, pair_count, bw: WeightGroup, rw: WeightGro
     _require(smask, "smask", (B, L))
     _require(pmask, "pmask", (B, P))
     _require(pair_count, "pair_count", (B,))
-    _require_groups(b=(bw, B_SIZE), row=(rw, ROW_SIZE), col=(cw, COL_SIZE))
+    _require_groups(b=(bw, B_SIZE, B_MMA_SIZE), row=(rw, ROW_SIZE, ROW_MMA_SIZE),
+                    col=(cw, COL_SIZE, COL_MMA_SIZE))
     gelu = _gelu_code(gelu_mode)
     S, rowsum, partial = _scratch(B, P, L, x1.device)
     lib = _lib()
     _build.check(lib, lib.pf_kernel_m(
         x1.data_ptr(), stats.data_ptr(), smask.data_ptr(), pmask.data_ptr(),
-        pair_count.data_ptr(), bw.flat.data_ptr(), rw.flat.data_ptr(), cw.flat.data_ptr(),
-        rowsum.data_ptr(), partial.data_ptr(), B, P, L, S, float(eps), gelu, _stream()),
+        pair_count.data_ptr(), bw.flat.data_ptr(), bw.mma.data_ptr(), rw.flat.data_ptr(),
+        rw.mma.data_ptr(), cw.flat.data_ptr(), cw.mma.data_ptr(), rowsum.data_ptr(),
+        partial.data_ptr(), B, P, L, S, float(eps), gelu, _stream()),
         "kernel_m")
     LAUNCHES["kernel_m"] += 1
     return x1, reduce_stats(partial)
@@ -359,7 +422,7 @@ def kernel_z(x1, stats, smask, pair_count, bw: WeightGroup, hw: WeightGroup, eps
     _require(stats, "stats", (B, L, 3 * d))
     _require(smask, "smask", (B, L))
     _require(pair_count, "pair_count", (B,))
-    _require_groups(b=(bw, B_SIZE), head=(hw, HEAD_SIZE))
+    _require_groups(b=(bw, B_SIZE, B_MMA_SIZE), head=(hw, HEAD_SIZE, 0))
     gelu = _gelu_code(gelu_mode)
     if P < 1:
         raise ValueError("the pipeline needs at least one pair (two sequences)")
@@ -368,8 +431,8 @@ def kernel_z(x1, stats, smask, pair_count, bw: WeightGroup, hw: WeightGroup, eps
     lib = _lib()
     _build.check(lib, lib.pf_kernel_z(
         x1.data_ptr(), stats.data_ptr(), smask.data_ptr(), pair_count.data_ptr(),
-        bw.flat.data_ptr(), hw.flat.data_ptr(), out.data_ptr(), B, P, L, S, float(eps), gelu,
-        _stream()), "kernel_z")
+        bw.flat.data_ptr(), bw.mma.data_ptr(), hw.flat.data_ptr(), out.data_ptr(), B, P, L, S,
+        float(eps), gelu, _stream()), "kernel_z")
     LAUNCHES["kernel_z"] += 1
     return out
 

@@ -188,6 +188,89 @@ def test_fused_kernels_match_plain_on_card(case, results):
     assert n["reduce_stats"] == 6 and n["kernel_m"] == 0 and n["kernel_z"] == 0, n
 
 
+_AB_CODE = """
+import json
+import numpy as np
+import torch
+from phyloformer_tpu_torch.data.pairs import pair_indices
+from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+from phyloformer_tpu_torch.models.params import map_params
+from phyloformer_tpu_torch.ops.kernels import fused
+from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+params, cfg, _ = load_pretrained("artifacts/pf_mre_r5.ckpt")
+w = pipe.PipelineWeights.from_params(map_params(lambda t: t.to(dev), params))
+rng = np.random.default_rng(13)
+
+def rel(got, want):
+    want = want.double()
+    return (got.double() - want).abs().max().item() / max(1.0, want.abs().max().item())
+
+res = {}
+for name, (dims, pad_n, pad_l) in {
+        "headline": ([(60, 250)] * 9, 60, 256),
+        "ragged250": ([(60, 250), (41, 233)], 60, 250),
+        "long": ([(60, 1500)], 60, 1536),
+        "ragged1100": ([(40, 1100), (33, 1031)], 40, 1100)}.items():
+    b = len(dims)
+    codes = np.zeros((b, pad_n, pad_l), np.int32)
+    smask = np.zeros((b, pad_l), bool)
+    qmask = np.zeros((b, pad_n), bool)
+    for r, (n, l) in enumerate(dims):
+        codes[r, :n, :l] = rng.integers(0, 20, (n, l))
+        smask[r, :l] = True
+        qmask[r, :n] = True
+    codes, smask, qmask = (torch.from_numpy(a).to(dev) for a in (codes, smask, qmask))
+    i, j = (torch.as_tensor(a, device=dev).long() for a in pair_indices(pad_n))
+    emb = torch.relu(w.embed_w[codes.long()] + w.embed_b)
+    x0 = (emb[:, i] + emb[:, j]).contiguous()
+    sm = smask.float().contiguous()
+    pm = (qmask[:, i] & qmask[:, j]).float().contiguous()
+    pc = pm.sum(1)
+    want = pipe.kernel_a_only_plain(x0, sm, pm, w.row[0], w.col[0], 1e-5)
+    e = {}
+    if name != "long":
+        got = fused.kernel_a(x0, sm, pm, w.row[0], w.col[0], 1e-5)
+        again = fused.kernel_a(x0, sm, pm, w.row[0], w.col[0], 1e-5)
+        e["a"] = max(rel(got[0], want[0]), rel(got[1], want[1]))
+        e["a_bits"] = bool(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]))
+        del got, again
+    x1, stats = want
+    got = fused.kernel_b(x1, stats, pc, w.b[0], 1e-5)
+    e["b"] = rel(got, fused.kernel_b_plain(x1, stats, pc, w.b[0], 1e-5))
+    e["b_bits"] = bool(torch.equal(got, fused.kernel_b(x1, stats, pc, w.b[0], 1e-5)))
+    torch.cuda.synchronize()
+    res[name] = e
+    del x0, x1, stats, want, got, emb
+    torch.cuda.empty_cache()
+print(json.dumps(res))
+"""
+
+
+@pytest.fixture(scope="module")
+def ab_results(card):
+    r = subprocess.run([sys.executable, "-c", _AB_CODE], capture_output=True, text=True,
+                       cwd=str(REPO), timeout=900)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("case", ["headline", "ragged250", "long", "ragged1100"])
+def test_kernels_a_b_tensor_cores_on_card(case, ab_results):
+    """Kernels A and B (split-TF32 products on the tensor cores) against
+    their fp32 plain versions at the main path's shapes (9 x 1770 x 256;
+    B alone at 1 x 1770 x 1536) and on partial 64-site tiles (250 and 1100
+    sites): within 2e-5 of max(1, max|ref|), and the same bits twice."""
+    res = ab_results[case]
+    assert res["b"] <= 2e-5 and res["b_bits"], res
+    if case == "long":
+        assert "a" not in res, res
+    else:
+        assert res["a"] <= 2e-5 and res["a_bits"], res
+
+
 _BWD_CODE = """
 import json
 import numpy as np
