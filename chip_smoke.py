@@ -12,8 +12,9 @@
    ``partial.sum(dim=1)`` and against a second run; times each beside
    ``torch.sum``, the twin and the bound (``--reductions``: only this, with
    the rows printed as JSON);
-   then counts the tensor-core (HMMA) and fp32 FMA instructions of each
-   forward kernel in the built library (``cuobjdump -sass``), holds every
+   then counts the tensor-core (HMMA) and fp32 FMA instructions of every
+   kernel in the built library (``cuobjdump -sass``; C and E must have
+   HMMA, D, E1 and E2 are fp32 SIMT), holds every
    kernel of the inference paths against its plain PyTorch version on the
    card (TF32 off for PyTorch; the kernels' own products are split TF32 on
    the tensor cores) and times both with CUDA events, beside the bound of
@@ -38,7 +39,9 @@
 6. holds the fused backward's kernels C, D and E against their plain
    versions on the residuals of the fused forward (real weights, a seeded
    cotangent) at the training shape 4 x 50 tips x 256 sites and on a ragged
-   batch, checks that two runs give the same bits, and times them;
+   batch, checks that two runs give the same bits, and times them (C and E,
+   split TF32 on the tensor cores, against three TF32 passes, with the fp32
+   SIMT bound beside; D against the fp32 SIMT bound);
 7. drives training through the CLI (``pf-train-torch --base-model
    pf_mre_r5.ckpt --batch-size 4 --loss mre --max-steps 8``) on a synthetic
    corpus of random trees and matching 50-tip alignments, then resumes it
@@ -51,7 +54,8 @@
 9. holds the L-tiled row backward's kernels E1 and E2 (above 1024 sites)
    against their plain versions at the (50, 1536) training bucket and on a
    ragged batch, E1 + E2 against kernel E at 1024 sites, and two runs of the
-   long block backward against each other; times E1 and E2;
+   long block backward against each other; times E1 and E2, C at
+   2 x 1225 x 1536 and E at 1024 sites;
 10. drives training on long alignments: a synthetic corpus in the
    (50, 1536) bucket packed with ``pf-preprocess-torch``, ``pf-train-torch
    --packed-data --batch-size 2`` for 4 steps and a validation (launch
@@ -73,6 +77,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -91,9 +96,9 @@ SEED = 1234
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
-# The forward kernels (P0, A-only, A, M, Z, A1, A2, B) run their products on
-# the tensor cores in split TF32: three passes, so the card does 3x the
-# products' FLOPs.
+# The forward kernels (P0, A-only, A, M, Z, A1, A2, B) and the backward's C
+# and E run their products on the tensor cores in split TF32: three passes,
+# so the card does 3x the products' FLOPs.
 TF32_PASSES = 3
 # Matmul FLOPs per pair-site: kernel A = 7 d x d products (A1 3 of them, A2
 # the other 4 and the q projection again: 5), kernel B = 2 d x d + 2 d x 4d
@@ -186,7 +191,9 @@ def summarize(name, r, tol, where, card) -> bool:
         grads = f", weight gradients {r['max_rel_err_grads']:.3e} (tol {GRAD_TOL:.0e})"
     print(f"{name}: max abs err {r['max_abs_err']:.3e}, relative {r['max_rel_err']:.3e} "
           f"(tol {tol:.0e}){grads}, {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, "
-          f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}){where} [{card}]")
+          f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}"
+          + (f", split TF32 on the tensor cores; fp32 SIMT bound {r['bound_fp32_simt_ms']:.3f} ms"
+             if "bound_fp32_simt_ms" in r else "") + f"){where} [{card}]")
     return r["max_rel_err"] <= tol and r.get("max_rel_err_grads", 0.0) <= GRAD_TOL
 
 
@@ -199,18 +206,19 @@ def bound(flops, nbytes, peak=PEAK_FP32_FLOPS):
 
 
 def bound_tc(flops, nbytes):
-    """The bound of a forward kernel, whose products run on the tensor
-    cores: TF32_PASSES x the FLOPs over the dense TF32 peak, or the bytes;
-    with the fp32 SIMT bound of the same work (what the kernels ran on
-    before the tensor cores), for reference."""
+    """The bound of a kernel whose products run on the tensor cores:
+    TF32_PASSES x the FLOPs over the dense TF32 peak, or the bytes; with the
+    fp32 SIMT bound of the same work (what the kernels ran on before the
+    tensor cores), for reference."""
     ms, by = bound(TF32_PASSES * flops, nbytes, PEAK_TF32_FLOPS)
     return ms, by, bound(flops, nbytes)[0]
 
 
 def sass_counts(lib_path):
-    """Tensor-core (HMMA) and fp32 FMA (FFMA) instructions of each forward
-    kernel in the built library, from ``cuobjdump -sass``; None where the
-    toolkit has no cuobjdump."""
+    """Tensor-core (HMMA) and fp32 FMA (FFMA) instructions of each kernel in
+    the built library, from ``cuobjdump -sass``, by the kernel's short name
+    (``kernel_c``; the template argument of ``kernel_a`` appended); None
+    where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -224,8 +232,12 @@ def sass_counts(lib_path):
         elif cur is not None:
             for op in ("HMMA", "FFMA"):
                 counts[cur][op] += (" " + op + ".") in line or (" " + op + " ") in line
-    return {k: v for k, v in counts.items() if "kernel_" in k and "kernel_c" not in k
-            and "kernel_d" not in k and "kernel_e" not in k}
+    short = {}
+    for k, v in counts.items():
+        m = re.search(r"\d(kernel_[a-z0-9_]+?)(?:E|I(L[^E]*E))", k)
+        if m:
+            short[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = v
+    return short
 
 
 def random_alignment(rng, n, l, gap_frac=0.02):
@@ -910,20 +922,24 @@ def backward_kernel_checks(params, device):
         f = bw.kernel_e_plain if plain else bw.kernel_e
         return lambda: f(t["x"], t["g1"], t["smask"], w.e, 1e-5)
 
+    # C and E run split TF32 on the tensor cores (their bound at three
+    # passes, the fp32 SIMT bound beside it); D is fp32 SIMT
     timed = {
         "kernel_c": (c(False), c(True),
-                     bound(FLOPS_C * sites, 3 * act + stats_b + a1_b + wb[0] + nw["kernel_c"])),
+                     bound_tc(FLOPS_C * sites, 3 * act + stats_b + a1_b + wb[0] + nw["kernel_c"])),
         "kernel_d": (dk(False), dk(True),
                      bound(FLOPS_D * sites, 3 * act + stats_b + a1_b + wb[1] + nw["kernel_d"])),
         "kernel_e": (e(False), e(True),
-                     bound(FLOPS_E * sites, 3 * act + 4 * t["b"] * t["l"] + wb[1]
-                           + nw["kernel_e"])),
+                     bound_tc(FLOPS_E * sites, 3 * act + 4 * t["b"] * t["l"] + wb[1]
+                              + nw["kernel_e"])),
     }
-    for name, (kern, plain, (bound_ms, bound_by)) in timed.items():
+    for name, (kern, plain, bnd) in timed.items():
         r = results[name]
         r["ms"] = time_ms(kern)
         r["plain_ms"] = time_ms(plain)
-        r["bound_ms"], r["bound_by"] = bound_ms, bound_by
+        r["bound_ms"], r["bound_by"] = bnd[:2]
+        if len(bnd) == 3:
+            r["bound_fp32_simt_ms"] = bnd[2]
         r["library_ms"] = None  # no single PyTorch call computes these functions
         torch.cuda.empty_cache()
     return results, same_bits
@@ -974,6 +990,12 @@ def long_backward_kernel_checks(params, device):
             # the two forms of the row backward: E1 + E2 and kernel E
             got = bw.kernel_e2(x, g1, bw.kernel_e1(x, g1, smask, w.e, 1e-5), smask, w.e, 1e-5)
             ref = bw.kernel_e(x, g1, smask, w.e, 1e-5)
+            s = len(dims) * x.shape[1] * pad_l
+            out["kernel_e_l1024_ms"] = time_ms(lambda: bw.kernel_e(x, g1, smask, w.e, 1e-5))
+            (out["kernel_e_l1024_bound_ms"], _,
+             out["kernel_e_l1024_bound_fp32_simt_ms"]) = bound_tc(
+                FLOPS_E * s, 3 * 4 * D * s + 4 * len(dims) * pad_l
+                + 4 * bw.group_size(bw.ATT_PARTS, D, H) + 4 * bw.grad_size("kernel_e", D, H))
             out["e12_vs_e"] = errors(got[0], ref[0])[1]
             out["e12_vs_e_grads"] = max(e[1] for e in grad_errs(got[1], ref[1]))
             out["e12_vs_e_bits"] = bool(torch.equal(got[0], ref[0]))
@@ -987,6 +1009,12 @@ def long_backward_kernel_checks(params, device):
             results["kernel_e2"]["grad_errs"] += grad_errs(got[1], want[1])
         del got, want
         if case == "train":
+            s = len(dims) * x.shape[1] * pad_l
+            out["kernel_c_long_ms"] = time_ms(
+                lambda: bw.kernel_c(x1, g3, stats, pmask, pcount, w.c, 1e-5))
+            (out["kernel_c_long_bound_ms"], _, out["kernel_c_long_bound_fp32_simt_ms"]) = bound_tc(
+                FLOPS_C * s, 3 * 4 * D * s + 4 * len(dims) * pad_l * 4 * D
+                + 4 * bw.group_size(bw.C_PARTS, D, H) + 4 * bw.grad_size("kernel_c", D, H))
             first = bw.fused_axial_block_bwd(x, x1, stats, g3, layer, smask, pmask, H)
             second = bw.fused_axial_block_bwd(x, x1, stats, g3, layer, smask, pmask, H)
             out["same_bits"] = torch.equal(first[0], second[0]) and all(
@@ -1348,9 +1376,9 @@ KERNELS = {
     "kernel_b": ("axial_fused.cu", "phyloformer_tpu/ops/pallas/axial_block.py:294"),
     "kernel_a1": ("axial_fused.cu", "phyloformer_tpu/ops/pallas/axial_block.py:314"),
     "kernel_a2": ("axial_fused.cu", "phyloformer_tpu/ops/pallas/axial_block.py:353"),
-    "kernel_c": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:176"),
+    "kernel_c": ("axial_bwd_tc.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:176"),
     "kernel_d": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:281"),
-    "kernel_e": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:372"),
+    "kernel_e": ("axial_bwd_tc.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:372"),
     "kernel_e1": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:492"),
     "kernel_e2": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:534"),
     "reduce_partials": ("slot_reduce.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:241"),
@@ -1415,6 +1443,9 @@ def main(argv=None) -> int:
         print("sass: no cuobjdump in this toolkit")
     for fn, n in (sass or {}).items():
         print(f"sass: {fn}: {n['HMMA']} HMMA (tensor-core mma), {n['FFMA']} FFMA")
+    no_tc = [k for k in ("kernel_c", "kernel_e") if not (sass or {}).get(k, {}).get("HMMA")]
+    if no_tc:
+        fail(f"no tensor-core (HMMA) instruction found in {no_tc}")
 
     results = kernel_checks(weights, device)
     results.update(fused_kernel_checks(weights, device))
@@ -1491,6 +1522,13 @@ def main(argv=None) -> int:
           f"{e12['e12_vs_e_bits']}), weight gradients {e12['e12_vs_e_grads']:.3e}; vs the plain "
           f"versions {e12['e12_vs_e_plain']:.3e}; two runs of the long block backward give "
           f"the same bits: {e12['same_bits']}")
+    for name, key, where in (("kernel_c", "kernel_c_long", "2 x 1225 x 1536"),
+                             ("kernel_e", "kernel_e_l1024", "2 x 1225 x 1024")):
+        for k in ("ms", "bound_ms", "bound_fp32_simt_ms"):
+            bwd[name][f"{key[len(name) + 1:]}_{k}"] = e12[f"{key}_{k}"]
+        print(f"{name} at {where}: {e12[key + '_ms']:.3f} ms, bound "
+              f"{e12[key + '_bound_ms']:.3f} ms (split TF32; fp32 SIMT "
+              f"{e12[key + '_bound_fp32_simt_ms']:.3f} ms) [{card}]")
     if (bad or not e12["same_bits"] or not e12["e12_vs_e"] <= E12_TOL
             or not e12["e12_vs_e_grads"] <= GRAD_TOL or not e12["e12_vs_e_plain"] <= GRAD_TOL):
         fail(f"E1/E2 disagree with their plain versions, with kernel E or between runs: {bad}")
@@ -1588,7 +1626,9 @@ def main(argv=None) -> int:
          "library_ms": r["library_ms"],
          **({"max_rel_err_grads": r["max_rel_err_grads"], "tolerance_grads": GRAD_TOL}
             if "max_rel_err_grads" in r else {}),
-         **({k: r[k] for k in ("bound_fp32_simt_ms", "cases") if k in r}),
+         **({k: r[k] for k in ("bound_fp32_simt_ms", "cases", "long_ms", "long_bound_ms",
+                               "long_bound_fp32_simt_ms", "l1024_ms", "l1024_bound_ms",
+                               "l1024_bound_fp32_simt_ms") if k in r}),
          **({k: r[k] for k in ("shape", "twin_bits", "same_bits", "worst_vs_library",
                                "worst_vs_library_shape")} if name in REDUCTION_ROW else {})}
         for name, r in results.items()],

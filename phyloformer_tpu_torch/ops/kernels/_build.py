@@ -23,8 +23,9 @@ from typing import Optional
 _HERE = pathlib.Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
-SOURCES = ("axial_pipeline.cu", "axial_fused.cu", "axial_bwd.cu", "slot_reduce.cu")
-HEADERS = ("axial_pipeline.cuh", "axial_bodies.cuh")
+SOURCES = ("axial_pipeline.cu", "axial_fused.cu", "axial_bwd.cu", "axial_bwd_tc.cu",
+           "slot_reduce.cu")
+HEADERS = ("axial_pipeline.cuh", "axial_bodies.cuh", "axial_bwd.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,9 +47,10 @@ _SIGNATURES = {
     "pf_kernel_a2": [_p] * 10 + [_i] * 5 + [_f, _p],
     "pf_kernel_b": [_p] * 6 + [_i] * 4 + [_f, _p],
     "pf_bwd_sizes": [_p],
-    "pf_kernel_c": [_p] * 9 + [_i] * 4 + [_f, _p],
+    "pf_bwd_tc_sizes": [_p],
+    "pf_kernel_c": [_p] * 10 + [_i] * 4 + [_f, _p],
     "pf_kernel_d": [_p] * 9 + [_i] * 4 + [_f, _p],
-    "pf_kernel_e": [_p] * 6 + [_i] * 4 + [_f, _p],
+    "pf_kernel_e": [_p] * 7 + [_i] * 4 + [_f, _p],
     "pf_kernel_e1": [_p] * 5 + [_i] * 4 + [_f, _p],
     "pf_kernel_e2": [_p] * 7 + [_i] * 5 + [_f, _p],
     "pf_reduce_slots": [_p] * 2 + [_i] * 5 + [_p],

@@ -1,7 +1,8 @@
 """The fused backward of one axial block: kernels C, D and E (or E1, E2).
 
-The PyTorch side of ``pf_kernel_c`` / ``pf_kernel_d`` / ``pf_kernel_e`` /
-``pf_kernel_e1`` / ``pf_kernel_e2`` (``csrc/axial_bwd.cu``) and of
+The PyTorch side of ``pf_kernel_c`` / ``pf_kernel_e`` (``csrc/axial_bwd_tc.cu``,
+split-TF32 products on the tensor cores), ``pf_kernel_d`` / ``pf_kernel_e1`` /
+``pf_kernel_e2`` (``csrc/axial_bwd.cu``, fp32 SIMT) and of
 ``pf_reduce_slots`` for the partials (``csrc/slot_reduce.cu``), and the
 counterpart of ``phyloformer_tpu/ops/pallas/axial_block_bwd.py``:
 
@@ -56,6 +57,7 @@ from .pipeline import (
     _on_cpu,
     _require,
     _stream,
+    pack_mma,
     reduce_slots,
 )
 
@@ -64,11 +66,15 @@ _INV_SQRT2PI = 0.3989422804014327
 # The per-block weight-gradient and A1 partials of one launch stay under this.
 PARTIAL_BUDGET_BYTES = 256 * 1024 * 1024
 # Blocks per SM that each kernel's grid aims at (pair slots = this x SMs /
-# B).  C holds its weight gradients in 216 KB of shared memory, so one block
-# fits an SM; D, E and E2 take three, which run in waves where their
-# registers (141 and 128 per thread, ptxas) let fewer fit at once.  E1 keeps
-# no gradients and takes the forward's eight, as A1 does.
-BLOCKS_PER_SM = {"kernel_c": 1, "kernel_d": 3, "kernel_e": 3, "kernel_e1": 8, "kernel_e2": 3}
+# B).  C holds its FFN weight gradients and tiles in 220 KB of shared
+# memory, so one block fits an SM; E (108 KB, at most 128 registers a
+# thread) fits two, and its grid is one wave of two.  D and E2 take three,
+# which run in waves where their registers (141 and 128 per thread, ptxas)
+# let fewer fit at once.  E1 keeps no gradients and takes the forward's
+# eight, as A1 does.
+BLOCKS_PER_SM = {"kernel_c": 1, "kernel_d": 3, "kernel_e": 2, "kernel_e1": 8, "kernel_e2": 3}
+# Sites per tile of kernels C and E (BT in csrc/axial_bwd.cuh).
+TC_TILE_SITES = 32
 
 
 # ---- weight groups --------------------------------------------------------
@@ -85,14 +91,26 @@ def _rep(t: torch.Tensor, hd: int) -> torch.Tensor:
     return t.repeat_interleave(hd, dim=-1)
 
 
+# The matrices of C_PARTS that kernel C reads packed for the tensor cores
+# (pipeline.pack_mma, concatenated in this order: CTM_* in axial_bwd.cuh).
+C_MMA_MATS = ("cwq_e", "cwo", "cwo_t", "w1", "w1_t", "w2_t")
+
+
+def _kernel_shaped(wq: torch.Tensor) -> bool:
+    """Whether a ``(d, H)`` q weight has the CUDA kernels' width and heads:
+    only then are a group's matrices packed for them."""
+    return tuple(wq.shape) == (D_KERNEL, N_HEADS_KERNEL)
+
+
 def c_group(layer) -> WeightGroup:
     ca, ffn = layer["col_attn"], layer["ffn"]
     hd = ca["wo"].shape[0] // ca["wq"].shape[1]
+    mats = tuple(C_PARTS.index(n) for n in C_MMA_MATS) if _kernel_shaped(ca["wq"]) else ()
     return WeightGroup.of((
         layer["col_norm"]["scale"], layer["col_norm"]["bias"], _rep(ca["wq"], hd),
         _rep(ca["bq"], hd), ca["wo"], ca["wo"].t(), ca["bo"], layer["ffn_norm"]["scale"],
         layer["ffn_norm"]["bias"], ffn["w1"], ffn["b1"], ffn["w1"].t(), ffn["w2"].t(),
-        ca["wq"], ca["bq"]))
+        ca["wq"], ca["bq"]), mats=mats)
 
 
 def att_group(norm, attn) -> WeightGroup:
@@ -103,9 +121,30 @@ def att_group(norm, attn) -> WeightGroup:
         attn["wq"], attn["bq"], attn["wk"], attn["bk"], attn["wv"].t()))
 
 
+def e_mma_mats(parts: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Kernel E's matrices, in the order it reads them packed (EM_* in
+    axial_bwd.cuh): ``[wq | wk]`` (d x 2H, the q/k projections on the
+    d x H weights), ``wv``, ``wo_t`` and ``[wv_t ; wqᵀ ; wkᵀ]`` ((d + 2H) x
+    d, the gradient of the LN output from ``[d_v | dzq | dzk]``)."""
+    return (torch.cat([parts["wq"], parts["wk"]], dim=1), parts["wv"], parts["wo_t"],
+            torch.cat([parts["wv_t"], parts["wq"].t(), parts["wk"].t()], dim=0))
+
+
+def e_group(norm, attn) -> WeightGroup:
+    """:func:`att_group` (the flat layout E1 and E2 read too) with kernel E's
+    own matrices packed for the tensor cores (:func:`e_mma_mats`; none for
+    other widths than the kernels')."""
+    g = att_group(norm, attn)
+    if not _kernel_shaped(attn["wq"]):
+        return g
+    mma = torch.cat([pack_mma(m.contiguous()) for m in e_mma_mats(_parts(g, ATT_PARTS))])
+    return WeightGroup(g.parts, g.flat, mma)
+
+
 @dataclass(frozen=True)
 class BwdWeights:
-    """One layer's weight groups for kernels C, D (column) and E (row)."""
+    """One layer's weight groups for kernels C, D (column) and E (row; E1
+    and E2 read its flat layout), packed once per call of :meth:`of`."""
 
     c: WeightGroup
     d: WeightGroup
@@ -115,7 +154,7 @@ class BwdWeights:
     @classmethod
     def of(cls, layer: Dict[str, Any]) -> "BwdWeights":
         return cls(c_group(layer), att_group(layer["col_norm"], layer["col_attn"]),
-                   att_group(layer["row_norm"], layer["row_attn"]),
+                   e_group(layer["row_norm"], layer["row_attn"]),
                    layer["row_attn"]["wq"].shape[1])
 
 
@@ -152,6 +191,14 @@ def grad_spec(kernel: str, d: int, h: int) -> List[Tuple[str, str, Tuple[int, ..
     return spec
 
 
+def mma_size(kernel: str, d: int, h: int) -> int:
+    """Floats of kernel C's or E's packed matrices (two per element)."""
+    f = 4 * d
+    if kernel == "kernel_c":
+        return 2 * (3 * d * d + 3 * d * f)
+    return 2 * (d * 2 * h + 2 * d * d + (d + 2 * h) * d)
+
+
 def grad_size(kernel: str, d: int, h: int) -> int:
     return sum(math.prod(s) for _, _, s in grad_spec(kernel, d, h))
 
@@ -165,6 +212,16 @@ def unpack_grads(kernel: str, flat: torch.Tensor, d: int, h: int,
         into.setdefault(sub, {})[leaf] = flat[off:off + n].view(shape)
         off += n
     return into
+
+
+# What pf_bwd_tc_sizes reports first (the layouts of kernels C and E; then
+# the shared memory of a C and an E block, in bytes).
+TC_LAYOUT = (group_size(C_PARTS, D_KERNEL, N_HEADS_KERNEL),
+             mma_size("kernel_c", D_KERNEL, N_HEADS_KERNEL),
+             group_size(ATT_PARTS, D_KERNEL, N_HEADS_KERNEL),
+             mma_size("kernel_e", D_KERNEL, N_HEADS_KERNEL),
+             grad_size("kernel_c", D_KERNEL, N_HEADS_KERNEL),
+             grad_size("kernel_e", D_KERNEL, N_HEADS_KERNEL), TC_TILE_SITES)
 
 
 def _flat(*grads: torch.Tensor) -> torch.Tensor:
@@ -458,15 +515,19 @@ def _bwd_lib():
     global _sizes_checked
     lib = _lib()
     if not _sizes_checked:
-        sizes = (ctypes.c_int * 6)()
+        sizes = (ctypes.c_int * 4)()
         lib.pf_bwd_sizes(ctypes.addressof(sizes))
         d, h = D_KERNEL, N_HEADS_KERNEL
-        want = (group_size(C_PARTS, d, h), group_size(ATT_PARTS, d, h),
-                grad_size("kernel_c", d, h), grad_size("kernel_d", d, h),
+        want = (group_size(ATT_PARTS, d, h), grad_size("kernel_d", d, h),
                 grad_size("kernel_e", d, h), 4 * d)
         if tuple(sizes) != want:
             raise RuntimeError(f"backward layout mismatch: library {tuple(sizes)}, "
                                f"wrapper {want}")
+        tc = (ctypes.c_int * (len(TC_LAYOUT) + 2))()
+        lib.pf_bwd_tc_sizes(ctypes.addressof(tc))
+        if tuple(tc)[:len(TC_LAYOUT)] != TC_LAYOUT:
+            raise RuntimeError(f"tensor-core backward layout mismatch: library "
+                               f"{tuple(tc)[:len(TC_LAYOUT)]}, wrapper {TC_LAYOUT}")
         _sizes_checked = True
     return lib
 
@@ -483,8 +544,10 @@ def reduce_partials(partial: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _require_group(wg: WeightGroup, name: str, parts: Sequence[str]) -> None:
+def _require_group(wg: WeightGroup, name: str, parts: Sequence[str], mma: str = "") -> None:
     _require(wg.flat, name, (group_size(parts, D_KERNEL, N_HEADS_KERNEL),))
+    if mma:
+        _require(wg.mma, f"{name}.mma", (mma_size(mma, D_KERNEL, N_HEADS_KERNEL),))
 
 
 def kernel_c(x1, g3, stats, pmask, pair_count, wc: WeightGroup, eps):
@@ -498,7 +561,7 @@ def kernel_c(x1, g3, stats, pmask, pair_count, wc: WeightGroup, eps):
     _require(stats, "stats", (B, L, 3 * d))
     _require(pmask, "pmask", (B, P))
     _require(pair_count, "pair_count", (B,))
-    _require_group(wc, "c", C_PARTS)
+    _require_group(wc, "c", C_PARTS, mma="kernel_c")
     if P < 1:
         raise ValueError("kernel C needs at least one pair (two sequences)")
     nw = grad_size("kernel_c", d, N_HEADS_KERNEL)
@@ -509,7 +572,8 @@ def kernel_c(x1, g3, stats, pmask, pair_count, wc: WeightGroup, eps):
     lib = _bwd_lib()
     _build.check(lib, lib.pf_kernel_c(
         x1.data_ptr(), g3.data_ptr(), stats.data_ptr(), pmask.data_ptr(),
-        pair_count.data_ptr(), wc.flat.data_ptr(), g2.data_ptr(), a1_part.data_ptr(),
+        pair_count.data_ptr(), wc.flat.data_ptr(), wc.mma.data_ptr(), g2.data_ptr(),
+        a1_part.data_ptr(),
         w_part.data_ptr(), B, P, L, S, float(eps), _stream()), "kernel_c")
     LAUNCHES["kernel_c"] += 1
     a1 = reduce_partials(a1_part).view(B, L, d)
@@ -545,7 +609,8 @@ def kernel_d(x1, g2, stats, a1, pmask, pair_count, wd: WeightGroup, eps):
 
 
 def kernel_e(x, g1, smask, we: WeightGroup, eps):
-    """``_kernel_e``: ``(gx, flat weight gradients)``."""
+    """``_kernel_e``: ``(gx, flat weight gradients)``.  ``we`` is
+    :func:`e_group`'s (the kernel reads its packed matrices)."""
     if _on_cpu(x, g1, smask, we.flat):
         return kernel_e_plain(x, g1, smask, we, eps)
     B, P, L, d = x.shape
@@ -553,7 +618,7 @@ def kernel_e(x, g1, smask, we: WeightGroup, eps):
     _require(x, "x", (B, P, L, d))
     _require(g1, "g1", (B, P, L, d))
     _require(smask, "smask", (B, L))
-    _require_group(we, "e", ATT_PARTS)
+    _require_group(we, "e", ATT_PARTS, mma="kernel_e")
     if P < 1:
         raise ValueError("kernel E needs at least one pair (two sequences)")
     if L > axial_block.RESIDENT_SITES_MAX:
@@ -565,8 +630,8 @@ def kernel_e(x, g1, smask, we: WeightGroup, eps):
     w_part = torch.empty((1, B * S, nw), device=x.device, dtype=torch.float32)
     lib = _bwd_lib()
     _build.check(lib, lib.pf_kernel_e(
-        x.data_ptr(), g1.data_ptr(), smask.data_ptr(), we.flat.data_ptr(), gx.data_ptr(),
-        w_part.data_ptr(), B, P, L, S, float(eps), _stream()), "kernel_e")
+        x.data_ptr(), g1.data_ptr(), smask.data_ptr(), we.flat.data_ptr(), we.mma.data_ptr(),
+        gx.data_ptr(), w_part.data_ptr(), B, P, L, S, float(eps), _stream()), "kernel_e")
     LAUNCHES["kernel_e"] += 1
     return gx, reduce_partials(w_part)[0]
 

@@ -1,0 +1,125 @@
+"""Time backward kernels C and E of a checkout of the port, per launch.
+
+    python3 phyloformer_tpu_torch/ops/kernels/bwd_timing.py [--root DIR]
+
+Imports ``phyloformer_tpu_torch`` from ``DIR`` (default: the checkout this
+file is in), so that one copy of this script times another checkout's
+kernels, e.g. a parent commit unpacked with ``git archive``; run it once per
+checkout, in turns (parent, change, change, parent), to compare two
+versions on one card.  Inputs are those of the fused backward on layer 0 of
+``artifacts/pf_mre_r5.ckpt`` (the block-0 input of random alignments from a
+seed, a seeded cotangent masked as a masked loss makes it):
+
+- C at the training shape 4 x 50 tips x 256 sites (4 x 1225 pairs) and at
+  the long training bucket 2 x 50 x 1536;
+- E at 4 x 50 x 256 and at 2 x 50 x 1024 (the longest row kernel E takes).
+
+Each time is the median CUDA-event time of one launch (its reductions
+included) over 7 runs after a warm-up.  Needs one NVIDIA card and nvcc.
+Prints one line per shape, the card's name and power limit, and a last JSON
+line with every number.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SEED = 1234
+D, H = 64, 4
+
+
+def median_ms(fn, reps=7):
+    import torch
+
+    times = []
+    for r in range(reps + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        if r:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def inputs(params, layer, b, n, l, device, seed):
+    """x, x1, stats, g3, g1 and the masks of one batch of b alignments of n
+    tips x l sites (the fused forward's residuals, g1 from kernels C, D)."""
+    import numpy as np
+    import torch
+
+    from phyloformer_tpu_torch.data.pairs import pair_indices
+    from phyloformer_tpu_torch.ops.kernels import axial_block_bwd as bw
+    from phyloformer_tpu_torch.ops.kernels import fused
+
+    rng = np.random.default_rng(seed)
+    codes = torch.from_numpy(rng.integers(0, 20, (b, n, l))).to(device)
+    i, j = (torch.as_tensor(a, device=device).long() for a in pair_indices(n))
+    emb = torch.relu(params["embed"]["w"][codes] + params["embed"]["b"])
+    x = (emb[:, i] + emb[:, j]).contiguous()
+    del emb
+    smask = torch.ones((b, l), device=device)
+    pmask = torch.ones((b, x.shape[1]), device=device)
+    pcount = pmask.sum(1)
+    _, x1, stats = fused.fused_axial_block_res(x, layer, smask, pmask)
+    g3 = torch.randn(x.shape, device=device,
+                     generator=torch.Generator(device).manual_seed(seed)).contiguous()
+    w = bw.BwdWeights.of(layer)
+    g2, a1, _ = bw.kernel_c(x1, g3, stats, pmask, pcount, w.c, 1e-5)
+    g1, _ = bw.kernel_d(x1, g2, stats, a1, pmask, pcount, w.d, 1e-5)
+    return dict(x=x, x1=x1, stats=stats, g3=g3, g1=g1, smask=smask, pmask=pmask,
+                pcount=pcount, w=w)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.abspath(os.path.join(HERE, "..", "..", "..")),
+                    help="the checkout whose phyloformer_tpu_torch is timed")
+    root = os.path.abspath(ap.parse_args(argv).root)
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("bwd_timing: needs an NVIDIA card")
+    import phyloformer_tpu_torch
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    from phyloformer_tpu_torch.models.params import map_params
+    from phyloformer_tpu_torch.ops.kernels import axial_block_bwd as bw
+
+    if not os.path.abspath(phyloformer_tpu_torch.__file__).startswith(root + os.sep):
+        raise SystemExit(f"bwd_timing: imported {phyloformer_tpu_torch.__file__}, not {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+    params, _, _ = load_pretrained(os.path.join(root, "artifacts", "pf_mre_r5.ckpt"))
+    params = map_params(lambda t: t.to(device), params)
+    layer = params["layers"][0]
+    out = {"root": root, "card": card}
+    for kernel, (b, n, l) in (("kernel_c", (4, 50, 256)), ("kernel_e", (4, 50, 256)),
+                              ("kernel_c", (2, 50, 1536)), ("kernel_e", (2, 50, 1024))):
+        t = inputs(params, layer, b, n, l, device, SEED)
+        if kernel == "kernel_c":
+            def fn(t=t):
+                bw.kernel_c(t["x1"], t["g3"], t["stats"], t["pmask"], t["pcount"], t["w"].c, 1e-5)
+        else:
+            def fn(t=t):
+                bw.kernel_e(t["x"], t["g1"], t["smask"], t["w"].e, 1e-5)
+        key = f"{kernel} {b}x{t['x'].shape[1]}x{l}"
+        out[key] = median_ms(fn)
+        print(f"{key}: {out[key]:.3f} ms per launch [{card}]", flush=True)
+        del t
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,17 +2,12 @@
 //
 // Hand-written CUDA counterparts of the Pallas TPU kernels of
 // phyloformer_tpu/ops/pallas/axial_block_bwd.py that the fused training step
-// runs:
+// runs (kernels C and E, _kernel_c and _kernel_e, run their products on the
+// tensor cores in axial_bwd_tc.cu; their fp32 SIMT form, described below,
+// is in the git history):
 //
-//   pf_kernel_c  <- _kernel_c (axial_block_bwd.py:176): x2 and the FFN
-//                   recomputed from x1 and the column stats; the FFN backward
-//                   -> g2; d_attn = g2 Wo_c^T and A1 = sum_p d_attn * qn
-//                   (B, L, d); the FFN and column out-projection gradients
 //   pf_kernel_d  <- _kernel_d (:281): the column-attention backward from A1
 //                   and the stats -> g1; the column LN and q/k/v gradients
-//   pf_kernel_e  <- _kernel_e (:372): the row-attention backward on whole
-//                   rows -> gx; the row LN and q/k/v/o gradients (up to 1024
-//                   sites, as in JAX)
 //   pf_kernel_e1 <- _kernel_e1 (:492): above 1024 sites, each pair's raw row
 //                   sums [Σq | Σk | Σk·v | Σd_attn·q] (B, P, 4d)
 //   pf_kernel_e2 <- _kernel_e2 (:534): the row backward finalized from those
@@ -23,14 +18,14 @@
 // :610-639) is pf_reduce_slots of slot_reduce.cu, the slot reduction it
 // shares with the forward's column stats.
 //
-// The plain PyTorch versions are kernel_c_plain, kernel_d_plain,
-// kernel_e_plain, kernel_e1_plain and kernel_e2_plain in
+// The plain PyTorch versions are kernel_d_plain, kernel_e1_plain and
+// kernel_e2_plain in
 // ops/kernels/axial_block_bwd.py.  The device helpers (LayerNorm, the d-wide
 // and 4d-wide products, tile loads) are those of axial_bodies.cuh.
 //
-// What bounds them on the card.  Per pair-site, C does 5 d x 4d + 3 d x d +
-// 1 d x H products (~189 kFLOP), D 4 d x d + 6 d x H (~36 kFLOP), E 5 d x d +
-// 6 d x H (~44 kFLOP), E1 2 d x d + 2 d x H (~17 kFLOP), E2 the same as E,
+// What bounds them on the card.  Per pair-site, D does 4 d x d + 6 d x H
+// products (~36 kFLOP), E1 2 d x d + 2 d x H (~17 kFLOP), E2 5 d x d + 6 d x H
+// (~44 kFLOP, the products of kernel E),
 // each moving at most 768 B of activations: fp32 arithmetic, not HBM, is the
 // bound.  The partial reduction is bound by bytes instead: one add per 4
 // bytes read.  Its weight-gradient partials are narrow, (1, 396, 4808) for D
@@ -51,25 +46,20 @@
 //   its own sums and writes them to its slot of a partial buffer, and
 //   pf_reduce_slots sums the slots in an order fixed by the shapes and
 //   the SM count (reduce.reduce_plan).  No float atomics: two runs give the
-//   same bits, equal to reduce.reduce_slots_ordered's.  A1 follows the
-//   column-stats pattern (C walks site tiles outermost and its pairs
-//   innermost, summing each thread's sites over the pairs in registers, one
-//   (L, d) partial per block).  The slot counts depend only on the shapes.
+//   same bits, equal to reduce.reduce_slots_ordered's.  The slot counts
+//   depend only on the shapes.
 // - Weight gradients are products a^T b over pair-sites.  Per tile, each
 //   thread sums a fixed strip of the gradient matrix over the tile's sites in
 //   registers (float4 broadcasts of a, one column of b) and adds the strip to
-//   the block's copy in shared memory.  Kernel C's two d x 4d matrices and
-//   Wo_c's gradient take 144 KB there, so C runs one block per SM; the
-//   (d, H) q/k gradients are one value per thread, kept in registers.
-// - Kernel C keeps the order of _kernel_c so that at most two 4d-wide
-//   temporaries live at once: u stays in registers while a = gelu(u) sits
-//   in shared memory for dW2; du then replaces a.
-// - Kernel E needs sums over the whole site axis per pair, and a row of up
-//   to 1024 sites (256 KB per operand) exceeds shared memory.  Each block
-//   walks a pair row twice: pass 1 sums q, k, k*v and d_attn*q over the
-//   sites, a finalize turns them into the pair's ctx, q-mean and the d_ctx /
-//   d_qm terms (the E1/E2 algebra of axial_block_bwd.py:483-490), and pass
-//   2 emits gx and the weight gradients tile by tile.
+//   the block's copy in shared memory.  The (d, H) q/k gradients are one
+//   value per thread, kept in registers.
+// - The row backward needs sums over the whole site axis per pair, and a
+//   row of up to 1024 sites (256 KB per operand) exceeds shared memory:
+//   pass 1 sums q, k, k*v and d_attn*q over the sites, a finalize turns them
+//   into the pair's ctx, q-mean and the d_ctx / d_qm terms (the E1/E2
+//   algebra of axial_block_bwd.py:483-490), and pass 2 emits gx and the
+//   weight gradients tile by tile.  Kernel E (axial_bwd_tc.cu) walks each
+//   row twice in one block.
 // - Above 1024 sites, as in JAX, the passes are two kernels.  E1 is pass 1:
 //   one block walks the whole rows of a contiguous range of pairs (grid:
 //   pair slots x B, as A1), so each pair's sums come from one block, in
@@ -77,8 +67,7 @@
 //   atomics.  E2 reads the sums from device memory, so a row need not be
 //   walked whole by one block: its grid is (pair slots x site chunks, B), as
 //   A2's, with one weight-gradient partial per block.  Their stages are
-//   kernel E's passes written as device functions; kernel E keeps its own
-//   body, so its register allocation is that of the whole-row kernel.
+//   the two passes written as device functions.
 // - Kernel D's per-site terms (from the stats and A1) are the same for every
 //   pair, so D walks tiles outermost and builds them once per tile.
 // - A ragged last tile is zero-filled on load and every sum stops at the
@@ -86,89 +75,11 @@
 //   positive-sum gates of _derive_col_site_grads are kept exactly.
 //   Activation offsets are size_t.
 
-#include "axial_bodies.cuh"
+#include "axial_bwd.cuh"
 
 namespace pf {
 
-constexpr int H = 4;        // heads
-constexpr int HD = D / H;   // lanes per head
-
-// Packed kernel-C weights: cn_s, cn_b, cwq_e (D x D), cbq_e, cwo, cwo_t, cbo,
-// fn_s, fn_b, w1 (D x F), b1, w1_t (F x D), w2_t (D x F), cwq (D x H), cbq (H)
-constexpr int CB_CNS = 0;
-constexpr int CB_CNB = CB_CNS + D;
-constexpr int CB_CWQE = CB_CNB + D;
-constexpr int CB_CBQE = CB_CWQE + D * D;
-constexpr int CB_CWO = CB_CBQE + D;
-constexpr int CB_CWOT = CB_CWO + D * D;
-constexpr int CB_CBO = CB_CWOT + D * D;
-constexpr int CB_FNS = CB_CBO + D;
-constexpr int CB_FNB = CB_FNS + D;
-constexpr int CB_W1 = CB_FNB + D;
-constexpr int CB_B1 = CB_W1 + D * F;
-constexpr int CB_W1T = CB_B1 + F;
-constexpr int CB_W2T = CB_W1T + F * D;
-constexpr int CB_CWQ = CB_W2T + D * F;
-constexpr int CB_CBQ = CB_CWQ + D * H;
-constexpr int CB_SIZE = CB_CBQ + H;
-
-// Packed attention weights of kernels D (column) and E (row): ln_s, ln_b,
-// wq_e (D x D), bq_e, wk_e, bk_e, wv, bv, wo_t, wq (D x H), bq, wk, bk, wv_t
-constexpr int AG_LNS = 0;
-constexpr int AG_LNB = AG_LNS + D;
-constexpr int AG_WQE = AG_LNB + D;
-constexpr int AG_BQE = AG_WQE + D * D;
-constexpr int AG_WKE = AG_BQE + D;
-constexpr int AG_BKE = AG_WKE + D * D;
-constexpr int AG_WV = AG_BKE + D;
-constexpr int AG_BV = AG_WV + D * D;
-constexpr int AG_WOT = AG_BV + D;
-constexpr int AG_WQ = AG_WOT + D * D;
-constexpr int AG_BQ = AG_WQ + D * H;
-constexpr int AG_WK = AG_BQ + H;
-constexpr int AG_BK = AG_WK + D * H;
-constexpr int AG_WVT = AG_BK + H;
-constexpr int AG_SIZE = AG_WVT + D * D;
-
-// Weight-gradient partials of one block (the layouts of grad_spec in
-// ops/kernels/axial_block_bwd.py).
-// C: dWo_c, dbo_c, dγ_f, dβ_f, dW1 (D x F), db1, dW2 (F x D), db2
-constexpr int WC_CWO = 0;
-constexpr int WC_CBO = WC_CWO + D * D;
-constexpr int WC_FNS = WC_CBO + D;
-constexpr int WC_FNB = WC_FNS + D;
-constexpr int WC_W1 = WC_FNB + D;
-constexpr int WC_B1 = WC_W1 + D * F;
-constexpr int WC_W2 = WC_B1 + F;
-constexpr int WC_B2 = WC_W2 + F * D;
-constexpr int NWC = WC_B2 + D;
-// D and E: dγ, dβ, dWq (D x H), dbq, dWk, dbk, dWv, dbv; E adds dWo, dbo
-constexpr int WA_LNS = 0;
-constexpr int WA_LNB = WA_LNS + D;
-constexpr int WA_WQ = WA_LNB + D;
-constexpr int WA_BQ = WA_WQ + D * H;
-constexpr int WA_WK = WA_BQ + H;
-constexpr int WA_BK = WA_WK + D * H;
-constexpr int WA_WV = WA_BK + H;
-constexpr int WA_BV = WA_WV + D * D;
-constexpr int NWD = WA_BV + D;
-constexpr int WA_WO = NWD;
-constexpr int WA_BO = WA_WO + D * D;
-constexpr int NWE = WA_BO + D;
-
 static_assert(NT == D * H, "the (d, H) q/k gradients map one thread to one entry");
-
-struct SmemC {
-  float xs[TS * D];  // x1, then x2
-  float hs[TS * D];  // column LN output, then the FFN LN output, then d_hf
-  float as[TS * D];  // column attention output before Wo_c
-  float qs[TS * D];  // qn
-  float gs[TS * D];  // g3, then g2
-  float fs[TS * F];  // gelu(u), then du; at the end the per-warp vector sums
-  float dcwo[D * D];  // the block's weight gradients
-  float dfw1[D * F];
-  float dfw2[F * D];
-};
 
 struct SmemD {
   float xs[TS * D];  // x1
@@ -365,146 +276,6 @@ __device__ __forceinline__ void dh_from_qkv(const float* vs, const float* dzq, c
   }
 }
 
-// ---- kernel C ----
-__global__ void __launch_bounds__(NT, 1) kernel_c(
-    const float* __restrict__ x1, const float* __restrict__ g3, const float* __restrict__ stats,
-    const float* __restrict__ pmask, const float* __restrict__ pair_count,
-    const float* __restrict__ w, float* __restrict__ g2, float* __restrict__ a1_part,
-    float* __restrict__ w_part, int P, int L, int S_, float eps) {
-  extern __shared__ float4 smem_raw[];
-  SmemC& S = *reinterpret_cast<SmemC*>(smem_raw);
-  const int b = blockIdx.y, slot = blockIdx.x, t = threadIdx.x, c = t & (D - 1);
-  int p0, p1;
-  split_range(slot, P, S_, p0, p1);
-  for (int e = t; e < D * D; e += NT) S.dcwo[e] = 0.f;
-  for (int e = t; e < D * F; e += NT) S.dfw1[e] = S.dfw2[e] = 0.f;
-  float vfs[2] = {0.f, 0.f}, vfb[2] = {0.f, 0.f}, vb2[2] = {0.f, 0.f}, vbo[2] = {0.f, 0.f};
-  float vb1 = 0.f;  // column t of db1
-  const float n_pairs = fmaxf(pair_count[b], 1.f);
-  const float* stats_b = stats + (size_t)b * L * 3 * D;
-  const float bq = w[CB_CBQE + c], bo = w[CB_CBO + c], b1 = w[CB_B1 + t];
-
-  for (int l0 = 0; l0 < L; l0 += TS) {
-    const int nv = min(TS, L - l0);
-    float qm[SPT], ctx[SPT], a1r[SPT];
-#pragma unroll
-    for (int i = 0; i < SPT; ++i) {
-      const int s = site_of(i);
-      float ksum = 1.f, qsum = n_pairs, kv = 0.f;
-      if (s < nv) {
-        const float* st = stats_b + (size_t)(l0 + s) * 3 * D;
-        ksum = st[c];
-        qsum = st[D + c];
-        kv = st[2 * D + c];
-      }
-      qm[i] = guard(qsum / n_pairs);
-      ctx[i] = kv / guard(ksum);
-      a1r[i] = 0.f;
-    }
-    for (int p = p0; p < p1; ++p) {
-      const size_t off = (((size_t)b * P + p) * L + l0) * D;
-      const float pm = pmask[(size_t)b * P + p];
-      load_tile(S.xs, x1 + off, nullptr, nv);
-      load_tile(S.gs, g3 + off, nullptr, nv);
-      __syncthreads();
-      // column attention output (kernel B's math): qn, attn, x2
-      ln_tile(S.xs, S.hs, w + CB_CNS, w + CB_CNB, eps);
-      __syncthreads();
-      {
-        float acc[1][SPT];
-        mm_d<D, 1>(S.hs, w + CB_CWQE, nullptr, nullptr, acc);
-#pragma unroll
-        for (int i = 0; i < SPT; ++i) {
-          const int s = site_of(i);
-          const float qn = phi(acc[0][i] + bq) * pm / qm[i];
-          S.qs[s * D + c] = qn;
-          S.as[s * D + c] = qn * ctx[i];
-        }
-      }
-      __syncthreads();
-      {
-        float acc[1][SPT];
-        mm_d<D, 1>(S.as, w + CB_CWO, nullptr, nullptr, acc);
-#pragma unroll
-        for (int i = 0; i < SPT; ++i) {
-          const int s = site_of(i);
-          S.xs[s * D + c] = S.xs[s * D + c] + (acc[0][i] + bo);
-        }
-      }
-      __syncthreads();
-      // FFN forward recompute and backward
-      ln_tile(S.xs, S.hs, w + CB_FNS, w + CB_FNB, eps);
-      __syncthreads();
-      float u[TS];
-      mm_up(S.hs, w + CB_W1, u);
-#pragma unroll
-      for (int s = 0; s < TS; ++s) {
-        u[s] += b1;
-        S.fs[s * F + t] = gelu<0>(u[s]);
-      }
-      __syncthreads();
-      outer_acc<F, D>(S.fs, S.gs, S.dfw2, nv);  // dW2 += a^T g3
-      __syncthreads();
-      {
-        float acc[TS];
-        mm_up(S.gs, w + CB_W2T, acc);  // g3 W2^T
-#pragma unroll
-        for (int s = 0; s < TS; ++s) {
-          const float du = acc[s] * gelu_grad(u[s]);
-          S.fs[s * F + t] = du;
-          if (s < nv) vb1 += du;
-        }
-      }
-      __syncthreads();
-      outer_acc<D, F>(S.hs, S.fs, S.dfw1, nv);  // dW1 += hf^T du
-      {
-        float acc[1][SPT];
-        mm_d<F, 1>(S.fs, w + CB_W1T, nullptr, nullptr, acc);  // d_hf = du W1^T
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < SPT; ++i) S.hs[site_of(i) * D + c] = acc[0][i];
-      }
-      __syncthreads();
-      ln_bwd_rows(S.xs, S.hs, S.gs, w + CB_FNS, eps, nv, g2 + off, vfs, vfb, vb2, vbo);
-      __syncthreads();
-      // column out-projection gradient, d_attn and the A1 sum
-      outer_acc<D, D>(S.as, S.gs, S.dcwo, nv);  // dWo_c += attn^T g2
-      {
-        float acc[1][SPT];
-        mm_d<D, 1>(S.gs, w + CB_CWOT, nullptr, nullptr, acc);  // d_attn = g2 Wo_c^T
-#pragma unroll
-        for (int i = 0; i < SPT; ++i) a1r[i] = fmaf(acc[0][i], S.qs[site_of(i) * D + c], a1r[i]);
-      }
-      __syncthreads();
-    }
-    float* ap = a1_part + ((size_t)b * S_ + slot) * L * D;
-#pragma unroll
-    for (int i = 0; i < SPT; ++i) {
-      const int s = site_of(i);
-      if (s < nv) ap[(size_t)(l0 + s) * D + c] = a1r[i];
-    }
-  }
-
-  float* wp = w_part + ((size_t)b * S_ + slot) * NWC;
-  put_warp_sums(S.fs, 0, vfs);
-  put_warp_sums(S.fs, 1, vfb);
-  put_warp_sums(S.fs, 2, vb2);
-  put_warp_sums(S.fs, 3, vbo);
-  __syncthreads();
-  for (int e = t; e < D * D; e += NT) wp[WC_CWO + e] = S.dcwo[e];
-  for (int e = t; e < D * F; e += NT) {
-    wp[WC_W1 + e] = S.dfw1[e];
-    wp[WC_W2 + e] = S.dfw2[e];
-  }
-  wp[WC_B1 + t] = vb1;
-  if (t < D) {
-    wp[WC_FNS + t] = warp_sums_total(S.fs, 0);
-    wp[WC_FNB + t] = warp_sums_total(S.fs, 1);
-    wp[WC_B2 + t] = warp_sums_total(S.fs, 2);
-    wp[WC_CBO + t] = warp_sums_total(S.fs, 3);
-  }
-}
-
 // ---- kernel D ----
 __global__ void __launch_bounds__(NT) kernel_d(
     const float* __restrict__ x1, const float* __restrict__ g2, const float* __restrict__ stats,
@@ -618,166 +389,6 @@ __global__ void __launch_bounds__(NT) kernel_d(
   if (t < D) {
     wp[WA_LNS + t] = warp_sums_total(S.vs, 0);
     wp[WA_LNB + t] = warp_sums_total(S.vs, 1);
-    wp[WA_BV + t] = dbv_total;
-  }
-}
-
-// ---- kernel E ----
-__global__ void __launch_bounds__(NT) kernel_e(
-    const float* __restrict__ x, const float* __restrict__ g1, const float* __restrict__ smask,
-    const float* __restrict__ w, float* __restrict__ gx, float* __restrict__ w_part, int P,
-    int L, int S_, float eps) {
-  extern __shared__ float4 smem_raw[];
-  SmemE& S = *reinterpret_cast<SmemE*>(smem_raw);
-  const int b = blockIdx.y, slot = blockIdx.x, t = threadIdx.x, c = t & (D - 1);
-  const int g = t / D, warp = t >> 5, lane = t & 31;
-  int p0, p1;
-  split_range(slot, P, S_, p0, p1);
-  for (int e = t; e < D * D; e += NT) S.dwv[e] = S.dwo[e] = 0.f;
-  float vds[2] = {0.f, 0.f}, vdb[2] = {0.f, 0.f}, vbo[2] = {0.f, 0.f}, unused[2] = {0.f, 0.f};
-  float dwq = 0.f, dwk = 0.f, dbq = 0.f, dbk = 0.f, dbv = 0.f;
-  const float* smask_b = smask + (size_t)b * L;
-  {
-    float v = 0.f;
-    for (int l = t; l < L; l += NT) v += smask_b[l];
-    v = warp_sum(v);
-    if (lane == 0) S.wsum[warp] = v;
-    __syncthreads();
-  }
-  float count = 0.f;
-#pragma unroll
-  for (int ww = 0; ww < NWARP; ++ww) count += S.wsum[ww];
-  count = fmaxf(count, 1.f);
-  const float bq = w[AG_BQE + c], bk = w[AG_BKE + c], bv = w[AG_BV + c];
-
-  for (int p = p0; p < p1; ++p) {
-    const size_t row = ((size_t)b * P + p) * L * D;
-    // pass 1: the pair's sums over the site axis
-    float rq = 0.f, rk = 0.f, rkv = 0.f, rdq = 0.f;
-    for (int l0 = 0; l0 < L; l0 += TS) {
-      const int nv = min(TS, L - l0);
-      load_tile(S.xs, x + row + (size_t)l0 * D, nullptr, nv);
-      load_tile(S.gs, g1 + row + (size_t)l0 * D, nullptr, nv);
-      __syncthreads();
-      ln_tile(S.xs, S.hs, w + AG_LNS, w + AG_LNB, eps);
-      __syncthreads();
-      float acc[3][SPT], da[1][SPT];
-      mm_d<D, 3>(S.hs, w + AG_WQE, w + AG_WKE, w + AG_WV, acc);
-      mm_d<D, 1>(S.gs, w + AG_WOT, nullptr, nullptr, da);  // d_attn = g1 Wo^T
-#pragma unroll
-      for (int i = 0; i < SPT; ++i) {
-        const int s = site_of(i);
-        const float m = s < nv ? smask_b[l0 + s] : 0.f;
-        const float q = phi(acc[0][i] + bq) * m, k = phi(acc[1][i] + bk) * m;
-        rq += q;
-        rk += k;
-        rkv += k * (acc[2][i] + bv);
-        rdq += da[0][i] * q;
-      }
-      __syncthreads();
-    }
-    // finalize: ctx, q-mean and the d_ctx / d_qm terms of the pair
-    S.red[(0 * NG + g) * D + c] = rq;
-    S.red[(1 * NG + g) * D + c] = rk;
-    S.red[(2 * NG + g) * D + c] = rkv;
-    S.red[(3 * NG + g) * D + c] = rdq;
-    __syncthreads();
-    if (t < D) {  // warps 0 and 1: whole warps, so the head shuffles are safe
-      float sq = 0.f, sk_raw = 0.f, skv = 0.f, sdq = 0.f;
-#pragma unroll
-      for (int gg = 0; gg < NG; ++gg) {
-        sq += S.red[(0 * NG + gg) * D + c];
-        sk_raw += S.red[(1 * NG + gg) * D + c];
-        skv += S.red[(2 * NG + gg) * D + c];
-        sdq += S.red[(3 * NG + gg) * D + c];
-      }
-      const float sq_raw = sq / count;
-      const float qm = guard(sq_raw), sk = guard(sk_raw);
-      const float ctx = skv / sk;
-      const float d_ctx = sdq / qm;
-      const float sk_h = head_sum(sk) / HD;
-      const float d_sk_h = -head_sum(d_ctx * ctx) / sk_h * gate(head_sum(sk_raw));
-      const float qm_h = head_sum(qm) / HD;
-      const float d_qm_h = -head_sum(ctx * sdq) / (qm_h * qm_h) * gate(head_sum(sq_raw));
-      S.pqm[c] = qm;
-      S.pctx[c] = ctx;
-      S.pskv[c] = d_ctx / sk;
-      S.pqmh[c] = qm_h;
-      S.pskh[c] = d_sk_h;
-      S.psqh[c] = d_qm_h / count;
-    }
-    __syncthreads();
-    const float qm = S.pqm[c], ctx = S.pctx[c], skv = S.pskv[c];
-    const float qm_h = S.pqmh[c], d_sk_h = S.pskh[c], d_sq_h = S.psqh[c];
-    // pass 2: gx and the weight gradients, tile by tile
-    for (int l0 = 0; l0 < L; l0 += TS) {
-      const int nv = min(TS, L - l0);
-      const size_t off = row + (size_t)l0 * D;
-      load_tile(S.xs, x + off, nullptr, nv);
-      load_tile(S.gs, g1 + off, nullptr, nv);
-      __syncthreads();
-      ln_tile(S.xs, S.hs, w + AG_LNS, w + AG_LNB, eps);
-      __syncthreads();
-      {
-        float acc[3][SPT], da[1][SPT];
-        mm_d<D, 3>(S.hs, w + AG_WQE, w + AG_WKE, w + AG_WV, acc);
-        mm_d<D, 1>(S.gs, w + AG_WOT, nullptr, nullptr, da);
-#pragma unroll
-        for (int i = 0; i < SPT; ++i) {
-          const int s = site_of(i);
-          const float m = s < nv ? smask_b[l0 + s] : 0.f;
-          const float zq = acc[0][i] + bq, zk = acc[1][i] + bk, v = acc[2][i] + bv;
-          const float q = phi(zq) * m, k = phi(zk) * m;
-          const float d_q = head_sum(da[0][i] * ctx) / qm_h + d_sq_h;
-          const float d_k = d_sk_h + head_sum(skv * v);
-          const float dzq = d_q * phi_grad(zq) * m, dzk = d_k * phi_grad(zk) * m;
-          const float dv = skv * k;
-          S.vs[s * D + c] = dv;
-          S.as[s * D + c] = (q / qm) * ctx;
-          if ((c & (HD - 1)) == 0) {
-            S.dzq[s * H + c / HD] = dzq;
-            S.dzk[s * H + c / HD] = dzk;
-          }
-          dbv += dv;
-        }
-      }
-      __syncthreads();
-      outer_acc<D, D>(S.hs, S.vs, S.dwv, nv);  // dWv += h^T d_v
-      outer_acc<D, D>(S.as, S.gs, S.dwo, nv);  // dWo += attn^T g1
-      dh_grad(S.hs, S.dzq, S.dzk, nv, dwq, dwk, dbq, dbk);
-      {
-        float dh[SPT];
-        dh_from_qkv(S.vs, S.dzq, S.dzk, w, dh);
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < SPT; ++i) S.hs[site_of(i) * D + c] = dh[i];
-      }
-      __syncthreads();
-      ln_bwd_rows(S.xs, S.hs, S.gs, w + AG_LNS, eps, nv, gx + off, vds, vdb, vbo, unused);
-      __syncthreads();
-    }
-  }
-
-  float* wp = w_part + ((size_t)b * S_ + slot) * NWE;
-  const float dbv_total = group_sums_total(S.vs, dbv);
-  put_warp_sums(S.vs, 0, vds);
-  put_warp_sums(S.vs, 1, vdb);
-  put_warp_sums(S.vs, 2, vbo);
-  __syncthreads();
-  for (int e = t; e < D * D; e += NT) {
-    wp[WA_WV + e] = S.dwv[e];
-    wp[WA_WO + e] = S.dwo[e];
-  }
-  wp[WA_WQ + t] = dwq;
-  wp[WA_WK + t] = dwk;
-  if (t < H) {
-    wp[WA_BQ + t] = dbq;
-    wp[WA_BK + t] = dbk;
-  }
-  if (t < D) {
-    wp[WA_LNS + t] = warp_sums_total(S.vs, 0);
-    wp[WA_LNB + t] = warp_sums_total(S.vs, 1);
-    wp[WA_BO + t] = warp_sums_total(S.vs, 2);
     wp[WA_BV + t] = dbv_total;
   }
 }
@@ -1036,23 +647,11 @@ extern "C" {
 
 // Packed group and gradient sizes, for the wrapper to check its layout.
 int pf_bwd_sizes(int* out) {
-  out[0] = CB_SIZE;
-  out[1] = AG_SIZE;
-  out[2] = NWC;
-  out[3] = NWD;
-  out[4] = NWE;
-  out[5] = 4 * D;  // floats of one pair's row sums (E1 -> E2)
+  out[0] = AG_SIZE;
+  out[1] = NWD;
+  out[2] = NWE;
+  out[3] = 4 * D;  // floats of one pair's row sums (E1 -> E2)
   return 0;
-}
-
-int pf_kernel_c(const float* x1, const float* g3, const float* stats, const float* pmask,
-                const float* pair_count, const float* w, float* g2, float* a1_part,
-                float* w_part, int B, int P, int L, int S_, float eps, void* stream) {
-  cudaError_t e = allow_smem_of<SmemC>(kernel_c);
-  if (e != cudaSuccess) return (int)e;
-  kernel_c<<<dim3(S_, B), NT, sizeof(SmemC), (cudaStream_t)stream>>>(
-      x1, g3, stats, pmask, pair_count, w, g2, a1_part, w_part, P, L, S_, eps);
-  return (int)cudaGetLastError();
 }
 
 int pf_kernel_d(const float* x1, const float* g2, const float* stats, const float* a1,
@@ -1062,16 +661,6 @@ int pf_kernel_d(const float* x1, const float* g2, const float* stats, const floa
   if (e != cudaSuccess) return (int)e;
   kernel_d<<<dim3(S_, B), NT, sizeof(SmemD), (cudaStream_t)stream>>>(
       x1, g2, stats, a1, pmask, pair_count, w, g1, w_part, P, L, S_, eps);
-  return (int)cudaGetLastError();
-}
-
-int pf_kernel_e(const float* x, const float* g1, const float* smask, const float* w,
-                float* gx, float* w_part, int B, int P, int L, int S_, float eps,
-                void* stream) {
-  cudaError_t e = allow_smem_of<SmemE>(kernel_e);
-  if (e != cudaSuccess) return (int)e;
-  kernel_e<<<dim3(S_, B), NT, sizeof(SmemE), (cudaStream_t)stream>>>(x, g1, smask, w, gx,
-                                                                     w_part, P, L, S_, eps);
   return (int)cudaGetLastError();
 }
 

@@ -304,6 +304,8 @@ for name, (dims, pad_n, pad_l) in {
         "few_pairs": ([(3, 70)], 3, 70),
         "two_seqs": ([(12, 33), (2, 33)], 12, 40),
         "masked_row": ([(8, 50), (0, 0)], 8, 50),
+        # 100 sites: a last tile that is a partial 64-site tile (and 32-site)
+        "partial_64": ([(7, 100), (5, 90)], 7, 100),
         # above 1024 sites: the L-tiled row backward, E1 then E2
         "long_partial_tile": ([(9, 1100), (6, 1077)], 9, 1100),
         "l1025": ([(5, 1025)], 5, 1025),
@@ -346,6 +348,10 @@ for name, (dims, pad_n, pad_l) in {
     else:
         got = bw.kernel_e(x, g1, sm, w.e, 1e-5)
         want = bw.kernel_e_plain(x, g1, sm, w.e, 1e-5)
+        if pad_l == 1024:  # the L-tiled form of the same function against kernel E
+            g12 = bw.kernel_e2(x, g1, bw.kernel_e1(x, g1, sm, w.e, 1e-5), sm, w.e, 1e-5)
+            e["e12_vs_e"] = rel(g12[0], got[0])
+            e["e12_vs_e_grads"] = rel(g12[1], got[1])
     e["act"] = max(e["act"], rel(got[0], want[0]))
     e["grad"] = max(e["grad"], rel(got[1], want[1]))
     # the whole block backward: launch counts, same bits twice, and the
@@ -380,13 +386,18 @@ def bwd_results(card):
 
 
 @pytest.mark.parametrize("case", ["partial_tile", "l1024", "few_pairs", "two_seqs",
-                                  "masked_row"])
+                                  "masked_row", "partial_64"])
 def test_backward_kernels_match_plain_on_card(case, bwd_results):
     """Kernels C, D and E against their plain versions (2e-5 on g2, A1, g1
     and gx; 1e-4 on the weight gradients, sums over every pair-site taken in
     another order), the block backward against autograd of the eager block
-    (1e-4), its launches, and the same bits from two runs."""
+    (1e-4), its launches, and the same bits from two runs.  C and E run split
+    TF32 on the tensor cores; at 1024 sites E1 + E2 (fp32 SIMT) match E
+    within 1e-5 on gx and 1e-4 on the weight gradients."""
     res = bwd_results[case]
+    if case == "l1024":
+        assert res["errs"]["e12_vs_e"] <= 1e-5, res
+        assert res["errs"]["e12_vs_e_grads"] <= 1e-4, res
     assert res["errs"]["act"] <= 2e-5, res
     assert res["errs"]["grad"] <= 1e-4, res
     assert res["errs"]["autograd"] <= 1e-4, res
