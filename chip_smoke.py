@@ -13,8 +13,8 @@
    ``torch.sum``, the twin and the bound (``--reductions``: only this, with
    the rows printed as JSON);
    then counts the tensor-core (HMMA) and fp32 FMA instructions of every
-   kernel in the built library (``cuobjdump -sass``; C and E must have
-   HMMA, D, E1 and E2 are fp32 SIMT), holds every
+   kernel in the built library (``cuobjdump -sass``; C, D, E and E2 must
+   have HMMA, E1 is fp32 SIMT), holds every
    kernel of the inference paths against its plain PyTorch version on the
    card (TF32 off for PyTorch; the kernels' own products are split TF32 on
    the tensor cores) and times both with CUDA events, beside the bound of
@@ -39,9 +39,9 @@
 6. holds the fused backward's kernels C, D and E against their plain
    versions on the residuals of the fused forward (real weights, a seeded
    cotangent) at the training shape 4 x 50 tips x 256 sites and on a ragged
-   batch, checks that two runs give the same bits, and times them (C and E,
-   split TF32 on the tensor cores, against three TF32 passes, with the fp32
-   SIMT bound beside; D against the fp32 SIMT bound);
+   batch, checks that two runs give the same bits (of D, and of the block
+   backward), and times them (split TF32 on the tensor cores, against three
+   TF32 passes, with the fp32 SIMT bound beside);
 7. drives training through the CLI (``pf-train-torch --base-model
    pf_mre_r5.ckpt --batch-size 4 --loss mre --max-steps 8``) on a synthetic
    corpus of random trees and matching 50-tip alignments, then resumes it
@@ -53,9 +53,10 @@
    memory);
 9. holds the L-tiled row backward's kernels E1 and E2 (above 1024 sites)
    against their plain versions at the (50, 1536) training bucket and on a
-   ragged batch, E1 + E2 against kernel E at 1024 sites, and two runs of the
-   long block backward against each other; times E1 and E2, C at
-   2 x 1225 x 1536 and E at 1024 sites;
+   ragged batch, E1 + E2 against kernel E at 1024 sites, and two runs of E2 and
+   of the long block backward against each other; times E1 and E2 (E2
+   against three TF32 passes), C and D at 2 x 1225 x 1536 and E at 1024
+   sites;
 10. drives training on long alignments: a synthetic corpus in the
    (50, 1536) bucket packed with ``pf-preprocess-torch``, ``pf-train-torch
    --packed-data --batch-size 2`` for 4 steps and a validation (launch
@@ -96,9 +97,9 @@ SEED = 1234
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
-# The forward kernels (P0, A-only, A, M, Z, A1, A2, B) and the backward's C
-# and E run their products on the tensor cores in split TF32: three passes,
-# so the card does 3x the products' FLOPs.
+# The forward kernels (P0, A-only, A, M, Z, A1, A2, B) and the backward's C,
+# D, E and E2 run their products on the tensor cores in split TF32: three
+# passes, so the card does 3x the products' FLOPs.  E1 is fp32 SIMT.
 TF32_PASSES = 3
 # Matmul FLOPs per pair-site: kernel A = 7 d x d products (A1 3 of them, A2
 # the other 4 and the q projection again: 5), kernel B = 2 d x d + 2 d x 4d
@@ -580,6 +581,15 @@ def reduction_shapes(device):
         return bw._bwd_slots(name, b, pairs(n), per_slot, device)
 
     s3 = (3 * D,)
+    # E's partial at 4 x 50 x 256, and E2's at 2 x 50 x 1536 (pair slots x
+    # site chunks): one row where the two shapes agree
+    e_shape = (1, 4 * bwd_slots("kernel_e", 4, 50), nw["kernel_e"])
+    sp, sc = bw.e2_grid(2, pairs(50), 1536, device)
+    e2_shape = (1, 2 * sp * sc, nw["kernel_e"])
+    e_rows = [("partials, E's and E2's weight gradients (4 x 50 x 256)", "reduce_partials",
+               e_shape)] if e2_shape == e_shape else [
+        ("partials, E's weight gradients (4 x 50 x 256)", "reduce_partials", e_shape),
+        ("partials, E2's weight gradients (2 x 50 x 1536)", "reduce_partials", e2_shape)]
     return [
         ("stats, headline P0/M/A (9 x 60 x 256)", "reduce_stats",
          (9, pipe._slots(pairs(60), 9, device), 256) + s3),
@@ -596,12 +606,10 @@ def reduction_shapes(device):
          (2, bwd_slots("kernel_c", 2, 50, 1536), 1536 * D)),
         ("partials, C's weight gradients (4 x 50 x 256)", "reduce_partials",
          (1, 4 * bwd_slots("kernel_c", 4, 50, 256), nw["kernel_c"])),
+        # D's at 2 x 50 x 1536 are the same shape: 2 x 132 pair slots
         ("partials, D's weight gradients (4 x 50 x 256)", "reduce_partials",
          (1, 4 * bwd_slots("kernel_d", 4, 50), nw["kernel_d"])),
-        # E2's at 2 x 50 x 1536 are the same shape: 2 x 198 pair slots x 1 site chunk
-        ("partials, E's and E2's weight gradients (4 x 50 x 256)", "reduce_partials",
-         (1, 4 * bwd_slots("kernel_e", 4, 50), nw["kernel_e"])),
-    ]
+    ] + e_rows
 
 
 # The edges of the slot reduction, checked and not timed: (label, wrapper,
@@ -863,7 +871,7 @@ def backward_kernel_checks(params, device):
     rng = np.random.default_rng(SEED + 3)
     cases = {"train": ([(50, 256)] * 4, 50, 256), "ragged": ([(45, 230), (50, 256)], 50, 256)}
     results = {k: {"errs": [], "grad_errs": []} for k in ("kernel_c", "kernel_d", "kernel_e")}
-    shapes, same_bits = {}, True
+    shapes, same_bits, d_bits = {}, True, True
     for case, (dims, pad_n, pad_l) in cases.items():
         _, _, _, smask, pmask, pcount, x = block0_inputs(pw, rng, dims, pad_n, pad_l, device)
         _, x1, stats = fused.fused_axial_block_res(x, layer, smask, pmask)
@@ -886,6 +894,9 @@ def backward_kernel_checks(params, device):
         want = bw.kernel_d_plain(x1, g2, stats, a1, pmask, pcount, w.d, 1e-5)
         results["kernel_d"]["errs"].append(errors(got[0], want[0]))
         results["kernel_d"]["grad_errs"] += grad_errs("kernel_d", got[1], want[1])
+        again = bw.kernel_d(x1, g2, stats, a1, pmask, pcount, w.d, 1e-5)
+        d_bits &= torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        del again
         g1 = want[0]
         got = bw.kernel_e(x, g1, smask, w.e, 1e-5)
         want = bw.kernel_e_plain(x, g1, smask, w.e, 1e-5)
@@ -922,13 +933,13 @@ def backward_kernel_checks(params, device):
         f = bw.kernel_e_plain if plain else bw.kernel_e
         return lambda: f(t["x"], t["g1"], t["smask"], w.e, 1e-5)
 
-    # C and E run split TF32 on the tensor cores (their bound at three
-    # passes, the fp32 SIMT bound beside it); D is fp32 SIMT
+    # split TF32 on the tensor cores: the bound at three passes, the fp32
+    # SIMT bound beside it
     timed = {
         "kernel_c": (c(False), c(True),
                      bound_tc(FLOPS_C * sites, 3 * act + stats_b + a1_b + wb[0] + nw["kernel_c"])),
         "kernel_d": (dk(False), dk(True),
-                     bound(FLOPS_D * sites, 3 * act + stats_b + a1_b + wb[1] + nw["kernel_d"])),
+                     bound_tc(FLOPS_D * sites, 3 * act + stats_b + a1_b + wb[1] + nw["kernel_d"])),
         "kernel_e": (e(False), e(True),
                      bound_tc(FLOPS_E * sites, 3 * act + 4 * t["b"] * t["l"] + wb[1]
                               + nw["kernel_e"])),
@@ -942,6 +953,7 @@ def backward_kernel_checks(params, device):
             r["bound_fp32_simt_ms"] = bnd[2]
         r["library_ms"] = None  # no single PyTorch call computes these functions
         torch.cuda.empty_cache()
+    results["kernel_d"]["same_bits"] = d_bits
     return results, same_bits
 
 
@@ -953,7 +965,8 @@ def long_backward_kernel_checks(params, device):
     ragged batch (45 of 50 tips, 1100 of 1280 sites), every output compared
     on its own (E1 has no weight gradients); E1 + E2 against kernel E at 1024
     sites (the same function, written twice); the same bits from two runs of
-    the whole block backward.  Times at the training bucket."""
+    E2 and of the whole block backward.  Times at the training bucket, C's
+    and D's there too."""
     import torch
 
     from phyloformer_tpu_torch.ops.kernels import axial_block_bwd as bw
@@ -967,7 +980,8 @@ def long_backward_kernel_checks(params, device):
     rng = np.random.default_rng(SEED + 5)
     cases = {"train": ([(50, 1536)] * 2, 50, 1536), "ragged": ([(45, 1100), (50, 1280)], 50, 1280),
              "l1024": ([(50, 1024), (47, 1000)], 50, 1024)}
-    results = {"kernel_e1": {"errs": []}, "kernel_e2": {"errs": [], "grad_errs": []}}
+    results = {"kernel_e1": {"errs": []},
+               "kernel_e2": {"errs": [], "grad_errs": [], "same_bits": True}}
     out = {"same_bits": True}
 
     def grad_errs(got, want):
@@ -983,6 +997,13 @@ def long_backward_kernel_checks(params, device):
               * smask[:, None, :, None] * pmask[:, :, None, None]).contiguous()
         g2, a1, _ = bw.kernel_c(x1, g3, stats, pmask, pcount, w.c, 1e-5)
         g1, _ = bw.kernel_d(x1, g2, stats, a1, pmask, pcount, w.d, 1e-5)
+        if case == "train":
+            s = len(dims) * x.shape[1] * pad_l
+            out["kernel_d_long_ms"] = time_ms(
+                lambda: bw.kernel_d(x1, g2, stats, a1, pmask, pcount, w.d, 1e-5))
+            (out["kernel_d_long_bound_ms"], _, out["kernel_d_long_bound_fp32_simt_ms"]) = bound_tc(
+                FLOPS_D * s, 3 * 4 * D * s + 4 * len(dims) * pad_l * 4 * D
+                + 4 * bw.group_size(bw.ATT_PARTS, D, H) + 4 * bw.grad_size("kernel_d", D, H))
         del g2, a1
         rowsums = bw.kernel_e1_plain(x, g1, smask, w.e, 1e-5)
         want = bw.kernel_e2_plain(x, g1, rowsums, smask, w.e, 1e-5)
@@ -1007,6 +1028,10 @@ def long_backward_kernel_checks(params, device):
             got = bw.kernel_e2(x, g1, rowsums, smask, w.e, 1e-5)
             results["kernel_e2"]["errs"].append(errors(got[0], want[0]))
             results["kernel_e2"]["grad_errs"] += grad_errs(got[1], want[1])
+            again = bw.kernel_e2(x, g1, rowsums, smask, w.e, 1e-5)
+            results["kernel_e2"]["same_bits"] &= (torch.equal(got[0], again[0])
+                                                  and torch.equal(got[1], again[1]))
+            del again
         del got, want
         if case == "train":
             s = len(dims) * x.shape[1] * pad_l
@@ -1043,12 +1068,14 @@ def long_backward_kernel_checks(params, device):
     timed = {"kernel_e1": (e1(False), e1(True),
                            bound(FLOPS_E1 * sites, 2 * act + smask_b + wb + rows_b)),
              "kernel_e2": (e2(False), e2(True),
-                           bound(FLOPS_E * sites, 3 * act + rows_b + smask_b + wb + nw))}
-    for name, (kern, plain, (bound_ms, bound_by)) in timed.items():
+                           bound_tc(FLOPS_E * sites, 3 * act + rows_b + smask_b + wb + nw))}
+    for name, (kern, plain, bnd) in timed.items():
         r = results[name]
         r["ms"] = time_ms(kern)
         r["plain_ms"] = time_ms(plain)
-        r["bound_ms"], r["bound_by"] = bound_ms, bound_by
+        r["bound_ms"], r["bound_by"] = bnd[:2]
+        if len(bnd) == 3:
+            r["bound_fp32_simt_ms"] = bnd[2]
         r["library_ms"] = None  # no single PyTorch call computes these functions
         torch.cuda.empty_cache()
     return results, out
@@ -1377,10 +1404,10 @@ KERNELS = {
     "kernel_a1": ("axial_fused.cu", "phyloformer_tpu/ops/pallas/axial_block.py:314"),
     "kernel_a2": ("axial_fused.cu", "phyloformer_tpu/ops/pallas/axial_block.py:353"),
     "kernel_c": ("axial_bwd_tc.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:176"),
-    "kernel_d": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:281"),
+    "kernel_d": ("axial_bwd_tc.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:281"),
     "kernel_e": ("axial_bwd_tc.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:372"),
     "kernel_e1": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:492"),
-    "kernel_e2": ("axial_bwd.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:534"),
+    "kernel_e2": ("axial_bwd_tc.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:534"),
     "reduce_partials": ("slot_reduce.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:241"),
 }
 
@@ -1443,7 +1470,8 @@ def main(argv=None) -> int:
         print("sass: no cuobjdump in this toolkit")
     for fn, n in (sass or {}).items():
         print(f"sass: {fn}: {n['HMMA']} HMMA (tensor-core mma), {n['FFMA']} FFMA")
-    no_tc = [k for k in ("kernel_c", "kernel_e") if not (sass or {}).get(k, {}).get("HMMA")]
+    no_tc = [k for k in ("kernel_c", "kernel_d", "kernel_e", "kernel_e2")
+             if not (sass or {}).get(k, {}).get("HMMA")]
     if no_tc:
         fail(f"no tensor-core (HMMA) instruction found in {no_tc}")
 
@@ -1509,8 +1537,9 @@ def main(argv=None) -> int:
     # the fused backward's kernels against their plain versions
     bwd, same_bits = backward_kernel_checks(dev_params, device)
     bad = [n for n, r in bwd.items() if not summarize(n, r, KERNEL_TOL, "", card)]
-    print(f"backward: two runs give the same bits: {same_bits}")
-    if bad or not same_bits:
+    print(f"backward: two runs give the same bits: {same_bits} (the block), "
+          f"{bwd['kernel_d']['same_bits']} (kernel D)")
+    if bad or not same_bits or not bwd["kernel_d"]["same_bits"]:
         fail(f"backward kernels disagree with their plain versions or between runs: {bad}")
 
     # the L-tiled row backward (above 1024 sites) against its plain versions
@@ -1520,16 +1549,19 @@ def main(argv=None) -> int:
            if not summarize(n, r, E12_TOL, " at 2 x 1225 x 1536", card)]
     print(f"E1 + E2 vs kernel E at 1024 sites: gx {e12['e12_vs_e']:.3e} (same bits: "
           f"{e12['e12_vs_e_bits']}), weight gradients {e12['e12_vs_e_grads']:.3e}; vs the plain "
-          f"versions {e12['e12_vs_e_plain']:.3e}; two runs of the long block backward give "
-          f"the same bits: {e12['same_bits']}")
+          f"versions {e12['e12_vs_e_plain']:.3e}; two runs give the same bits: "
+          f"{bwd_long['kernel_e2']['same_bits']} (kernel E2), {e12['same_bits']} (the long "
+          f"block backward)")
     for name, key, where in (("kernel_c", "kernel_c_long", "2 x 1225 x 1536"),
+                             ("kernel_d", "kernel_d_long", "2 x 1225 x 1536"),
                              ("kernel_e", "kernel_e_l1024", "2 x 1225 x 1024")):
         for k in ("ms", "bound_ms", "bound_fp32_simt_ms"):
             bwd[name][f"{key[len(name) + 1:]}_{k}"] = e12[f"{key}_{k}"]
         print(f"{name} at {where}: {e12[key + '_ms']:.3f} ms, bound "
               f"{e12[key + '_bound_ms']:.3f} ms (split TF32; fp32 SIMT "
               f"{e12[key + '_bound_fp32_simt_ms']:.3f} ms) [{card}]")
-    if (bad or not e12["same_bits"] or not e12["e12_vs_e"] <= E12_TOL
+    if (bad or not e12["same_bits"] or not bwd_long["kernel_e2"]["same_bits"]
+            or not e12["e12_vs_e"] <= E12_TOL
             or not e12["e12_vs_e_grads"] <= GRAD_TOL or not e12["e12_vs_e_plain"] <= GRAD_TOL):
         fail(f"E1/E2 disagree with their plain versions, with kernel E or between runs: {bad}")
     bwd.update(bwd_long)

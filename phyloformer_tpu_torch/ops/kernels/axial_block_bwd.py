@@ -1,8 +1,8 @@
 """The fused backward of one axial block: kernels C, D and E (or E1, E2).
 
-The PyTorch side of ``pf_kernel_c`` / ``pf_kernel_e`` (``csrc/axial_bwd_tc.cu``,
-split-TF32 products on the tensor cores), ``pf_kernel_d`` / ``pf_kernel_e1`` /
-``pf_kernel_e2`` (``csrc/axial_bwd.cu``, fp32 SIMT) and of
+The PyTorch side of ``pf_kernel_c`` / ``pf_kernel_d`` / ``pf_kernel_e`` /
+``pf_kernel_e2`` (``csrc/axial_bwd_tc.cu``, split-TF32 products on the tensor
+cores), ``pf_kernel_e1`` (``csrc/axial_bwd.cu``, fp32 SIMT) and of
 ``pf_reduce_slots`` for the partials (``csrc/slot_reduce.cu``), and the
 counterpart of ``phyloformer_tpu/ops/pallas/axial_block_bwd.py``:
 
@@ -50,7 +50,6 @@ from .axial_block import phi
 from .pipeline import (
     D_KERNEL,
     LAUNCHES,
-    TILE_SITES,
     WeightGroup,
     _check_width,
     _lib,
@@ -67,18 +66,16 @@ _INV_SQRT2PI = 0.3989422804014327
 PARTIAL_BUDGET_BYTES = 256 * 1024 * 1024
 # Blocks per SM that each kernel's grid aims at (pair slots = this x SMs /
 # B).  C holds its FFN weight gradients and tiles in 220 KB of shared
-# memory, so one block fits an SM; E (108 KB, at most 128 registers a
-# thread) fits two, and its grid is one wave of two.  D and E2 take three,
-# which run in waves where their registers (141 and 128 per thread, ptxas)
-# let fewer fit at once.  E1 keeps no gradients and takes the forward's
-# eight, as A1 does.
-BLOCKS_PER_SM = {"kernel_c": 1, "kernel_d": 3, "kernel_e": 2, "kernel_e1": 8, "kernel_e2": 3}
-# Sites per tile of kernels C and E (BT in csrc/axial_bwd.cuh).
+# memory, so one block fits an SM; D, E and E2 (108 KB, at most 128
+# registers a thread) fit two, and their grids are one wave of two.  E1
+# keeps no gradients and takes the forward's eight, as A1 does.
+BLOCKS_PER_SM = {"kernel_c": 1, "kernel_d": 2, "kernel_e": 2, "kernel_e1": 8, "kernel_e2": 2}
+# Sites per tile of kernels C, D, E and E2 (BT in csrc/axial_bwd.cuh).
 TC_TILE_SITES = 32
 
 
 # ---- weight groups --------------------------------------------------------
-# The order of each group's parts is the packed layout of csrc/axial_bwd.cu.
+# The order of each group's parts is the packed layout of csrc/axial_bwd.cuh.
 
 C_PARTS = ("cn_s", "cn_b", "cwq_e", "cbq_e", "cwo", "cwo_t", "cbo", "fn_s", "fn_b",
            "w1", "b1", "w1_t", "w2_t", "cwq", "cbq")
@@ -122,18 +119,19 @@ def att_group(norm, attn) -> WeightGroup:
 
 
 def e_mma_mats(parts: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-    """Kernel E's matrices, in the order it reads them packed (EM_* in
-    axial_bwd.cuh): ``[wq | wk]`` (d x 2H, the q/k projections on the
-    d x H weights), ``wv``, ``wo_t`` and ``[wv_t ; wqᵀ ; wkᵀ]`` ((d + 2H) x
-    d, the gradient of the LN output from ``[d_v | dzq | dzk]``)."""
+    """The matrices of kernels D, E and E2, in the order they read them
+    packed (EM_* in axial_bwd.cuh): ``[wq | wk]`` (d x 2H, the q/k
+    projections on the d x H weights), ``wv``, ``wo_t`` and
+    ``[wv_t ; wqᵀ ; wkᵀ]`` ((d + 2H) x d, the gradient of the LN output from
+    ``[d_v | dzq | dzk]``)."""
     return (torch.cat([parts["wq"], parts["wk"]], dim=1), parts["wv"], parts["wo_t"],
             torch.cat([parts["wv_t"], parts["wq"].t(), parts["wk"].t()], dim=0))
 
 
 def e_group(norm, attn) -> WeightGroup:
-    """:func:`att_group` (the flat layout E1 and E2 read too) with kernel E's
-    own matrices packed for the tensor cores (:func:`e_mma_mats`; none for
-    other widths than the kernels')."""
+    """:func:`att_group` (the flat layout, which E1 reads alone) with the
+    matrices of kernels D, E and E2 packed for the tensor cores
+    (:func:`e_mma_mats`; none for other widths than the kernels')."""
     g = att_group(norm, attn)
     if not _kernel_shaped(attn["wq"]):
         return g
@@ -143,8 +141,9 @@ def e_group(norm, attn) -> WeightGroup:
 
 @dataclass(frozen=True)
 class BwdWeights:
-    """One layer's weight groups for kernels C, D (column) and E (row; E1
-    and E2 read its flat layout), packed once per call of :meth:`of`."""
+    """One layer's weight groups for kernels C, D (column attention) and E
+    (row attention; E1 and E2 read it too), packed once per call of
+    :meth:`of`."""
 
     c: WeightGroup
     d: WeightGroup
@@ -153,7 +152,7 @@ class BwdWeights:
 
     @classmethod
     def of(cls, layer: Dict[str, Any]) -> "BwdWeights":
-        return cls(c_group(layer), att_group(layer["col_norm"], layer["col_attn"]),
+        return cls(c_group(layer), e_group(layer["col_norm"], layer["col_attn"]),
                    e_group(layer["row_norm"], layer["row_attn"]),
                    layer["row_attn"]["wq"].shape[1])
 
@@ -192,7 +191,8 @@ def grad_spec(kernel: str, d: int, h: int) -> List[Tuple[str, str, Tuple[int, ..
 
 
 def mma_size(kernel: str, d: int, h: int) -> int:
-    """Floats of kernel C's or E's packed matrices (two per element)."""
+    """Floats of kernel C's packed matrices, or those D, E and E2 read
+    (two per element)."""
     f = 4 * d
     if kernel == "kernel_c":
         return 2 * (3 * d * d + 3 * d * f)
@@ -214,13 +214,14 @@ def unpack_grads(kernel: str, flat: torch.Tensor, d: int, h: int,
     return into
 
 
-# What pf_bwd_tc_sizes reports first (the layouts of kernels C and E; then
-# the shared memory of a C and an E block, in bytes).
+# What pf_bwd_tc_sizes reports first (the layouts of kernels C, D, E and
+# E2; then the shared memory of a C, a D and an E or E2 block, in bytes).
 TC_LAYOUT = (group_size(C_PARTS, D_KERNEL, N_HEADS_KERNEL),
              mma_size("kernel_c", D_KERNEL, N_HEADS_KERNEL),
              group_size(ATT_PARTS, D_KERNEL, N_HEADS_KERNEL),
              mma_size("kernel_e", D_KERNEL, N_HEADS_KERNEL),
              grad_size("kernel_c", D_KERNEL, N_HEADS_KERNEL),
+             grad_size("kernel_d", D_KERNEL, N_HEADS_KERNEL),
              grad_size("kernel_e", D_KERNEL, N_HEADS_KERNEL), TC_TILE_SITES)
 
 
@@ -515,15 +516,13 @@ def _bwd_lib():
     global _sizes_checked
     lib = _lib()
     if not _sizes_checked:
-        sizes = (ctypes.c_int * 4)()
+        sizes = (ctypes.c_int * 2)()
         lib.pf_bwd_sizes(ctypes.addressof(sizes))
-        d, h = D_KERNEL, N_HEADS_KERNEL
-        want = (group_size(ATT_PARTS, d, h), grad_size("kernel_d", d, h),
-                grad_size("kernel_e", d, h), 4 * d)
+        want = (group_size(ATT_PARTS, D_KERNEL, N_HEADS_KERNEL), 4 * D_KERNEL)
         if tuple(sizes) != want:
-            raise RuntimeError(f"backward layout mismatch: library {tuple(sizes)}, "
+            raise RuntimeError(f"kernel E1's layout mismatch: library {tuple(sizes)}, "
                                f"wrapper {want}")
-        tc = (ctypes.c_int * (len(TC_LAYOUT) + 2))()
+        tc = (ctypes.c_int * (len(TC_LAYOUT) + 3))()
         lib.pf_bwd_tc_sizes(ctypes.addressof(tc))
         if tuple(tc)[:len(TC_LAYOUT)] != TC_LAYOUT:
             raise RuntimeError(f"tensor-core backward layout mismatch: library "
@@ -581,7 +580,9 @@ def kernel_c(x1, g3, stats, pmask, pair_count, wc: WeightGroup, eps):
 
 
 def kernel_d(x1, g2, stats, a1, pmask, pair_count, wd: WeightGroup, eps):
-    """``_kernel_d``: ``(g1, flat weight gradients)``."""
+    """``_kernel_d``: ``(g1, flat weight gradients)``.  ``wd`` is
+    :func:`e_group`'s of the column attention (the kernel reads its packed
+    matrices)."""
     if _on_cpu(x1, g2, stats, a1, pmask, pair_count, wd.flat):
         return kernel_d_plain(x1, g2, stats, a1, pmask, pair_count, wd, eps)
     B, P, L, d = x1.shape
@@ -592,7 +593,7 @@ def kernel_d(x1, g2, stats, a1, pmask, pair_count, wd: WeightGroup, eps):
     _require(a1, "a1", (B, L, d))
     _require(pmask, "pmask", (B, P))
     _require(pair_count, "pair_count", (B,))
-    _require_group(wd, "d", ATT_PARTS)
+    _require_group(wd, "d", ATT_PARTS, mma="kernel_d")
     if P < 1:
         raise ValueError("kernel D needs at least one pair (two sequences)")
     nw = grad_size("kernel_d", d, N_HEADS_KERNEL)
@@ -602,8 +603,8 @@ def kernel_d(x1, g2, stats, a1, pmask, pair_count, wd: WeightGroup, eps):
     lib = _bwd_lib()
     _build.check(lib, lib.pf_kernel_d(
         x1.data_ptr(), g2.data_ptr(), stats.data_ptr(), a1.data_ptr(), pmask.data_ptr(),
-        pair_count.data_ptr(), wd.flat.data_ptr(), g1.data_ptr(), w_part.data_ptr(),
-        B, P, L, S, float(eps), _stream()), "kernel_d")
+        pair_count.data_ptr(), wd.flat.data_ptr(), wd.mma.data_ptr(), g1.data_ptr(),
+        w_part.data_ptr(), B, P, L, S, float(eps), _stream()), "kernel_d")
     LAUNCHES["kernel_d"] += 1
     return g1, reduce_partials(w_part)[0]
 
@@ -658,10 +659,23 @@ def kernel_e1(x, g1, smask, we: WeightGroup, eps):
     return rowsums
 
 
+def e2_grid(B: int, P: int, L: int, device) -> Tuple[int, int]:
+    """Kernel E2's grid per batch element, ``(pair slots, site chunks)``:
+    the pairs split into slots as the other kernels' and, where they alone
+    leave the card idle, the site tiles into chunks; partials under
+    ``PARTIAL_BUDGET_BYTES``."""
+    nw = grad_size("kernel_e", D_KERNEL, N_HEADS_KERNEL)
+    sp = _bwd_slots("kernel_e2", B, P, 4 * nw, device)
+    sc = max(1, min(-(-L // TC_TILE_SITES), -(-_bwd_blocks("kernel_e2", B, device) // sp),
+                    PARTIAL_BUDGET_BYTES // (B * sp * 4 * nw)))
+    return sp, sc
+
+
 def kernel_e2(x, g1, rowsums, smask, we: WeightGroup, eps):
     """``_kernel_e2``: ``(gx, flat weight gradients)`` from the row sums of
-    :func:`kernel_e1`.  The grid splits pairs into slots and, where the pairs
-    alone leave the card idle, the site axis into chunks (as kernel A2)."""
+    :func:`kernel_e1`.  ``we`` is :func:`e_group`'s (the kernel reads its
+    packed matrices).  The grid splits pairs into slots and, where the pairs
+    alone leave the card idle, the site tiles into chunks (as kernel A2)."""
     if _on_cpu(x, g1, rowsums, smask, we.flat):
         return kernel_e2_plain(x, g1, rowsums, smask, we, eps)
     B, P, L, d = x.shape
@@ -670,19 +684,18 @@ def kernel_e2(x, g1, rowsums, smask, we: WeightGroup, eps):
     _require(g1, "g1", (B, P, L, d))
     _require(rowsums, "rowsums", (B, P, 4 * d))
     _require(smask, "smask", (B, L))
-    _require_group(we, "e", ATT_PARTS)
+    _require_group(we, "e", ATT_PARTS, mma="kernel_e")
     if P < 1:
         raise ValueError("kernel E2 needs at least one pair (two sequences)")
     nw = grad_size("kernel_e", d, N_HEADS_KERNEL)
-    sp = _bwd_slots("kernel_e2", B, P, 4 * nw, x.device)
-    sc = max(1, min(-(-L // TILE_SITES), -(-_bwd_blocks("kernel_e2", B, x.device) // sp),
-                    PARTIAL_BUDGET_BYTES // (B * sp * 4 * nw)))
+    sp, sc = e2_grid(B, P, L, x.device)
     gx = torch.empty_like(x)
     w_part = torch.empty((1, B * sp * sc, nw), device=x.device, dtype=torch.float32)
     lib = _bwd_lib()
     _build.check(lib, lib.pf_kernel_e2(
         x.data_ptr(), g1.data_ptr(), rowsums.data_ptr(), smask.data_ptr(), we.flat.data_ptr(),
-        gx.data_ptr(), w_part.data_ptr(), B, P, L, sp, sc, float(eps), _stream()), "kernel_e2")
+        we.mma.data_ptr(), gx.data_ptr(), w_part.data_ptr(), B, P, L, sp, sc, float(eps),
+        _stream()), "kernel_e2")
     LAUNCHES["kernel_e2"] += 1
     return gx, reduce_partials(w_part)[0]
 

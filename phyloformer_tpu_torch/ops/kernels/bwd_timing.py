@@ -1,4 +1,4 @@
-"""Time backward kernels C and E of a checkout of the port, per launch.
+"""Time backward kernels C, D, E and E2 of a checkout of the port, per launch.
 
     python3 phyloformer_tpu_torch/ops/kernels/bwd_timing.py [--root DIR]
 
@@ -10,9 +10,10 @@ versions on one card.  Inputs are those of the fused backward on layer 0 of
 ``artifacts/pf_mre_r5.ckpt`` (the block-0 input of random alignments from a
 seed, a seeded cotangent masked as a masked loss makes it):
 
-- C at the training shape 4 x 50 tips x 256 sites (4 x 1225 pairs) and at
-  the long training bucket 2 x 50 x 1536;
-- E at 4 x 50 x 256 and at 2 x 50 x 1024 (the longest row kernel E takes).
+- C and D at the training shape 4 x 50 tips x 256 sites (4 x 1225 pairs)
+  and at the long training bucket 2 x 50 x 1536;
+- E at 4 x 50 x 256 and at 2 x 50 x 1024 (the longest row kernel E takes);
+- E2 at 2 x 50 x 1536, on E1's row sums.
 
 Each time is the median CUDA-event time of one launch (its reductions
 included) over 7 runs after a warm-up.  Needs one NVIDIA card and nvcc.
@@ -50,8 +51,9 @@ def median_ms(fn, reps=7):
 
 
 def inputs(params, layer, b, n, l, device, seed):
-    """x, x1, stats, g3, g1 and the masks of one batch of b alignments of n
-    tips x l sites (the fused forward's residuals, g1 from kernels C, D)."""
+    """x, x1, stats, g3, g2, A1, g1 and the masks of one batch of b
+    alignments of n tips x l sites (the fused forward's residuals, g2 and A1
+    from kernel C, g1 from D)."""
     import numpy as np
     import torch
 
@@ -74,7 +76,7 @@ def inputs(params, layer, b, n, l, device, seed):
     w = bw.BwdWeights.of(layer)
     g2, a1, _ = bw.kernel_c(x1, g3, stats, pmask, pcount, w.c, 1e-5)
     g1, _ = bw.kernel_d(x1, g2, stats, a1, pmask, pcount, w.d, 1e-5)
-    return dict(x=x, x1=x1, stats=stats, g3=g3, g1=g1, smask=smask, pmask=pmask,
+    return dict(x=x, x1=x1, stats=stats, g3=g3, g2=g2, a1=a1, g1=g1, smask=smask, pmask=pmask,
                 pcount=pcount, w=w)
 
 
@@ -103,18 +105,24 @@ def main(argv=None) -> int:
     params = map_params(lambda t: t.to(device), params)
     layer = params["layers"][0]
     out = {"root": root, "card": card}
-    for kernel, (b, n, l) in (("kernel_c", (4, 50, 256)), ("kernel_e", (4, 50, 256)),
-                              ("kernel_c", (2, 50, 1536)), ("kernel_e", (2, 50, 1024))):
+    launch = {
+        "kernel_c": lambda t: bw.kernel_c(t["x1"], t["g3"], t["stats"], t["pmask"], t["pcount"],
+                                          t["w"].c, 1e-5),
+        "kernel_d": lambda t: bw.kernel_d(t["x1"], t["g2"], t["stats"], t["a1"], t["pmask"],
+                                          t["pcount"], t["w"].d, 1e-5),
+        "kernel_e": lambda t: bw.kernel_e(t["x"], t["g1"], t["smask"], t["w"].e, 1e-5),
+        "kernel_e2": lambda t: bw.kernel_e2(t["x"], t["g1"], t["rowsums"], t["smask"], t["w"].e,
+                                            1e-5)}
+    for (b, n, l), kernels in (((4, 50, 256), ("kernel_c", "kernel_d", "kernel_e")),
+                               ((2, 50, 1536), ("kernel_c", "kernel_d", "kernel_e2")),
+                               ((2, 50, 1024), ("kernel_e",))):
         t = inputs(params, layer, b, n, l, device, SEED)
-        if kernel == "kernel_c":
-            def fn(t=t):
-                bw.kernel_c(t["x1"], t["g3"], t["stats"], t["pmask"], t["pcount"], t["w"].c, 1e-5)
-        else:
-            def fn(t=t):
-                bw.kernel_e(t["x"], t["g1"], t["smask"], t["w"].e, 1e-5)
-        key = f"{kernel} {b}x{t['x'].shape[1]}x{l}"
-        out[key] = median_ms(fn)
-        print(f"{key}: {out[key]:.3f} ms per launch [{card}]", flush=True)
+        if "kernel_e2" in kernels:
+            t["rowsums"] = bw.kernel_e1(t["x"], t["g1"], t["smask"], t["w"].e, 1e-5)
+        for kernel in kernels:
+            key = f"{kernel} {b}x{t['x'].shape[1]}x{l}"
+            out[key] = median_ms(lambda: launch[kernel](t))
+            print(f"{key}: {out[key]:.3f} ms per launch [{card}]", flush=True)
         del t
         torch.cuda.empty_cache()
     print(json.dumps(out))

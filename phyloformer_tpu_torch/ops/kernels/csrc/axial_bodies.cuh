@@ -1,6 +1,6 @@
 // Device bodies of the Phyloformer axial-block kernels, shared by
 // axial_pipeline.cu (P0, A-only, A, M, Z) and axial_fused.cu (A1, A2, B),
-// and the fp32 SIMT helpers of the backward (axial_bwd.cu).
+// and the fp32 SIMT helpers of the backward's kernel E1 (axial_bwd.cu).
 //
 // The forward bodies mirror phyloformer_tpu/ops/pallas/axial_block.py: row
 // attention (_body_row_attn, :172), column-stats partial sums
@@ -50,7 +50,7 @@ __device__ __forceinline__ void split_range(int idx, int n, int parts, int& lo, 
   hi = (int)(((long long)(idx + 1) * n) / parts);
 }
 
-// ============ fp32 SIMT helpers of the backward kernels (axial_bwd.cu) ============
+// ============ fp32 SIMT helpers of kernel E1 (axial_bwd.cu) ============
 
 // LayerNorm over the D channels of each tile row, one warp per row.
 static __device__ void ln_tile(const float* X, float* Y, const float* __restrict__ scale,
@@ -70,8 +70,6 @@ static __device__ void ln_tile(const float* X, float* Y, const float* __restrict
 }
 
 __device__ __forceinline__ int site_of(int i) { return (int)(threadIdx.x / D) + NG * i; }
-
-__device__ __forceinline__ int n_tiles_of(int L) { return (L + TS - 1) / TS; }
 
 // acc[w][i] = Σ_k A[site_of(i), k] · W_w[k, c] for NW (K x D) weights that
 // share the activation reads; A is a (TS x K) tile in shared memory.
@@ -106,41 +104,12 @@ __device__ __forceinline__ void mm_d(const float* A, const float* __restrict__ w
   }
 }
 
-// acc[s] = Σ_k A[s, k] · W[k, t] for the FFN up-projection (D x F), t = thread.
-__device__ __forceinline__ void mm_up(const float* A, const float* __restrict__ W,
-                                      float (&acc)[TS]) {
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int s = 0; s < TS; ++s) acc[s] = 0.f;
-#pragma unroll 1
-  for (int k = 0; k < D; k += 4) {
-    const float w0 = __ldg(W + (k + 0) * F + t), w1 = __ldg(W + (k + 1) * F + t);
-    const float w2 = __ldg(W + (k + 2) * F + t), w3 = __ldg(W + (k + 3) * F + t);
-#pragma unroll
-    for (int s = 0; s < TS; ++s) {
-      const float4 a = *reinterpret_cast<const float4*>(A + s * D + k);
-      acc[s] = fmaf(a.x, w0, acc[s]);
-      acc[s] = fmaf(a.y, w1, acc[s]);
-      acc[s] = fmaf(a.z, w2, acc[s]);
-      acc[s] = fmaf(a.w, w3, acc[s]);
-    }
-  }
-}
-
-// xs <- rows [0, nv) of a (·, D) row-major source (or the sum of two
-// sources); rows [nv, TS) are zero, so a ragged last tile reads nothing
-// past the end of the row.
-__device__ __forceinline__ void load_tile(float* xs, const float* src, const float* src2,
-                                          int nv) {
+// xs <- rows [0, nv) of a (·, D) row-major source; rows [nv, TS) are
+// zero, so a ragged last tile reads nothing past the end of the row.
+__device__ __forceinline__ void load_tile(float* xs, const float* src, int nv) {
   for (int e = threadIdx.x; e < TS * D / 4; e += NT) {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (e / (D / 4) < nv) {
-      v = reinterpret_cast<const float4*>(src)[e];
-      if (src2 != nullptr) {
-        const float4 u = reinterpret_cast<const float4*>(src2)[e];
-        v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
-      }
-    }
+    if (e / (D / 4) < nv) v = reinterpret_cast<const float4*>(src)[e];
     reinterpret_cast<float4*>(xs)[e] = v;
   }
 }

@@ -1,6 +1,6 @@
 // Packed weight layouts and weight-gradient layouts of the backward kernels
-// (axial_bwd.cu: D, E1, E2; axial_bwd_tc.cu: C and E), and the tiles and
-// shared memory of C and E on the tensor cores.
+// (axial_bwd_tc.cu: C, D, E and E2; axial_bwd.cu: E1), and the tiles and
+// shared memory of the kernels on the tensor cores.
 //
 // The offsets must match ops/kernels/axial_block_bwd.py: C_PARTS and
 // ATT_PARTS there give the flat groups, C_MMA_MATS and e_mma_mats the
@@ -63,8 +63,8 @@ constexpr int AG_WK = AG_BQ + H;
 constexpr int AG_BK = AG_WK + D * H;
 constexpr int AG_WVT = AG_BK + H;
 constexpr int AG_SIZE = AG_WVT + D * D;
-// ... and E's own matrices in the mma layout: wqk = [wq | wk] (D x 2H), wv,
-// wo_t, wdh = [wv_t ; wq^T ; wk^T] ((D + 2H) x D)
+// ... and the matrices of D, E and E2 in the mma layout: wqk = [wq | wk]
+// (D x 2H), wv, wo_t, wdh = [wv_t ; wq^T ; wk^T] ((D + 2H) x D)
 constexpr int EM_WQK = 0;
 constexpr int EM_WV = EM_WQK + 2 * D * 2 * H;
 constexpr int EM_WOT = EM_WV + 2 * D * D;
@@ -82,7 +82,7 @@ constexpr int WC_B1 = WC_W1 + D * F;
 constexpr int WC_W2 = WC_B1 + F;
 constexpr int WC_B2 = WC_W2 + F * D;
 constexpr int NWC = WC_B2 + D;
-// D and E: dγ, dβ, dWq (D x H), dbq, dWk, dbk, dWv, dbv; E adds dWo, dbo
+// D, E and E2: dγ, dβ, dWq (D x H), dbq, dWk, dbk, dWv, dbv; E and E2 add dWo, dbo
 constexpr int WA_LNS = 0;
 constexpr int WA_LNB = WA_LNS + D;
 constexpr int WA_WQ = WA_LNB + D;
@@ -96,7 +96,7 @@ constexpr int WA_WO = NWD;
 constexpr int WA_BO = WA_WO + D * D;
 constexpr int NWE = WA_BO + D;
 
-namespace bt {  // kernels C and E on the tensor cores
+namespace bt {  // kernels C, D, E and E2 on the tensor cores
 
 // Tiles of BT sites.  Every tile operand lives in shared memory as BT rows of
 // BXS floats; element (r, c) sits at r BXS + (c ^ (r & 4)).  With BXS = 72
@@ -107,7 +107,7 @@ namespace bt {  // kernels C and E on the tensor cores
 constexpr int BT = 32;
 constexpr int BXS = D + 8;
 constexpr int PL = BT * BXS;   // floats of one plane
-constexpr int DZS = 8;         // row stride of E's [dzq | dzk] planes (same swizzle)
+constexpr int DZS = 8;         // row stride of the [dzq | dzk] planes (same swizzle)
 constexpr int DZPL = BT * DZS;
 
 // Kernel C runs one block of C_WARPS warps an SM.
@@ -130,7 +130,20 @@ struct SmemC {
   float4 grad[CGRAD / 4];
 };
 
-// Shared memory of one kernel-E block (~108 KB: two blocks an SM).
+// Shared memory of one kernel-D block (~108 KB: two blocks an SM).
+struct SmemD {
+  float xs[2][BT * D];   // x1 of this tile and the next (cp.async), row stride D
+  float g2[2][BT * D];   // g2 of this tile and the next
+  float hs[2 * PL];      // column LN output; then d_h (big plane, fp32)
+  float gs[2 * PL];      // g2 split
+  float vs[2 * PL];      // d_v split; at the end the warps' sums
+  float dz[2 * DZPL];    // [dzq | dzk] split
+  float ctx[PL];         // the tile's per-site terms (swizzled rows): ctx, then
+  float skv[PL];         // a1 / sk; at the end the row warps' bias sums in ctx
+  float th[3 * BT * H];  // qm_h, d_qm_h / n_pairs and d_sk_h of each site and head
+};
+
+// Shared memory of one kernel-E or E2 block (~108 KB: two blocks an SM).
 struct SmemE {
   float xs[2][BT * D];  // x of this tile and the next (cp.async), row stride D
   float g1[2][BT * D];  // g1 of this tile and the next

@@ -1,41 +1,49 @@
-// Backward kernels C and E of one axial block for Hopper (sm_90a): split-TF32
-// products on the tensor cores.
+// Backward kernels C, D, E and E2 of one axial block for Hopper (sm_90a):
+// split-TF32 products on the tensor cores.
 //
 // Hand-written CUDA counterparts of the Pallas TPU kernels of
 // phyloformer_tpu/ops/pallas/axial_block_bwd.py:
 //
-//   pf_kernel_c <- _kernel_c (axial_block_bwd.py:176): x2 and the FFN
-//                  recomputed from x1 and the column stats; the FFN backward
-//                  -> g2; d_attn = g2 Wo_c^T and A1 = sum_p d_attn * qn
-//                  (B, L, d); the FFN and column out-projection gradients
-//   pf_kernel_e <- _kernel_e (:372): the row-attention backward on whole rows
-//                  -> gx; the row LN and q/k/v/o gradients (up to 1024 sites)
+//   pf_kernel_c  <- _kernel_c (axial_block_bwd.py:176): x2 and the FFN
+//                   recomputed from x1 and the column stats; the FFN backward
+//                   -> g2; d_attn = g2 Wo_c^T and A1 = sum_p d_attn * qn
+//                   (B, L, d); the FFN and column out-projection gradients
+//   pf_kernel_d  <- _kernel_d (:281): the column-attention backward from A1
+//                   and the stats -> g1; the column LN and q/k/v gradients
+//   pf_kernel_e  <- _kernel_e (:372): the row-attention backward on whole
+//                   rows -> gx; the row LN and q/k/v/o gradients (up to 1024
+//                   sites)
+//   pf_kernel_e2 <- _kernel_e2 (:534): above 1024 sites, the same backward
+//                   finalized from E1's raw row sums, on a chunk of site tiles
 //
-// Kernels D, E1 and E2 stay fp32 SIMT in axial_bwd.cu.  The accumulation of
-// A1 and of the weight gradients across the grid is pf_reduce_slots
-// (slot_reduce.cu), as for every kernel.  The plain PyTorch versions are
-// kernel_c_plain and kernel_e_plain in ops/kernels/axial_block_bwd.py.
+// Kernel E1 (the raw row sums) stays fp32 SIMT in axial_bwd.cu.  The
+// accumulation of A1 and of the weight gradients across the grid is
+// pf_reduce_slots (slot_reduce.cu), as for every kernel.  The plain PyTorch
+// versions are kernel_c_plain, kernel_d_plain, kernel_e_plain and
+// kernel_e2_plain in ops/kernels/axial_block_bwd.py.
 //
 // What bounds them on the card.  Per pair-site C does 5 d x 4d + 3 d x d +
-// 1 d x d (the head-expanded q projection) products, E 5 d x d + 6 d x H,
-// on at most 768 B of activations.  At three TF32 passes over 495 TFLOP/s
-// (dense TF32) that is 1.1 ns for C and 0.27 ns for E a pair-site, against
-// 0.23 ns for 768 B at 3.35 TB/s: tensor-core arithmetic is the bound.
+// 1 d x d (the head-expanded q projection) products, D 4 d x d + 6 d x H,
+// E and E2 5 d x d + 6 d x H, on at most 768 B of activations.  At three
+// TF32 passes over 495 TFLOP/s (dense TF32) that is 1.1 ns for C, 0.22 ns
+// for D and 0.27 ns for E a pair-site, against 0.23 ns for 768 B at
+// 3.35 TB/s: tensor-core arithmetic bounds C and E, the bytes (just) D.
 //
 // Design (as the forward's, axial_pipeline.cu, with the backward's needs).
 // - Every product runs on mma.sync.m16n8k8 TF32 in three passes: both
 //   operands split into big = cvt.rna(x) and small = cvt.rna(x - big),
 //   a_small b_big + a_big b_small + a_big b_big summed in fp32, within
 //   ~2^-22 of the fp32 product.  That covers the activation products (C:
-//   the q projection, attn Wo_c, hf W1, g3 W2^T, du W1^T, g2 Wo_c^T; E:
-//   [q | k] = h [Wq | Wk] on the d x H weights, h Wv, g1 Wo^T, and d_h =
-//   [dv | dz] [Wv^T ; Wq^T ; Wk^T]) and the weight gradients, products with
-//   the sites as K (C: dW1 = hf^T du, dW2 = a^T g3, dWo_c = attn^T g2; E:
-//   dWv = h^T dv, dWo = attn^T g1, [dWq | dWk] = h^T [dzq | dzk]).
+//   the q projection, attn Wo_c, hf W1, g3 W2^T, du W1^T, g2 Wo_c^T; D, E
+//   and E2: [q | k] = h [Wq | Wk] on the d x H weights, h Wv, g Wo^T, and
+//   d_h = [dv | dz] [Wv^T ; Wq^T ; Wk^T]) and the weight gradients,
+//   products with the sites as K (C: dW1 = hf^T du, dW2 = a^T g3, dWo_c =
+//   attn^T g2; D, E and E2: dWv = h^T dv, [dWq | dWk] = h^T [dzq | dzk];
+//   E and E2: dWo = attn^T g1).
 // - Weights are packed once per step and layer (c_group and e_group in the
 //   wrapper, pipeline.pack_mma): split and in fragment order, one 16-byte
-//   load a lane from L1/L2.  E has its own packed copy; D, E1 and E2 read
-//   the flat group as before.
+//   load a lane from L1/L2.  D (the column attention) and E, E2 (the row
+//   attention) read the same packed layout (EM_*); E1 reads the flat group.
 // - Activation operands are split once where they are made and kept as big
 //   and small planes in shared memory.  The weight gradients read them
 //   transposed (rows t, columns g) and the products over the channels
@@ -49,23 +57,29 @@
 // - Weight-gradient sums.  The mma accumulators of a gradient cover 32
 //   sites of one tile (grad_tile: the tensor cores' accumulation does not
 //   round to nearest, so no chain runs longer), and the tiles' sums are
-//   added in fp32.  E's (dWv, dWo: 16 values a thread each; [dWq|dWk]:
-//   4 in warps 0-3) stay in registers across the block's whole pair range,
-//   so E keeps no gradient in shared memory and runs two blocks (16 warps)
-//   an SM within 128 registers.  C's are 36,864 values, 144 a thread: dWo_c
-//   (16) stays in registers, dW1 and dW2 (128 a thread) are added per tile
-//   into 128 KB of shared memory, each thread into float4 slots of its own
-//   (no barrier, no bank conflict).  In registers they would leave nothing
-//   for the products, and the tiles and those 128 KB fill the SM: C runs
-//   one block an SM, of C_WARPS = 8 warps with up to 255 registers a
-//   thread.  The kernel is written for 16 warps too (128 registers each);
-//   measured on the card (bwd_timing), 16 ran 4% slower than 8.
+//   added in fp32.  D's and E's (dWv, E's dWo: 16 values a thread each;
+//   [dWq|dWk]: 4 in warps 0-3) stay in registers across the block's whole
+//   range, so they keep no gradient in shared memory and run two blocks
+//   (16 warps) an SM within 128 registers.  C's are 36,864 values, 144 a
+//   thread: dWo_c (16) stays in registers, dW1 and dW2 (128 a thread) are
+//   added per tile into 128 KB of shared memory, each thread into float4
+//   slots of its own (no barrier, no bank conflict).  In registers they
+//   would leave nothing for the products, and the tiles and those 128 KB
+//   fill the SM: C runs one block an SM, of C_WARPS = 8 warps with up to
+//   255 registers a thread.  The kernel is written for 16 warps too (128
+//   registers each); measured on the card (bwd_timing), 16 ran 4% slower
+//   than 8.
 // - Sums across the grid: per-block partials in a fixed order, no atomics
-//   (two runs give the same bits).  C walks site tiles outermost and its
-//   pairs innermost, summing A1 in registers (one (L, d) partial per
-//   block).  E walks each pair row twice (pass 1: Σq, Σk, Σk·v, Σd_attn·q
-//   over the sites, combined over the rows and the two row warps in a
-//   fixed order; the finalize of _kernel_e; pass 2: gx and the gradients).
+//   (two runs give the same bits).  C and D walk site tiles outermost and
+//   their pairs innermost: C sums A1 in registers (one (L, d) partial per
+//   block), D builds the tile's per-site terms (ctx, a1 / sk and the head
+//   terms of _derive_col_site_grads) once into shared memory, where E reads
+//   the pair's.  E walks each pair row twice (pass 1: Σq, Σk, Σk·v,
+//   Σd_attn·q over the sites, combined over the rows and the two row warps
+//   in a fixed order; the finalize of _kernel_e; pass 2: gx and the
+//   gradients).  E2 is E's pass 2 on a chunk of site tiles (grid: pair
+//   slots x site chunks), the pair's terms finalized from E1's sums; one
+//   body serves both (row_bwd).
 // - Zero-sum guards where(s > 0, s, 1), the positive-sum gates, the masks
 //   and ragged last tiles are as in the plain versions; LayerNorm, φ, GELU
 //   (erff), the gates and the LN backward stay fp32 on the SIMT cores.
@@ -635,7 +649,12 @@ __global__ void __launch_bounds__(C_NT, 1) kernel_c(
   }
 }
 
-// ======================= kernel E =======================
+// ======================= kernels E, E2 and D =======================
+// A warp owns the rows 16 (warp / 4) + 8h + g of a tile and the 16 columns
+// of head warp % 4: its products' outputs (act_row, act_col) and its q/k
+// head terms line up, and a head's sum over its lanes is the thread's four
+// columns, then its quad.
+
 // [zq | zk] of the warp's head (warp % 4) for its rows 8h + g: the z product
 // (16 rows x 8, one fragment) has zq of head c at column c and zk at 4 + c,
 // held by lane 4g + c / 2 (element c % 2).
@@ -650,30 +669,97 @@ __device__ __forceinline__ void head_z(const float (&z)[1][4], float (&zq)[2], f
   }
 }
 
-// The three products of a row tile: [zq | zk] = h [Wq | Wk] (the d x H
-// weights), v = h Wv and d_attn = g1 Wo^T, for the warp's rows and head.
-__device__ __forceinline__ void row_products(const SmemE& S, const float* __restrict__ wm,
-                                             float (&z)[1][4], float (&v)[2][4],
-                                             float (&da)[2][4]) {
+// The three products of a tile: [zq | zk] = h [Wq | Wk] (the d x H
+// weights), v = h Wv and d_attn = g Wo^T, for the warp's rows and head; hs
+// and gs are the split planes of h and g.
+__device__ __forceinline__ void row_products(const float* hs, const float* gs,
+                                             const float* __restrict__ wm, float (&z)[1][4],
+                                             float (&v)[2][4], float (&da)[2][4]) {
   zero<4>(&z[0][0]);
   zero<8>(&v[0][0]);
   zero<8>(&da[0][0]);
   const int nt = 2 * (warp_id() & 3);
-  mma_act<D / 8, 1, BXS, PL>(S.hs, wm + EM_WQK, 1, 0, 0, z);
-  mma_act<D / 8, 2, BXS, PL>(S.hs, wm + EM_WV, D / 8, 0, nt, v);
-  mma_act<D / 8, 2, BXS, PL>(S.gs, wm + EM_WOT, D / 8, 0, nt, da);
+  mma_act<D / 8, 1, BXS, PL>(hs, wm + EM_WQK, 1, 0, 0, z);
+  mma_act<D / 8, 2, BXS, PL>(hs, wm + EM_WV, D / 8, 0, nt, v);
+  mma_act<D / 8, 2, BXS, PL>(gs, wm + EM_WOT, D / 8, 0, nt, da);
 }
 
-__global__ void __launch_bounds__(NT, 2) kernel_e(
-    const float* __restrict__ x, const float* __restrict__ g1, const float* __restrict__ smask,
-    const float* __restrict__ w, const float* __restrict__ wm, float* __restrict__ gx,
-    float* __restrict__ w_part, int P, int L, int S_, float eps) {
-  extern __shared__ float4 smem_raw[];
-  SmemE& S = *reinterpret_cast<SmemE*>(smem_raw);
-  const int b = blockIdx.y, slot = blockIdx.x, t = threadIdx.x;
+// Sum over the thread's quad (the 4 lanes t of a row): with its own four
+// columns, a head's 16 lanes.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// dzq and dzk of row s and head hh, split into the [dzq | dzk] planes.
+__device__ __forceinline__ void put_dz(float* dz, int s, int hh, float dzq, float dzk) {
+  uint32_t big, small;
+  split_tf32(dzq, big, small);
+  dz[s * DZS + (hh ^ (s & 4))] = __uint_as_float(big);
+  dz[DZPL + s * DZS + (hh ^ (s & 4))] = __uint_as_float(small);
+  split_tf32(dzk, big, small);
+  dz[s * DZS + ((H + hh) ^ (s & 4))] = __uint_as_float(big);
+  dz[DZPL + s * DZS + ((H + hh) ^ (s & 4))] = __uint_as_float(small);
+}
+
+// d_h = [d_v | dz] [Wv^T ; Wq^T ; Wk^T] for the warp's rows and head, into
+// the big plane of hs (fp32) once every warp is done reading hs.
+__device__ __forceinline__ void dh_product(const float* vs, const float* dz,
+                                           const float* __restrict__ wm, float* hs) {
+  const int hh = warp_id() & 3;
+  float dh[2][4];
+  zero<8>(&dh[0][0]);
+  mma_act<D / 8, 2, BXS, PL>(vs, wm + EM_WDH, D / 8, 0, 2 * hh, dh);
+  mma_act<1, 2, DZS, DZPL>(dz, wm + EM_WDH, D / 8, D / 8, 2 * hh, dh);
+  __syncthreads();
+#pragma unroll
+  for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      st2(hs + sw(act_row(h), act_col(ni)), dh[ni][2 * h], dh[ni][2 * h + 1]);
+}
+
+// The pair's terms of pass 2 from its sums over the row (column t < D, in
+// warps 0 and 1: whole warps, so the head shuffles are safe): q-mean, ctx,
+// d_ctx / sk and the head terms qm_h, d_sk_h, d_sq_h into pc (the finalize
+// of _kernel_e, and of _kernel_e2 from E1's raw sums, axial_block_bwd.py:563).
+__device__ __forceinline__ void pair_terms(float* pc, float sq, float sk_raw, float skv,
+                                           float sdq, float count) {
+  const int t = threadIdx.x;
+  const float sq_raw = sq / count;
+  const float qm = guard(sq_raw), sk = guard(sk_raw);
+  const float ctx = skv / sk;
+  const float d_ctx = sdq / qm;
+  const float sk_h = head_sum(sk) / HD;
+  const float d_sk_h = -head_sum(d_ctx * ctx) / sk_h * gate(head_sum(sk_raw));
+  const float qm_h = head_sum(qm) / HD;
+  const float d_qm_h = -head_sum(ctx * sdq) / (qm_h * qm_h) * gate(head_sum(sq_raw));
+  pc[t] = qm;
+  pc[D + t] = ctx;
+  pc[2 * D + t] = d_ctx / sk;
+  pc[3 * D + t] = qm_h;
+  pc[4 * D + t] = d_sk_h;
+  pc[5 * D + t] = d_qm_h / count;
+}
+
+// The row backward of kernels E and E2, one body.  E (FROM_SUMS false, one
+// site chunk) walks each pair's whole row twice: pass 1 sums q, k, k v and
+// d_attn q over the sites, the finalize turns them into the pair's terms,
+// pass 2 emits gx and the weight gradients.  E2 (FROM_SUMS true) runs pass
+// 2 alone on the tiles [t0, t1) of its site chunk (block slot * SC +
+// chunk), each pair's terms finalized from its raw sums in rowsums (E1's).
+template <bool FROM_SUMS>
+__device__ __forceinline__ void row_bwd(SmemE& S, const float* __restrict__ x,
+                                        const float* __restrict__ g1,
+                                        const float* __restrict__ rowsums,
+                                        const float* __restrict__ smask,
+                                        const float* __restrict__ w, const float* __restrict__ wm,
+                                        float* __restrict__ gx, float* __restrict__ w_part, int P,
+                                        int L, int SP, int SC, float eps) {
+  const int b = blockIdx.y, slot = blockIdx.x / SC, chunk = blockIdx.x % SC, t = threadIdx.x;
   const int warp = warp_id(), lane = t & 31, hh = warp & 3, wmr = warp >> 2;
-  int p0, p1;
-  split_range(slot, P, S_, p0, p1);
+  int p0, p1, t0, t1;
+  split_range(slot, P, SP, p0, p1);
   const float* smask_b = smask + (size_t)b * L;
   {
     float v = 0.f;
@@ -698,36 +784,42 @@ __global__ void __launch_bounds__(NT, 2) kernel_e(
 #pragma unroll
   for (int k = 0; k < 4; ++k) bv[k] = w[AG_BV + act_col(k >> 1) + (k & 1)];
   const float bq = w[AG_BQ + hh], bk = w[AG_BK + hh];
-  const int nt = (L + BT - 1) / BT, per_pair = 2 * nt, n = (p1 - p0) * per_pair;
+  const int nt = (L + BT - 1) / BT;
+  split_range(chunk, nt, SC, t0, t1);
+  const int span = t1 - t0, per_pair = (FROM_SUMS ? 1 : 2) * span, n = (p1 - p0) * per_pair;
   const size_t row_b = (size_t)b * P;
   float rq[4], rk[4], rkv[4], rdq[4];
 
   if (n > 0) {
-    const size_t off = (row_b + p0) * L * D;
-    tile_issue<D>(S.xs[0], x + off, min(BT, L));
-    tile_issue<D>(S.g1[0], g1 + off, min(BT, L));
+    const size_t off = ((row_b + p0) * L + (size_t)t0 * BT) * D;
+    tile_issue<D>(S.xs[0], x + off, min(BT, L - t0 * BT));
+    tile_issue<D>(S.g1[0], g1 + off, min(BT, L - t0 * BT));
     cp_commit();
   }
   for (int i = 0; i < n; ++i) {
-    const int p = p0 + i / per_pair, pass = (i % per_pair) / nt, tile = i % nt;
-    const int l0 = tile * BT, nv = min(BT, L - l0);
+    const int p = p0 + i / per_pair, pass = FROM_SUMS ? 1 : (i % per_pair) / span;
+    const int tile = t0 + i % span, l0 = tile * BT, nv = min(BT, L - l0);
     const size_t off = ((row_b + p) * L + l0) * D;
     const float* X = S.xs[i & 1];
     const float* G = S.g1[i & 1];
     cp_wait_all();
     __syncthreads();
     if (i + 1 < n) {
-      const int pn = p0 + (i + 1) / per_pair, ln = ((i + 1) % nt) * BT;
+      const int pn = p0 + (i + 1) / per_pair, ln = (t0 + (i + 1) % span) * BT;
       const size_t offn = ((row_b + pn) * L + ln) * D;
       tile_issue<D>(S.xs[(i + 1) & 1], x + offn, min(BT, L - ln));
       tile_issue<D>(S.g1[(i + 1) & 1], g1 + offn, min(BT, L - ln));
       cp_commit();
     }
+    if (FROM_SUMS && tile == t0 && t < D) {  // read after the barrier below
+      const float* rs = rowsums + (row_b + p) * 4 * D;
+      pair_terms(S.pc, rs[t], rs[D + t], rs[2 * D + t], rs[3 * D + t], S.count);
+    }
     ln_split_rows<D>(X, S.hs, w + AG_LNS, w + AG_LNB, eps);
     split_tile<D>(G, S.gs);
     __syncthreads();
     float z[1][4], v[2][4], da[2][4], zq[2], zk[2], m[2];
-    row_products(S, wm, z, v, da);
+    row_products(S.hs, S.gs, wm, z, v, da);
     head_z(z, zq, zk);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -736,7 +828,7 @@ __global__ void __launch_bounds__(NT, 2) kernel_e(
       zq[h] += bq;
       zk[h] += bk;
     }
-    if (pass == 0) {
+    if (!FROM_SUMS && pass == 0) {
       // pass 1: the pair's sums over the site axis
       if (tile == 0) {
 #pragma unroll
@@ -754,8 +846,7 @@ __global__ void __launch_bounds__(NT, 2) kernel_e(
         }
       }
       if (tile == nt - 1) {
-        // finalize: the rows' sums in a fixed order, then ctx, q-mean and
-        // the d_ctx / d_qm terms of the pair (_kernel_e)
+        // finalize: the rows' sums in a fixed order, then the pair's terms
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           rq[k] = rows_sum(rq[k]);
@@ -775,26 +866,9 @@ __global__ void __launch_bounds__(NT, 2) kernel_e(
           }
         }
         __syncthreads();
-        if (t < D) {  // warps 0 and 1: whole warps, so the head shuffles are safe
-          const float count = S.count;
-          const float sq = red[t] + red[D + t], sk_raw = red[2 * D + t] + red[3 * D + t];
-          const float skv = red[4 * D + t] + red[5 * D + t];
-          const float sdq = red[6 * D + t] + red[7 * D + t];
-          const float sq_raw = sq / count;
-          const float qm = guard(sq_raw), sk = guard(sk_raw);
-          const float ctx = skv / sk;
-          const float d_ctx = sdq / qm;
-          const float sk_h = head_sum(sk) / HD;
-          const float d_sk_h = -head_sum(d_ctx * ctx) / sk_h * gate(head_sum(sk_raw));
-          const float qm_h = head_sum(qm) / HD;
-          const float d_qm_h = -head_sum(ctx * sdq) / (qm_h * qm_h) * gate(head_sum(sq_raw));
-          S.pc[t] = qm;
-          S.pc[D + t] = ctx;
-          S.pc[2 * D + t] = d_ctx / sk;
-          S.pc[3 * D + t] = qm_h;
-          S.pc[4 * D + t] = d_sk_h;
-          S.pc[5 * D + t] = d_qm_h / count;
-        }
+        if (t < D)
+          pair_terms(S.pc, red[t] + red[D + t], red[2 * D + t] + red[3 * D + t],
+                     red[4 * D + t] + red[5 * D + t], red[6 * D + t] + red[7 * D + t], S.count);
       }
       continue;  // the next item's first barrier orders these reads and writes
     }
@@ -812,11 +886,8 @@ __global__ void __launch_bounds__(NT, 2) kernel_e(
           pq += da[k >> 1][2 * h + (k & 1)] * S.pc[D + c];
           pk += S.pc[2 * D + c] * (v[k >> 1][2 * h + (k & 1)] + bv[k]);
         }
-        // the head's 16 lanes: the thread's 4 columns, then its quad
-        pq += __shfl_xor_sync(0xffffffffu, pq, 1);
-        pq += __shfl_xor_sync(0xffffffffu, pq, 2);
-        pk += __shfl_xor_sync(0xffffffffu, pk, 1);
-        pk += __shfl_xor_sync(0xffffffffu, pk, 2);
+        pq = quad_sum(pq);
+        pk = quad_sum(pk);
         const float d_q = pq / qm_h + d_sq_h, d_k = d_sk_h + pk;
         const float dzq = d_q * phi_grad(zq[h]) * m[h], dzk = d_k * phi_grad(zk[h]) * m[h];
         const float q = phi(zq[h]) * m[h], kk = phi(zk[h]) * m[h];
@@ -834,13 +905,7 @@ __global__ void __launch_bounds__(NT, 2) kernel_e(
           put_split<BXS, PL>(S.as, s, c, at[0], at[1]);
         }
         if (lane_t() == 0) {
-          uint32_t big, small;
-          split_tf32(dzq, big, small);
-          S.dz[s * DZS + (hh ^ (s & 4))] = __uint_as_float(big);
-          S.dz[DZPL + s * DZS + (hh ^ (s & 4))] = __uint_as_float(small);
-          split_tf32(dzk, big, small);
-          S.dz[s * DZS + ((H + hh) ^ (s & 4))] = __uint_as_float(big);
-          S.dz[DZPL + s * DZS + ((H + hh) ^ (s & 4))] = __uint_as_float(small);
+          put_dz(S.dz, s, hh, dzq, dzk);
           dzs[0] += dzq;
           dzs[1] += dzk;
         }
@@ -850,26 +915,14 @@ __global__ void __launch_bounds__(NT, 2) kernel_e(
     grad_tile<2, 2, BXS, PL, BXS, PL>(S.hs, S.vs, 32 * wmr, 16 * hh, dwv);  // h^T d_v
     grad_tile<2, 2, BXS, PL, BXS, PL>(S.as, S.gs, 32 * wmr, 16 * hh, dwo);  // attn^T g1
     if (warp < 4) grad_tile<1, 1, BXS, PL, DZS, DZPL>(S.hs, S.dz, 16 * warp, 0, dwqk);
-    {
-      // d_h = [d_v | dz] [Wv^T ; Wq^T ; Wk^T]
-      float dh[2][4];
-      zero<8>(&dh[0][0]);
-      mma_act<D / 8, 2, BXS, PL>(S.vs, wm + EM_WDH, D / 8, 0, 2 * hh, dh);
-      mma_act<1, 2, DZS, DZPL>(S.dz, wm + EM_WDH, D / 8, D / 8, 2 * hh, dh);
-      __syncthreads();
-#pragma unroll
-      for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          st2(S.hs + sw(act_row(h), act_col(ni)), dh[ni][2 * h], dh[ni][2 * h + 1]);
-    }
+    dh_product(S.vs, S.dz, wm, S.hs);
     __syncthreads();
     ln_bwd_tile<D>(X, S.hs, G, w + AG_LNS, eps, nv, gx + off, nullptr, vds, vdb, vbo, unused);
   }
   __syncthreads();
 
   // the block's weight gradients, each sum in a fixed order
-  float* wp = w_part + ((size_t)b * S_ + slot) * NWE;
+  float* wp = w_part + ((size_t)b * gridDim.x + blockIdx.x) * NWE;
   grad_store<2, 2>(&dwv[0][0][0], wp + WA_WV, D, 32 * wmr, 16 * hh);
   grad_store<2, 2>(&dwo[0][0][0], wp + WA_WO, D, 32 * wmr, 16 * hh);
   if (warp < 4) {
@@ -909,6 +962,231 @@ __global__ void __launch_bounds__(NT, 2) kernel_e(
   }
 }
 
+__global__ void __launch_bounds__(NT, 2) kernel_e(
+    const float* __restrict__ x, const float* __restrict__ g1, const float* __restrict__ smask,
+    const float* __restrict__ w, const float* __restrict__ wm, float* __restrict__ gx,
+    float* __restrict__ w_part, int P, int L, int S_, float eps) {
+  extern __shared__ float4 smem_raw[];
+  row_bwd<false>(*reinterpret_cast<SmemE*>(smem_raw), x, g1, nullptr, smask, w, wm, gx, w_part,
+                 P, L, S_, 1, eps);
+}
+
+__global__ void __launch_bounds__(NT, 2) kernel_e2(
+    const float* __restrict__ x, const float* __restrict__ g1, const float* __restrict__ rowsums,
+    const float* __restrict__ smask, const float* __restrict__ w, const float* __restrict__ wm,
+    float* __restrict__ gx, float* __restrict__ w_part, int P, int L, int SP, int SC, float eps) {
+  extern __shared__ float4 smem_raw[];
+  row_bwd<true>(*reinterpret_cast<SmemE*>(smem_raw), x, g1, rowsums, smask, w, wm, gx, w_part, P,
+                L, SP, SC, eps);
+}
+
+// ======================= kernel D =======================
+// The tile's per-site terms of the column backward (_derive_col_site_grads)
+// for the thread's rows and columns: ctx and a1 / sk into the tables, the
+// head terms of the warp's head (written by lanes t = 0).  The gates
+// multiply, as in JAX; rows past the tile's end (stats 0) stay finite.
+__device__ __forceinline__ void col_site_terms(SmemD& S, const float* __restrict__ stats_b,
+                                               const float* __restrict__ a1_b, int l0, int nv,
+                                               float n_pairs) {
+  const int hh = warp_id() & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = act_row(h);
+    float sk_raw[4], qm_raw[4], kv[4], a1v[4];
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) {
+      const int c = act_col(ni);
+      float2 k = make_float2(0.f, 0.f), q = k, kvv = k, a = k;
+      if (s < nv) {
+        const float* st = stats_b + (size_t)(l0 + s) * 3 * D;
+        k = ld2(st + c);
+        q = ld2(st + D + c);
+        kvv = ld2(st + 2 * D + c);
+        a = ld2(a1_b + (size_t)(l0 + s) * D + c);
+      }
+      sk_raw[2 * ni] = k.x;
+      sk_raw[2 * ni + 1] = k.y;
+      qm_raw[2 * ni] = q.x / n_pairs;
+      qm_raw[2 * ni + 1] = q.y / n_pairs;
+      kv[2 * ni] = kvv.x;
+      kv[2 * ni + 1] = kvv.y;
+      a1v[2 * ni] = a.x;
+      a1v[2 * ni + 1] = a.y;
+    }
+    float ctx[4], skv[4], sk_h = 0.f, qm_h = 0.f, skr_h = 0.f, qmr_h = 0.f, dsk = 0.f, dqm = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float qm_e = guard(qm_raw[k]), sk_e = guard(sk_raw[k]);
+      ctx[k] = kv[k] / sk_e;
+      skv[k] = a1v[k] / sk_e;
+      sk_h += sk_e;
+      qm_h += qm_e;
+      skr_h += sk_raw[k];
+      qmr_h += qm_raw[k];
+      dsk += a1v[k] * ctx[k];
+      dqm += ctx[k] * qm_e * a1v[k];
+    }
+    sk_h = quad_sum(sk_h) / HD;
+    qm_h = quad_sum(qm_h) / HD;
+    const float d_sk_h = -quad_sum(dsk) / sk_h * gate(quad_sum(skr_h));
+    const float d_qm_h = -quad_sum(dqm) / (qm_h * qm_h) * gate(quad_sum(qmr_h));
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) {
+      st2(S.ctx + sw(s, act_col(ni)), ctx[2 * ni], ctx[2 * ni + 1]);
+      st2(S.skv + sw(s, act_col(ni)), skv[2 * ni], skv[2 * ni + 1]);
+    }
+    if (lane_t() == 0) {
+      S.th[s * H + hh] = qm_h;
+      S.th[BT * H + s * H + hh] = d_qm_h / n_pairs;
+      S.th[2 * BT * H + s * H + hh] = d_sk_h;
+    }
+  }
+}
+
+// Kernel D: the column-attention backward, pass 2 of kernel E with the
+// pair's terms replaced by the per-site terms of the tile.  A block owns a
+// contiguous range of pairs of one batch element and walks the site tiles
+// outermost, its pairs innermost, so the site terms are built once a tile.
+__global__ void __launch_bounds__(NT, 2) kernel_d(
+    const float* __restrict__ x1, const float* __restrict__ g2, const float* __restrict__ stats,
+    const float* __restrict__ a1, const float* __restrict__ pmask,
+    const float* __restrict__ pair_count, const float* __restrict__ w,
+    const float* __restrict__ wm, float* __restrict__ g1, float* __restrict__ w_part, int P,
+    int L, int S_, float eps) {
+  extern __shared__ float4 smem_raw[];
+  SmemD& S = *reinterpret_cast<SmemD*>(smem_raw);
+  const int b = blockIdx.y, slot = blockIdx.x, t = threadIdx.x;
+  const int warp = warp_id(), lane = t & 31, hh = warp & 3, wmr = warp >> 2;
+  int p0, p1;
+  split_range(slot, P, S_, p0, p1);
+  float dwv[2][2][4], dwqk[1][1][4];
+  zero<16>(&dwv[0][0][0]);
+  zero<4>(&dwqk[0][0][0]);
+  float dbv[4] = {0.f, 0.f, 0.f, 0.f}, dzs[2] = {0.f, 0.f};
+  float vds[2] = {0.f, 0.f}, vdb[2] = {0.f, 0.f}, unused[2] = {0.f, 0.f};
+  float bv[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) bv[k] = w[AG_BV + act_col(k >> 1) + (k & 1)];
+  const float bq = w[AG_BQ + hh], bk = w[AG_BK + hh];
+  const float n_pairs = fmaxf(pair_count[b], 1.f);
+  const float* stats_b = stats + (size_t)b * L * 3 * D;
+  const float* a1_b = a1 + (size_t)b * L * D;
+  const int np = p1 - p0, n = ((L + BT - 1) / BT) * np;
+  const size_t row_b = (size_t)b * P;
+
+  if (n > 0) {
+    const size_t off = (row_b + p0) * L * D;
+    tile_issue<D>(S.xs[0], x1 + off, min(BT, L));
+    tile_issue<D>(S.g2[0], g2 + off, min(BT, L));
+    cp_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    const int p = p0 + i % np, l0 = (i / np) * BT, nv = min(BT, L - l0);
+    const size_t off = ((row_b + p) * L + l0) * D;
+    const float* X = S.xs[i & 1];
+    const float* G = S.g2[i & 1];
+    cp_wait_all();
+    __syncthreads();
+    if (i + 1 < n) {
+      const int pn = p0 + (i + 1) % np, ln = ((i + 1) / np) * BT;
+      const size_t offn = ((row_b + pn) * L + ln) * D;
+      tile_issue<D>(S.xs[(i + 1) & 1], x1 + offn, min(BT, L - ln));
+      tile_issue<D>(S.g2[(i + 1) & 1], g2 + offn, min(BT, L - ln));
+      cp_commit();
+    }
+    if (p == p0) col_site_terms(S, stats_b, a1_b, l0, nv, n_pairs);  // read after the barrier
+    ln_split_rows<D>(X, S.hs, w + AG_LNS, w + AG_LNB, eps);
+    split_tile<D>(G, S.gs);
+    __syncthreads();
+    float z[1][4], v[2][4], da[2][4], zq[2], zk[2];
+    row_products(S.hs, S.gs, wm, z, v, da);  // d_attn = g2 Wo_c^T
+    head_z(z, zq, zk);
+    const float pm = pmask[row_b + p];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int s = act_row(h);
+      const float m = s < nv ? pm : 0.f;
+      float ctx[4], skv[4], pq = 0.f, pk = 0.f;
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) {
+        const float2 cx = ld2(S.ctx + sw(s, act_col(ni))), sv = ld2(S.skv + sw(s, act_col(ni)));
+        ctx[2 * ni] = cx.x;
+        ctx[2 * ni + 1] = cx.y;
+        skv[2 * ni] = sv.x;
+        skv[2 * ni + 1] = sv.y;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        pq += da[k >> 1][2 * h + (k & 1)] * ctx[k];
+        pk += skv[k] * (v[k >> 1][2 * h + (k & 1)] + bv[k]);
+      }
+      pq = quad_sum(pq);
+      pk = quad_sum(pk);
+      const float d_q = pq / S.th[s * H + hh] + S.th[BT * H + s * H + hh];
+      const float d_k = S.th[2 * BT * H + s * H + hh] + pk;
+      const float zqh = zq[h] + bq, zkh = zk[h] + bk;
+      const float dzq = d_q * phi_grad(zqh) * m, dzk = d_k * phi_grad(zkh) * m;
+      const float kk = phi(zkh) * m;
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) {
+        const float dv0 = skv[2 * ni] * kk, dv1 = skv[2 * ni + 1] * kk;
+        dbv[2 * ni] += dv0;
+        dbv[2 * ni + 1] += dv1;
+        put_split<BXS, PL>(S.vs, s, act_col(ni), dv0, dv1);
+      }
+      if (lane_t() == 0) {
+        put_dz(S.dz, s, hh, dzq, dzk);
+        dzs[0] += dzq;
+        dzs[1] += dzk;
+      }
+    }
+    __syncthreads();
+    grad_tile<2, 2, BXS, PL, BXS, PL>(S.hs, S.vs, 32 * wmr, 16 * hh, dwv);  // hc^T d_v
+    if (warp < 4) grad_tile<1, 1, BXS, PL, DZS, DZPL>(S.hs, S.dz, 16 * warp, 0, dwqk);
+    dh_product(S.vs, S.dz, wm, S.hs);
+    __syncthreads();
+    ln_bwd_tile<D>(X, S.hs, G, w + AG_LNS, eps, nv, g1 + off, nullptr, vds, vdb, unused, unused);
+  }
+  __syncthreads();
+
+  // the block's weight gradients, each sum in a fixed order
+  float* wp = w_part + ((size_t)b * S_ + slot) * NWD;
+  grad_store<2, 2>(&dwv[0][0][0], wp + WA_WV, D, 32 * wmr, 16 * hh);
+  if (warp < 4) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int mrow = 16 * warp + 8 * h + lane_g(), c = 2 * lane_t();
+      float* dst = c < H ? wp + WA_WQ + mrow * H + c : wp + WA_WK + mrow * H + c - H;
+      st2(dst, dwqk[0][0][2 * h], dwqk[0][0][2 * h + 1]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) dbv[k] = rows_sum(dbv[k]);
+  dzs[0] = rows_sum(dzs[0]);
+  dzs[1] = rows_sum(dzs[1]);
+  float* red = S.ctx;  // the row warps' bias sums
+  if (lane_g() == 0) {
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) st2(red + wmr * D + act_col(ni), dbv[2 * ni], dbv[2 * ni + 1]);
+  }
+  if (lane == 0) {
+    red[2 * D + wmr * H + hh] = dzs[0];
+    red[2 * D + 2 * H + wmr * H + hh] = dzs[1];
+  }
+  put_warp_sums(S.vs, 0, vds);
+  put_warp_sums(S.vs, 1, vdb);
+  __syncthreads();
+  if (t < D) {
+    wp[WA_LNS + t] = warp_sums_total(S.vs, 0);
+    wp[WA_LNB + t] = warp_sums_total(S.vs, 1);
+    wp[WA_BV + t] = red[t] + red[D + t];
+  }
+  if (t < H) {
+    wp[WA_BQ + t] = red[2 * D + t] + red[2 * D + H + t];
+    wp[WA_BK + t] = red[2 * D + 2 * H + t] + red[2 * D + 3 * H + t];
+  }
+}
+
 template <typename Sm, typename K>
 static cudaError_t allow_smem_of(K kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -930,10 +1208,12 @@ int pf_bwd_tc_sizes(int* out) {
   out[2] = AG_SIZE;
   out[3] = EM_SIZE;
   out[4] = NWC;
-  out[5] = NWE;
-  out[6] = BT;
-  out[7] = (int)sizeof(SmemC);
-  out[8] = (int)sizeof(SmemE);
+  out[5] = NWD;
+  out[6] = NWE;
+  out[7] = BT;
+  out[8] = (int)sizeof(SmemC);
+  out[9] = (int)sizeof(SmemD);
+  out[10] = (int)sizeof(SmemE);
   return 0;
 }
 
@@ -948,6 +1228,16 @@ int pf_kernel_c(const float* x1, const float* g3, const float* stats, const floa
   return (int)cudaGetLastError();
 }
 
+int pf_kernel_d(const float* x1, const float* g2, const float* stats, const float* a1,
+                const float* pmask, const float* pair_count, const float* w, const float* wm,
+                float* g1, float* w_part, int B, int P, int L, int S_, float eps, void* stream) {
+  cudaError_t e = allow_smem_of<SmemD>(kernel_d);
+  if (e != cudaSuccess) return (int)e;
+  kernel_d<<<dim3(S_, B), pf::NT, sizeof(SmemD), (cudaStream_t)stream>>>(
+      x1, g2, stats, a1, pmask, pair_count, w, wm, g1, w_part, P, L, S_, eps);
+  return (int)cudaGetLastError();
+}
+
 int pf_kernel_e(const float* x, const float* g1, const float* smask, const float* w,
                 const float* wm, float* gx, float* w_part, int B, int P, int L, int S_,
                 float eps, void* stream) {
@@ -955,6 +1245,16 @@ int pf_kernel_e(const float* x, const float* g1, const float* smask, const float
   if (e != cudaSuccess) return (int)e;
   kernel_e<<<dim3(S_, B), pf::NT, sizeof(SmemE), (cudaStream_t)stream>>>(x, g1, smask, w, wm, gx,
                                                                      w_part, P, L, S_, eps);
+  return (int)cudaGetLastError();
+}
+
+int pf_kernel_e2(const float* x, const float* g1, const float* rowsums, const float* smask,
+                 const float* w, const float* wm, float* gx, float* w_part, int B, int P, int L,
+                 int SP, int SC, float eps, void* stream) {
+  cudaError_t e = allow_smem_of<SmemE>(kernel_e2);
+  if (e != cudaSuccess) return (int)e;
+  kernel_e2<<<dim3(SP * SC, B), pf::NT, sizeof(SmemE), (cudaStream_t)stream>>>(
+      x, g1, rowsums, smask, w, wm, gx, w_part, P, L, SP, SC, eps);
   return (int)cudaGetLastError();
 }
 

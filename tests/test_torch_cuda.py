@@ -337,14 +337,23 @@ for name, (dims, pad_n, pad_l) in {
     g2, a1 = want[0], want[1]
     got = bw.kernel_d(x1, g2, stats, a1, pm, pc, w.d, 1e-5)
     want = bw.kernel_d_plain(x1, g2, stats, a1, pm, pc, w.d, 1e-5)
-    e["act"] = max(e["act"], rel(got[0], want[0]))
-    e["grad"] = max(e["grad"], rel(got[1], want[1]))
+    again = bw.kernel_d(x1, g2, stats, a1, pm, pc, w.d, 1e-5)
+    e["d"], e["d_grad"] = rel(got[0], want[0]), rel(got[1], want[1])
+    e["d_bits"] = bool(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]))
+    e["act"] = max(e["act"], e["d"])
+    e["grad"] = max(e["grad"], e["d_grad"])
+    e["padded_pairs"] = int((pm == 0).sum())
+    e["ragged"] = pad_l % bw.TC_TILE_SITES != 0
     g1 = want[0]
     if pad_l > 1024:
         rs = bw.kernel_e1_plain(x, g1, sm, w.e, 1e-5)
         got = bw.kernel_e2(x, g1, rs, sm, w.e, 1e-5)
         want = bw.kernel_e2_plain(x, g1, rs, sm, w.e, 1e-5)
-        e["e12"] = max(rel(bw.kernel_e1(x, g1, sm, w.e, 1e-5), rs), rel(got[0], want[0]))
+        again = bw.kernel_e2(x, g1, rs, sm, w.e, 1e-5)
+        e["e2"] = rel(got[0], want[0])
+        e["e2_bits"] = bool(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]))
+        e["e2_grid"] = list(bw.e2_grid(b, x.shape[1], pad_l, dev))
+        e["e12"] = max(rel(bw.kernel_e1(x, g1, sm, w.e, 1e-5), rs), e["e2"])
     else:
         got = bw.kernel_e(x, g1, sm, w.e, 1e-5)
         want = bw.kernel_e_plain(x, g1, sm, w.e, 1e-5)
@@ -391,9 +400,10 @@ def test_backward_kernels_match_plain_on_card(case, bwd_results):
     """Kernels C, D and E against their plain versions (2e-5 on g2, A1, g1
     and gx; 1e-4 on the weight gradients, sums over every pair-site taken in
     another order), the block backward against autograd of the eager block
-    (1e-4), its launches, and the same bits from two runs.  C and E run split
-    TF32 on the tensor cores; at 1024 sites E1 + E2 (fp32 SIMT) match E
-    within 1e-5 on gx and 1e-4 on the weight gradients."""
+    (1e-4), its launches, and the same bits from two runs.  C, D and E run
+    split TF32 on the tensor cores; at 1024 sites E1 + E2 (E1 fp32 SIMT, E2
+    E's pass 2) match E within 1e-5 on gx and 1e-4 on the weight
+    gradients."""
     res = bwd_results[case]
     if case == "l1024":
         assert res["errs"]["e12_vs_e"] <= 1e-5, res
@@ -407,13 +417,37 @@ def test_backward_kernels_match_plain_on_card(case, bwd_results):
     assert n["reduce_partials"] == 4, n
 
 
+@pytest.mark.parametrize("case", ["partial_tile", "two_seqs", "masked_row"])
+def test_backward_kernel_d_padded_pairs_ragged_tile_on_card(case, bwd_results):
+    """Kernel D (split TF32 on the tensor cores) on batches with padded
+    pairs (pair mask 0) and a ragged last 32-site tile: g1 within 2e-5 and
+    its weight gradients within 1e-4 of the plain version, and the same bits
+    from two runs."""
+    e = bwd_results[case]["errs"]
+    assert e["padded_pairs"] > 0 and e["ragged"], e
+    assert e["d"] <= 2e-5 and e["d_grad"] <= 1e-4 and e["d_bits"], e
+
+
+@pytest.mark.parametrize("case", ["long_partial_tile", "l1025", "long_three_pairs",
+                                  "long_masked_row"])
+def test_backward_kernel_e2_site_chunks_on_card(case, bwd_results):
+    """Kernel E2 (split TF32 on the tensor cores) on a grid of more than one
+    site chunk a pair slot, the last chunk ending in a ragged 32-site tile:
+    gx within 1e-5 of the plain version, and the same bits from two runs."""
+    e = bwd_results[case]["errs"]
+    slots, chunks = e["e2_grid"]
+    assert chunks > 1 and e["ragged"], e
+    assert e["e2"] <= 1e-5 and e["e2_bits"], e
+
+
 @pytest.mark.parametrize("case", ["long_partial_tile", "l1025", "long_three_pairs",
                                   "long_masked_row"])
 def test_ltiled_backward_kernels_match_plain_on_card(case, bwd_results):
     """Above 1024 sites: C, D, E1 (row sums) and E2 against their plain
     versions (1e-5 on the row sums and gx, 2e-5 on g2, A1 and g1, 1e-4 on the
     weight gradients), the block backward through E1 and E2 (no E) against
-    autograd of the eager block (1e-4), and the same bits from two runs."""
+    autograd of the eager block (1e-4), and the same bits from two runs.  C,
+    D and E2 run split TF32 on the tensor cores, E1 fp32 SIMT."""
     res = bwd_results[case]
     assert res["errs"]["e12"] <= 1e-5, res
     assert res["errs"]["act"] <= 2e-5, res
@@ -437,8 +471,8 @@ sms = torch.cuda.get_device_properties(dev).multi_processor_count
 gen = torch.Generator(dev).manual_seed(5)
 res = {}
 for name, (wrap, shape, off) in {
-        "d_grads": (bw.reduce_partials, (1, 396, 4808), 0),
-        "e_grads": (bw.reduce_partials, (1, 396, 8968), 0),
+        "d_grads": (bw.reduce_partials, (1, 264, 4808), 0),
+        "e_grads": (bw.reduce_partials, (1, 264, 8968), 0),
         "c_grads": (bw.reduce_partials, (1, 132, 37376), 0),
         "stats_a_only": (pipe.reduce_stats, (1, 1056, 256, 192), 0),
         "stats_headline": (pipe.reduce_stats, (9, 118, 256, 192), 0),
@@ -490,3 +524,23 @@ def test_slot_reductions_match_ordered_twin_on_card(case, red_results):
     assert res["twin_bits"] and res["same_bits"], res
     assert res["err"] <= 2e-5, res
     assert res["launches"] == 1, res
+
+
+@pytest.fixture(scope="module")
+def sass(card):
+    """HMMA and FFMA counts of each kernel of the built library
+    (``chip_smoke.sass_counts``, from ``cuobjdump -sass``)."""
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import sass_counts
+    from phyloformer_tpu_torch.ops.kernels import _build
+
+    counts = sass_counts(_build.build())
+    if counts is None:
+        pytest.skip("no cuobjdump in this CUDA toolkit")
+    return counts
+
+
+@pytest.mark.parametrize("kernel", ["kernel_c", "kernel_d", "kernel_e", "kernel_e2"])
+def test_backward_kernels_run_on_tensor_cores(kernel, sass):
+    """C, D, E and E2 hold tensor-core mma (HMMA) instructions."""
+    assert sass[kernel]["HMMA"] > 0, sass

@@ -1,14 +1,15 @@
-"""The split-TF32 products of backward kernels C and E, on the CPU.
+"""The split-TF32 products of backward kernels C, D, E and E2, on the CPU.
 
-Kernels C and E (``csrc/axial_bwd_tc.cu``) run every product on the tensor
-cores as ``mma.m16n8k8`` TF32 in three passes, as the forward kernels do
-(``tests/test_torch_tf32.py``).  Their weights arrive packed once per layer
-(``axial_block_bwd.c_group`` / ``e_group``, ``pipeline.pack_mma``); their
-weight gradients are products with the sites as K, both operands split in
-the kernel.  The kernels run only on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``); here:
+Kernels C, D, E and E2 (``csrc/axial_bwd_tc.cu``) run every product on the
+tensor cores as ``mma.m16n8k8`` TF32 in three passes, as the forward kernels
+do (``tests/test_torch_tf32.py``).  Their weights arrive packed once per
+layer (``axial_block_bwd.c_group`` / ``e_group``, ``pipeline.pack_mma``; D
+reads the column attention's ``e_group``, E and E2 the row attention's);
+their weight gradients are products with the sites as K, both operands split
+in the kernel.  The kernels run only on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``); here:
 
-- every packed matrix of C's and E's groups, for all six layers of
+- every packed matrix of C's, D's and E's groups, for all six layers of
   ``artifacts/pf_mre_r5.ckpt``, unpacks to the split of its weight bit for
   bit, and the flat groups are unchanged by the packing;
 - a numpy transcription of the weight-gradient product (both operands split,
@@ -16,9 +17,10 @@ the kernel.  The kernels run only on the card (``tests/test_torch_cuda.py``,
   operands of the kernels' shapes is within 2e-6 of float64, relative to
   max(1, max|ref|); one TF32 pass is not;
 - the constants of ``axial_bwd.cuh`` (layouts, tile, the shared memory of
-  a block) agree with the wrapper, the blocks fit an H100 SM as
-  ``BLOCKS_PER_SM`` promises, and the tile swizzle makes the kernels'
-  fragment reads (straight, ldmatrix and transposed) conflict-free.
+  a C, a D and an E or E2 block) agree with the wrapper, the blocks fit an
+  H100 SM as ``BLOCKS_PER_SM`` promises, and the tile swizzle makes the
+  kernels' fragment reads (straight, ldmatrix and transposed)
+  conflict-free.
 """
 
 import math
@@ -63,13 +65,14 @@ def _mats(kind, group):
 
 
 @pytest.mark.parametrize("layer", range(6))
-@pytest.mark.parametrize("kind", ["c", "e"])
+@pytest.mark.parametrize("kind", ["c", "e", "d"])
 def test_backward_groups_pack_round_trip(kind, layer, layers):
-    """C's six and E's four packed matrices unpack to the split of the
-    weight bit for bit, in the order the kernels read them; the group's flat
-    buffer is its parts' concatenation (what D, E1 and E2 read)."""
+    """C's six and D's and E's four packed matrices (the column and the row
+    attention's, in one layout) unpack to the split of the weight bit for
+    bit, in the order the kernels read them; the group's flat buffer is its
+    parts' concatenation (what E1 reads)."""
     w = bw.BwdWeights.of(layers[layer])
-    group = w.c if kind == "c" else w.e
+    group = {"c": w.c, "d": w.d, "e": w.e}[kind]
     packed = group.mma.numpy()
     assert packed.size == bw.mma_size("kernel_" + kind, D, H)
     off = 0
@@ -83,9 +86,10 @@ def test_backward_groups_pack_round_trip(kind, layer, layers):
     assert off == packed.size
     flat = torch.cat([p.reshape(-1) for p in group.parts])
     assert torch.equal(group.flat, flat)
-    if kind == "e":  # E's flat group is the one kernel D's layout takes
-        assert torch.equal(group.flat, bw.att_group(layers[layer]["row_norm"],
-                                                    layers[layer]["row_attn"]).flat)
+    if kind != "c":  # the flat layout of the attention groups, unchanged by the packing
+        norm, attn = ("col_norm", "col_attn") if kind == "d" else ("row_norm", "row_attn")
+        assert torch.equal(group.flat, bw.att_group(layers[layer][norm],
+                                                    layers[layer][attn]).flat)
 
 
 def test_packing_only_at_the_kernels_shape():
@@ -103,7 +107,7 @@ def test_packing_only_at_the_kernels_shape():
              "ffn_norm": norm, "ffn": {"w1": t(d, 4 * d), "b1": t(4 * d), "w2": t(4 * d, d),
                                        "b2": t(d)}}
     w = bw.BwdWeights.of(layer)
-    assert w.c.mma.numel() == 0 and w.e.mma.numel() == 0
+    assert w.c.mma.numel() == 0 and w.d.mma.numel() == 0 and w.e.mma.numel() == 0
 
 
 def _grad_3pass(x: np.ndarray, y: np.ndarray) -> np.ndarray:
@@ -132,9 +136,12 @@ def _gelu(a):
 
 
 # (name, x columns, y columns): C's dW1 = hf^T du, dW2 = a^T g3, dWo_c =
-# attn^T g2; E's dWv = h^T dv, dWo = attn^T g1, [dWq | dWk] = h^T [dzq | dzk].
+# attn^T g2; E's and E2's dWv = h^T dv, dWo = attn^T g1, [dWq | dWk] =
+# h^T [dzq | dzk]; D's dWv = hc^T dv and [dWq | dWk] = hc^T [dzq | dzk].
 PRODUCTS = [("c_dw1", "ln", "small"), ("c_dw2", "gelu", "grad"), ("c_dwo", "attn", "grad"),
-            ("e_dwv", "ln", "small"), ("e_dwo", "attn", "grad"), ("e_dwqk", "ln", "dz")]
+            ("e_dwv", "ln", "small"), ("e_dwo", "attn", "grad"), ("e_dwqk", "ln", "dz"),
+            ("d_dwv", "ln", "small"), ("d_dwqk", "ln", "dz"), ("e2_dwv", "ln", "small"),
+            ("e2_dwo", "attn", "grad"), ("e2_dwqk", "ln", "dz")]
 
 
 @pytest.mark.parametrize("name,xk,yk", PRODUCTS)
@@ -192,13 +199,23 @@ def _struct_bytes(name: str, c: dict) -> int:
 def test_backward_header_matches_the_wrapper(layers):
     """Sizes and offsets of the flat and packed layouts, the gradient
     vectors and the tile, as the wrapper has them (TC_LAYOUT is what it
-    checks the built library against, in pf_bwd_tc_sizes' order)."""
+    checks the built library against, in pf_bwd_tc_sizes' order), then the
+    shared memory of a C, a D and an E or E2 block, which the library
+    reports after them and each launch requests."""
     c = _constants()
     src = (CSRC / "axial_bwd_tc.cu").read_text()
     body = src[src.index("int pf_bwd_tc_sizes"):]
     body = body[:body.index("return 0;")]
     order = dict((int(k), v) for k, v in re.findall(r"out\[(\d+)\] = (\w+);", body))
     assert tuple(c[order[k]] for k in range(len(bw.TC_LAYOUT))) == bw.TC_LAYOUT
+    smem = dict((int(k), v) for k, v in re.findall(r"out\[(\d+)\] = \(int\)sizeof\((\w+)\);",
+                                                   body))
+    n = len(bw.TC_LAYOUT)
+    assert [smem[k] for k in range(n, n + 3)] == ["SmemC", "SmemD", "SmemE"]
+    for kernel, struct in (("kernel_c", "SmemC"), ("kernel_d", "SmemD"), ("kernel_e", "SmemE"),
+                           ("kernel_e2", "SmemE")):
+        assert f"allow_smem_of<{struct}>({kernel});" in src, kernel
+        assert re.search(rf"{kernel}<<<[^>]*sizeof\({struct}\)", src), kernel
     assert c["BT"] == bw.TC_TILE_SITES and c["H"] == H
     w = bw.BwdWeights.of(layers[0])
     offsets = np.cumsum([0] + [p.numel() for p in w.c.parts])
@@ -215,6 +232,8 @@ def test_backward_header_matches_the_wrapper(layers):
     assert [c[n] for n in em] == list(np.cumsum([0] + [2 * m.numel() for m in _mats("e", w.e)]))
     for kernel, names in (("kernel_c", ["WC_CWO", "WC_CBO", "WC_FNS", "WC_FNB", "WC_W1",
                                         "WC_B1", "WC_W2", "WC_B2", "NWC"]),
+                          ("kernel_d", ["WA_LNS", "WA_LNB", "WA_WQ", "WA_BQ", "WA_WK", "WA_BK",
+                                        "WA_WV", "WA_BV", "NWD"]),
                           ("kernel_e", ["WA_LNS", "WA_LNB", "WA_WQ", "WA_BQ", "WA_WK", "WA_BK",
                                         "WA_WV", "WA_BV", "WA_WO", "WA_BO", "NWE"])):
         sizes = [math.prod(s) for _, _, s in bw.grad_spec(kernel, D, H)]
@@ -223,14 +242,19 @@ def test_backward_header_matches_the_wrapper(layers):
 
 def test_backward_blocks_fit_as_promised():
     """C's block (tiles, split planes and its 128 KB of FFN gradients) fits
-    an H100 SM once and not twice; E's block fits twice and not three
-    times: the blocks per SM of BLOCKS_PER_SM, whose grid is one wave."""
+    an H100 SM once and not twice; D's block (its tiles, split planes and
+    the tile's per-site terms) and E's, which E2 runs, fit twice and not
+    three times: the blocks per SM of BLOCKS_PER_SM, whose grid is one
+    wave."""
     c = _constants()
-    smem_c, smem_e = _struct_bytes("SmemC", c), _struct_bytes("SmemE", c)
+    smem_c, smem_d = _struct_bytes("SmemC", c), _struct_bytes("SmemD", c)
+    smem_e = _struct_bytes("SmemE", c)
     assert c["CGRAD"] * 4 == 128 * 1024
     assert smem_c <= BLOCK_MAX and smem_c + RESERVED <= SM_BYTES < 2 * (smem_c + RESERVED)
-    assert smem_e <= BLOCK_MAX and 2 * (smem_e + RESERVED) <= SM_BYTES < 3 * (smem_e + RESERVED)
+    for smem in (smem_d, smem_e):
+        assert smem <= BLOCK_MAX and 2 * (smem + RESERVED) <= SM_BYTES < 3 * (smem + RESERVED)
     assert bw.BLOCKS_PER_SM["kernel_c"] == 1 and bw.BLOCKS_PER_SM["kernel_e"] == 2
+    assert bw.BLOCKS_PER_SM["kernel_d"] == 2 and bw.BLOCKS_PER_SM["kernel_e2"] == 2
 
 
 def test_tile_swizzle_is_conflict_free():
