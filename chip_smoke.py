@@ -14,7 +14,7 @@
    the rows printed as JSON);
    then counts the tensor-core (HMMA) and fp32 FMA instructions of every
    kernel in the built library (``cuobjdump -sass``; C, D, E and E2 must
-   have HMMA, E1 is fp32 SIMT), holds every
+   have HMMA), holds every
    kernel of the inference paths against its plain PyTorch version on the
    card (TF32 off for PyTorch; the kernels' own products are split TF32 on
    the tensor cores) and times both with CUDA events, beside the bound of
@@ -53,10 +53,10 @@
    memory);
 9. holds the L-tiled row backward's kernels E1 and E2 (above 1024 sites)
    against their plain versions at the (50, 1536) training bucket and on a
-   ragged batch, E1 + E2 against kernel E at 1024 sites, and two runs of E2 and
-   of the long block backward against each other; times E1 and E2 (E2
-   against three TF32 passes), C and D at 2 x 1225 x 1536 and E at 1024
-   sites;
+   ragged batch (E1 also against its factored twin), E1 + E2 against kernel
+   E at 1024 sites, and two runs of E1, of E2 and of the long block backward
+   against each other; times E1 (beside its bytes bound) and E2 (against
+   three TF32 passes), C and D at 2 x 1225 x 1536 and E at 1024 sites;
 10. drives training on long alignments: a synthetic corpus in the
    (50, 1536) bucket packed with ``pf-preprocess-torch``, ``pf-train-torch
    --packed-data --batch-size 2`` for 4 steps and a validation (launch
@@ -99,7 +99,8 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 # The forward kernels (P0, A-only, A, M, Z, A1, A2, B) and the backward's C,
 # D, E and E2 run their products on the tensor cores in split TF32: three
-# passes, so the card does 3x the products' FLOPs.  E1 is fp32 SIMT.
+# passes, so the card does 3x the products' FLOPs.  Every bound counts the
+# TPU kernel's function at three such passes, whatever a kernel runs.
 TF32_PASSES = 3
 # Matmul FLOPs per pair-site: kernel A = 7 d x d products (A1 3 of them, A2
 # the other 4 and the q projection again: 5), kernel B = 2 d x d + 2 d x 4d
@@ -116,7 +117,10 @@ H = 4
 FLOPS_C = 5 * 2 * D * 4 * D + 3 * 2 * D * D + 2 * D * H
 FLOPS_D = 4 * 2 * D * D + 6 * 2 * D * H
 FLOPS_E = 5 * 2 * D * D + 6 * 2 * D * H
-# E1 = the q, k (d x H), v and d_attn (d x d) products; E2 does E's.
+# E1 = the TPU function's q, k (d x H), v and d_attn (d x d) products; E2
+# does E's.  E1's bytes (x and g1, 512 B a pair-site) bind it all the same:
+# its kernel sums the sites into d x H matrices first and does about
+# 2.6 kFLOP a pair-site, fewer than counted here.
 FLOPS_E1 = 2 * 2 * D * D + 2 * 2 * D * H
 # Tolerances, relative to the reference's largest magnitude (max(1, max|ref|)):
 # fp32 sums taken in another order (tiles, blocks, one-pass ctx = Σk·v/Σk).
@@ -193,7 +197,7 @@ def summarize(name, r, tol, where, card) -> bool:
     print(f"{name}: max abs err {r['max_abs_err']:.3e}, relative {r['max_rel_err']:.3e} "
           f"(tol {tol:.0e}){grads}, {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, "
           f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}"
-          + (f", split TF32 on the tensor cores; fp32 SIMT bound {r['bound_fp32_simt_ms']:.3f} ms"
+          + (f", the work at three TF32 passes; fp32 SIMT bound {r['bound_fp32_simt_ms']:.3f} ms"
              if "bound_fp32_simt_ms" in r else "") + f"){where} [{card}]")
     return r["max_rel_err"] <= tol and r.get("max_rel_err_grads", 0.0) <= GRAD_TOL
 
@@ -963,10 +967,13 @@ def long_backward_kernel_checks(params, device):
     input of random alignments, g1 from kernels C and D on a seeded masked
     cotangent): at the (50, 1536) training bucket, 2 x 1225 pairs, and on a
     ragged batch (45 of 50 tips, 1100 of 1280 sites), every output compared
-    on its own (E1 has no weight gradients); E1 + E2 against kernel E at 1024
-    sites (the same function, written twice); the same bits from two runs of
-    E2 and of the whole block backward.  Times at the training bucket, C's
-    and D's there too."""
+    on its own (E1 has no weight gradients; it is also held to its factored
+    twin in float64, the exact value of its own association); E1 + E2
+    against kernel E at 1024 sites (the same function, written twice); the
+    same bits from two runs of E1, of E2 and of the whole block backward.
+    Times at the training bucket, C's and D's there too; E1's as device time
+    (``time_launches``: one launch takes well under a millisecond, which a
+    single launch's events would share with the host's dispatch)."""
     import torch
 
     from phyloformer_tpu_torch.ops.kernels import axial_block_bwd as bw
@@ -976,11 +983,13 @@ def long_backward_kernel_checks(params, device):
 
     layer = params["layers"][0]
     w = bw.BwdWeights.of(layer)
+    w64 = bw.att_group(*({k: v.double() for k, v in layer[n].items()}
+                         for n in ("row_norm", "row_attn")))
     pw = PipelineWeights.from_params(params)
     rng = np.random.default_rng(SEED + 5)
     cases = {"train": ([(50, 1536)] * 2, 50, 1536), "ragged": ([(45, 1100), (50, 1280)], 50, 1280),
              "l1024": ([(50, 1024), (47, 1000)], 50, 1024)}
-    results = {"kernel_e1": {"errs": []},
+    results = {"kernel_e1": {"errs": [], "factored_errs": [], "same_bits": True},
                "kernel_e2": {"errs": [], "grad_errs": [], "same_bits": True}}
     out = {"same_bits": True}
 
@@ -1023,8 +1032,12 @@ def long_backward_kernel_checks(params, device):
             out["e12_vs_e_plain"] = max(errors(got[0], want[0])[1],
                                         max(e[1] for e in grad_errs(got[1], want[1])))
         else:
-            results["kernel_e1"]["errs"].append(
-                errors(bw.kernel_e1(x, g1, smask, w.e, 1e-5), rowsums))
+            got = bw.kernel_e1(x, g1, smask, w.e, 1e-5)
+            again = bw.kernel_e1(x, g1, smask, w.e, 1e-5)
+            results["kernel_e1"]["errs"].append(errors(got, rowsums))
+            results["kernel_e1"]["factored_errs"].append(errors(got, bw.kernel_e1_factored(
+                x.double(), g1.double(), smask.double(), w64, 1e-5)))
+            results["kernel_e1"]["same_bits"] &= bool(torch.equal(got, again))
             got = bw.kernel_e2(x, g1, rowsums, smask, w.e, 1e-5)
             results["kernel_e2"]["errs"].append(errors(got[0], want[0]))
             results["kernel_e2"]["grad_errs"] += grad_errs(got[1], want[1])
@@ -1066,18 +1079,23 @@ def long_backward_kernel_checks(params, device):
         return lambda: f(t["x"], t["g1"], t["rowsums"], t["smask"], w.e, 1e-5)
 
     timed = {"kernel_e1": (e1(False), e1(True),
-                           bound(FLOPS_E1 * sites, 2 * act + smask_b + wb + rows_b)),
+                           bound_tc(FLOPS_E1 * sites, 2 * act + smask_b + wb + rows_b)),
              "kernel_e2": (e2(False), e2(True),
                            bound_tc(FLOPS_E * sites, 3 * act + rows_b + smask_b + wb + nw))}
     for name, (kern, plain, bnd) in timed.items():
         r = results[name]
-        r["ms"] = time_ms(kern)
+        r["ms"] = (time_launches({name: kern}, n=10, reps=5)[name] if name == "kernel_e1"
+                   else time_ms(kern))
         r["plain_ms"] = time_ms(plain)
         r["bound_ms"], r["bound_by"] = bnd[:2]
         if len(bnd) == 3:
             r["bound_fp32_simt_ms"] = bnd[2]
         r["library_ms"] = None  # no single PyTorch call computes these functions
         torch.cuda.empty_cache()
+    r = results["kernel_e1"]
+    r["one_launch_ms"] = time_ms(timed["kernel_e1"][0])
+    r["max_rel_err_factored"] = max(e[1] for e in r["factored_errs"])
+    r["bound_share"] = r["bound_ms"] / r["ms"]
     return results, out
 
 
@@ -1369,7 +1387,8 @@ def profile_training(device, corpus, n_timed=5, n_steps=3):
 def profile_steps(step, state, batches):
     """``len(batches)`` train steps under ``torch.profiler``: the wall time
     per step, the device time per kernel name and step, and their sum, the
-    device's busy time (one stream)."""
+    device's busy time (one stream); E1's finalize (``kernel_e1_fin``, part
+    of each ``kernel_e1`` launch) apart, as it is short of the top names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1388,7 +1407,8 @@ def profile_steps(step, state, batches):
         if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / len(batches)
     return dict(wall_ms=wall_ms, device_ms=sum(by_name.values()),
-                top=sorted(by_name.items(), key=lambda kv: -kv[1])[:14])
+                top=sorted(by_name.items(), key=lambda kv: -kv[1])[:14],
+                e1_fin_ms=sum(ms for k, ms in by_name.items() if "kernel_e1_fin" in k))
 
 
 SOURCE = "phyloformer_tpu_torch/ops/kernels/csrc/"
@@ -1547,6 +1567,12 @@ def main(argv=None) -> int:
     bwd_long, e12 = long_backward_kernel_checks(dev_params, device)
     bad = [n for n, r in bwd_long.items()
            if not summarize(n, r, E12_TOL, " at 2 x 1225 x 1536", card)]
+    e1 = bwd_long["kernel_e1"]
+    print(f"kernel_e1: {100 * e1['bound_share']:.1f}% of its {e1['bound_by']} bound "
+          f"({e1['bound_ms']:.3f} of {e1['ms']:.3f} ms a launch, 10 queued; "
+          f"{e1['one_launch_ms']:.3f} ms one launch alone, the host's dispatch included); "
+          f"against its factored twin in float64 {e1['max_rel_err_factored']:.3e} "
+          f"(tol {E12_TOL:.0e}); two runs give the same bits: {e1['same_bits']} [{card}]")
     print(f"E1 + E2 vs kernel E at 1024 sites: gx {e12['e12_vs_e']:.3e} (same bits: "
           f"{e12['e12_vs_e_bits']}), weight gradients {e12['e12_vs_e_grads']:.3e}; vs the plain "
           f"versions {e12['e12_vs_e_plain']:.3e}; two runs give the same bits: "
@@ -1561,6 +1587,7 @@ def main(argv=None) -> int:
               f"{e12[key + '_bound_ms']:.3f} ms (split TF32; fp32 SIMT "
               f"{e12[key + '_bound_fp32_simt_ms']:.3f} ms) [{card}]")
     if (bad or not e12["same_bits"] or not bwd_long["kernel_e2"]["same_bits"]
+            or not e1["same_bits"] or not e1["max_rel_err_factored"] <= E12_TOL
             or not e12["e12_vs_e"] <= E12_TOL
             or not e12["e12_vs_e_grads"] <= GRAD_TOL or not e12["e12_vs_e_plain"] <= GRAD_TOL):
         fail(f"E1/E2 disagree with their plain versions, with kernel E or between runs: {bad}")
@@ -1622,6 +1649,7 @@ def main(argv=None) -> int:
           f"{bd['device_ms']:.3f} ms ({100 * bd['device_ms'] / bd['wall_ms']:.1f}%) [{card}]")
     for name, ms in bd["top"]:
         print(f"  long profile: {ms:9.3f} ms/step  {name[:110]}")
+    print(f"  long profile: {bd['e1_fin_ms']:9.3f} ms/step  kernel_e1_fin (E1's finalize)")
     print(f"long training: --profile {json.dumps(lt['profile'])} in {lt['profile_s']:.1f} s, "
           f"traces {lt['traces']}")
     if lt["launches"] != lt["expected"]:
@@ -1658,7 +1686,9 @@ def main(argv=None) -> int:
          "library_ms": r["library_ms"],
          **({"max_rel_err_grads": r["max_rel_err_grads"], "tolerance_grads": GRAD_TOL}
             if "max_rel_err_grads" in r else {}),
-         **({k: r[k] for k in ("bound_fp32_simt_ms", "cases", "long_ms", "long_bound_ms",
+         **({k: r[k] for k in ("bound_fp32_simt_ms", "bound_share", "one_launch_ms",
+                               "max_rel_err_factored", "same_bits", "cases", "long_ms",
+                               "long_bound_ms",
                                "long_bound_fp32_simt_ms", "l1024_ms", "l1024_bound_ms",
                                "l1024_bound_fp32_simt_ms") if k in r}),
          **({k: r[k] for k in ("shape", "twin_bits", "same_bits", "worst_vs_library",

@@ -51,7 +51,7 @@ _SIGNATURES = {
     "pf_kernel_c": [_p] * 10 + [_i] * 4 + [_f, _p],
     "pf_kernel_d": [_p] * 10 + [_i] * 4 + [_f, _p],
     "pf_kernel_e": [_p] * 7 + [_i] * 4 + [_f, _p],
-    "pf_kernel_e1": [_p] * 5 + [_i] * 4 + [_f, _p],
+    "pf_kernel_e1": [_p] * 6 + [_i] * 6 + [_f, _p],
     "pf_kernel_e2": [_p] * 8 + [_i] * 5 + [_f, _p],
     "pf_reduce_slots": [_p] * 2 + [_i] * 5 + [_p],
 }

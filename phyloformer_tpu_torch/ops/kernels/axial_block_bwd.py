@@ -2,7 +2,8 @@
 
 The PyTorch side of ``pf_kernel_c`` / ``pf_kernel_d`` / ``pf_kernel_e`` /
 ``pf_kernel_e2`` (``csrc/axial_bwd_tc.cu``, split-TF32 products on the tensor
-cores), ``pf_kernel_e1`` (``csrc/axial_bwd.cu``, fp32 SIMT) and of
+cores), ``pf_kernel_e1`` (``csrc/axial_bwd.cu``, a streaming pass bound by
+its bytes) and of
 ``pf_reduce_slots`` for the partials (``csrc/slot_reduce.cu``), and the
 counterpart of ``phyloformer_tpu/ops/pallas/axial_block_bwd.py``:
 
@@ -17,7 +18,8 @@ counterpart of ``phyloformer_tpu/ops/pallas/axial_block_bwd.py``:
   ``axial_block.RESIDENT_SITES_MAX`` sites;
 - :func:`kernel_e1` (``_kernel_e1``) and :func:`kernel_e2` (``_kernel_e2``):
   the same function above that length in two passes, each pair's raw row
-  sums ``(B, P, 4d)`` first, then gx and the gradients from them;
+  sums ``(B, P, 4d)`` first, then gx and the gradients from them (E1's
+  kernel sums in another association, :func:`kernel_e1_factored`);
 - :func:`fused_axial_block_bwd`: C, D, then E or E1 and E2, ``(gx, dlayer)``.
 
 The plain versions (``*_plain``) follow the op order of the JAX kernels,
@@ -50,6 +52,7 @@ from .axial_block import phi
 from .pipeline import (
     D_KERNEL,
     LAUNCHES,
+    TILE_SITES,
     WeightGroup,
     _check_width,
     _lib,
@@ -67,11 +70,19 @@ PARTIAL_BUDGET_BYTES = 256 * 1024 * 1024
 # Blocks per SM that each kernel's grid aims at (pair slots = this x SMs /
 # B).  C holds its FFN weight gradients and tiles in 220 KB of shared
 # memory, so one block fits an SM; D, E and E2 (108 KB, at most 128
-# registers a thread) fit two, and their grids are one wave of two.  E1
-# keeps no gradients and takes the forward's eight, as A1 does.
-BLOCKS_PER_SM = {"kernel_c": 1, "kernel_d": 2, "kernel_e": 2, "kernel_e1": 8, "kernel_e2": 2}
+# registers a thread) fit two, and their grids are one wave of two.  E1's
+# blocks of E1_WARPS warps hold their rings in 96 KB: two fit an SM.
+BLOCKS_PER_SM = {"kernel_c": 1, "kernel_d": 2, "kernel_e": 2, "kernel_e1": 2, "kernel_e2": 2}
 # Sites per tile of kernels C, D, E and E2 (BT in csrc/axial_bwd.cuh).
 TC_TILE_SITES = 32
+# Kernel E1 (E1_WARPS and E1_PART in csrc/axial_bwd.cuh): warps a block,
+# each streaming its own tiles, and the floats of a row segment's partial
+# [M (d x H) | N (d x H) | ΣqH | ΣkH].
+E1_WARPS = 4
+E1_PART = 2 * D_KERNEL * N_HEADS_KERNEL + 2 * N_HEADS_KERNEL
+# Blocks an SM of E1's finalize (one row at a time, Wv and Wo^T in shared
+# memory).
+E1_FIN_BLOCKS_PER_SM = 2
 
 
 # ---- weight groups --------------------------------------------------------
@@ -437,6 +448,29 @@ def kernel_e1_plain(x, g1, smask, we: WeightGroup, eps):
                       (d_attn * q_e).sum(dim=2)], dim=-1)
 
 
+def kernel_e1_factored(x, g1, smask, we: WeightGroup, eps):
+    """:func:`kernel_e1_plain`'s function in the association of the CUDA
+    kernel: ``q_e`` and ``k_e`` are per-head values over each head's lanes,
+    so the sums over the sites go through ``M = Σ_l g1ᵀ qH`` and
+    ``N = Σ_l hᵀ kH`` (``(B, P, d, H)``) first, and the d x d products with
+    ``Wo^T`` and ``Wv`` come once a pair: ``Σ d_attn⊙q_e = Σ_j Wo^T[j, c]
+    M[j, head(c)]`` and ``Σ k_e⊙v = Σ_j Wv[j, c] N[j, head(c)] + bv ΣkH``.
+    Exact algebra, other rounding; for the tests (nothing on the path
+    calls it)."""
+    p = _parts(we, ATT_PARTS)
+    hd = x.shape[-1] // p["wq"].shape[1]
+    m = smask[:, None, :, None]
+    h = ln_fwd(x, p["ln_s"], p["ln_b"], eps)[0]
+    q_h = phi(h @ p["wq"] + p["bq"]) * m  # (B, P, L, H)
+    k_h = phi(h @ p["wk"] + p["bk"]) * m
+    mq = g1.transpose(-1, -2) @ q_h  # (B, P, d, H)
+    nk = h.transpose(-1, -2) @ k_h
+    sq, sk = expand_heads(q_h.sum(dim=2), hd), expand_heads(k_h.sum(dim=2), hd)
+    kv = (p["wv"] * expand_heads(nk, hd)).sum(dim=-2) + p["bv"] * sk
+    dq = (p["wo_t"] * expand_heads(mq, hd)).sum(dim=-2)
+    return torch.cat([sq, sk, kv, dq], dim=-1)
+
+
 def kernel_e2_plain(x, g1, rowsums, smask, we: WeightGroup, eps):
     """``_kernel_e2``: the row backward finalized from the raw row sums of
     :func:`kernel_e1_plain` and the site count: ``(gx, flat weight
@@ -508,6 +542,25 @@ def _bwd_slots(name: str, B: int, P: int, per_slot_bytes: int, device) -> int:
     return max(1, min(P, _bwd_blocks(name, B, device), budget))
 
 
+def e1_plan(B: int, P: int, L: int, sms: int) -> Tuple[int, int, int, int]:
+    """Kernel E1's work split: ``(tiles a warp, warps, partials a row,
+    finalize blocks)``.  The ``B·P`` rows of ``⌈L / TILE_SITES⌉`` tiles each,
+    flattened row by row, go in contiguous ranges of ``tpw`` tiles to the
+    warps of ``BLOCKS_PER_SM["kernel_e1"]`` blocks an SM (the last warp may
+    have fewer); a row spans at most ``K`` warps, each of which leaves one
+    partial of it."""
+    tr = -(-L // TILE_SITES)
+    rows = B * P
+    n = rows * tr
+    tpw = -(-n // (BLOCKS_PER_SM["kernel_e1"] * E1_WARPS * sms))
+    return tpw, -(-n // tpw), (tpw + tr - 2) // tpw + 1, min(rows, E1_FIN_BLOCKS_PER_SM * sms)
+
+
+# What pf_bwd_sizes reports first (kernel E1's layout; then the shared
+# memory of an E1 block, in bytes).
+E1_LAYOUT = (group_size(ATT_PARTS, D_KERNEL, N_HEADS_KERNEL), 4 * D_KERNEL, TILE_SITES, E1_WARPS,
+             E1_PART)
+
 _sizes_checked = False
 
 
@@ -516,12 +569,11 @@ def _bwd_lib():
     global _sizes_checked
     lib = _lib()
     if not _sizes_checked:
-        sizes = (ctypes.c_int * 2)()
+        sizes = (ctypes.c_int * (len(E1_LAYOUT) + 1))()
         lib.pf_bwd_sizes(ctypes.addressof(sizes))
-        want = (group_size(ATT_PARTS, D_KERNEL, N_HEADS_KERNEL), 4 * D_KERNEL)
-        if tuple(sizes) != want:
-            raise RuntimeError(f"kernel E1's layout mismatch: library {tuple(sizes)}, "
-                               f"wrapper {want}")
+        if tuple(sizes)[:len(E1_LAYOUT)] != E1_LAYOUT:
+            raise RuntimeError(f"kernel E1's layout mismatch: library "
+                               f"{tuple(sizes)[:len(E1_LAYOUT)]}, wrapper {E1_LAYOUT}")
         tc = (ctypes.c_int * (len(TC_LAYOUT) + 3))()
         lib.pf_bwd_tc_sizes(ctypes.addressof(tc))
         if tuple(tc)[:len(TC_LAYOUT)] != TC_LAYOUT:
@@ -638,7 +690,9 @@ def kernel_e(x, g1, smask, we: WeightGroup, eps):
 
 
 def kernel_e1(x, g1, smask, we: WeightGroup, eps):
-    """``_kernel_e1``: each pair's raw row sums ``(B, P, 4d)``."""
+    """``_kernel_e1``: each pair's raw row sums ``(B, P, 4d)``.  The kernel
+    sums in :func:`kernel_e1_factored`'s association, its rows split over
+    the card's warps by :func:`e1_plan`."""
     if _on_cpu(x, g1, smask, we.flat):
         return kernel_e1_plain(x, g1, smask, we, eps)
     B, P, L, d = x.shape
@@ -649,12 +703,14 @@ def kernel_e1(x, g1, smask, we: WeightGroup, eps):
     _require_group(we, "e", ATT_PARTS)
     if P < 1:
         raise ValueError("kernel E1 needs at least one pair (two sequences)")
-    S = _bwd_slots("kernel_e1", B, P, 0, x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tpw, _, segs, fin_blocks = e1_plan(B, P, L, sms)
+    part = torch.empty((B * P, segs, E1_PART), device=x.device, dtype=torch.float32)
     rowsums = torch.empty((B, P, 4 * d), device=x.device, dtype=torch.float32)
     lib = _bwd_lib()
     _build.check(lib, lib.pf_kernel_e1(
-        x.data_ptr(), g1.data_ptr(), smask.data_ptr(), we.flat.data_ptr(), rowsums.data_ptr(),
-        B, P, L, S, float(eps), _stream()), "kernel_e1")
+        x.data_ptr(), g1.data_ptr(), smask.data_ptr(), we.flat.data_ptr(), part.data_ptr(),
+        rowsums.data_ptr(), B, P, L, tpw, segs, fin_blocks, float(eps), _stream()), "kernel_e1")
     LAUNCHES["kernel_e1"] += 1
     return rowsums
 

@@ -1,4 +1,4 @@
-"""Time backward kernels C, D, E and E2 of a checkout of the port, per launch.
+"""Time backward kernels C, D, E, E1 and E2 of a checkout of the port, per launch.
 
     python3 phyloformer_tpu_torch/ops/kernels/bwd_timing.py [--root DIR]
 
@@ -13,7 +13,7 @@ seed, a seeded cotangent masked as a masked loss makes it):
 - C and D at the training shape 4 x 50 tips x 256 sites (4 x 1225 pairs)
   and at the long training bucket 2 x 50 x 1536;
 - E at 4 x 50 x 256 and at 2 x 50 x 1024 (the longest row kernel E takes);
-- E2 at 2 x 50 x 1536, on E1's row sums.
+- E1 at 2 x 50 x 1536, and E2 there on E1's row sums.
 
 Each time is the median CUDA-event time of one launch (its reductions
 included) over 7 runs after a warm-up.  Needs one NVIDIA card and nvcc.
@@ -111,10 +111,11 @@ def main(argv=None) -> int:
         "kernel_d": lambda t: bw.kernel_d(t["x1"], t["g2"], t["stats"], t["a1"], t["pmask"],
                                           t["pcount"], t["w"].d, 1e-5),
         "kernel_e": lambda t: bw.kernel_e(t["x"], t["g1"], t["smask"], t["w"].e, 1e-5),
+        "kernel_e1": lambda t: bw.kernel_e1(t["x"], t["g1"], t["smask"], t["w"].e, 1e-5),
         "kernel_e2": lambda t: bw.kernel_e2(t["x"], t["g1"], t["rowsums"], t["smask"], t["w"].e,
                                             1e-5)}
     for (b, n, l), kernels in (((4, 50, 256), ("kernel_c", "kernel_d", "kernel_e")),
-                               ((2, 50, 1536), ("kernel_c", "kernel_d", "kernel_e2")),
+                               ((2, 50, 1536), ("kernel_c", "kernel_d", "kernel_e1", "kernel_e2")),
                                ((2, 50, 1024), ("kernel_e",))):
         t = inputs(params, layer, b, n, l, device, SEED)
         if "kernel_e2" in kernels:

@@ -1,6 +1,6 @@
 // Device bodies of the Phyloformer axial-block kernels, shared by
-// axial_pipeline.cu (P0, A-only, A, M, Z) and axial_fused.cu (A1, A2, B),
-// and the fp32 SIMT helpers of the backward's kernel E1 (axial_bwd.cu).
+// axial_pipeline.cu (P0, A-only, A, M, Z) and axial_fused.cu (A1, A2, B);
+// the backward's sources take the scalar helpers (warp_sum, phi, ...).
 //
 // The forward bodies mirror phyloformer_tpu/ops/pallas/axial_block.py: row
 // attention (_body_row_attn, :172), column-stats partial sums
@@ -48,70 +48,6 @@ __device__ __forceinline__ float softplus(float x) {
 __device__ __forceinline__ void split_range(int idx, int n, int parts, int& lo, int& hi) {
   lo = (int)(((long long)idx * n) / parts);
   hi = (int)(((long long)(idx + 1) * n) / parts);
-}
-
-// ============ fp32 SIMT helpers of kernel E1 (axial_bwd.cu) ============
-
-// LayerNorm over the D channels of each tile row, one warp per row.
-static __device__ void ln_tile(const float* X, float* Y, const float* __restrict__ scale,
-                               const float* __restrict__ bias, float eps) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float s0 = scale[lane], s1 = scale[lane + 32];
-  const float b0 = bias[lane], b1 = bias[lane + 32];
-  for (int s = warp; s < TS; s += NWARP) {
-    const float a = X[s * D + lane], b = X[s * D + lane + 32];
-    const float mu = warp_sum(a + b) * (1.f / D);
-    const float da = a - mu, db = b - mu;
-    const float var = warp_sum(da * da + db * db) * (1.f / D);
-    const float r = 1.f / sqrtf(var + eps);
-    Y[s * D + lane] = da * r * s0 + b0;
-    Y[s * D + lane + 32] = db * r * s1 + b1;
-  }
-}
-
-__device__ __forceinline__ int site_of(int i) { return (int)(threadIdx.x / D) + NG * i; }
-
-// acc[w][i] = Σ_k A[site_of(i), k] · W_w[k, c] for NW (K x D) weights that
-// share the activation reads; A is a (TS x K) tile in shared memory.
-template <int K, int NW>
-__device__ __forceinline__ void mm_d(const float* A, const float* __restrict__ w0,
-                                     const float* __restrict__ w1,
-                                     const float* __restrict__ w2, float (&acc)[NW][SPT]) {
-  const float* W[3] = {w0, w1, w2};
-  const int c = threadIdx.x & (D - 1);
-#pragma unroll
-  for (int w = 0; w < NW; ++w)
-#pragma unroll
-    for (int i = 0; i < SPT; ++i) acc[w][i] = 0.f;
-#pragma unroll 2
-  for (int k = 0; k < K; k += 4) {
-    float wv[NW][4];
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wv[w][kk] = __ldg(W[w] + (k + kk) * D + c);
-#pragma unroll
-    for (int i = 0; i < SPT; ++i) {
-      const float4 a = *reinterpret_cast<const float4*>(A + site_of(i) * K + k);
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        acc[w][i] = fmaf(a.x, wv[w][0], acc[w][i]);
-        acc[w][i] = fmaf(a.y, wv[w][1], acc[w][i]);
-        acc[w][i] = fmaf(a.z, wv[w][2], acc[w][i]);
-        acc[w][i] = fmaf(a.w, wv[w][3], acc[w][i]);
-      }
-    }
-  }
-}
-
-// xs <- rows [0, nv) of a (·, D) row-major source; rows [nv, TS) are
-// zero, so a ragged last tile reads nothing past the end of the row.
-__device__ __forceinline__ void load_tile(float* xs, const float* src, int nv) {
-  for (int e = threadIdx.x; e < TS * D / 4; e += NT) {
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (e / (D / 4) < nv) v = reinterpret_cast<const float4*>(src)[e];
-    reinterpret_cast<float4*>(xs)[e] = v;
-  }
 }
 
 // ============ the forward: split-TF32 products on the tensor cores ============
@@ -265,6 +201,16 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
 }
+
+// The same copy of `bytes` (0 or 16) bytes, the rest of the 16 zero-filled
+// (the backward's tiles past a row's end).
+__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
 
 __device__ __forceinline__ void stage_load(Smem& S, const TileSrc& src) {
 #pragma unroll

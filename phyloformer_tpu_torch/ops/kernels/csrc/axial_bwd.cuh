@@ -1,13 +1,15 @@
 // Packed weight layouts and weight-gradient layouts of the backward kernels
-// (axial_bwd_tc.cu: C, D, E and E2; axial_bwd.cu: E1), and the tiles and
-// shared memory of the kernels on the tensor cores.
+// (axial_bwd_tc.cu: C, D, E and E2; axial_bwd.cu: E1), the tiles and shared
+// memory of the kernels on the tensor cores, and E1's streaming ring.
 //
 // The offsets must match ops/kernels/axial_block_bwd.py: C_PARTS and
 // ATT_PARTS there give the flat groups, C_MMA_MATS and e_mma_mats the
 // matrices packed for the tensor cores (pipeline.pack_mma's layout, see
 // axial_pipeline.cuh), and grad_spec the flat weight-gradient vectors.
 // pf_bwd_sizes and pf_bwd_tc_sizes report them to the wrapper at load time,
-// and tests/test_torch_tf32_bwd.py parses this file.
+// and tests/test_torch_tf32_bwd.py parses this file.  E1's E1_WARPS and
+// E1_PART are the wrapper's E1_WARPS and E1_PART, its tile TS
+// (axial_pipeline.cuh) pipeline.TILE_SITES.
 #pragma once
 
 #include "axial_bodies.cuh"
@@ -95,6 +97,18 @@ constexpr int NWD = WA_BV + D;
 constexpr int WA_WO = NWD;
 constexpr int WA_BO = WA_WO + D * D;
 constexpr int NWE = WA_BO + D;
+
+// Kernel E1 (axial_bwd.cu): each warp streams its own TS-site tiles of x
+// and g1 through a ring of E1_RING slots (E1_RING - 1 in flight while one
+// computes) and leaves, per row segment, a partial [M | N | ΣqH | ΣkH].
+constexpr int E1_WARPS = 4;                  // warps a block (2 blocks an SM)
+constexpr int E1_RING = 3;                   // ring slots a warp
+constexpr int E1_PART = 2 * D * H + 2 * H;   // floats of a partial
+
+// Shared memory of one kernel-E1 block (96 KB: two blocks an SM).
+struct SmemE1 {
+  float tile[E1_WARPS * E1_RING * 2 * TS * D];  // per warp and slot: x, then g1
+};
 
 namespace bt {  // kernels C, D, E and E2 on the tensor cores
 

@@ -16,7 +16,7 @@
 //   pf_kernel_e2 <- _kernel_e2 (:534): above 1024 sites, the same backward
 //                   finalized from E1's raw row sums, on a chunk of site tiles
 //
-// Kernel E1 (the raw row sums) stays fp32 SIMT in axial_bwd.cu.  The
+// Kernel E1 (the raw row sums) is a streaming pass in axial_bwd.cu.  The
 // accumulation of A1 and of the weight gradients across the grid is
 // pf_reduce_slots (slot_reduce.cu), as for every kernel.  The plain PyTorch
 // versions are kernel_c_plain, kernel_d_plain, kernel_e_plain and
@@ -236,12 +236,6 @@ __device__ __forceinline__ int tile_at(int r, int c) {
   return ST == BXS ? sw(r, c) : r * ST + c;
 }
 
-__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src, int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src), "r"(bytes)
-               : "memory");
-}
-
 template <int ST, int NTH = NT>
 __device__ __forceinline__ void tile_issue(float* dst, const float* src, int nv) {
 #pragma unroll
@@ -252,7 +246,6 @@ __device__ __forceinline__ void tile_issue(float* dst, const float* src, int nv)
   }
 }
 
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
 __device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;" ::: "memory"); }
 
 // LayerNorm of each tile row of X (row stride ST), one warp per row,

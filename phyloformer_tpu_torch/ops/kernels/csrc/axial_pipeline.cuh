@@ -23,13 +23,10 @@ constexpr int F = 4 * D;         // FFN hidden width
 constexpr int NT = 256;          // threads per block
 constexpr int NWARP = NT / 32;
 
-// The backward kernels (axial_bwd.cu): fp32 SIMT products on 32-site tiles.
-constexpr int TS = 32;           // sites per tile
-constexpr int NG = NT / D;       // site groups in the d-wide products (4)
-constexpr int SPT = TS / NG;     // sites per thread in the d-wide products (8)
+// Kernel E1 (axial_bwd.cu): sites per tile of its stream.
+constexpr int TS = 16;
 
 static_assert(NT == F, "the FFN up-projection maps one thread to one hidden column");
-static_assert(TS % NG == 0, "tile must split evenly over the site groups");
 
 // The forward kernels (P0, A-only, A, M, Z, A1, A2, B): split-TF32
 // tensor-core products on 64-site tiles.

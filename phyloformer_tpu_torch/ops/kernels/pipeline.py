@@ -52,7 +52,7 @@ P0_EMB_BUDGET_BYTES = 4 * 1024 * 1024
 P0_MAX_PAIRS = 8192
 
 D_KERNEL = 64  # the only width the CUDA kernels are built for
-TILE_SITES = 32  # sites per tile of kernel E1 (TS in axial_pipeline.cuh)
+TILE_SITES = 16  # sites per tile of kernel E1's stream (TS in axial_pipeline.cuh)
 FWD_TILE_SITES = 64  # sites per tile of the forward kernels (FT there)
 # Packed weight sizes (floats) of the kernels' groups; see axial_pipeline.cuh.
 ROW_SIZE = 2 * D_KERNEL + 4 * (D_KERNEL * D_KERNEL + D_KERNEL)

@@ -401,9 +401,9 @@ def test_backward_kernels_match_plain_on_card(case, bwd_results):
     and gx; 1e-4 on the weight gradients, sums over every pair-site taken in
     another order), the block backward against autograd of the eager block
     (1e-4), its launches, and the same bits from two runs.  C, D and E run
-    split TF32 on the tensor cores; at 1024 sites E1 + E2 (E1 fp32 SIMT, E2
-    E's pass 2) match E within 1e-5 on gx and 1e-4 on the weight
-    gradients."""
+    split TF32 on the tensor cores; at 1024 sites E1 + E2 (E1 the streaming
+    pass of the factored sums, E2 E's pass 2) match E within 1e-5 on gx and
+    1e-4 on the weight gradients."""
     res = bwd_results[case]
     if case == "l1024":
         assert res["errs"]["e12_vs_e"] <= 1e-5, res
@@ -447,7 +447,7 @@ def test_ltiled_backward_kernels_match_plain_on_card(case, bwd_results):
     versions (1e-5 on the row sums and gx, 2e-5 on g2, A1 and g1, 1e-4 on the
     weight gradients), the block backward through E1 and E2 (no E) against
     autograd of the eager block (1e-4), and the same bits from two runs.  C,
-    D and E2 run split TF32 on the tensor cores, E1 fp32 SIMT."""
+    D and E2 run split TF32 on the tensor cores, E1 exact fp32 FFMA."""
     res = bwd_results[case]
     assert res["errs"]["e12"] <= 1e-5, res
     assert res["errs"]["act"] <= 2e-5, res
@@ -457,6 +457,85 @@ def test_ltiled_backward_kernels_match_plain_on_card(case, bwd_results):
     n = res["launches"]
     assert n["kernel_c"] == n["kernel_d"] == n["kernel_e1"] == n["kernel_e2"] == 1, n
     assert n["kernel_e"] == 0 and n["reduce_partials"] == 4, n
+
+
+_E1_CODE = """
+import json
+import numpy as np
+import torch
+from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+from phyloformer_tpu_torch.models.params import map_params
+from phyloformer_tpu_torch.ops.kernels import axial_block_bwd as bw
+from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+sms = torch.cuda.get_device_properties(dev).multi_processor_count
+params, _, _ = load_pretrained("artifacts/pf_mre_r5.ckpt")
+params = map_params(lambda t: t.to(dev), params)
+w = bw.BwdWeights.of(params["layers"][2])
+w64 = bw.att_group(*({k: v.double() for k, v in params["layers"][2][n].items()}
+                     for n in ("row_norm", "row_attn")))
+gen = torch.Generator(dev).manual_seed(5)
+
+def rel(got, want):
+    want = want.double()
+    return (got.double() - want).abs().max().item() / max(1.0, want.abs().max().item())
+
+res = {}
+for name, (b, p, l, real) in {
+        "one_pair": (1, 1, 1100, (1100,)),
+        "ragged": (2, 3, 1077, (1077, 1030)),
+        "masked_row": (2, 6, 1050, (1050, 0)),
+        "headline": (2, 1225, 1536, (1536, 1536))}.items():
+    sm = (torch.arange(l, device=dev)[None] < torch.tensor(real, device=dev)[:, None]).float()
+    x = torch.randn((b, p, l, 64), device=dev, generator=gen)
+    g1 = torch.randn((b, p, l, 64), device=dev, generator=gen) * sm[:, None, :, None]
+    pipe.reset_launch_counts()
+    got = bw.kernel_e1(x, g1, sm, w.e, 1e-5)
+    launches = pipe.LAUNCHES["kernel_e1"]
+    again = bw.kernel_e1(x, g1, sm, w.e, 1e-5)
+    torch.cuda.synchronize()
+    tpw, warps, segs, _ = bw.e1_plan(b, p, l, sms)
+    res[name] = {"plain": rel(got, bw.kernel_e1_plain(x, g1, sm, w.e, 1e-5)),
+                 "factored": rel(got, bw.kernel_e1_factored(x.double(), g1.double(),
+                                                            sm.double(), w64, 1e-5)),
+                 "same_bits": bool(torch.equal(got, again)), "launches": launches,
+                 "finite": bool(torch.isfinite(got).all()),
+                 "masked_zero": bool((got[1] == 0).all()) if real[-1] == 0 else None,
+                 "ragged": l % bw.TILE_SITES != 0, "tiles_a_row": -(-l // bw.TILE_SITES),
+                 "tiles_a_warp": tpw, "partials_a_row": segs}
+print(json.dumps(res))
+"""
+
+
+@pytest.fixture(scope="module")
+def e1_results(card):
+    r = subprocess.run([sys.executable, "-c", _E1_CODE], capture_output=True, text=True,
+                       cwd=str(REPO), timeout=900)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("case", ["one_pair", "ragged", "masked_row", "headline"])
+def test_kernel_e1_matches_plain_and_factored_on_card(case, e1_results):
+    """Kernel E1 (streamed per warp, M and N summed over the sites, then
+    contracted once a pair) against kernel_e1_plain (the TPU kernel's
+    association) and kernel_e1_factored in float64 (the exact value of its
+    own) within 1e-5 relative to
+    max(1, max|ref|), one launch a call and the same bits twice: one pair
+    (B = 1, P = 1, a row over dozens of warps), a ragged last tile and last
+    row segment, a fully masked batch element (all sums 0) and the long
+    training bucket 2 x 1225 x 1536 (rows over two warps)."""
+    res = e1_results[case]
+    assert res["plain"] <= 1e-5 and res["factored"] <= 1e-5, res
+    assert res["same_bits"] and res["finite"] and res["launches"] == 1, res
+    if case == "one_pair":
+        assert res["tiles_a_warp"] == 1 and res["partials_a_row"] == res["tiles_a_row"], res
+    if case == "ragged":
+        assert res["ragged"] and res["partials_a_row"] > 1, res
+    if case == "masked_row":
+        assert res["masked_zero"], res
 
 
 _RED_CODE = """

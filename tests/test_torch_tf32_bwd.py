@@ -17,7 +17,8 @@ in the kernel.  The kernels run only on the card
   operands of the kernels' shapes is within 2e-6 of float64, relative to
   max(1, max|ref|); one TF32 pass is not;
 - the constants of ``axial_bwd.cuh`` (layouts, tile, the shared memory of
-  a C, a D and an E or E2 block) agree with the wrapper, the blocks fit an
+  a C, a D and an E or E2 block, and kernel E1's layout and ring, which
+  ``axial_bwd.cu`` reports) agree with the wrapper, the blocks fit an
   H100 SM as ``BLOCKS_PER_SM`` promises, and the tile swizzle makes the
   kernels' fragment reads (straight, ldmatrix and transposed)
   conflict-free.
@@ -201,8 +202,19 @@ def test_backward_header_matches_the_wrapper(layers):
     vectors and the tile, as the wrapper has them (TC_LAYOUT is what it
     checks the built library against, in pf_bwd_tc_sizes' order), then the
     shared memory of a C, a D and an E or E2 block, which the library
-    reports after them and each launch requests."""
+    reports after them and each launch requests; the same for kernel E1
+    (E1_LAYOUT, pf_bwd_sizes in axial_bwd.cu, and its block's SmemE1)."""
     c = _constants()
+    src = (CSRC / "axial_bwd.cu").read_text()
+    body = src[src.index("int pf_bwd_sizes"):]
+    body = body[:body.index("return 0;")]
+    order = dict((int(k), v) for k, v in re.findall(r"out\[(\d+)\] = ([\w *]+?);", body))
+    assert tuple(int(eval(order[k], {}, dict(c))) for k in range(len(bw.E1_LAYOUT))) == \
+        bw.E1_LAYOUT
+    assert re.search(rf"out\[{len(bw.E1_LAYOUT)}\] = \(int\)sizeof\(SmemE1\);", body)
+    assert "cudaFuncSetAttribute(kernel_e1, cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+    assert re.search(r"kernel_e1<<<[^>]*sizeof\(SmemE1\)", src)
+    assert c["TS"] == pipe.TILE_SITES and c["E1_PART"] == bw.E1_PART
     src = (CSRC / "axial_bwd_tc.cu").read_text()
     body = src[src.index("int pf_bwd_tc_sizes"):]
     body = body[:body.index("return 0;")]
@@ -243,18 +255,22 @@ def test_backward_header_matches_the_wrapper(layers):
 def test_backward_blocks_fit_as_promised():
     """C's block (tiles, split planes and its 128 KB of FFN gradients) fits
     an H100 SM once and not twice; D's block (its tiles, split planes and
-    the tile's per-site terms) and E's, which E2 runs, fit twice and not
-    three times: the blocks per SM of BLOCKS_PER_SM, whose grid is one
-    wave."""
+    the tile's per-site terms), E's, which E2 runs, and E1's (its warps'
+    rings of x and g1 tiles) fit twice and not three times: the blocks per
+    SM of BLOCKS_PER_SM, whose grid is one wave.  E1's two blocks a SM
+    leave each thread up to 255 registers."""
     c = _constants()
     smem_c, smem_d = _struct_bytes("SmemC", c), _struct_bytes("SmemD", c)
-    smem_e = _struct_bytes("SmemE", c)
+    smem_e, smem_e1 = _struct_bytes("SmemE", c), _struct_bytes("SmemE1", c)
     assert c["CGRAD"] * 4 == 128 * 1024
     assert smem_c <= BLOCK_MAX and smem_c + RESERVED <= SM_BYTES < 2 * (smem_c + RESERVED)
-    for smem in (smem_d, smem_e):
+    for smem in (smem_d, smem_e, smem_e1):
         assert smem <= BLOCK_MAX and 2 * (smem + RESERVED) <= SM_BYTES < 3 * (smem + RESERVED)
+    assert smem_e1 == c["E1_WARPS"] * c["E1_RING"] * 2 * c["TS"] * D * 4 == 96 * 1024
     assert bw.BLOCKS_PER_SM["kernel_c"] == 1 and bw.BLOCKS_PER_SM["kernel_e"] == 2
     assert bw.BLOCKS_PER_SM["kernel_d"] == 2 and bw.BLOCKS_PER_SM["kernel_e2"] == 2
+    assert bw.BLOCKS_PER_SM["kernel_e1"] == 2 and c["E1_WARPS"] == bw.E1_WARPS
+    assert 2 * bw.E1_WARPS * 32 * 255 <= 65536
 
 
 def test_tile_swizzle_is_conflict_free():
