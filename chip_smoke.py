@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--reductions]
+    python3 chip_smoke.py [--reductions | --reduced]
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written CUDA kernels from this checkout's sources (one
@@ -27,6 +27,16 @@
      64-site tile), each run twice for the same bits; A1, A2 and B at a
      long bucket (60 tips x 1500 sites -> (60, 1536)) and all four on a
      ragged unbucketed pair of alignments of 1100 and 1031 sites;
+   - every reduced-precision and activation variant (``VARIANTS``): P0,
+     A-only, M and Z at one TF32 pass, at bf16 storage of x1 and at both, M
+     and Z with sigmoid and relu, A, B, A1 and A2 at one pass, at the
+     headline bucket, on a ragged batch and at (60, 1536) (the pipeline
+     serves up to 2048 sites at one pass), each twice for the same bits,
+     against its plain twin (operands rounded to TF32 and x1 to bf16 as the
+     kernels round them; one-pass and bf16 bars: ``ONE_PASS_TOL``,
+     ``ONE_PASS_P999``, one bf16 ulp), timed beside the three-pass fp32
+     kernel on the same inputs (``--reduced``: only the reduced-precision
+     phases);
 4. drives the main path through the CLI (``pf-infer`` with ``--trees
    --fastme --stats``) on synthetic FASTA files made with numpy from a seed,
    up to 3000 sites, so that buckets up to 1024 sites run the pipeline and
@@ -35,7 +45,13 @@
    the card;
 5. drives the two-kernel fused forward (``InferenceConfig(use_pipeline=
    False)``, kernels A and B) through the engine on the 60 x 250 set, with
-   the same checks, and its throughput beside the pipeline's;
+   the same checks, and its throughput beside the pipeline's; then the
+   bench's fast path (``matmul_precision="tensorfloat32"``, tanh GELU) at
+   fp32 and at bf16 storage on the same set (launches, aln/s, distances
+   against the plain fp32 model within ``GATE``, also on related 60 x 250
+   alignments), 60 x 1500 at one pass through the pipeline against the
+   plain model, and ``pf-bench-torch accuracy-grid`` at its five default
+   corners (worst relative drift within ``GRID_MAX_REL``);
 6. holds the fused backward's kernels C, D and E against their plain
    versions on the residuals of the fused forward (real weights, a seeded
    cotangent) at the training shape 4 x 50 tips x 256 sites and on a ragged
@@ -136,6 +152,24 @@ STEP_LOSS_TOL = 1e-5
 STEP_GRAD_TOL = 1e-4
 # Distances after 6 blocks against the plain eager model on the card.
 DIST_TOL = 1e-4
+# The reduced-precision variants against their plain twins (which round
+# every product's operands to TF32 as the kernels do, and x1 to bf16): one
+# TF32 pass leaves the fp32 bar where an operand computed in another order
+# lands on the other side of a TF32 rounding boundary (a flip: 2^-10 of the
+# operand), and in M a flip in kernel B reaches a whole row through the row
+# sums.  The twin on the card and on the CPU (two fp32 orders) differ by as
+# much as kernel and twin do (kernel A: 1.84e-4 both, on an H100 at 700 W).
+# ONE_PASS_TOL bounds the largest error (measured at most 7.6e-4, M),
+# ONE_PASS_P999 the 99.9th percentile (at most 1.2e-4).  x1 stored as bf16
+# lies within one bf16 ulp plus the variant's fp32 bar of its twin.
+ONE_PASS_TOL = 2e-3
+ONE_PASS_P999 = 5e-4
+# The fast path against the plain fp32 model: bench.py's gate, max-abs on
+# distances of related sequences (where it was calibrated), relative to
+# max(1, max|ref|) on random ones; the drift grid's gate (the JAX CLI's
+# --max-rel default).
+GATE = 6e-3
+GRID_MAX_REL = 0.01
 # The slot reductions are timed over this many back-to-back launches.  A
 # partial of at most L2_MB stays in the 50 MB L2 between its producer and
 # the reduction, as on the paths, so a share of the HBM bound above 100%
@@ -526,6 +560,278 @@ def fused_kernel_checks(weights, device):
     return results
 
 
+def bf16_ulps(got, want):
+    """Two bf16 tensors, the same fp32 values rounded by the kernel and by
+    its plain version: a dict of the largest |got - want| in units of the
+    last place of bf16 at the larger of the two (``ulps``), the share of
+    elements that differ (``share``) and that differ by more than one ulp
+    (``share_over_1``), the worst element (``worst``: want, got), and
+    ``excess``: the largest difference beyond one ulp, over max(1, max|want|).
+    Rounded from fp32 values a kernel tolerance ``tol`` apart, two bf16
+    values lie within one ulp plus ``tol`` of the scale: ``excess`` is held
+    to the variant's fp32 bar."""
+    import torch
+
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    m = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.ldexp(torch.ones_like(m), torch.frexp(m)[1] - 8)
+    ulps = (diff / ulp).flatten()
+    k = int(ulps.argmax())
+    return dict(ulps=ulps[k].item(), share=(diff > 0).double().mean().item(),
+                share_over_1=(ulps > 1).double().mean().item(),
+                worst=(w.flatten()[k].item(), g.flatten()[k].item()),
+                excess=((diff - ulp).clamp_min(0).max() / max(1.0, w.abs().max().item())).item())
+
+
+def flip_stats(got, want):
+    """fp32 outputs: (the share of elements off by more than KERNEL_TOL of
+    max(1, max|want|), the 99.9th percentile of the relative error)."""
+    import torch
+
+    rel = ((got.double() - want.double()).abs()
+           / max(1.0, want.abs().max().item())).flatten()
+    if rel.numel() > 1 << 24:  # quantile's limit: a strided sample
+        rel = rel[::(rel.numel() >> 24) + 1]
+    return (rel > KERNEL_TOL).double().mean().item(), torch.quantile(rel, 0.999).item()
+
+
+# The forward kernels' variants held against their plain versions: name ->
+# (kernel, TF32 passes, x1 storage, activation).
+VARIANTS = {}
+for _k in ("kernel_p0", "kernel_a_only", "kernel_m", "kernel_z"):
+    for _np, _st in ((1, "float32"), (3, "bfloat16"), (1, "bfloat16")):
+        VARIANTS[f"{_k}/p{_np}-{_st}"] = (_k, _np, _st, "exact")
+for _k in ("kernel_m", "kernel_z"):  # the fast path's (tanh) and the other activations
+    for _st in ("float32", "bfloat16"):
+        VARIANTS[f"{_k}/p1-{_st}-tanh"] = (_k, 1, _st, "tanh")
+    for _np in (3, 1):
+        for _g in ("sigmoid", "relu"):
+            VARIANTS[f"{_k}/p{_np}-float32-{_g}"] = (_k, _np, "float32", _g)
+for _k in ("kernel_a", "kernel_b", "kernel_a1", "kernel_a2"):
+    VARIANTS[f"{_k}/p1-float32"] = (_k, 1, "float32", "exact")
+
+
+# name: (real dims, pad_n, pad_l) of the variant checks
+VARIANT_CASES = {
+    "headline": ([(60, 250)] * 9, 60, 256),
+    "ragged": ([(33, 333), (27, 290), (40, 345)], 40, 345),
+    "wide": ([(110, 200)], 120, 256),
+    "long": ([(60, 1500)], 60, 1536),
+}
+
+
+def variant_checks(weights, device):
+    """Every reduced-precision and activation variant of the forward kernels
+    (``VARIANTS``) against its plain version, run twice for the same bits:
+    P0, A-only, M and Z at the headline bucket, on a ragged batch and at
+    the long bucket (60 x 1500 -> (60, 1536): the pipeline serves it at one
+    pass), A-only also at the wide shape; A, B, A1 and A2 where the fused
+    forward runs them.  fp32 outputs compare relative to max(1, max|ref|);
+    x1 stored as bf16 compares in bf16 ulps, and the stats taken from it
+    against the plain stats of the kernel's own x1.  Times at the main paths'
+    shapes, beside the three-pass fp32 kernel on the same inputs and the
+    bound of the variant's work (one pass: FLOPs over the TF32 peak; bf16:
+    2 B a value)."""
+    import torch
+
+    from phyloformer_tpu_torch.ops.kernels import fused
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+    from phyloformer_tpu_torch.ops.kernels.axial_block import body_col_stats
+
+    rng = np.random.default_rng(SEED + 7)
+    cases = VARIANT_CASES
+    w, eps = weights, 1e-5
+    bf = torch.bfloat16
+    res = {v: {"errs": [], "bf16": [], "far_share": [], "p999": [], "same_bits": True,
+               "cases": {}}
+           for v in VARIANTS}
+    keep = {}
+
+    def record(v, case, got, want, again):
+        """got/want/again: tuples of outputs."""
+        r = res[v]
+        errs = []
+        for g, t in zip(got, want):
+            if t.dtype == bf:
+                r["bf16"].append(bf16_ulps(g, t))
+            else:
+                errs.append(errors(g, t))
+                far, p999 = flip_stats(g, t)
+                r["far_share"].append(far)
+                r["p999"].append(p999)
+        r["errs"] += errs
+        if errs:
+            r["cases"][case] = max(e[1] for e in errs)
+        r["same_bits"] &= all(torch.equal(a, b) for a, b in zip(got, again))
+
+    for case, (dims, pad_n, pad_l) in cases.items():
+        emb, ii, jj, smask, pmask, pcount, x0 = block0_inputs(w, rng, dims, pad_n, pad_l,
+                                                              device)
+        ins = {}
+        for st in ("float32", "bfloat16"):
+            dt = pipe.ACT_DTYPES[st]
+            x1, stats = pipe.kernel_p0_plain(emb, ii, jj, smask, pmask, w.row[0], w.col[0], eps,
+                                             1, dt)
+            ins[st] = (x1, stats)
+        for v, (k, npass, st, g) in VARIANTS.items():
+            dt = pipe.ACT_DTYPES[st]
+            x1, stats = ins[st]
+            if k == "kernel_p0":
+                if case == "wide":
+                    continue
+                run = lambda f: f(emb, ii, jj, smask, pmask, w.row[0], w.col[0], eps, npass, dt)
+                got, again = run(pipe.kernel_p0), run(pipe.kernel_p0)
+                want = pipe.kernel_p0_plain(emb, ii, jj, smask, pmask, w.row[0], w.col[0], eps,
+                                            npass, dt)
+            elif k == "kernel_a_only":
+                xs = (emb.to(dt)[:, ii.long()] + emb.to(dt)[:, jj.long()]).contiguous()
+                run = lambda f: f(xs.clone(), smask, pmask, w.row[0], w.col[0], eps, npass)
+                got, again = run(pipe.kernel_a_only), run(pipe.kernel_a_only)
+                want = pipe.kernel_a_only_plain(xs, smask, pmask, w.row[0], w.col[0], eps, npass)
+            elif k == "kernel_m":
+                if case == "wide":
+                    continue
+                run = lambda f: f(x1.clone(), stats, smask, pmask, pcount, w.b[0], w.row[1],
+                                  w.col[1], eps, g, npass)
+                got, again = run(pipe.kernel_m), run(pipe.kernel_m)
+                want = pipe.kernel_m_plain(x1, stats, smask, pmask, pcount, w.b[0], w.row[1],
+                                           w.col[1], eps, g, npass)
+            elif k == "kernel_z":
+                if case == "wide":
+                    continue
+                run = lambda f: (f(x1, stats, smask, pcount, w.b[-1], w.head, eps, g, npass),)
+                got, again = run(pipe.kernel_z), run(pipe.kernel_z)
+                want = run(pipe.kernel_z_plain)
+            else:
+                if case not in ({"kernel_a": ("headline", "ragged"),
+                                 "kernel_b": ("headline", "long"),
+                                 "kernel_a1": ("long", "ragged"),
+                                 "kernel_a2": ("long", "ragged")}[k]):
+                    continue
+                x1f, statsf = ins["float32"]
+                if k == "kernel_a":
+                    run = lambda f: f(x0, smask, pmask, w.row[0], w.col[0], eps, npass)
+                    got, again, want = (run(fused.kernel_a), run(fused.kernel_a),
+                                        run(pipe.kernel_a_only_plain))
+                    if case == "ragged":
+                        # the same twin on the CPU: fp32 sums in another order
+                        # there too, so its distance from the twin on the card
+                        # is the TF32 rounding flips' own size
+                        cpu = [pipe.WeightGroup(tuple(t.cpu() for t in g.parts), g.flat.cpu(),
+                                                g.mma.cpu()) for g in (w.row[0], w.col[0])]
+                        twin_cpu = pipe.kernel_a_only_plain(x0.cpu(), smask.cpu(), pmask.cpu(),
+                                                            cpu[0], cpu[1], eps, npass)
+                        res[v]["twin_card_vs_cpu"] = max(
+                            errors(a.cpu(), b)[1] for a, b in zip(want, twin_cpu))
+                        del twin_cpu
+                elif k == "kernel_b":
+                    run = lambda f: (f(x1f, statsf, pcount, w.b[0], eps, npass),)
+                    got, again, want = (run(fused.kernel_b), run(fused.kernel_b),
+                                        run(fused.kernel_b_plain))
+                elif k == "kernel_a1":
+                    run = lambda f: (f(x0, smask, w.row[0], eps, npass),)
+                    got, again, want = (run(fused.kernel_a1), run(fused.kernel_a1),
+                                        run(fused.kernel_a1_plain))
+                else:
+                    rs = fused.kernel_a1_plain(x0, smask, w.row[0], eps, npass)
+                    run = lambda f: f(x0, rs, smask, pmask, w.row[0], w.col[0], eps, npass)
+                    got, again, want = (run(fused.kernel_a2), run(fused.kernel_a2),
+                                        run(fused.kernel_a2_plain))
+            if st == "bfloat16" and k != "kernel_z":
+                # the stats are sums over the pairs of the stored x1: a bf16
+                # rounding flip (2^-8 of an element) reaches them whole where
+                # the pairs are few, so they are held to the plain stats of
+                # the kernel's own x1, and to the twin's only for the record
+                colg = w.col[1 if k == "kernel_m" else 0]
+                own = body_col_stats(got[0].float(), pmask, colg.parts, eps, npass)
+                res[v]["stats_vs_twin"] = max(res[v].get("stats_vs_twin", 0.0),
+                                              errors(got[1], want[1])[1])
+                want = (want[0], own)
+            record(v, case, got, want, again)
+            del got, again, want
+        torch.cuda.synchronize()
+        if case in ("headline", "wide", "long"):
+            keep[case] = dict(emb=emb, ii=ii, jj=jj, smask=smask, pmask=pmask, pcount=pcount,
+                              x0=x0, ins=ins, b=len(dims), n=pad_n, p=len(ii), l=pad_l)
+        del emb, x0, ins
+        torch.cuda.empty_cache()
+
+    # times: each variant beside the three-pass fp32 kernel on the same shape
+    def timer(k, npass, st, g, s):
+        dt = pipe.ACT_DTYPES[st]
+        x1, stats = s["ins"][st]
+        if k == "kernel_p0":
+            return (lambda: pipe.kernel_p0(s["emb"], s["ii"], s["jj"], s["smask"], s["pmask"],
+                                           w.row[0], w.col[0], eps, npass, dt)), None
+        if k == "kernel_a_only":
+            xs = (s["emb"].to(dt)[:, s["ii"].long()] + s["emb"].to(dt)[:, s["jj"].long()])
+            return (lambda x: pipe.kernel_a_only(x, s["smask"], s["pmask"], w.row[0], w.col[0],
+                                                 eps, npass)), (lambda: (xs.clone(),))
+        if k == "kernel_m":
+            return (lambda x: pipe.kernel_m(x, stats, s["smask"], s["pmask"], s["pcount"],
+                                            w.b[0], w.row[1], w.col[1], eps, g, npass)), \
+                (lambda: (x1.clone(),))
+        if k == "kernel_z":
+            return (lambda: pipe.kernel_z(x1, stats, s["smask"], s["pcount"], w.b[-1], w.head,
+                                          eps, g, npass)), None
+        x1f, statsf = s["ins"]["float32"]
+        if k == "kernel_a":
+            return (lambda: fused.kernel_a(s["x0"], s["smask"], s["pmask"], w.row[0], w.col[0],
+                                           eps, npass)), None
+        if k == "kernel_b":
+            return (lambda: fused.kernel_b(x1f, statsf, s["pcount"], w.b[0], eps, npass)), None
+        if k == "kernel_a1":
+            return (lambda: fused.kernel_a1(s["x0"], s["smask"], w.row[0], eps, npass)), None
+        rs = fused.kernel_a1_plain(s["x0"], s["smask"], w.row[0], eps, npass)
+        return (lambda: fused.kernel_a2(s["x0"], rs, s["smask"], s["pmask"], w.row[0], w.col[0],
+                                        eps, npass)), None
+
+    flops = {"kernel_p0": FLOPS_A, "kernel_a_only": FLOPS_A, "kernel_m": FLOPS_A + FLOPS_B,
+             "kernel_z": FLOPS_B + FLOPS_HEAD, "kernel_a": FLOPS_A, "kernel_b": FLOPS_B,
+             "kernel_a1": FLOPS_A1, "kernel_a2": FLOPS_A2}
+    where = {"kernel_p0": "headline", "kernel_a_only": "wide", "kernel_m": "headline",
+             "kernel_z": "headline", "kernel_a": "headline", "kernel_b": "long",
+             "kernel_a1": "long", "kernel_a2": "long"}
+    base = {}
+    for v, (k, npass, st, g) in VARIANTS.items():
+        s = keep[where[k]]
+        sites = s["b"] * s["p"] * s["l"]
+        vb = 2 if st == "bfloat16" else 4  # bytes of one stored value
+        stats_b = 4 * s["b"] * s["l"] * 3 * D
+        nbytes = {"kernel_p0": 4 * s["b"] * s["n"] * s["l"] * D + vb * D * sites + stats_b,
+                  "kernel_a_only": 2 * vb * D * sites + stats_b,
+                  "kernel_m": 2 * vb * D * sites + 2 * stats_b,
+                  "kernel_z": vb * D * sites + stats_b + 4 * s["b"] * s["p"],
+                  "kernel_a": 8 * D * sites + stats_b, "kernel_b": 8 * D * sites + stats_b,
+                  "kernel_a1": 4 * D * sites + 12 * D * s["b"] * s["p"],
+                  "kernel_a2": 8 * D * sites + 12 * D * s["b"] * s["p"] + stats_b}[k]
+        r = res[v]
+        fn, setup = timer(k, npass, st, g, s)
+        r["ms"] = time_ms(fn, setup)
+        key = (k, where[k])
+        if key not in base:
+            fn3, setup3 = timer(k, 3, "float32", "exact", s)
+            base[key] = time_ms(fn3, setup3)
+        r["p3_f32_ms"] = base[key]
+        r["bound_ms"], r["bound_by"] = bound(npass * flops[k] * sites, nbytes, PEAK_TF32_FLOPS)
+        r["shape"] = f"{s['b']} x {s['p']} x {s['l']}"
+        r["max_abs_err"] = max((e[0] for e in r["errs"]), default=0.0)
+        r["max_rel_err"] = max((e[1] for e in r["errs"]), default=0.0)
+        r["far_share"] = max(r["far_share"], default=0.0)
+        r["p999"] = max(r["p999"], default=0.0)
+        if r["bf16"]:
+            worst = max(r["bf16"], key=lambda u: u["ulps"])
+            r["bf16"] = {k: max(u[k] for u in r["bf16"])
+                         for k in ("ulps", "share", "share_over_1", "excess")}
+            r["bf16"]["worst"] = worst["worst"]
+        else:
+            del r["bf16"]
+        del r["errs"]
+        torch.cuda.empty_cache()
+    return res
+
+
 def time_launches(fns, n=REDUCE_LAUNCHES, reps=9):
     """Device milliseconds per launch of each of ``fns`` (name -> callable),
     taken in turns: per rep, for each in order, one CUDA-event pair around
@@ -826,7 +1132,8 @@ def main_path(device):
     long = [k for k, d in enumerate(dims) if d == (60, 1500)]
     return dict(launches=launches, expected=expected, dist_err=worst, dist_err_long=worst_long,
                 cli_stats=cli_stats, head_alns=[alns[k] for k in head],
-                head_refs=[refs[k] for k in head],
+                head_refs=[refs[k] for k in head], long_alns=[alns[k] for k in long],
+                long_refs=[refs[k] for k in long],
                 aln_per_s=throughput(engine, [alns[k] for k in head]),
                 long_aln_per_s=throughput(engine, [alns[k] for k in long]),
                 n_head=len(head), n_long=len(long))
@@ -853,6 +1160,186 @@ def two_kernel_path(device, alns, refs):
         fail("two-kernel path: non-finite distances")
     return (launches, expected, max(rel_err(p, r) for p, r in zip(preds, refs)),
             throughput(engine, alns))
+
+
+def variant_failures(v, r):
+    """What keeps a variant from its bars (empty when it holds)."""
+    _, npass, _, _ = VARIANTS[v]
+    tol = KERNEL_TOL if npass == 3 else ONE_PASS_TOL
+    bad = []
+    if not r["max_rel_err"] <= tol:
+        bad.append(f"max rel {r['max_rel_err']:.2e} > {tol:.0e}")
+    if npass == 1 and not r["p999"] <= ONE_PASS_P999:
+        bad.append(f"99.9th percentile {r['p999']:.2e} > {ONE_PASS_P999:.0e}")
+    if "bf16" in r and not r["bf16"]["excess"] <= tol:
+        bad.append(f"bf16 x1 beyond one ulp by {r['bf16']['excess']:.2e}")
+    if not r["same_bits"]:
+        bad.append("other bits on a second run")
+    return bad
+
+
+def report_variants(var, card):
+    """Print each variant's errors and times; return those off their bars."""
+    bad = {}
+    for v, r in var.items():
+        b16 = r.get("bf16")
+        extra = (f"; x1 bf16: {b16['share']:.2e} of elements differ, {b16['share_over_1']:.2e} "
+                 f"by more than one ulp (worst {b16['ulps']:.1f} ulps, beyond one ulp "
+                 f"{b16['excess']:.2e})" if b16 else "")
+        if "stats_vs_twin" in r:
+            extra += f"; stats against the twin's {r['stats_vs_twin']:.2e}"
+        print(f"{v}: max rel err {r['max_rel_err']:.3e} (share beyond {KERNEL_TOL:.0e} "
+              f"{r['far_share']:.2e}, 99.9th pct {r['p999']:.2e}){extra}; same bits twice "
+              f"{r['same_bits']}; {r['ms']:.3f} ms vs {r['p3_f32_ms']:.3f} ms at three passes "
+              f"and fp32 storage, bound {r['bound_ms']:.3f} ms ({r['bound_by']}) at "
+              f"{r['shape']}" + (f"; twin card vs CPU {r['twin_card_vs_cpu']:.2e}"
+                                 if "twin_card_vs_cpu" in r else "") + f" [{card}]")
+        fails = variant_failures(v, r)
+        if fails:
+            bad[v] = fails
+    return bad
+
+
+def reduced_phases(device, card, alns, refs, long_alns, long_refs):
+    """The fast path at fp32 and bf16 storage, 60 x 1500 at one pass and the
+    drift grid, each timed; fails on any bar.  Returns their numbers."""
+    import torch
+
+    t = time.perf_counter()
+    fp = fast_path(device, alns, refs, long_alns, long_refs)
+    for st in ("float32", "bfloat16"):
+        r = fp[st]
+        print(f"fast path (tensorfloat32, tanh, {st} storage): launches {r['launches']}, "
+              f"expected {r['expected']}")
+        print(f"fast path ({st}): {r['aln_per_s']:.3f} aln/s on {len(alns)} alignments of "
+              f"60 x 250; vs the plain fp32 model: random sequences max abs "
+              f"{r['random'][0]:.3e}, relative {r['random'][1]:.3e}; related sequences (max "
+              f"distance {fp['evolved_max_dist']:.3f}) max abs {r['evolved'][0]:.3e} "
+              f"(gate {GATE:.0e}) [{card}]")
+        if r["launches"] != r["expected"]:
+            fail(f"fast path ({st}): launch counts differ from 1 P0 + 5 M + 1 Z per batch")
+        if not (r["evolved"][0] <= GATE and r["random"][1] <= GATE):
+            fail(f"fast path ({st}): distances off the {GATE:.0e} gate")
+    lg = fp["long"]
+    print(f"long at one pass: launches {lg['launches']}, expected {lg['expected']}; "
+          f"{lg['aln_per_s']:.3f} aln/s on {len(long_alns)} alignments of 60 x 1500; vs the "
+          f"plain fp32 model max abs {lg['err'][0]:.3e}, relative {lg['err'][1]:.3e} "
+          f"(gate {GATE:.0e}) [{card}]")
+    if lg["launches"] != lg["expected"] or not lg["launches"]["kernel_m"]:
+        fail("long at one pass: the pipeline did not serve 60 x 1500")
+    if not lg["err"][1] <= GATE:
+        fail("long at one pass: distances off the gate")
+    print(f"fast path phases: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    rc, rows, verdict, peak = accuracy_grid(device)
+    for row in rows:
+        print(f"accuracy grid: {json.dumps(row)}")
+    print(f"accuracy grid: {verdict}; exit {rc}; peak device memory {peak:.2f} GB; "
+          f"{time.perf_counter() - t:.1f} s [{card}]")
+    if rc != 0 or len(rows) != 5:
+        fail("accuracy grid: a corner failed or drifted past the gate")
+    fp["grid"] = dict(rows=rows, verdict=verdict, peak_gb=peak)
+    return fp
+
+
+def evolved_alignment(rng, n, l, mean_branch=0.02):
+    """Codes of n related sequences: a random root sequence split down a
+    random binary tree, each branch of exponential length mutating every
+    site with probability 1 - exp(-20 t / 19) to one of the other 19 amino
+    acids (the Poisson model).  pf_mre_r5 puts their distances near those of
+    real MSAs (median about 0.4, at most about 2 at 60 x 250), where the
+    fast path's gate was calibrated; random sequences sit at the model's
+    saturation (about 12)."""
+    seqs = [rng.integers(0, 20, l)]
+    while len(seqs) < n:
+        parent = seqs.pop(int(rng.integers(len(seqs))))
+        for _ in range(2):
+            child = parent.copy()
+            mut = rng.random(l) < 1.0 - math.exp(-rng.exponential(mean_branch) * 20.0 / 19.0)
+            child[mut] = (child[mut] + rng.integers(1, 20, int(mut.sum()))) % 20
+            seqs.append(child)
+    return np.stack(seqs)
+
+
+def plain_refs(params, cfg, alns, device):
+    """The plain eager fp32 model on the card (TF32 off) on each alignment."""
+    from phyloformer_tpu_torch.infer.oracle import predict_fp32_eager
+
+    return predict_fp32_eager(params, cfg, alns, device)
+
+
+def abs_rel(preds, refs):
+    """(max abs error, max abs error over max(1, max|ref|)) over alignments."""
+    a = max(float(np.abs(p - r).max()) for p, r in zip(preds, refs))
+    return a, a / max(1.0, max(float(np.abs(r).max()) for r in refs))
+
+
+def fast_path(device, alns, refs, long_alns, long_refs):
+    """The bench's headline fast path through the engine (bench.py's config:
+    matmul_precision="tensorfloat32", tanh GELU) on the 60 x 250 set, at fp32
+    and at bf16 storage: launches, aln/s, the distances against the plain
+    fp32 model on the card, on the random set and on evolved 60 x 250
+    alignments (the gate's domain); then 60 x 1500 at tensorfloat32 (the
+    pipeline serves up to 2048 sites at one pass) against the plain model."""
+    import torch
+
+    from phyloformer_tpu_torch.data.fasta import Alignment
+    from phyloformer_tpu_torch.infer.engine import InferenceConfig, InferenceEngine
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+
+    params, cfg, _ = load_pretrained(CKPT)
+    rng = np.random.default_rng(SEED + 8)
+    evolved = [Alignment(evolved_alignment(rng, 60, 250).astype(np.int8),
+                         [f"E{j}" for j in range(60)]) for _ in range(9)]
+    evolved_refs = plain_refs(params, cfg, evolved, device)
+    out = {"evolved_max_dist": max(float(np.abs(r).max()) for r in evolved_refs)}
+    for st in ("float32", "bfloat16"):
+        engine = InferenceEngine(params, cfg, InferenceConfig(
+            matmul_precision="tensorfloat32", pipeline_gelu="tanh", pipeline_act_dtype=st),
+            device=device)
+        expected = expected_launches(engine._plan(alns), cfg.n_blocks,
+                                     lambda n, l: pipe.pipeline_supported(n, l, "default"))
+        pipe.reset_launch_counts()
+        preds = engine.predict(alns)
+        torch.cuda.synchronize()
+        launches = dict(pipe.LAUNCHES)
+        if not all(np.isfinite(p).all() for p in preds):
+            fail(f"fast path ({st}): non-finite distances")
+        out[st] = dict(launches=launches, expected=expected, random=abs_rel(preds, refs),
+                       evolved=abs_rel(engine.predict(evolved), evolved_refs),
+                       aln_per_s=throughput(engine, alns))
+        del engine
+        torch.cuda.empty_cache()
+    engine = InferenceEngine(params, cfg, InferenceConfig(matmul_precision="tensorfloat32"),
+                             device=device)
+    expected = expected_launches(engine._plan(long_alns), cfg.n_blocks,
+                                 lambda n, l: pipe.pipeline_supported(n, l, "default"))
+    pipe.reset_launch_counts()
+    preds = engine.predict(long_alns)
+    torch.cuda.synchronize()
+    out["long"] = dict(launches=dict(pipe.LAUNCHES), expected=expected,
+                       err=abs_rel(preds, long_refs), aln_per_s=throughput(engine, long_alns))
+    return out
+
+
+def accuracy_grid(device):
+    """``pf-bench-torch accuracy-grid`` at its default grid (the five
+    corners, reps 2) through its CLI: the rows it prints, its verdict at the
+    JAX CLI's 0.01 gate and the peak device memory."""
+    import torch
+
+    from phyloformer_tpu_torch.bench import cli as bench_cli
+
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_cli.main(["accuracy-grid", "--weights", CKPT, "--reps", "2",
+                             "--device", "cuda"])
+    lines = buf.getvalue().strip().splitlines()
+    return rc, [json.loads(x) for x in lines[:-1]], lines[-1], \
+        torch.cuda.max_memory_allocated() / 1e9
 
 
 def backward_kernel_checks(params, device):
@@ -1416,7 +1903,7 @@ SOURCE = "phyloformer_tpu_torch/ops/kernels/csrc/"
 KERNELS = {
     "kernel_p0": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/pipeline.py:100"),
     "kernel_a_only": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/pipeline.py:145"),
-    "kernel_m": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/pipeline.py:176"),
+    "kernel_m": ("axial_pipeline_m.cu", "phyloformer_tpu/ops/pallas/pipeline.py:176"),
     "kernel_z": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/pipeline.py:214"),
     "reduce_stats": ("slot_reduce.cu", "phyloformer_tpu/ops/pallas/pipeline.py:136"),
     "kernel_a": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/axial_block.py:252"),
@@ -1437,7 +1924,12 @@ def main(argv=None) -> int:
     ap.add_argument("--reductions", action="store_true",
                     help="only build the kernels and check and time the two slot reductions "
                          "at every shape the paths give them, then print their rows as JSON")
-    reductions_only = ap.parse_args(argv).reductions
+    ap.add_argument("--reduced", action="store_true",
+                    help="only build the kernels and run the reduced-precision phases: the "
+                         "forward kernels' variants against their plain versions, the fast "
+                         "path, 60 x 1500 at one pass and the accuracy grid")
+    opts = ap.parse_args(argv)
+    reductions_only = opts.reductions
     sys.path.insert(0, ROOT)
     import torch
 
@@ -1465,6 +1957,29 @@ def main(argv=None) -> int:
     for line in _build.ptxas_log.splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+
+    if opts.reduced:
+        params, cfg, _ = load_pretrained(CKPT)
+        weights = pipe.PipelineWeights.from_params(map_params(lambda t: t.to(device), params))
+        t = time.perf_counter()
+        var = variant_checks(weights, device)
+        bad = report_variants(var, card)
+        print(f"variants: {time.perf_counter() - t:.1f} s")
+        print(json.dumps({"variants": var, "card": card}))
+        del weights
+        torch.cuda.empty_cache()
+        from phyloformer_tpu_torch.data.fasta import Alignment
+
+        rng = np.random.default_rng(SEED + 1)
+        alns, long_alns = ([Alignment(random_alignment(rng, 60, l).astype(np.int8),
+                                      [f"T{j}" for j in range(60)]) for _ in range(k)]
+                           for k, l in ((18, 250), (2, 1500)))
+        fp = reduced_phases(device, card, alns, plain_refs(params, cfg, alns, device),
+                            long_alns, plain_refs(params, cfg, long_alns, device))
+        print(json.dumps({"reduced": fp, "card": card}))
+        if bad:
+            fail(f"variants off their bars: {bad}")
+        return 0
 
     # the two slot reductions at every shape the paths give them
     red, red_rows = reduction_checks(device, card)
@@ -1521,6 +2036,15 @@ def main(argv=None) -> int:
         fail(f"kernels disagree with their plain versions: {bad}")
     if not (a["same_bits"] and b["same_bits"]):
         fail("kernels A or B give other bits on a second run")
+
+    # the reduced-precision and activation variants of the forward kernels
+    t = time.perf_counter()
+    variants = variant_checks(weights, device)
+    bad = report_variants(variants, card)
+    print(f"variants: {time.perf_counter() - t:.1f} s")
+    if bad:
+        fail(f"variants off their bars: {bad}")
+    torch.cuda.empty_cache()
     for r in red.values():
         r["max_abs_err"] = max(e[0] for e in r["errs"])
         r["max_rel_err"] = max(e[1] for e in r["errs"])
@@ -1551,6 +2075,11 @@ def main(argv=None) -> int:
     print(f"throughput: {mp['aln_per_s']:.3f} aln/s on {mp['n_head']} alignments of 60 x 250, "
           f"{mp['long_aln_per_s']:.3f} aln/s on {mp['n_long']} alignments of 60 x 1500 "
           f"[{card}]")
+
+    # the reduced-precision inference path: the bench's fast path, 60 x 1500
+    # at one pass, the drift grid
+    rp = reduced_phases(device, card, mp["head_alns"], mp["head_refs"], mp["long_alns"],
+                        mp["long_refs"])
     del weights
     torch.cuda.empty_cache()
 
@@ -1675,10 +2204,18 @@ def main(argv=None) -> int:
     results.update(bwd)
     train_launches = {k: sum(run["launches"][k] for run in tp["runs"]) + lt["launches"][k]
                       for k in KERNELS}
+    fast_launches = {k: sum(rp[x]["launches"][k] for x in ("float32", "bfloat16", "long"))
+                     for k in KERNELS}
+    variant_rows = {name: {v.split("/")[1]: {
+        k: r[k] for k in ("ms", "p3_f32_ms", "bound_ms", "bound_by", "max_abs_err",
+                          "max_rel_err", "far_share", "p999", "bf16", "same_bits", "shape",
+                          "twin_card_vs_cpu", "stats_vs_twin") if k in r}
+        for v, r in variants.items() if v.startswith(name + "/")} for name in KERNELS}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE + KERNELS[name][0],
          "replaces": KERNELS[name][1],
-         "launches": mp["launches"][name] + launches2[name] + train_launches[name],
+         "launches": (mp["launches"][name] + launches2[name] + train_launches[name]
+                      + fast_launches[name]),
          "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
          "tolerance": E12_TOL if name in ("kernel_e1", "kernel_e2") else KERNEL_TOL,
          "ms": r["ms"],
@@ -1692,10 +2229,16 @@ def main(argv=None) -> int:
                                "long_bound_fp32_simt_ms", "l1024_ms", "l1024_bound_ms",
                                "l1024_bound_fp32_simt_ms") if k in r}),
          **({k: r[k] for k in ("shape", "twin_bits", "same_bits", "worst_vs_library",
-                               "worst_vs_library_shape")} if name in REDUCTION_ROW else {})}
+                               "worst_vs_library_shape")} if name in REDUCTION_ROW else {}),
+         **({"variants": variant_rows[name]} if variant_rows.get(name) else {})}
         for name, r in results.items()],
         "card": card, "aln_per_s": mp["aln_per_s"], "long_aln_per_s": mp["long_aln_per_s"],
         "two_kernel_aln_per_s": aln_per_s2,
+        "fast_path_aln_per_s": rp["float32"]["aln_per_s"],
+        "fast_path_bf16_aln_per_s": rp["bfloat16"]["aln_per_s"],
+        "long_one_pass_aln_per_s": rp["long"]["aln_per_s"],
+        "fast_path_err": {x: rp[x]["random"] + rp[x]["evolved"] for x in ("float32", "bfloat16")},
+        "accuracy_grid": rp["grid"]["rows"],
         "train_ms_per_step": ms_step, "train_examples_per_s": 4e3 / ms_step,
         "long_train_ms_per_step": lt["step_ms"], "long_train_examples_per_s": 2e3 / lt["step_ms"],
         "long_train_peak_gb": lt["peak_gb"]}

@@ -37,6 +37,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "matrix and write final trees (<stem>.nwk)")
     parser.add_argument("--tree-method", default="bme", choices=["bme", "nj", "bionj"],
                         help="construction method for --fastme")
+    parser.add_argument("--matmul-precision", default="float32",
+                        choices=["float32", "tensorfloat32", "default"],
+                        help="products of the kernels: float32 = three TF32 passes "
+                             "(fp32 grade); tensorfloat32 and default = one TF32 pass")
     parser.add_argument("--gelu", choices=["exact", "tanh"], default="exact",
                         help="FFN activation: exact = erf GELU; tanh = the tanh "
                              "approximation")
@@ -92,7 +96,7 @@ def main(argv=None) -> int:
         return 1
 
     common = dict(max_batch_tokens=args.batch_tokens, max_batch_size=args.max_batch_size,
-                  pipeline_gelu=args.gelu)
+                  pipeline_gelu=args.gelu, matmul_precision=args.matmul_precision)
     if args.no_bucketing:
         icfg = InferenceConfig(n_buckets=(), l_buckets=(), allow_oversize=True, **common)
     else:

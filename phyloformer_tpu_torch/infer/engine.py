@@ -3,10 +3,18 @@
 Alignments are padded into a small set of (n, L) buckets (masked, so padding
 is an exact no-op), batched under a token budget, and run through the
 pipelined forward of :mod:`..ops.kernels.pipeline` where it serves the
-bucket (up to ``RESIDENT_SITES_MAX`` sites), else through the fused forward
-(:func:`..models.phyloformer.forward_fused`, L-tiled above that).  On
+bucket (up to 1024 sites at ``matmul_precision="float32"``, 2048 at the
+reduced precisions), else through the fused forward
+(:func:`..models.phyloformer.forward_fused`, L-tiled above 1024 sites).  On
 ``cuda`` both always run the hand-written kernels; on ``cpu`` they run
 their plain PyTorch versions.
+
+``matmul_precision`` "float32" runs the kernels' products in three TF32
+passes (the fp32 bar); "tensorfloat32" and "default" run them in one
+(:mod:`..models.params`).  ``pipeline_act_dtype`` stores x1 between the
+pipeline's kernels as fp32 or bf16 (compute stays fp32), and
+``pipeline_gelu`` picks the pipeline's FFN activation; the fused forward
+keeps fp32 storage and exact GELU, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,11 +30,16 @@ import torch
 from ..data.fasta import Alignment
 from ..data.pairs import n_pairs, pair_indices
 from ..device import resolve_device
-from ..models.params import Params, PhyloformerConfig, map_params
+from ..models.params import MATMUL_PRECISIONS, Params, PhyloformerConfig, map_params
 from ..models.phyloformer import forward_fused
 from ..ops.kernels import _build
 from ..ops.kernels.axial_block import GELU_MODES
-from ..ops.kernels.pipeline import PipelineWeights, forward_fused_pipeline, pipeline_supported
+from ..ops.kernels.pipeline import (
+    ACT_DTYPES,
+    PipelineWeights,
+    forward_fused_pipeline,
+    pipeline_supported,
+)
 
 DEFAULT_N_BUCKETS = (10, 20, 30, 40, 50, 60, 80, 100, 120, 150, 200)
 DEFAULT_L_BUCKETS = (128, 256, 384, 512, 640, 768, 1024, 1280, 1536, 2048,
@@ -41,10 +54,14 @@ class InferenceConfig:
     # channels * 4 B = 1 GiB per fp32 activation tensor.
     max_batch_tokens: int = 1 << 22
     max_batch_size: int = 64
-    precision: str = "float32"  # parameter/activation dtype
-    matmul_precision: str = "float32"  # IEEE fp32 products
-    pipeline_act_dtype: str = "float32"  # storage dtype between kernels
-    pipeline_gelu: str = "exact"  # FFN activation: "exact" (erf) | "tanh"
+    precision: str = "float32"  # parameter/activation dtype ("bfloat16": not yet ported)
+    # Products: "float32" = three TF32 passes; "tensorfloat32" | "default" =
+    # one TF32 pass (final distance error ~1e-3 relative, the bench gate).
+    matmul_precision: str = "float32"
+    pipeline_act_dtype: str = "float32"  # x1 between the pipeline's kernels: | "bfloat16"
+    # FFN activation on the pipeline: "exact" (erf) | "tanh" | "sigmoid" |
+    # "relu" (the last two at fp32 storage only)
+    pipeline_gelu: str = "exact"
     # Pipelined kernels (merged block boundaries, in-kernel pair gather and
     # head).  None = where pipeline_supported holds for the bucket, else the
     # fused forward (exact GELU); True / False force one or the other.
@@ -93,14 +110,24 @@ class InferenceEngine:
         self.icfg = icfg or InferenceConfig()
         if self.icfg.precision != "float32":
             raise _not_ported(f"precision={self.icfg.precision!r}")
-        if self.icfg.matmul_precision != "float32":
-            raise _not_ported(f"matmul_precision={self.icfg.matmul_precision!r}")
-        if self.icfg.pipeline_act_dtype != "float32":
-            raise _not_ported(f"pipeline_act_dtype={self.icfg.pipeline_act_dtype!r}")
+        if self.icfg.matmul_precision not in MATMUL_PRECISIONS:
+            raise ValueError(f"matmul_precision={self.icfg.matmul_precision!r}: "
+                             f"expected one of {MATMUL_PRECISIONS}")
+        if self.icfg.pipeline_act_dtype not in ACT_DTYPES:
+            raise ValueError(f"pipeline_act_dtype={self.icfg.pipeline_act_dtype!r}: "
+                             f"expected one of {tuple(ACT_DTYPES)}")
         if self.icfg.pipeline_gelu not in GELU_MODES:
             raise ValueError(f"pipeline_gelu={self.icfg.pipeline_gelu!r}: "
                              f"expected one of {GELU_MODES}")
+        if (self.icfg.pipeline_gelu in ("sigmoid", "relu")
+                and self.icfg.pipeline_act_dtype != "float32"):
+            raise ValueError(f"pipeline_gelu={self.icfg.pipeline_gelu!r} runs at "
+                             f"pipeline_act_dtype='float32' only")
+        if cfg.matmul_precision != self.icfg.matmul_precision:
+            cfg = dataclasses.replace(cfg, matmul_precision=self.icfg.matmul_precision)
         self.cfg = cfg
+        # the JAX engine's rule: fp32-grade products, or one pass otherwise
+        self.mxu_precision = "highest" if cfg.matmul_precision == "float32" else "default"
         params = map_params(lambda t: t.to(self.device, torch.float32), params)
         self.weights = PipelineWeights.from_params(params)
         self.stats = {"compile_s": 0.0, "device_s": 0.0, "batches": 0, "alignments": 0}
@@ -159,11 +186,12 @@ class InferenceEngine:
                 codes, site_mask, seq_mask = self._batch_inputs(alns, pad_n, pad_l, idxs)
                 pipeline = self.icfg.use_pipeline
                 if pipeline is None:
-                    pipeline = pipeline_supported(pad_n, pad_l)
+                    pipeline = pipeline_supported(pad_n, pad_l, self.mxu_precision)
                 if pipeline:
                     preds = forward_fused_pipeline(
                         self.weights, codes, site_mask, seq_mask, eps=self.cfg.ln_eps,
-                        gelu_mode=self.icfg.pipeline_gelu)
+                        gelu_mode=self.icfg.pipeline_gelu, mxu_precision=self.mxu_precision,
+                        act_dtype_name=self.icfg.pipeline_act_dtype)
                 else:
                     preds = forward_fused(self.weights, codes, self.cfg, site_mask, seq_mask)
                 pending.append((pad_n, idxs, preds))

@@ -26,6 +26,9 @@ import numpy as np
 import torch
 
 
+MATMUL_PRECISIONS = ("float32", "tensorfloat32", "default")
+
+
 @dataclasses.dataclass(frozen=True)
 class PhyloformerConfig:
     n_blocks: int = 6
@@ -34,9 +37,17 @@ class PhyloformerConfig:
     dropout: float = 0.0
     in_channels: int = 22  # alphabet size
     ln_eps: float = 1e-5
-    # The port computes in IEEE fp32 only ("float32"); reduced-precision
-    # matmul modes are not yet ported.
+    # Products of the forward kernels: "float32" = three TF32 passes (split
+    # TF32, the fp32 bar); "tensorfloat32" and "default" = one TF32 pass.  On
+    # the TPU the JAX package runs these two as 3-pass and 1-pass bf16 on the
+    # MXU; one TF32 pass is the nearest single form on Hopper, so both map
+    # to it.  Inference only: the trainer runs "float32".
     matmul_precision: str = "float32"
+
+    def __post_init__(self):
+        if self.matmul_precision not in MATMUL_PRECISIONS:
+            raise ValueError(f"matmul_precision={self.matmul_precision!r}: expected one of "
+                             f"{MATMUL_PRECISIONS}")
 
     @property
     def ffn_dim(self) -> int:

@@ -120,7 +120,10 @@ def forward_fused(
     """The forward of :func:`forward` through the fused kernels: per block
     kernel A then kernel B, or above ``RESIDENT_SITES_MAX`` sites the
     L-tiled A1, A2 then B.  No site cap.  The head runs as tensor code, as
-    in the JAX package.
+    in the JAX package, in fp32 at every precision.  ``cfg.matmul_precision``
+    "float32" runs the kernels' products in three TF32 passes, the others
+    ("tensorfloat32", "default") in one, as JAX's ``mxu_precision``
+    "highest" / "default"; storage stays fp32 and the GELU exact.
 
     ``params``: a parameter tree, or the :class:`PipelineWeights` made from
     one (as the engine holds them).  CUDA tensors run the kernels, CPU
@@ -134,9 +137,11 @@ def forward_fused(
     smask = site_mask.to(torch.float32).contiguous()
     pmask = pair_mask_from_seq_mask(seq_mask, n_seqs).to(torch.float32).contiguous()
 
+    mxu_precision = "highest" if cfg.matmul_precision == "float32" else "default"
     x = build_pairs(torch.relu(w.embed_w[codes.long()] + w.embed_b), n_seqs)
     for row, col, bw in zip(w.row, w.col, w.b):
-        x = fused_axial_block(x, BlockWeights(row, col, bw), smask, pmask, cfg.ln_eps)
+        x = fused_axial_block(x, BlockWeights(row, col, bw), smask, pmask, cfg.ln_eps,
+                              mxu_precision)
     return head(x, w.head.parts[0], w.head.parts[1], smask)
 
 

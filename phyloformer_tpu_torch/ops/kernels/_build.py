@@ -23,8 +23,8 @@ from typing import Optional
 _HERE = pathlib.Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
-SOURCES = ("axial_pipeline.cu", "axial_fused.cu", "axial_bwd.cu", "axial_bwd_tc.cu",
-           "slot_reduce.cu")
+SOURCES = ("axial_pipeline.cu", "axial_pipeline_m.cu", "axial_fused.cu", "axial_bwd.cu",
+           "axial_bwd_tc.cu", "slot_reduce.cu")
 HEADERS = ("axial_pipeline.cuh", "axial_bodies.cuh", "axial_bwd.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,14 +38,16 @@ ptxas_log = ""
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "pf_weight_sizes": [_p],
-    "pf_kernel_p0": [_p] * 12 + [_i] * 5 + [_f, _p],
-    "pf_kernel_a_only": [_p] * 9 + [_i] * 4 + [_f, _p],
-    "pf_kernel_a": [_p] * 10 + [_i] * 4 + [_f, _p],
-    "pf_kernel_m": [_p] * 13 + [_i] * 4 + [_f, _i, _p],
-    "pf_kernel_z": [_p] * 8 + [_i] * 4 + [_f, _i, _p],
-    "pf_kernel_a1": [_p] * 5 + [_i] * 4 + [_f, _p],
-    "pf_kernel_a2": [_p] * 10 + [_i] * 5 + [_f, _p],
-    "pf_kernel_b": [_p] * 6 + [_i] * 4 + [_f, _p],
+    # the forward's entries end in their variant codes: passes, then storage
+    # (P0, A-only), or gelu, passes, storage (M, Z)
+    "pf_kernel_p0": [_p] * 12 + [_i] * 5 + [_f, _i, _i, _p],
+    "pf_kernel_a_only": [_p] * 9 + [_i] * 4 + [_f, _i, _i, _p],
+    "pf_kernel_a": [_p] * 10 + [_i] * 4 + [_f, _i, _p],
+    "pf_kernel_m": [_p] * 13 + [_i] * 4 + [_f, _i, _i, _i, _p],
+    "pf_kernel_z": [_p] * 8 + [_i] * 4 + [_f, _i, _i, _i, _p],
+    "pf_kernel_a1": [_p] * 5 + [_i] * 4 + [_f, _i, _p],
+    "pf_kernel_a2": [_p] * 10 + [_i] * 5 + [_f, _i, _p],
+    "pf_kernel_b": [_p] * 6 + [_i] * 4 + [_f, _i, _p],
     "pf_bwd_sizes": [_p],
     "pf_bwd_tc_sizes": [_p],
     "pf_kernel_c": [_p] * 10 + [_i] * 4 + [_f, _p],

@@ -12,6 +12,10 @@
 //   pf_kernel_b   <- _kernel_b  (axial_block.py:294): column attention from the
 //                    global stats + FFN (exact GELU): x1 -> x3, out of place
 //
+// Each takes the products' TF32 passes (three, or one for the
+// reduced-precision forward); storage stays fp32 and the activation exact
+// GELU, as in JAX's forward_fused.
+//
 // Kernel A of the two-kernel form (_kernel_a, :252) is pf_kernel_a in
 // axial_pipeline.cu: the pipeline's kernel A, written out of place.  The
 // column-stat partials are summed by pf_reduce_slots (slot_reduce.cu).  The
@@ -64,6 +68,7 @@
 namespace pf {
 
 // ---- A1: raw row sums of each pair over the whole site axis ----
+template <int NP>
 __global__ void __launch_bounds__(NT, 2) kernel_a1(const float* __restrict__ x,
                                                    const float* __restrict__ smask,
                                                    const float* __restrict__ rw,
@@ -75,11 +80,12 @@ __global__ void __launch_bounds__(NT, 2) kernel_a1(const float* __restrict__ x,
   const int b = blockIdx.y;
   int p0, p1;
   split_range(blockIdx.x, P, S_, p0, p1);
-  row_pass1(S, x + (size_t)b * P * L * D, nullptr, nullptr, nullptr, rw, rm,
+  row_pass1<NP>(S, x + (size_t)b * P * L * D, nullptr, nullptr, nullptr, rw, rm,
             smask + (size_t)b * L, p0, p1, L, eps, rowstats + (size_t)b * P * 3 * D);
 }
 
 // ---- A2: x1 and column-stat partials of pair slot / site chunk ----
+template <int NP>
 __global__ void __launch_bounds__(NT, 2) kernel_a2(
     const float* __restrict__ x, const float* __restrict__ rowstats,
     const float* __restrict__ smask, const float* __restrict__ pmask,
@@ -94,12 +100,13 @@ __global__ void __launch_bounds__(NT, 2) kernel_a2(
   split_range(chunk, n_ftiles_of(L), SC, t0, t1);
   const float* smask_b = smask + (size_t)b * L;
   set_site_count(smask_b, L, S);
-  pass2(S, x + (size_t)b * P * L * D, nullptr, nullptr, nullptr, x1 + (size_t)b * P * L * D,
+  pass2<NP>(S, x + (size_t)b * P * L * D, nullptr, nullptr, nullptr, x1 + (size_t)b * P * L * D,
         smask_b, pmask + (size_t)b * P, rw, rm, cw, cm, rowstats + (size_t)b * P * 3 * D,
         partial + ((size_t)b * SP + slot) * L * 3 * D, p0, p1, t0, t1, L, eps);
 }
 
 // ---- B: x3 of a contiguous range of (pair, site tile) items ----
+template <int NP>
 __global__ void __launch_bounds__(NT, 2) kernel_b(const float* __restrict__ x1,
                                                   const float* __restrict__ stats,
                                                   const float* __restrict__ pair_count,
@@ -118,14 +125,14 @@ __global__ void __launch_bounds__(NT, 2) kernel_b(const float* __restrict__ x1,
   if (i0 < i1) stage_load(S, row_src(x1_b, nullptr, nullptr, nullptr, i0 / nt, i0 % nt, L));
   for (int i = i0; i < i1; ++i) {
     const int p = i / nt, l0 = (i % nt) * FT;
-    const TileSrc cur = row_src(x1_b, nullptr, nullptr, nullptr, p, i % nt, L);
+    const TileSrc<float> cur = row_src(x1_b, nullptr, nullptr, nullptr, p, i % nt, L);
     const int nv = cur.nv;
     stage_take(S, cur);
     __syncthreads();
     if (i + 1 < i1) {
       stage_load(S, row_src(x1_b, nullptr, nullptr, nullptr, (i + 1) / nt, (i + 1) % nt, L));
     }
-    body_b<0>(S, bw, bm, stats_b, l0, nv, n_pairs, eps,
+    body_b<GELU_EXACT, NP>(S, bw, bm, stats_b, l0, nv, n_pairs, eps,
               x3 + ((size_t)b * P + p) * L * D + (size_t)l0 * D);
   }
 }
@@ -137,32 +144,31 @@ using namespace pf;
 extern "C" {
 
 int pf_kernel_a1(const float* x, const float* smask, const float* rw, const float* rm,
-                 float* rowstats, int B, int P, int L, int S_, float eps, void* stream) {
-  cudaError_t e = allow_smem(kernel_a1);
-  if (e != cudaSuccess) return (int)e;
-  kernel_a1<<<dim3(S_, B), NT, sizeof(Smem), (cudaStream_t)stream>>>(x, smask, rw, rm, rowstats,
-                                                                     P, L, S_, eps);
-  return (int)cudaGetLastError();
+                 float* rowstats, int B, int P, int L, int S_, float eps, int passes,
+                 void* stream) {
+  return with_passes(passes, [&](auto np) {
+    return launch(kernel_a1<std::decay_t<decltype(np)>::value>, S_, B, stream, x, smask, rw, rm,
+                  rowstats, P, L, S_, eps);
+  });
 }
 
 int pf_kernel_a2(const float* x, const float* rowstats, const float* smask, const float* pmask,
                  const float* rw, const float* rm, const float* cw, const float* cm, float* x1,
-                 float* partial, int B, int P, int L, int SP, int SC, float eps, void* stream) {
-  cudaError_t e = allow_smem(kernel_a2);
-  if (e != cudaSuccess) return (int)e;
-  kernel_a2<<<dim3(SP * SC, B), NT, sizeof(Smem), (cudaStream_t)stream>>>(
-      x, rowstats, smask, pmask, rw, rm, cw, cm, x1, partial, P, L, SP, SC, eps);
-  return (int)cudaGetLastError();
+                 float* partial, int B, int P, int L, int SP, int SC, float eps, int passes,
+                 void* stream) {
+  return with_passes(passes, [&](auto np) {
+    return launch(kernel_a2<std::decay_t<decltype(np)>::value>, SP * SC, B, stream, x,
+                  rowstats, smask, pmask, rw, rm, cw, cm, x1, partial, P, L, SP, SC, eps);
+  });
 }
 
 int pf_kernel_b(const float* x1, const float* stats, const float* pair_count, const float* bw,
-                const float* bm, float* x3, int B, int P, int L, int S_, float eps,
+                const float* bm, float* x3, int B, int P, int L, int S_, float eps, int passes,
                 void* stream) {
-  cudaError_t e = allow_smem(kernel_b);
-  if (e != cudaSuccess) return (int)e;
-  kernel_b<<<dim3(S_, B), NT, sizeof(Smem), (cudaStream_t)stream>>>(x1, stats, pair_count, bw,
-                                                                    bm, x3, P, L, S_, eps);
-  return (int)cudaGetLastError();
+  return with_passes(passes, [&](auto np) {
+    return launch(kernel_b<std::decay_t<decltype(np)>::value>, S_, B, stream, x1, stats,
+                  pair_count, bw, bm, x3, P, L, S_, eps);
+  });
 }
 
 }  // extern "C"

@@ -9,6 +9,7 @@
 //   pf_kernel_a_only  <- _kernel_a_only  (pipeline.py:145): kernel A on a gathered pair tensor
 //   pf_kernel_a       <- _kernel_a       (axial_block.py:252): the same function, out of place
 //   pf_kernel_m       <- _kernel_m       (pipeline.py:176): kernel B of block i + kernel A of i+1
+//                        (in axial_pipeline_m.cu, built beside this file)
 //   pf_kernel_z       <- _kernel_z       (pipeline.py:214): last kernel B + softplus head + site mean
 //
 // The stats accumulation across sequential grid steps (pl.when(pi == 0) init,
@@ -39,8 +40,25 @@
 // into big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and the
 // product is a_small·b_big + a_big·b_small + a_big·b_big accumulated in
 // fp32: within ~2^-22 of the fp32 product, about as close as fp32 FMA
-// itself (tests/test_torch_tf32.py).  Reduced-precision modes (one pass,
-// bf16) are not offered.
+// itself (tests/test_torch_tf32.py).
+//
+// Reduced-precision variants (the JAX package's matmul_precision and
+// pipeline_act_dtype, chosen by the host entries' codes):
+// - One TF32 pass (NP = 1, matmul_precision "tensorfloat32" or "default"):
+//   each product is tf32_rna(a)·tf32_rna(w) accumulated in fp32, a third of
+//   the tensor-core work and half the weight loads; the small planes are
+//   neither written nor read.  Every forward kernel has it.
+// - bf16 storage of x1 (P0, A-only, M and Z): x1 is read and written as
+//   __nv_bfloat16, 8 values a 16-byte cp.async, widened to fp32 in shared
+//   memory; the stored value is rounded to nearest even, and the column
+//   stats are taken from the rounded x1 (JAX's rule: the next kernel reads
+//   what was stored).  P0 still gathers from the fp32 embedding.  Compute,
+//   stats and partials stay fp32.  Kernel M at fp32 storage writes x3 in
+//   place between its passes; at bf16 that would round x3 as well, so its
+//   second pass runs kernel B again on the stored x1 instead (x3 is the
+//   same bits both times): bf16 storage costs M a second kernel B.
+// - The FFN's activation in M and Z: exact, tanh, sigmoid, relu; sigmoid
+//   and relu only at fp32 storage (the entries refuse the rest).
 //
 // Design.
 // - One block of 256 threads (8 warps, two blocks an SM: ~104 KB of shared
@@ -110,15 +128,17 @@
 namespace pf {
 
 // ---- kernel A: row attention + column stats.  GATHER: the pair rows are
-// emb[i] + emb[j] (_kernel_p0); else read from x (_kernel_a_only with
-// x_out == x, x1 in place; axial_block.py _kernel_a with x_out != x). ----
-template <bool GATHER>
+// emb[i] + emb[j] (_kernel_p0, emb fp32); else read from x (_kernel_a_only
+// with x_out == x, x1 in place; axial_block.py _kernel_a with x_out != x),
+// stored as TX.  x1 is written as TX. ----
+template <bool GATHER, int NP, typename TX>
 __global__ void __launch_bounds__(NT, 2) kernel_a(
-    const float* x, const int* __restrict__ ii, const int* __restrict__ jj, float* x_out,
+    const void* x, const int* __restrict__ ii, const int* __restrict__ jj, TX* x_out,
     const float* __restrict__ smask, const float* __restrict__ pmask,
     const float* __restrict__ rw, const float* __restrict__ rm, const float* __restrict__ cw,
     const float* __restrict__ cm, float* rowsum, float* partial, int n, int P, int L, int S_,
     float eps) {
+  using TI = std::conditional_t<GATHER, float, TX>;
   extern __shared__ float4 smem_raw[];
   Smem& S = *reinterpret_cast<Smem*>(smem_raw);
   const int b = blockIdx.y;
@@ -126,65 +146,22 @@ __global__ void __launch_bounds__(NT, 2) kernel_a(
   split_range(blockIdx.x, P, S_, p0, p1);
   const float* smask_b = smask + (size_t)b * L;
   set_site_count(smask_b, L, S);
-  const float* emb_b = GATHER ? x + (size_t)b * n * L * D : nullptr;
-  const float* x_b = GATHER ? nullptr : x + (size_t)b * P * L * D;
+  const float* emb_b = GATHER ? static_cast<const float*>(x) + (size_t)b * n * L * D : nullptr;
+  const TI* x_b = GATHER ? nullptr : static_cast<const TI*>(x) + (size_t)b * P * L * D;
   float* rowsum_b = rowsum + (size_t)b * P * 3 * D;
 
-  row_pass1(S, x_b, emb_b, ii, jj, rw, rm, smask_b, p0, p1, L, eps, rowsum_b);
-  pass2(S, x_b, emb_b, ii, jj, x_out + (size_t)b * P * L * D, smask_b, pmask + (size_t)b * P,
-        rw, rm, cw, cm, rowsum_b, partial + ((size_t)b * S_ + blockIdx.x) * L * 3 * D, p0, p1,
-        0, n_ftiles_of(L), L, eps);
+  row_pass1<NP>(S, x_b, emb_b, ii, jj, rw, rm, smask_b, p0, p1, L, eps, rowsum_b);
+  pass2<NP>(S, x_b, emb_b, ii, jj, x_out + (size_t)b * P * L * D, smask_b,
+            pmask + (size_t)b * P, rw, rm, cw, cm, rowsum_b,
+            partial + ((size_t)b * S_ + blockIdx.x) * L * 3 * D, p0, p1, 0, n_ftiles_of(L), L,
+            eps);
 }
 
-// ---- kernel M: kernel B of block i (x3 written in place over x1), then
-// kernel A of block i+1 on x3 ----
-template <int GELU>
-__global__ void __launch_bounds__(NT, 2) kernel_m(
-    float* x, const float* __restrict__ stats, const float* __restrict__ smask,
-    const float* __restrict__ pmask, const float* __restrict__ pair_count,
-    const float* __restrict__ bw, const float* __restrict__ bm, const float* __restrict__ rw,
-    const float* __restrict__ rm, const float* __restrict__ cw, const float* __restrict__ cm,
-    float* rowsum, float* partial, int P, int L, int S_, float eps) {
-  extern __shared__ float4 smem_raw[];
-  Smem& S = *reinterpret_cast<Smem*>(smem_raw);
-  const int b = blockIdx.y;
-  int p0, p1;
-  split_range(blockIdx.x, P, S_, p0, p1);
-  const float* smask_b = smask + (size_t)b * L;
-  set_site_count(smask_b, L, S);
-  const float n_pairs = fmaxf(pair_count[b], 1.f);
-  const float* stats_b = stats + (size_t)b * L * 3 * D;
-  float* x_b = x + (size_t)b * P * L * D;
-  float* rowsum_b = rowsum + (size_t)b * P * 3 * D;
-
-  const int nt = n_ftiles_of(L), items = (p1 - p0) * nt;
-  float rq[RC], rk[RC], rkv[RC];
-  if (items > 0) stage_load(S, row_src(x_b, nullptr, nullptr, nullptr, p0, 0, L));
-  for (int i = 0; i < items; ++i) {
-    const int p = p0 + i / nt, t = i % nt, l0 = t * FT;
-    const TileSrc cur = row_src(x_b, nullptr, nullptr, nullptr, p, t, L);
-    const int nv = cur.nv;
-    stage_take(S, cur);
-    __syncthreads();
-    if (i + 1 < items) {
-      stage_load(S, row_src(x_b, nullptr, nullptr, nullptr, p0 + (i + 1) / nt, (i + 1) % nt, L));
-    }
-    if (t == 0) {
-#pragma unroll
-      for (int c = 0; c < RC; ++c) rq[c] = rk[c] = rkv[c] = 0.f;
-    }
-    body_b<GELU>(S, bw, bm, stats_b, l0, nv, n_pairs, eps, x_b + ((size_t)p * L + l0) * D);
-    row_sums(S, rw, rm, smask_b, l0, nv, eps, rq, rk, rkv);
-    if (t == nt - 1) store_row_sums(S, rq, rk, rkv, rowsum_b + (size_t)p * 3 * D);
-  }
-  pass2(S, x_b, nullptr, nullptr, nullptr, x_b, smask_b, pmask + (size_t)b * P, rw, rm, cw, cm,
-        rowsum_b, partial + ((size_t)b * S_ + blockIdx.x) * L * 3 * D, p0, p1, 0, nt, L, eps);
-}
-
-// ---- kernel Z: last kernel B + head (d -> 1) + softplus + masked site mean ----
-template <int GELU>
+// ---- kernel Z: last kernel B + head (d -> 1, fp32 on the SIMT cores at
+// every pass count) + softplus + masked site mean ----
+template <int GELU, int NP, typename TX>
 __global__ void __launch_bounds__(NT, 2) kernel_z(
-    const float* x, const float* __restrict__ stats, const float* __restrict__ smask,
+    const TX* x, const float* __restrict__ stats, const float* __restrict__ smask,
     const float* __restrict__ pair_count, const float* __restrict__ bw,
     const float* __restrict__ bm, const float* __restrict__ hw, float* out, int P, int L,
     int S_, float eps) {
@@ -197,23 +174,24 @@ __global__ void __launch_bounds__(NT, 2) kernel_z(
   const float count = fmaxf(block_sum(smask_b, L, S), 1.f);
   const float n_pairs = fmaxf(pair_count[b], 1.f);
   const float* stats_b = stats + (size_t)b * L * 3 * D;
-  const float* x_b = x + (size_t)b * P * L * D;
+  const TX* x_b = x + (size_t)b * P * L * D;
   const float h0 = hw[H_W + lane], h1 = hw[H_W + lane + 32], hb = hw[H_B];
 
   const int nt = n_ftiles_of(L), items = (p1 - p0) * nt;
   float sum = 0.f;
-  if (items > 0) stage_load(S, row_src(x_b, nullptr, nullptr, nullptr, p0, 0, L));
+  if (items > 0) stage_load(S, row_src<TX>(x_b, nullptr, nullptr, nullptr, p0, 0, L));
   for (int i = 0; i < items; ++i) {
     const int p = p0 + i / nt, t = i % nt, l0 = t * FT;
-    const TileSrc cur = row_src(x_b, nullptr, nullptr, nullptr, p, t, L);
+    const TileSrc<TX> cur = row_src<TX>(x_b, nullptr, nullptr, nullptr, p, t, L);
     const int nv = cur.nv;
     stage_take(S, cur);
     __syncthreads();
     if (i + 1 < items) {
-      stage_load(S, row_src(x_b, nullptr, nullptr, nullptr, p0 + (i + 1) / nt, (i + 1) % nt, L));
+      stage_load(S, row_src<TX>(x_b, nullptr, nullptr, nullptr, p0 + (i + 1) / nt, (i + 1) % nt,
+                                L));
     }
     if (t == 0) sum = 0.f;
-    body_b<GELU>(S, bw, bm, stats_b, l0, nv, n_pairs, eps, nullptr);
+    body_b<GELU, NP>(S, bw, bm, stats_b, l0, nv, n_pairs, eps, nullptr);
     for (int s = warp; s < nv; s += NWARP) {
       const float h = warp_sum(S.xs[s * XS + lane] * h0 + S.xs[s * XS + lane + 32] * h1) + hb;
       sum += softplus(h) * smask_b[l0 + s];
@@ -254,71 +232,57 @@ int pf_weight_sizes(int* out) {
   return 0;
 }
 
-int pf_kernel_p0(const float* emb, const int* ii, const int* jj, float* x1,
+int pf_kernel_p0(const float* emb, const int* ii, const int* jj, void* x1,
                  const float* smask, const float* pmask, const float* rw, const float* rm,
                  const float* cw, const float* cm, float* rowsum, float* partial, int B, int n,
-                 int P, int L, int S_, float eps, void* stream) {
-  cudaError_t e = allow_smem(kernel_a<true>);
-  if (e != cudaSuccess) return (int)e;
-  kernel_a<true><<<dim3(S_, B), NT, sizeof(Smem), (cudaStream_t)stream>>>(
-      emb, ii, jj, x1, smask, pmask, rw, rm, cw, cm, rowsum, partial, n, P, L, S_, eps);
-  return (int)cudaGetLastError();
+                 int P, int L, int S_, float eps, int passes, int storage, void* stream) {
+  return with_passes(passes, [&](auto np) {
+    return with_storage(storage, [&](auto tag) {
+      using TX = typename std::decay_t<decltype(tag)>::type;
+      return launch(kernel_a<true, std::decay_t<decltype(np)>::value, TX>, S_, B, stream,
+                    static_cast<const void*>(emb), ii, jj, static_cast<TX*>(x1), smask, pmask,
+                    rw, rm, cw, cm, rowsum, partial, n, P, L, S_, eps);
+    });
+  });
 }
 
-int pf_kernel_a_only(float* x, const float* smask, const float* pmask, const float* rw,
+int pf_kernel_a_only(void* x, const float* smask, const float* pmask, const float* rw,
                      const float* rm, const float* cw, const float* cm, float* rowsum,
-                     float* partial, int B, int P, int L, int S_, float eps, void* stream) {
-  cudaError_t e = allow_smem(kernel_a<false>);
-  if (e != cudaSuccess) return (int)e;
-  kernel_a<false><<<dim3(S_, B), NT, sizeof(Smem), (cudaStream_t)stream>>>(
-      x, nullptr, nullptr, x, smask, pmask, rw, rm, cw, cm, rowsum, partial, 0, P, L, S_, eps);
-  return (int)cudaGetLastError();
+                     float* partial, int B, int P, int L, int S_, float eps, int passes,
+                     int storage, void* stream) {
+  return with_passes(passes, [&](auto np) {
+    return with_storage(storage, [&](auto tag) {
+      using TX = typename std::decay_t<decltype(tag)>::type;
+      return launch(kernel_a<false, std::decay_t<decltype(np)>::value, TX>, S_, B, stream,
+                    static_cast<const void*>(x), (const int*)nullptr, (const int*)nullptr,
+                    static_cast<TX*>(x), smask, pmask, rw, rm, cw, cm, rowsum, partial, 0, P, L,
+                    S_, eps);
+    });
+  });
 }
 
 int pf_kernel_a(const float* x, float* x1, const float* smask, const float* pmask,
                 const float* rw, const float* rm, const float* cw, const float* cm,
                 float* rowsum, float* partial, int B, int P, int L, int S_, float eps,
-                void* stream) {
-  cudaError_t e = allow_smem(kernel_a<false>);
-  if (e != cudaSuccess) return (int)e;
-  kernel_a<false><<<dim3(S_, B), NT, sizeof(Smem), (cudaStream_t)stream>>>(
-      x, nullptr, nullptr, x1, smask, pmask, rw, rm, cw, cm, rowsum, partial, 0, P, L, S_, eps);
-  return (int)cudaGetLastError();
+                int passes, void* stream) {
+  return with_passes(passes, [&](auto np) {
+    return launch(kernel_a<false, std::decay_t<decltype(np)>::value, float>, S_, B, stream,
+                  static_cast<const void*>(x), (const int*)nullptr, (const int*)nullptr, x1,
+                  smask, pmask, rw, rm, cw, cm, rowsum, partial, 0, P, L, S_, eps);
+  });
 }
 
-int pf_kernel_m(float* x, const float* stats, const float* smask, const float* pmask,
-                const float* pair_count, const float* bw, const float* bm, const float* rw,
-                const float* rm, const float* cw, const float* cm, float* rowsum,
-                float* partial, int B, int P, int L, int S_, float eps, int gelu, void* stream) {
-  cudaError_t e = gelu == 0 ? allow_smem(kernel_m<0>) : allow_smem(kernel_m<1>);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(S_, B);
-  if (gelu == 0) {
-    kernel_m<0><<<grid, NT, sizeof(Smem), (cudaStream_t)stream>>>(
-        x, stats, smask, pmask, pair_count, bw, bm, rw, rm, cw, cm, rowsum, partial, P, L, S_,
-        eps);
-  } else {
-    kernel_m<1><<<grid, NT, sizeof(Smem), (cudaStream_t)stream>>>(
-        x, stats, smask, pmask, pair_count, bw, bm, rw, rm, cw, cm, rowsum, partial, P, L, S_,
-        eps);
-  }
-  return (int)cudaGetLastError();
-}
-
-int pf_kernel_z(const float* x, const float* stats, const float* smask,
+int pf_kernel_z(const void* x, const float* stats, const float* smask,
                 const float* pair_count, const float* bw, const float* bm, const float* hw,
-                float* out, int B, int P, int L, int S_, float eps, int gelu, void* stream) {
-  cudaError_t e = gelu == 0 ? allow_smem(kernel_z<0>) : allow_smem(kernel_z<1>);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(S_, B);
-  if (gelu == 0) {
-    kernel_z<0><<<grid, NT, sizeof(Smem), (cudaStream_t)stream>>>(
-        x, stats, smask, pair_count, bw, bm, hw, out, P, L, S_, eps);
-  } else {
-    kernel_z<1><<<grid, NT, sizeof(Smem), (cudaStream_t)stream>>>(
-        x, stats, smask, pair_count, bw, bm, hw, out, P, L, S_, eps);
-  }
-  return (int)cudaGetLastError();
+                float* out, int B, int P, int L, int S_, float eps, int gelu, int passes,
+                int storage, void* stream) {
+  return with_variant(gelu, passes, storage, [&](auto g, auto np, auto tag) {
+    using TX = typename std::decay_t<decltype(tag)>::type;
+    constexpr int G = std::decay_t<decltype(g)>::value, NP = std::decay_t<decltype(np)>::value;
+    return launch(kernel_z<G, NP, TX>, S_, B, stream,
+                  static_cast<const TX*>(x), stats, smask, pair_count, bw, bm, hw, out, P, L,
+                  S_, eps);
+  });
 }
 
 const char* pf_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

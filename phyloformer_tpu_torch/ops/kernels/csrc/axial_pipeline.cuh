@@ -23,6 +23,19 @@ constexpr int F = 4 * D;         // FFN hidden width
 constexpr int NT = 256;          // threads per block
 constexpr int NWARP = NT / 32;
 
+// Variant codes of the forward kernels' host entries, as the wrappers pass
+// them (ops/kernels/pipeline.py: GELU_MODES' index, STORAGE_CODES, PASSES):
+// the FFN's activation, the storage type of x1 between the pipeline's
+// kernels, and the TF32 passes of every product.
+constexpr int GELU_EXACT = 0;
+constexpr int GELU_TANH = 1;
+constexpr int GELU_SIGMOID = 2;
+constexpr int GELU_RELU = 3;
+constexpr int STORE_F32 = 0;
+constexpr int STORE_BF16 = 1;
+constexpr int PASSES_SPLIT = 3;  // split TF32: within ~2^-22 of the fp32 product
+constexpr int PASSES_ONE = 1;    // one TF32 pass: tf32(a) tf32(w), fp32 accumulation
+
 // Kernel E1 (axial_bwd.cu): sites per tile of its stream.
 constexpr int TS = 16;
 
@@ -118,7 +131,8 @@ struct Smem {
   float hs[2][FT * XS];     // LayerNorm output
   float as[2][FT * XS];     // attention output before its projection; a 64-wide
                             // chunk of the FFN hidden
-  float stage[FT * XS];     // the next tile, in flight (cp.async)
+  float stage[FT * XS];     // the next tile, in flight (cp.async); a bf16 tile takes
+                            // the first FT x D x 2 bytes
   float red[3 * MG * D];    // the row-warp groups' row sums, combined in a fixed order
   float wsum[NWARP];
   float count;              // max(real site count, 1) of the block's batch element

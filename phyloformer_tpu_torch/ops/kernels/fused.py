@@ -13,6 +13,11 @@ The PyTorch side of ``pf_kernel_a`` (``csrc/axial_pipeline.cu``) and of
   (:func:`kernel_a1`, :func:`kernel_a2`); kernel B (:func:`kernel_b`) is
   local to each pair-site and serves both.
 
+Every kernel takes the TF32 passes of its products (``passes``: 3, split
+TF32, or 1 for the reduced-precision forward; the host functions take JAX's
+``mxu_precision`` name instead); storage stays fp32 and the activation
+exact GELU, as in JAX's ``forward_fused``.
+
 Each wrapper takes its plain PyTorch version only for tensors on the CPU and
 launches its kernel (adding one to its entry in ``pipeline.LAUNCHES``) or
 raises for CUDA tensors.  Every output is a new tensor: x1 survives kernel
@@ -30,7 +35,13 @@ import torch
 
 from . import _build
 from . import axial_block
-from .axial_block import body_b, expand_qk_weights, row_finalize_col_stats, row_sums
+from .axial_block import (
+    body_b,
+    expand_qk_weights,
+    passes_of,
+    row_finalize_col_stats,
+    row_sums,
+)
 from .pipeline import (
     B_MMA_SIZE,
     B_SIZE,
@@ -42,6 +53,7 @@ from .pipeline import (
     ROW_MMA_SIZE,
     ROW_SIZE,
     WeightGroup,
+    _check_passes,
     _check_width,
     _grid_blocks,
     _lib,
@@ -92,25 +104,27 @@ def _budget_slots(B: int, L: int) -> int:
 # ---- plain versions -------------------------------------------------------
 # kernel A computes kernel_a_only_plain's function (pipeline.py).
 
-def kernel_b_plain(x1, stats, pair_count, bw: WeightGroup, eps):
-    return body_b(x1, stats, pair_count.clamp_min(1.0), bw.parts, eps)
+def kernel_b_plain(x1, stats, pair_count, bw: WeightGroup, eps, passes=3):
+    return body_b(x1, stats, pair_count.clamp_min(1.0), bw.parts, eps, passes=passes)
 
 
-def kernel_a1_plain(x, smask, rw: WeightGroup, eps):
-    return row_sums(x, smask, rw.parts, eps)
+def kernel_a1_plain(x, smask, rw: WeightGroup, eps, passes=3):
+    return row_sums(x, smask, rw.parts, eps, passes)
 
 
-def kernel_a2_plain(x, rowstats, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
-    return row_finalize_col_stats(x, rowstats, smask, pmask, rw.parts, cw.parts, eps)
+def kernel_a2_plain(x, rowstats, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps,
+                    passes=3):
+    return row_finalize_col_stats(x, rowstats, smask, pmask, rw.parts, cw.parts, eps, passes)
 
 
 # ---- CUDA wrappers --------------------------------------------------------
 
-def kernel_a(x, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
+def kernel_a(x, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps, passes=3):
     """``_kernel_a``: ``x`` ``(B, P, L, d)`` → x1 (a new tensor), stats
     ``(B, L, 3d)``."""
+    _check_passes(passes)
     if _on_cpu(x, smask, pmask, rw.flat, cw.flat):
-        return kernel_a_only_plain(x, smask, pmask, rw, cw, eps)
+        return kernel_a_only_plain(x, smask, pmask, rw, cw, eps, passes)
     B, P, L, d = x.shape
     _check_width(d)
     _require(x, "x", (B, P, L, d))
@@ -123,16 +137,17 @@ def kernel_a(x, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
     _build.check(lib, lib.pf_kernel_a(
         x.data_ptr(), x1.data_ptr(), smask.data_ptr(), pmask.data_ptr(), rw.flat.data_ptr(),
         rw.mma.data_ptr(), cw.flat.data_ptr(), cw.mma.data_ptr(), rowsum.data_ptr(),
-        partial.data_ptr(), B, P, L, S, float(eps), _stream()), "kernel_a")
+        partial.data_ptr(), B, P, L, S, float(eps), passes, _stream()), "kernel_a")
     LAUNCHES["kernel_a"] += 1
     return x1, reduce_stats(partial)
 
 
-def kernel_b(x1, stats, pair_count, bw: WeightGroup, eps):
+def kernel_b(x1, stats, pair_count, bw: WeightGroup, eps, passes=3):
     """``_kernel_b``: column attention from the global stats + FFN (exact
     GELU), ``x1`` → x3 (a new tensor).  ``pair_count`` ``(B,)`` real pairs."""
+    _check_passes(passes)
     if _on_cpu(x1, stats, pair_count, bw.flat):
-        return kernel_b_plain(x1, stats, pair_count, bw, eps)
+        return kernel_b_plain(x1, stats, pair_count, bw, eps, passes)
     B, P, L, d = x1.shape
     _check_width(d)
     _require(x1, "x1", (B, P, L, d))
@@ -146,15 +161,17 @@ def kernel_b(x1, stats, pair_count, bw: WeightGroup, eps):
     lib = _lib()
     _build.check(lib, lib.pf_kernel_b(
         x1.data_ptr(), stats.data_ptr(), pair_count.data_ptr(), bw.flat.data_ptr(),
-        bw.mma.data_ptr(), x3.data_ptr(), B, P, L, S, float(eps), _stream()), "kernel_b")
+        bw.mma.data_ptr(), x3.data_ptr(), B, P, L, S, float(eps), passes, _stream()),
+        "kernel_b")
     LAUNCHES["kernel_b"] += 1
     return x3
 
 
-def kernel_a1(x, smask, rw: WeightGroup, eps):
+def kernel_a1(x, smask, rw: WeightGroup, eps, passes=3):
     """``_kernel_a1``: per-pair row sums ``(B, P, 3d)`` ``[Σq | Σk | Σk·v]``."""
+    _check_passes(passes)
     if _on_cpu(x, smask, rw.flat):
-        return kernel_a1_plain(x, smask, rw, eps)
+        return kernel_a1_plain(x, smask, rw, eps, passes)
     B, P, L, d = x.shape
     _check_width(d)
     _require(x, "x", (B, P, L, d))
@@ -167,16 +184,17 @@ def kernel_a1(x, smask, rw: WeightGroup, eps):
     lib = _lib()
     _build.check(lib, lib.pf_kernel_a1(
         x.data_ptr(), smask.data_ptr(), rw.flat.data_ptr(), rw.mma.data_ptr(),
-        rowstats.data_ptr(), B, P, L, S, float(eps), _stream()), "kernel_a1")
+        rowstats.data_ptr(), B, P, L, S, float(eps), passes, _stream()), "kernel_a1")
     LAUNCHES["kernel_a1"] += 1
     return rowstats
 
 
-def kernel_a2(x, rowstats, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
+def kernel_a2(x, rowstats, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps, passes=3):
     """``_kernel_a2``: row attention finalized from ``rowstats``, then the
     column stats: x1 (a new tensor), stats ``(B, L, 3d)``."""
+    _check_passes(passes)
     if _on_cpu(x, rowstats, smask, pmask, rw.flat, cw.flat):
-        return kernel_a2_plain(x, rowstats, smask, pmask, rw, cw, eps)
+        return kernel_a2_plain(x, rowstats, smask, pmask, rw, cw, eps, passes)
     B, P, L, d = x.shape
     _check_width(d)
     _require(x, "x", (B, P, L, d))
@@ -194,7 +212,8 @@ def kernel_a2(x, rowstats, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
     _build.check(lib, lib.pf_kernel_a2(
         x.data_ptr(), rowstats.data_ptr(), smask.data_ptr(), pmask.data_ptr(),
         rw.flat.data_ptr(), rw.mma.data_ptr(), cw.flat.data_ptr(), cw.mma.data_ptr(),
-        x1.data_ptr(), partial.data_ptr(), B, P, L, sp, sc, float(eps), _stream()), "kernel_a2")
+        x1.data_ptr(), partial.data_ptr(), B, P, L, sp, sc, float(eps), passes, _stream()),
+        "kernel_a2")
     LAUNCHES["kernel_a2"] += 1
     return x1, reduce_stats(partial)
 
@@ -206,45 +225,49 @@ def _masks(site_mask, pair_mask):
             pair_mask.to(torch.float32).contiguous())
 
 
-def _ltiled_kernel_a(x, w: BlockWeights, smask, pmask, eps):
+def _ltiled_kernel_a(x, w: BlockWeights, smask, pmask, eps, passes=3):
     """L-tiled kernel A: A1 (row sums over the whole site axis), then A2
     (rows finalized, x1, column stats).  Returns ``(x1, stats)``."""
-    rowstats = kernel_a1(x, smask, w.row, eps)
-    return kernel_a2(x, rowstats, smask, pmask, w.row, w.col, eps)
+    rowstats = kernel_a1(x, smask, w.row, eps, passes)
+    return kernel_a2(x, rowstats, smask, pmask, w.row, w.col, eps, passes)
 
 
-def _fused_block_ltiled_impl(x, w: BlockWeights, smask, pmask, eps):
+def _fused_block_ltiled_impl(x, w: BlockWeights, smask, pmask, eps, passes=3):
     """The L-tiled block: A1, A2, then kernel B.  Returns ``(x3, x1, stats)``."""
-    x1, stats = _ltiled_kernel_a(x, w, smask, pmask, eps)
-    return kernel_b(x1, stats, pmask.sum(dim=1), w.b, eps), x1, stats
+    x1, stats = _ltiled_kernel_a(x, w, smask, pmask, eps, passes)
+    return kernel_b(x1, stats, pmask.sum(dim=1), w.b, eps, passes), x1, stats
 
 
-def _fused_block_impl(x, w: BlockWeights, smask, pmask, eps):
+def _fused_block_impl(x, w: BlockWeights, smask, pmask, eps, passes=3):
     """One block on float masks: kernel A and B up to ``RESIDENT_SITES_MAX``
     sites, the L-tiled form above.  Returns ``(x3, x1, stats)``."""
     if x.shape[2] > axial_block.RESIDENT_SITES_MAX:
-        return _fused_block_ltiled_impl(x, w, smask, pmask, eps)
-    x1, stats = kernel_a(x, smask, pmask, w.row, w.col, eps)
-    return kernel_b(x1, stats, pmask.sum(dim=1), w.b, eps), x1, stats
+        return _fused_block_ltiled_impl(x, w, smask, pmask, eps, passes)
+    x1, stats = kernel_a(x, smask, pmask, w.row, w.col, eps, passes)
+    return kernel_b(x1, stats, pmask.sum(dim=1), w.b, eps, passes), x1, stats
 
 
 def fused_axial_block(x: torch.Tensor, layer, site_mask: torch.Tensor,
-                      pair_mask: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+                      pair_mask: torch.Tensor, eps: float = 1e-5,
+                      mxu_precision: str = "highest") -> torch.Tensor:
     """One Phyloformer block through the fused kernels.
 
     ``x`` ``(B, P, L, d)`` fp32; ``layer`` one element of
     ``params["layers"]`` (or its :class:`BlockWeights`); ``site_mask``
-    ``(B, L)`` and ``pair_mask`` ``(B, P)``, bool or 0/1 float."""
-    return fused_axial_block_res(x, layer, site_mask, pair_mask, eps)[0]
+    ``(B, L)`` and ``pair_mask`` ``(B, P)``, bool or 0/1 float;
+    ``mxu_precision`` "highest" (three TF32 passes) or "default" (one)."""
+    return fused_axial_block_res(x, layer, site_mask, pair_mask, eps, mxu_precision)[0]
 
 
 def fused_axial_block_res(x: torch.Tensor, layer, site_mask: torch.Tensor,
-                          pair_mask: torch.Tensor, eps: float = 1e-5):
+                          pair_mask: torch.Tensor, eps: float = 1e-5,
+                          mxu_precision: str = "highest"):
     """Like :func:`fused_axial_block`, but also returns the residuals of the
     fused backward: ``(x3, x1, stats)``, x1 the post-row-attention
     activations and stats the raw column sums ``(B, L, 3d)``."""
     smask, pmask = _masks(site_mask, pair_mask)
-    return _fused_block_impl(x.contiguous(), BlockWeights.of(layer), smask, pmask, eps)
+    return _fused_block_impl(x.contiguous(), BlockWeights.of(layer), smask, pmask, eps,
+                             passes_of(mxu_precision))
 
 
 def fused_kernel_a(x: torch.Tensor, layer, site_mask: torch.Tensor, pair_mask: torch.Tensor,

@@ -15,6 +15,14 @@ counterpart of ``phyloformer_tpu/ops/pallas/pipeline.py``:
   order (:func:`reduce_slots`, the slot reduction it shares with the
   backward's partials; its plan and ordered twin are in ``reduce.py``).
 
+The kernels take the JAX pipeline's static variants: the TF32 passes of
+every product (``passes``: 3, split TF32, at ``mxu_precision="highest"``;
+1, one TF32 pass, otherwise), the storage type of x1 between the kernels
+(fp32 or bf16: P0 takes it as ``act_dtype``, A-only, M and Z read it from
+their x1) and, in M and Z, the FFN's activation (:data:`.axial_block.GELU_MODES`;
+sigmoid and relu at fp32 storage only).  At bf16 the stored x1 is rounded
+to nearest even and the column stats are taken from the rounded values.
+
 Each wrapper takes its plain PyTorch version only for tensors on the CPU.
 For CUDA tensors it checks device, dtype, shape and contiguity, launches its
 kernel and adds one to its entry in :data:`LAUNCHES`, or raises.  The plain
@@ -36,11 +44,14 @@ from . import _build
 from . import axial_block
 from .axial_block import (
     GELU_MODES,
+    PASSES,
     body_b,
     body_col_stats,
     body_row_attn,
     expand_qk_weights,
     head,
+    passes_of,
+    tf32_rna,
 )
 from .reduce import reduce_plan
 
@@ -66,6 +77,10 @@ COL_MMA_SIZE = 2 * 3 * D_KERNEL * D_KERNEL
 B_MMA_SIZE = 2 * (2 * D_KERNEL * D_KERNEL + 2 * 4 * D_KERNEL * D_KERNEL)
 LAYOUT = (ROW_SIZE, COL_SIZE, B_SIZE, HEAD_SIZE, ROW_MMA_SIZE, COL_MMA_SIZE, B_MMA_SIZE,
           TILE_SITES, FWD_TILE_SITES)
+# Storage of x1 between the pipeline's kernels, by JAX's name, and the
+# kernels' codes for it (STORE_F32, STORE_BF16 in axial_pipeline.cuh).
+ACT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+STORAGE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of each kernel in this process (the CPU path counts nothing);
 # kernel_a, kernel_b, kernel_a1 and kernel_a2 are the fused forward's
@@ -100,14 +115,6 @@ def _lib() -> ctypes.CDLL:
                                f"wrapper {LAYOUT}")
         _layout_checked = True
     return lib
-
-
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """fp32 → the nearest TF32 value (10 mantissa bits), ties away from
-    zero, as ``cvt.rna.tf32.f32`` rounds: half of the low 13 bits' weight
-    is added to the magnitude, then the 13 bits are cleared."""
-    bits = x.to(torch.float32).contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
 def pack_mma(w: torch.Tensor) -> torch.Tensor:
@@ -199,26 +206,36 @@ class PipelineWeights:
 
 
 # ---- plain versions -------------------------------------------------------
+# x1 comes back in its storage type (the input's for A-only and M, act_dtype
+# for P0); every body computes in fp32.
 
-def kernel_p0_plain(emb, ii, jj, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
+def _kernel_a_plain(x, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps, passes,
+                    act_dtype):
+    """Row attention, x1 stored as act_dtype, then the column stats of the
+    stored x1."""
+    x1 = body_row_attn(x, smask, rw.parts, eps, passes).to(act_dtype)
+    return x1, body_col_stats(x1.float(), pmask, cw.parts, eps, passes)
+
+
+def kernel_p0_plain(emb, ii, jj, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps,
+                    passes=3, act_dtype=torch.float32):
     x = emb.index_select(1, ii.long()) + emb.index_select(1, jj.long())
-    return kernel_a_only_plain(x, smask, pmask, rw, cw, eps)
+    return _kernel_a_plain(x, smask, pmask, rw, cw, eps, passes, act_dtype)
 
 
-def kernel_a_only_plain(x, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
-    x1 = body_row_attn(x, smask, rw.parts, eps)
-    return x1, body_col_stats(x1, pmask, cw.parts, eps)
+def kernel_a_only_plain(x, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps, passes=3):
+    return _kernel_a_plain(x.float(), smask, pmask, rw, cw, eps, passes, x.dtype)
 
 
 def kernel_m_plain(x1, stats, smask, pmask, pair_count, bw: WeightGroup, rw: WeightGroup,
-                   cw: WeightGroup, eps, gelu_mode="exact"):
-    x3 = body_b(x1, stats, pair_count.clamp_min(1.0), bw.parts, eps, gelu_mode)
-    return kernel_a_only_plain(x3, smask, pmask, rw, cw, eps)
+                   cw: WeightGroup, eps, gelu_mode="exact", passes=3):
+    x3 = body_b(x1.float(), stats, pair_count.clamp_min(1.0), bw.parts, eps, gelu_mode, passes)
+    return _kernel_a_plain(x3, smask, pmask, rw, cw, eps, passes, x1.dtype)
 
 
 def kernel_z_plain(x1, stats, smask, pair_count, bw: WeightGroup, hw: WeightGroup, eps,
-                   gelu_mode="exact"):
-    x3 = body_b(x1, stats, pair_count.clamp_min(1.0), bw.parts, eps, gelu_mode)
+                   gelu_mode="exact", passes=3):
+    x3 = body_b(x1.float(), stats, pair_count.clamp_min(1.0), bw.parts, eps, gelu_mode, passes)
     return head(x3, hw.parts[0], hw.parts[1], smask)
 
 
@@ -241,8 +258,10 @@ def _on_cpu(*tensors) -> bool:
 
 
 def _require(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    """``dtype``: the one dtype, or a collection of those allowed."""
+    allowed = dtype if isinstance(dtype, (tuple, list, dict)) else (dtype,)
+    if t.dtype not in allowed:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {' or '.join(map(str, allowed))}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
@@ -290,6 +309,18 @@ def _check_width(d: int) -> None:
         raise ValueError(f"the CUDA kernels are built for d={D_KERNEL}, got d={d}")
 
 
+def _check_passes(passes: int) -> int:
+    if passes not in PASSES:
+        raise ValueError(f"passes={passes}: expected one of {PASSES}")
+    return passes
+
+
+def _storage_code(dtype: torch.dtype) -> int:
+    if dtype not in STORAGE_CODES:
+        raise TypeError(f"x1 storage {dtype}: expected one of {list(STORAGE_CODES)}")
+    return STORAGE_CODES[dtype]
+
+
 def reduce_slots(partial: torch.Tensor) -> torch.Tensor:
     """``(G, S, N)`` → ``(G, N)`` through ``pf_reduce_slots``
     (``csrc/slot_reduce.cu``) on the plan of :func:`.reduce.reduce_plan`:
@@ -330,11 +361,14 @@ def _scratch(B: int, P: int, L: int, device, max_slots: int = 1 << 30
     return S, rowsum, partial
 
 
-def kernel_p0(emb, ii, jj, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
-    """``emb`` ``(B, n, L, d)``, ``ii/jj`` ``(P,)`` int32 → x1 ``(B, P, L, d)``,
-    stats ``(B, L, 3d)``."""
+def kernel_p0(emb, ii, jj, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps, passes=3,
+              act_dtype=torch.float32):
+    """``emb`` ``(B, n, L, d)`` fp32, ``ii/jj`` ``(P,)`` int32 → x1
+    ``(B, P, L, d)`` stored as ``act_dtype``, stats ``(B, L, 3d)``."""
+    storage = _storage_code(act_dtype)
+    _check_passes(passes)
     if _on_cpu(emb, ii, jj, smask, pmask, rw.flat, cw.flat):
-        return kernel_p0_plain(emb, ii, jj, smask, pmask, rw, cw, eps)
+        return kernel_p0_plain(emb, ii, jj, smask, pmask, rw, cw, eps, passes, act_dtype)
     B, n, L, d = emb.shape
     P = ii.shape[0]
     _check_width(d)
@@ -345,25 +379,28 @@ def kernel_p0(emb, ii, jj, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
     _require(pmask, "pmask", (B, P))
     _require_groups(row=(rw, ROW_SIZE, ROW_MMA_SIZE), col=(cw, COL_SIZE, COL_MMA_SIZE))
     S, rowsum, partial = _scratch(B, P, L, emb.device)
-    x1 = torch.empty((B, P, L, d), device=emb.device, dtype=torch.float32)
+    x1 = torch.empty((B, P, L, d), device=emb.device, dtype=act_dtype)
     lib = _lib()
     _build.check(lib, lib.pf_kernel_p0(
         emb.data_ptr(), ii.data_ptr(), jj.data_ptr(), x1.data_ptr(), smask.data_ptr(),
         pmask.data_ptr(), rw.flat.data_ptr(), rw.mma.data_ptr(), cw.flat.data_ptr(),
         cw.mma.data_ptr(), rowsum.data_ptr(), partial.data_ptr(), B, n, P, L, S, float(eps),
-        _stream()), "kernel_p0")
+        passes, storage, _stream()), "kernel_p0")
     LAUNCHES["kernel_p0"] += 1
     return x1, reduce_stats(partial)
 
 
-def kernel_a_only(x, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
-    """``x`` ``(B, P, L, d)`` → (x1, stats).  On the card x1 is written in
-    place over ``x`` (the returned x1 is ``x``)."""
+def kernel_a_only(x, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps, passes=3):
+    """``x`` ``(B, P, L, d)``, fp32 or bf16 → (x1, stats), x1 stored as x
+    is.  On the card x1 is written in place over ``x`` (the returned x1 is
+    ``x``)."""
+    storage = _storage_code(x.dtype)
+    _check_passes(passes)
     if _on_cpu(x, smask, pmask, rw.flat, cw.flat):
-        return kernel_a_only_plain(x, smask, pmask, rw, cw, eps)
+        return kernel_a_only_plain(x, smask, pmask, rw, cw, eps, passes)
     B, P, L, d = x.shape
     _check_width(d)
-    _require(x, "x", (B, P, L, d))
+    _require(x, "x", (B, P, L, d), STORAGE_CODES)
     _require(smask, "smask", (B, L))
     _require(pmask, "pmask", (B, P))
     _require_groups(row=(rw, ROW_SIZE, ROW_MMA_SIZE), col=(cw, COL_SIZE, COL_MMA_SIZE))
@@ -372,58 +409,71 @@ def kernel_a_only(x, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps):
     _build.check(lib, lib.pf_kernel_a_only(
         x.data_ptr(), smask.data_ptr(), pmask.data_ptr(), rw.flat.data_ptr(), rw.mma.data_ptr(),
         cw.flat.data_ptr(), cw.mma.data_ptr(), rowsum.data_ptr(), partial.data_ptr(), B, P, L,
-        S, float(eps), _stream()), "kernel_a_only")
+        S, float(eps), passes, storage, _stream()), "kernel_a_only")
     LAUNCHES["kernel_a_only"] += 1
     return x, reduce_stats(partial)
 
 
-def _gelu_code(gelu_mode: str) -> int:
+def _gelu_code(gelu_mode: str, storage: int) -> int:
+    """The activation's kernel code; M and Z are built with sigmoid and relu
+    at fp32 storage only."""
     if gelu_mode not in GELU_MODES:
         raise ValueError(f"gelu mode {gelu_mode!r}: expected one of {GELU_MODES}")
-    return GELU_MODES.index(gelu_mode)
+    code = GELU_MODES.index(gelu_mode)
+    if code >= GELU_MODES.index("sigmoid") and storage != STORAGE_CODES[torch.float32]:
+        raise ValueError(f"gelu mode {gelu_mode!r}: kernels M and Z run it at fp32 storage "
+                         f"only, not bf16")
+    return code
 
 
 def kernel_m(x1, stats, smask, pmask, pair_count, bw: WeightGroup, rw: WeightGroup,
-             cw: WeightGroup, eps, gelu_mode="exact"):
-    """Block boundary: (x1, stats) of block i → (x1, stats) of block i+1.
-    On the card x1 is updated in place; the stats come in a new buffer."""
+             cw: WeightGroup, eps, gelu_mode="exact", passes=3):
+    """Block boundary: (x1, stats) of block i → (x1, stats) of block i+1,
+    x1 fp32 or bf16.  On the card x1 is updated in place; the stats come in
+    a new buffer."""
+    storage = _storage_code(x1.dtype)
+    gelu = _gelu_code(gelu_mode, storage)
+    _check_passes(passes)
     if _on_cpu(x1, stats, smask, pmask, pair_count, bw.flat, rw.flat, cw.flat):
-        return kernel_m_plain(x1, stats, smask, pmask, pair_count, bw, rw, cw, eps, gelu_mode)
+        return kernel_m_plain(x1, stats, smask, pmask, pair_count, bw, rw, cw, eps, gelu_mode,
+                              passes)
     B, P, L, d = x1.shape
     _check_width(d)
-    _require(x1, "x1", (B, P, L, d))
+    _require(x1, "x1", (B, P, L, d), STORAGE_CODES)
     _require(stats, "stats", (B, L, 3 * d))
     _require(smask, "smask", (B, L))
     _require(pmask, "pmask", (B, P))
     _require(pair_count, "pair_count", (B,))
     _require_groups(b=(bw, B_SIZE, B_MMA_SIZE), row=(rw, ROW_SIZE, ROW_MMA_SIZE),
                     col=(cw, COL_SIZE, COL_MMA_SIZE))
-    gelu = _gelu_code(gelu_mode)
     S, rowsum, partial = _scratch(B, P, L, x1.device)
     lib = _lib()
     _build.check(lib, lib.pf_kernel_m(
         x1.data_ptr(), stats.data_ptr(), smask.data_ptr(), pmask.data_ptr(),
         pair_count.data_ptr(), bw.flat.data_ptr(), bw.mma.data_ptr(), rw.flat.data_ptr(),
         rw.mma.data_ptr(), cw.flat.data_ptr(), cw.mma.data_ptr(), rowsum.data_ptr(),
-        partial.data_ptr(), B, P, L, S, float(eps), gelu, _stream()),
+        partial.data_ptr(), B, P, L, S, float(eps), gelu, passes, storage, _stream()),
         "kernel_m")
     LAUNCHES["kernel_m"] += 1
     return x1, reduce_stats(partial)
 
 
 def kernel_z(x1, stats, smask, pair_count, bw: WeightGroup, hw: WeightGroup, eps,
-             gelu_mode="exact"):
-    """Last block's kernel B + head → ``(B, P)`` distances."""
+             gelu_mode="exact", passes=3):
+    """Last block's kernel B + head → ``(B, P)`` distances; x1 fp32 or
+    bf16, the head fp32."""
+    storage = _storage_code(x1.dtype)
+    gelu = _gelu_code(gelu_mode, storage)
+    _check_passes(passes)
     if _on_cpu(x1, stats, smask, pair_count, bw.flat, hw.flat):
-        return kernel_z_plain(x1, stats, smask, pair_count, bw, hw, eps, gelu_mode)
+        return kernel_z_plain(x1, stats, smask, pair_count, bw, hw, eps, gelu_mode, passes)
     B, P, L, d = x1.shape
     _check_width(d)
-    _require(x1, "x1", (B, P, L, d))
+    _require(x1, "x1", (B, P, L, d), STORAGE_CODES)
     _require(stats, "stats", (B, L, 3 * d))
     _require(smask, "smask", (B, L))
     _require(pair_count, "pair_count", (B,))
     _require_groups(b=(bw, B_SIZE, B_MMA_SIZE), head=(hw, HEAD_SIZE, 0))
-    gelu = _gelu_code(gelu_mode)
     if P < 1:
         raise ValueError("the pipeline needs at least one pair (two sequences)")
     S = _slots(P, B, x1.device)
@@ -432,19 +482,23 @@ def kernel_z(x1, stats, smask, pair_count, bw: WeightGroup, hw: WeightGroup, eps
     _build.check(lib, lib.pf_kernel_z(
         x1.data_ptr(), stats.data_ptr(), smask.data_ptr(), pair_count.data_ptr(),
         bw.flat.data_ptr(), bw.mma.data_ptr(), hw.flat.data_ptr(), out.data_ptr(), B, P, L, S,
-        float(eps), gelu, _stream()), "kernel_z")
+        float(eps), gelu, passes, storage, _stream()), "kernel_z")
     LAUNCHES["kernel_z"] += 1
     return out
 
 
 # ---- the pipelined forward ------------------------------------------------
 
-def pipeline_supported(n_seqs: int, seq_len: int) -> bool:
-    """True when the pipelined kernels serve this bucket shape: site axes up
-    to ``RESIDENT_SITES_MAX``; longer ones take the L-tiled fused forward.
-    fp32 is the port's only precision, so the fp32 threshold is the one; as
-    in the JAX rule, ``n_seqs`` does not enter."""
-    return seq_len <= axial_block.RESIDENT_SITES_MAX
+def pipeline_supported(n_seqs: int, seq_len: int, mxu_precision: str = "highest") -> bool:
+    """True when the pipelined kernels serve this bucket shape, as JAX's rule
+    gives it: site axes up to ``RESIDENT_SITES_MAX`` (1024) at fp32-grade
+    products ("highest" / "float32"), up to ``RESIDENT_SITES_MAX_REDUCED``
+    (2048) at reduced precision; longer ones take the L-tiled fused
+    forward.  ``n_seqs`` does not enter.  The CUDA kernels have no site cap:
+    the rule routes, it does not protect them."""
+    cap = (axial_block.RESIDENT_SITES_MAX if passes_of(mxu_precision) == 3
+           else axial_block.RESIDENT_SITES_MAX_REDUCED)
+    return seq_len <= cap
 
 
 def uses_gather(n_seqs: int, seq_len: int, d: int) -> bool:
@@ -460,15 +514,25 @@ def forward_fused_pipeline(
     seq_mask: torch.Tensor,
     eps: float = 1e-5,
     gelu_mode: str = "exact",
+    mxu_precision: str = "highest",
+    act_dtype_name: str = "float32",
 ) -> torch.Tensor:
     """Full Phyloformer forward through the pipelined kernels.
 
     ``codes`` ``(B, n, L)`` integers, ``site_mask`` ``(B, L)`` and
-    ``seq_mask`` ``(B, n)`` bool, all on one device.  Returns ``(B, P)``
-    distances, ``P = n(n-1)/2`` in upper-triangle order (padded pairs hold
-    finite garbage).  The kernels run for CUDA tensors, the plain versions
-    for CPU tensors.
+    ``seq_mask`` ``(B, n)`` bool, all on one device.  ``mxu_precision``:
+    "highest" / "float32" (three TF32 passes) or anything else (one pass);
+    ``act_dtype_name``: x1's storage between the kernels, "float32" or
+    "bfloat16" (compute stays fp32); ``gelu_mode``: the FFN's activation.
+    Returns ``(B, P)`` distances, ``P = n(n-1)/2`` in upper-triangle order
+    (padded pairs hold finite garbage).  The kernels run for CUDA tensors,
+    the plain versions for CPU tensors.
     """
+    if act_dtype_name not in ACT_DTYPES:
+        raise ValueError(f"act_dtype_name={act_dtype_name!r}: expected one of "
+                         f"{list(ACT_DTYPES)}")
+    act_dtype = ACT_DTYPES[act_dtype_name]
+    passes = passes_of(mxu_precision)
     device = codes.device
     b, n, l = codes.shape
     d = weights.embed_w.shape[1]
@@ -483,13 +547,18 @@ def forward_fused_pipeline(
     pair_count = pmask.sum(dim=1)
 
     if uses_gather(n, l, d):
-        x1, stats = kernel_p0(emb, ii, jj, smask, pmask, weights.row[0], weights.col[0], eps)
+        x1, stats = kernel_p0(emb, ii, jj, smask, pmask, weights.row[0], weights.col[0], eps,
+                              passes, act_dtype)
     else:
-        x0 = emb.index_select(1, ii.long()) + emb.index_select(1, jj.long())
-        x1, stats = kernel_a_only(x0, smask, pmask, weights.row[0], weights.col[0], eps)
+        # the embedding is cast to the storage type before the gathers, so
+        # both of them (and their sum) are storage-wide, as in JAX
+        emb_s = emb.to(act_dtype)
+        x0 = emb_s.index_select(1, ii.long()) + emb_s.index_select(1, jj.long())
+        x1, stats = kernel_a_only(x0, smask, pmask, weights.row[0], weights.col[0], eps, passes)
 
     for i in range(len(weights.row) - 1):
         x1, stats = kernel_m(x1, stats, smask, pmask, pair_count, weights.b[i],
-                             weights.row[i + 1], weights.col[i + 1], eps, gelu_mode)
+                             weights.row[i + 1], weights.col[i + 1], eps, gelu_mode, passes)
 
-    return kernel_z(x1, stats, smask, pair_count, weights.b[-1], weights.head, eps, gelu_mode)
+    return kernel_z(x1, stats, smask, pair_count, weights.b[-1], weights.head, eps, gelu_mode,
+                    passes)

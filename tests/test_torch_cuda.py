@@ -623,3 +623,52 @@ def sass(card):
 def test_backward_kernels_run_on_tensor_cores(kernel, sass):
     """C, D, E and E2 hold tensor-core mma (HMMA) instructions."""
     assert sass[kernel]["HMMA"] > 0, sass
+
+
+# ---- the reduced-precision and activation variants ---------------------------
+# chip_smoke.py's variant phase (every entry of its VARIANTS against the plain
+# twin, twice for the same bits) on small edge shapes: a partial tile, two
+# sequences, masked sequences, and 1100 sites (the pipeline serves it at one
+# pass).  Its bars: KERNEL_TOL at three passes, ONE_PASS_TOL and ONE_PASS_P999
+# at one (TF32 rounding flips), one bf16 ulp plus the variant's fp32 bar for
+# x1 stored as bf16.
+
+_VARIANT_CODE = """
+import json
+import sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+from phyloformer_tpu_torch.models.params import map_params
+from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda")
+params = map_params(lambda t: t.to(dev), load_pretrained(cs.CKPT)[0])
+cs.VARIANT_CASES = {"headline": ([(20, 100), (17, 75)], 20, 100),
+                    "ragged": ([(2, 70)], 2, 70),
+                    "wide": ([(9, 64), (2, 64)], 12, 64),
+                    "long": ([(6, 1100)], 6, 1100)}
+var = cs.variant_checks(pipe.PipelineWeights.from_params(params), dev)
+print(json.dumps({v: {"fails": cs.variant_failures(v, r), "launched": r["ms"] > 0}
+                  for v, r in var.items()}))
+"""
+
+
+@pytest.fixture(scope="module")
+def variant_results(card):
+    r = subprocess.run([sys.executable, "-c", _VARIANT_CODE], capture_output=True, text=True,
+                       cwd=str(REPO), timeout=900)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("kernel", ["kernel_p0", "kernel_a_only", "kernel_m", "kernel_z",
+                                    "kernel_a", "kernel_b", "kernel_a1", "kernel_a2"])
+def test_reduced_precision_variants_match_plain_on_card(kernel, variant_results):
+    mine = {v: r for v, r in variant_results.items() if v.startswith(kernel + "/")}
+    assert mine, variant_results
+    for v, r in mine.items():
+        assert not r["fails"] and r["launched"], (v, r)
