@@ -29,14 +29,15 @@
      ragged unbucketed pair of alignments of 1100 and 1031 sites;
    - every reduced-precision and activation variant (``VARIANTS``): P0,
      A-only, M and Z at one TF32 pass, at bf16 storage of x1 and at both, M
-     and Z with sigmoid and relu, A, B, A1 and A2 at one pass, at the
+     and Z with sigmoid and relu at both pass counts and both storage
+     types, A, B, A1 and A2 at one pass, at the
      headline bucket, on a ragged batch and at (60, 1536) (the pipeline
      serves up to 2048 sites at one pass), each twice for the same bits,
      against its plain twin (operands rounded to TF32 and x1 to bf16 as the
      kernels round them; one-pass and bf16 bars: ``ONE_PASS_TOL``,
      ``ONE_PASS_P999``, one bf16 ulp), timed beside the three-pass fp32
      kernel on the same inputs (``--reduced``: only the reduced-precision
-     phases);
+     phases, those of 5 and 6 to 10 included);
 4. drives the main path through the CLI (``pf-infer`` with ``--trees
    --fastme --stats``) on synthetic FASTA files made with numpy from a seed,
    up to 3000 sites, so that buckets up to 1024 sites run the pipeline and
@@ -57,28 +58,37 @@
    cotangent) at the training shape 4 x 50 tips x 256 sites and on a ragged
    batch, checks that two runs give the same bits (of D, and of the block
    backward), and times them (split TF32 on the tensor cores, against three
-   TF32 passes, with the fp32 SIMT bound beside);
-7. drives training through the CLI (``pf-train-torch --base-model
-   pf_mre_r5.ckpt --batch-size 4 --loss mre --max-steps 8``) on a synthetic
-   corpus of random trees and matching 50-tip alignments, then resumes it
-   for 4 more steps; checks the launch counts, the losses, the metrics file
-   and the checkpoints, and reports ms per step and examples per second;
-8. holds one step's loss and gradients through the kernels against plain
-   eager autograd on the card, at 1 x 50 x 256, and traces three training
-   steps with ``torch.profiler`` (device time by kernel, busy share, peak
-   memory);
-9. holds the L-tiled row backward's kernels E1 and E2 (above 1024 sites)
+   TF32 passes, with the fp32 SIMT bound beside); then each at one TF32
+   pass against its one-pass plain version (every output and weight
+   gradient, ``ONE_PASS_TOL`` and ``ONE_PASS_P999``, the same bits twice),
+   timed beside its one-pass bound;
+7. holds the L-tiled row backward's kernels E1 and E2 (above 1024 sites)
    against their plain versions at the (50, 1536) training bucket and on a
    ragged batch (E1 also against its factored twin), E1 + E2 against kernel
    E at 1024 sites, and two runs of E1, of E2 and of the long block backward
    against each other; times E1 (beside its bytes bound) and E2 (against
-   three TF32 passes), C and D at 2 x 1225 x 1536 and E at 1024 sites;
+   three TF32 passes), C and D at 2 x 1225 x 1536 and E at 1024 sites; then
+   C, D and E2 there at one pass against their one-pass plain versions,
+   and E1 at one pass against its three-pass bits;
+8. drives training through the CLI (``pf-train-torch --base-model
+   pf_mre_r5.ckpt --batch-size 4 --loss mre --max-steps 8``) on a synthetic
+   corpus of random trees and matching 50-tip alignments, then resumes it
+   for 4 more steps; checks the launch counts, the losses, the metrics file
+   and the checkpoints; runs the same 8 steps at ``--matmul-precision
+   default`` (one TF32 pass in every kernel) and holds each step's loss to
+   the fp32 run's (``TRAIN_ONE_PASS_LOSS_TOL``), with the launch counts;
+9. holds one step's loss and gradients through the kernels against plain
+   eager fp32 autograd on the card, at 1 x 50 x 256, at fp32 and at
+   "default" (``STEP_ONE_PASS_TOL``), and times the training step at both
+   (ms per step, examples per second, peak memory, three steps traced with
+   ``torch.profiler``: device time by kernel, busy share);
 10. drives training on long alignments: a synthetic corpus in the
    (50, 1536) bucket packed with ``pf-preprocess-torch``, ``pf-train-torch
    --packed-data --batch-size 2`` for 4 steps and a validation (launch
-   counts, losses), the step's time and peak memory at 2 x 50 x 1536,
-   ``--profile`` (10 traced steps), and one step against plain eager
-   autograd at 1 x 20 x 1100 sites;
+   counts, losses), the step's time, peak memory and profile at 2 x 50 x
+   1536 at fp32 and at "default", ``--profile`` (10 traced steps), and one
+   step against plain eager fp32 autograd at 1 x 20 x 1100 sites at both
+   precisions;
 11. prints the ``kernels`` JSON line and the throughputs, then, as its last
    line, ``{"ok": true, "device": {...}}``.
 
@@ -150,6 +160,13 @@ GRAD_TOL = 1e-4
 # One training step through the kernels against plain eager autograd.
 STEP_LOSS_TOL = 1e-5
 STEP_GRAD_TOL = 1e-4
+# The same at one TF32 pass (the trainer's "default"), against plain fp32
+# autograd: the gate scale of the JAX fast path (bench.py), on the loss
+# (relative) and on every leaf (of max(1, max|ref|)).
+STEP_ONE_PASS_TOL = 6e-3
+# pf-train-torch --matmul-precision default against the fp32 run, step by
+# step on the same batches: each loss within 1e-2 relative.
+TRAIN_ONE_PASS_LOSS_TOL = 1e-2
 # Distances after 6 blocks against the plain eager model on the card.
 DIST_TOL = 1e-4
 # The reduced-precision variants against their plain twins (which round
@@ -234,6 +251,46 @@ def summarize(name, r, tol, where, card) -> bool:
           + (f", the work at three TF32 passes; fp32 SIMT bound {r['bound_fp32_simt_ms']:.3f} ms"
              if "bound_fp32_simt_ms" in r else "") + f"){where} [{card}]")
     return r["max_rel_err"] <= tol and r.get("max_rel_err_grads", 0.0) <= GRAD_TOL
+
+
+def hold_one_pass(o, layout, got, want, again):
+    """One TF32 pass: add a backward kernel's comparisons to ``o`` (each
+    output, then each weight-gradient leaf of the flat vector laid out as
+    ``layout``: its error and the 99.9th percentile of its relative error),
+    and whether two runs gave the same bits."""
+    import torch
+
+    from phyloformer_tpu_torch.ops.kernels import axial_block_bwd as bw
+
+    *outs, flat = got
+    *refs, rflat = want
+    g = bw.unpack_grads(layout, flat, D, H, {})
+    r = bw.unpack_grads(layout, rflat, D, H, {})
+    for a, b in list(zip(outs, refs)) + [(g[k][n], r[k][n]) for k in r for n in r[k]]:
+        o["errs"].append(errors(a, b))
+        o["p999"].append(flip_stats(a, b)[1])
+    o["same_bits"] = o.get("same_bits", True) and all(
+        torch.equal(a, b) for a, b in zip(got, again))
+
+
+def one_pass_row(o, ms, bnd):
+    """A kernel's one-pass comparisons folded into its maxima, with its time
+    and its bound at one pass."""
+    return dict(max_abs_err=max(e[0] for e in o["errs"]),
+                max_rel_err=max(e[1] for e in o["errs"]), p999=max(o["p999"]),
+                same_bits=o["same_bits"], tolerance=ONE_PASS_TOL,
+                tolerance_p999=ONE_PASS_P999, ms=ms, bound_ms=bnd[0], bound_by=bnd[1])
+
+
+def report_one_pass(name, r, where, card) -> bool:
+    """Print a kernel's one-pass row; whether it holds its bars."""
+    print(f"{name} at one TF32 pass: max abs err {r['max_abs_err']:.3e}, relative "
+          f"{r['max_rel_err']:.3e} (tol {ONE_PASS_TOL:.0e}), 99.9th percentile "
+          f"{r['p999']:.3e} (tol {ONE_PASS_P999:.0e}), every output and weight gradient; "
+          f"same bits twice {r['same_bits']}; {r['ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+          f"({r['bound_by']}, the work at one pass){where} [{card}]")
+    return (r["max_rel_err"] <= ONE_PASS_TOL and r["p999"] <= ONE_PASS_P999
+            and r["same_bits"])
 
 
 def bound(flops, nbytes, peak=PEAK_FP32_FLOPS):
@@ -605,9 +662,9 @@ for _k in ("kernel_p0", "kernel_a_only", "kernel_m", "kernel_z"):
 for _k in ("kernel_m", "kernel_z"):  # the fast path's (tanh) and the other activations
     for _st in ("float32", "bfloat16"):
         VARIANTS[f"{_k}/p1-{_st}-tanh"] = (_k, 1, _st, "tanh")
-    for _np in (3, 1):
-        for _g in ("sigmoid", "relu"):
-            VARIANTS[f"{_k}/p{_np}-float32-{_g}"] = (_k, _np, "float32", _g)
+        for _np in (3, 1):
+            for _g in ("sigmoid", "relu"):
+                VARIANTS[f"{_k}/p{_np}-{_st}-{_g}"] = (_k, _np, _st, _g)
 for _k in ("kernel_a", "kernel_b", "kernel_a1", "kernel_a2"):
     VARIANTS[f"{_k}/p1-float32"] = (_k, 1, "float32", "exact")
 
@@ -1348,7 +1405,11 @@ def backward_kernel_checks(params, device):
     alignments, a seeded cotangent masked as a masked loss makes it) at the
     training shape 4 x 50 x 256 and on a ragged batch (45 of 50 tips, 230 of
     256 sites); every output compared on its own.  Times at the training
-    shape, and the same bits from two runs of the whole block backward."""
+    shape, and the same bits from two runs of the whole block backward.
+    Then each of C, D and E at one TF32 pass against its one-pass plain
+    version on the residuals of the one-pass forward (every output and
+    weight gradient, twice for the same bits), timed beside its one-pass
+    bound (the row's ``one_pass``)."""
     import torch
 
     from phyloformer_tpu_torch.ops.kernels import axial_block_bwd as bw
@@ -1362,6 +1423,7 @@ def backward_kernel_checks(params, device):
     rng = np.random.default_rng(SEED + 3)
     cases = {"train": ([(50, 256)] * 4, 50, 256), "ragged": ([(45, 230), (50, 256)], 50, 256)}
     results = {k: {"errs": [], "grad_errs": []} for k in ("kernel_c", "kernel_d", "kernel_e")}
+    one = {k: {"errs": [], "p999": []} for k in results}
     shapes, same_bits, d_bits = {}, True, True
     for case, (dims, pad_n, pad_l) in cases.items():
         _, _, _, smask, pmask, pcount, x = block0_inputs(pw, rng, dims, pad_n, pad_l, device)
@@ -1397,11 +1459,26 @@ def backward_kernel_checks(params, device):
         second = bw.fused_axial_block_bwd(x, x1, stats, g3, layer, smask, pmask, H)
         same_bits &= torch.equal(first[0], second[0]) and all(
             torch.equal(a, b) for a, b in zip(layer_leaves(first[1]), layer_leaves(second[1])))
+        del got, want, first, second
+        # one TF32 pass, on the one-pass forward's residuals
+        _, x1o, stato = fused.fused_axial_block_res(x, layer, smask, pmask, 1e-5, "default")
+        run = lambda f: f(x1o, g3, stato, pmask, pcount, w.c, 1e-5, 1)
+        want = run(bw.kernel_c_plain)
+        hold_one_pass(one["kernel_c"], "kernel_c", run(bw.kernel_c), want, run(bw.kernel_c))
+        g2o, a1o = want[0], want[1]
+        run = lambda f: f(x1o, g2o, stato, a1o, pmask, pcount, w.d, 1e-5, 1)
+        want = run(bw.kernel_d_plain)
+        hold_one_pass(one["kernel_d"], "kernel_d", run(bw.kernel_d), want, run(bw.kernel_d))
+        g1o = want[0]
+        run = lambda f: f(x, g1o, smask, w.e, 1e-5, 1)
+        want = run(bw.kernel_e_plain)
+        hold_one_pass(one["kernel_e"], "kernel_e", run(bw.kernel_e), want, run(bw.kernel_e))
+        del want
         torch.cuda.synchronize()
         if case == "train":
             shapes = dict(x=x, x1=x1, stats=stats, g3=g3, g2=g2, a1=a1, g1=g1, smask=smask,
-                          pmask=pmask, pcount=pcount, b=len(dims), p=x.shape[1], l=pad_l)
-        del got, want, first, second
+                          pmask=pmask, pcount=pcount, b=len(dims), p=x.shape[1], l=pad_l,
+                          x1o=x1o, stato=stato, g2o=g2o, a1o=a1o, g1o=g1o)
     torch.cuda.empty_cache()
 
     t = shapes
@@ -1411,38 +1488,38 @@ def backward_kernel_checks(params, device):
     nw = {k: 4 * bw.grad_size(k, D, H) for k in ("kernel_c", "kernel_d", "kernel_e")}
     wb = 4 * bw.group_size(bw.C_PARTS, D, H), 4 * bw.group_size(bw.ATT_PARTS, D, H)
 
-    def c(plain):
+    def c(plain, n=3):
         f = bw.kernel_c_plain if plain else bw.kernel_c
-        return lambda: f(t["x1"], t["g3"], t["stats"], t["pmask"], t["pcount"], w.c, 1e-5)
+        x1, st = (t["x1"], t["stats"]) if n == 3 else (t["x1o"], t["stato"])
+        return lambda: f(x1, t["g3"], st, t["pmask"], t["pcount"], w.c, 1e-5, n)
 
-    def dk(plain):
+    def dk(plain, n=3):
         f = bw.kernel_d_plain if plain else bw.kernel_d
-        return lambda: f(t["x1"], t["g2"], t["stats"], t["a1"], t["pmask"], t["pcount"], w.d,
-                         1e-5)
+        x1, g2, st, a1 = ((t["x1"], t["g2"], t["stats"], t["a1"]) if n == 3
+                          else (t["x1o"], t["g2o"], t["stato"], t["a1o"]))
+        return lambda: f(x1, g2, st, a1, t["pmask"], t["pcount"], w.d, 1e-5, n)
 
-    def e(plain):
+    def e(plain, n=3):
         f = bw.kernel_e_plain if plain else bw.kernel_e
-        return lambda: f(t["x"], t["g1"], t["smask"], w.e, 1e-5)
+        g1 = t["g1"] if n == 3 else t["g1o"]
+        return lambda: f(t["x"], g1, t["smask"], w.e, 1e-5, n)
 
     # split TF32 on the tensor cores: the bound at three passes, the fp32
-    # SIMT bound beside it
-    timed = {
-        "kernel_c": (c(False), c(True),
-                     bound_tc(FLOPS_C * sites, 3 * act + stats_b + a1_b + wb[0] + nw["kernel_c"])),
-        "kernel_d": (dk(False), dk(True),
-                     bound_tc(FLOPS_D * sites, 3 * act + stats_b + a1_b + wb[1] + nw["kernel_d"])),
-        "kernel_e": (e(False), e(True),
-                     bound_tc(FLOPS_E * sites, 3 * act + 4 * t["b"] * t["l"] + wb[1]
-                              + nw["kernel_e"])),
-    }
-    for name, (kern, plain, bnd) in timed.items():
+    # SIMT bound beside it; at one pass the FLOPs once
+    nbytes = {"kernel_c": 3 * act + stats_b + a1_b + wb[0] + nw["kernel_c"],
+              "kernel_d": 3 * act + stats_b + a1_b + wb[1] + nw["kernel_d"],
+              "kernel_e": 3 * act + 4 * t["b"] * t["l"] + wb[1] + nw["kernel_e"]}
+    flops = {"kernel_c": FLOPS_C, "kernel_d": FLOPS_D, "kernel_e": FLOPS_E}
+    timed = {"kernel_c": c, "kernel_d": dk, "kernel_e": e}
+    for name, fn in timed.items():
         r = results[name]
-        r["ms"] = time_ms(kern)
-        r["plain_ms"] = time_ms(plain)
-        r["bound_ms"], r["bound_by"] = bnd[:2]
-        if len(bnd) == 3:
-            r["bound_fp32_simt_ms"] = bnd[2]
+        r["ms"] = time_ms(fn(False))
+        r["plain_ms"] = time_ms(fn(True))
+        r["bound_ms"], r["bound_by"], r["bound_fp32_simt_ms"] = bound_tc(
+            flops[name] * sites, nbytes[name])
         r["library_ms"] = None  # no single PyTorch call computes these functions
+        r["one_pass"] = one_pass_row(one[name], time_ms(fn(False, 1)), bound(
+            flops[name] * sites, nbytes[name], PEAK_TF32_FLOPS))
         torch.cuda.empty_cache()
     results["kernel_d"]["same_bits"] = d_bits
     return results, same_bits
@@ -1460,7 +1537,12 @@ def long_backward_kernel_checks(params, device):
     same bits from two runs of E1, of E2 and of the whole block backward.
     Times at the training bucket, C's and D's there too; E1's as device time
     (``time_launches``: one launch takes well under a millisecond, which a
-    single launch's events would share with the host's dispatch)."""
+    single launch's events would share with the host's dispatch).  Then, on
+    the one-pass forward's residuals at the training bucket and the ragged
+    batch, C, D and E2 at one TF32 pass against their one-pass plain
+    versions (every output and weight gradient, twice for the same bits),
+    timed beside their one-pass bounds, and E1 at one pass against its own
+    three-pass bits (it sums in exact fp32 at both)."""
     import torch
 
     from phyloformer_tpu_torch.ops.kernels import axial_block_bwd as bw
@@ -1478,7 +1560,8 @@ def long_backward_kernel_checks(params, device):
              "l1024": ([(50, 1024), (47, 1000)], 50, 1024)}
     results = {"kernel_e1": {"errs": [], "factored_errs": [], "same_bits": True},
                "kernel_e2": {"errs": [], "grad_errs": [], "same_bits": True}}
-    out = {"same_bits": True}
+    out = {"same_bits": True, "e1_one_pass_bits": True}
+    one = {k: {"errs": [], "p999": []} for k in ("kernel_c", "kernel_d", "kernel_e2")}
 
     def grad_errs(got, want):
         g = bw.unpack_grads("kernel_e", got, D, H, {})
@@ -1533,6 +1616,47 @@ def long_backward_kernel_checks(params, device):
                                                   and torch.equal(got[1], again[1]))
             del again
         del got, want
+        if case != "l1024":
+            # one TF32 pass, on the one-pass forward's residuals
+            _, x1o, stato = fused.fused_axial_block_res(x, layer, smask, pmask, 1e-5, "default")
+            run = lambda f: f(x1o, g3, stato, pmask, pcount, w.c, 1e-5, 1)
+            want = run(bw.kernel_c_plain)
+            hold_one_pass(one["kernel_c"], "kernel_c", run(bw.kernel_c), want, run(bw.kernel_c))
+            g2o, a1o = want[0], want[1]
+            del want
+            run = lambda f: f(x1o, g2o, stato, a1o, pmask, pcount, w.d, 1e-5, 1)
+            want = run(bw.kernel_d_plain)
+            hold_one_pass(one["kernel_d"], "kernel_d", run(bw.kernel_d), want, run(bw.kernel_d))
+            g1o = want[0]
+            del want
+            e1 = bw.kernel_e1(x, g1o, smask, w.e, 1e-5, 1)
+            out["e1_one_pass_bits"] &= bool(torch.equal(e1, bw.kernel_e1(x, g1o, smask, w.e,
+                                                                          1e-5, 3)))
+            rso = bw.kernel_e1_plain(x, g1o, smask, w.e, 1e-5, 1)
+            run = lambda f: f(x, g1o, rso, smask, w.e, 1e-5, 1)
+            want = run(bw.kernel_e2_plain)
+            hold_one_pass(one["kernel_e2"], "kernel_e", run(bw.kernel_e2), want,
+                          run(bw.kernel_e2))
+            del want, e1
+            if case == "train":
+                s = len(dims) * x.shape[1] * pad_l
+                act = 4 * D * s
+                wc, wa = (4 * bw.group_size(g, D, H) for g in (bw.C_PARTS, bw.ATT_PARTS))
+                for name, fn, flops, nbytes in (
+                        ("kernel_c", lambda: bw.kernel_c(x1o, g3, stato, pmask, pcount, w.c,
+                                                         1e-5, 1),
+                         FLOPS_C, 3 * act + 4 * len(dims) * pad_l * 4 * D + wc
+                         + 4 * bw.grad_size("kernel_c", D, H)),
+                        ("kernel_d", lambda: bw.kernel_d(x1o, g2o, stato, a1o, pmask, pcount,
+                                                         w.d, 1e-5, 1),
+                         FLOPS_D, 3 * act + 4 * len(dims) * pad_l * 4 * D + wa
+                         + 4 * bw.grad_size("kernel_d", D, H)),
+                        ("kernel_e2", lambda: bw.kernel_e2(x, g1o, rso, smask, w.e, 1e-5, 1),
+                         FLOPS_E, 3 * act + 4 * len(dims) * x.shape[1] * 4 * D
+                         + 4 * len(dims) * pad_l + wa + 4 * bw.grad_size("kernel_e", D, H))):
+                    one[name]["time"] = (time_ms(fn), bound(flops * s, nbytes,
+                                                            PEAK_TF32_FLOPS))
+            del x1o, stato, g2o, a1o, g1o, rso
         if case == "train":
             s = len(dims) * x.shape[1] * pad_l
             out["kernel_c_long_ms"] = time_ms(
@@ -1583,6 +1707,7 @@ def long_backward_kernel_checks(params, device):
     r["one_launch_ms"] = time_ms(timed["kernel_e1"][0])
     r["max_rel_err_factored"] = max(e[1] for e in r["factored_errs"])
     r["bound_share"] = r["bound_ms"] / r["ms"]
+    out["one_pass"] = {k: one_pass_row(o, *o["time"]) for k, o in one.items()}
     return results, out
 
 
@@ -1657,10 +1782,12 @@ def training_path(device):
               # random sequences against random trees: the MRE is far above the
               # default divergence ceiling of 3, which would stop the run
               "--hard-loss-ceiling", "1e6",
-              "--device", "cuda", "-o", out, "-n", "smoke", "--num-workers", "4"]
+              # one loading thread: the batches come in the same order in every
+              # run, so that the default run sees the fp32 run's batches
+              "--device", "cuda", "-o", out, "--num-workers", "1"]
     runs = []
-    for extra in (["--max-steps", "8"],
-                  ["--max-steps", "12", "--load-checkpoint",
+    for extra in (["-n", "smoke", "--max-steps", "8"],
+                  ["-n", "smoke", "--max-steps", "12", "--load-checkpoint",
                    os.path.join(out, "checkpoints_smoke")]):
         pipe.reset_launch_counts()
         buf = io.StringIO()
@@ -1689,8 +1816,41 @@ def training_path(device):
     ckpts = sorted(f for f in os.listdir(os.path.join(out, "checkpoints_smoke")))
     return dict(runs=runs, summaries=summaries, train_steps=[r["step"] for r in train_recs],
                 losses=[r["train_loss"] for r in train_recs], val_steps=val_steps,
-                log_step_ms=step_ms, ckpts=ckpts,
+                log_step_ms=step_ms, ckpts=ckpts, args=common, out=out,
                 corpus=os.path.join(root, "corpus"))
+
+
+def training_path_default(tp):
+    """``pf-train-torch --matmul-precision default`` for the 8 steps of
+    :func:`training_path`'s first run, on its corpus with its seed and
+    arguments: the launch counts, each step's loss beside the fp32 run's,
+    and the ms between logged steps."""
+    import torch
+
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+    from phyloformer_tpu_torch.train import cli
+
+    pipe.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(tp["args"] + ["-n", "smoke_default", "--max-steps", "8",
+                                    "--matmul-precision", "default"])
+    torch.cuda.synchronize()
+    launches, wall_s = dict(pipe.LAUNCHES), time.perf_counter() - t0
+    if rc != 0:
+        fail(f"pf-train-torch --matmul-precision default exited {rc}")
+    records = [json.loads(line) for line in
+               open(os.path.join(tp["out"], "smoke_default_metrics.jsonl")).read().splitlines()]
+    train_recs = [r for r in records if "train_loss" in r]
+    evals = sum(1 for r in records if "val_loss" in r)
+    times = [r["time"] for r in train_recs]
+    losses = [r["train_loss"] for r in train_recs]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, tp["losses"][:8])]
+    return dict(launches=launches, expected=expected_train_launches(8, evals, 6), evals=evals,
+                summary=json.loads(buf.getvalue().strip().splitlines()[-1]), wall_s=wall_s,
+                steps=[r["step"] for r in train_recs], losses=losses, loss_rel=rel,
+                log_step_ms=[1e3 * (b - a) for a, b in zip(times, times[1:])])
 
 
 def long_training_path(device, n_timed=5, n_steps=2):
@@ -1698,22 +1858,18 @@ def long_training_path(device, n_timed=5, n_steps=2):
     (50, 1536) bucket (42-50 tips, 1290-1536 sites, 2% gaps), packed with
     pf-preprocess-torch, then ``pf-train-torch --packed-data --base-model
     pf_mre_r5.ckpt --batch-size 2`` for 4 steps with one validation (a batch
-    of the two held-out examples) at the end.  Then the step's time through
-    ``make_train_step`` on the packed batches of 2 x 50 x 1536 (the median
-    of ``n_timed`` steps after a warm-up, each ended by reading the loss)
-    with the peak device memory of those steps, ``n_steps`` more under
-    ``torch.profiler`` (:func:`profile_steps`), and ``--profile`` (10 traced
+    of the two held-out examples) at the end.  Then the step on the packed
+    batches of 2 x 50 x 1536 at each of ``PRECISIONS`` (:func:`timed_steps`:
+    ``n_timed`` timed after a warm-up, with their peak device memory,
+    ``n_steps`` more under ``torch.profiler``), and ``--profile`` (10 traced
     steps).  Also writes the one-example corpus (20 tips, 1100 sites) of the
     long one-step check."""
     import torch
 
-    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
     from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
     from phyloformer_tpu_torch.train import cli, cli_preprocess
     from phyloformer_tpu_torch.train.data import LoaderConfig
     from phyloformer_tpu_torch.train.packed import PackedBucketedLoader, PackedDataset, split
-    from phyloformer_tpu_torch.train.trainer import (
-        TrainConfig, create_train_state, make_train_step)
 
     root = os.path.join(WORK, "train_long")
     shutil.rmtree(root, ignore_errors=True)
@@ -1748,30 +1904,15 @@ def long_training_path(device, n_timed=5, n_steps=2):
     records = [json.loads(line) for line in
                open(os.path.join(out, "long_metrics.jsonl")).read().splitlines()]
 
-    # the step's time and peak memory at 2 x 50 x 1536
-    params, cfg, _ = load_pretrained(CKPT)
-    tcfg = TrainConfig(loss="mre", learning_rate=1e-4, warmup_steps=2, total_steps=100,
-                       use_pallas=True)
-    state, tx = create_train_state(cfg, tcfg, params=params, device=device)
-    step = make_train_step(cfg, tcfg, tx)
+    # the step's time and peak memory at 2 x 50 x 1536, at fp32 and at one pass
     train_ds, _ = split(PackedDataset(packed), 0.1, 1337)
     loader = PackedBucketedLoader(train_ds, LoaderConfig(batch_size=2, shuffle=False))
     batches = [b for _, b in zip(range(1 + n_timed + n_steps), loader)]
     if len(batches) != 1 + n_timed + n_steps or any(
             b["codes"].shape != (2, 50, 1536) for b in batches):
         fail("long training: the packed corpus does not give batches of 2 x 50 x 1536")
-    state, logs = step(state, batches[0])
-    float(logs["train_loss"])
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = []
-    for b in batches[1:1 + n_timed]:
-        t0 = time.perf_counter()
-        state, logs = step(state, b)
-        float(logs["train_loss"])
-        step_ms.append(1e3 * (time.perf_counter() - t0))
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    breakdown = profile_steps(step, state, batches[1 + n_timed:])
-    del state, tx, step, batches
+    timed = {prec: timed_steps(device, batches, n_timed, prec) for prec in PRECISIONS}
+    del batches
     torch.cuda.empty_cache()
 
     buf = io.StringIO()
@@ -1788,18 +1929,20 @@ def long_training_path(device, n_timed=5, n_steps=2):
                 summary=summary, wall_s=wall_s, preprocess_s=preprocess_s,
                 losses=[r["train_loss"] for r in records if "train_loss" in r],
                 val_steps=[r["step"] for r in records if "val_loss" in r],
-                step_ms=statistics.median(step_ms), steps_ms=step_ms, peak_gb=peak_gb,
-                breakdown=breakdown, profile=prof, traces=traces, profile_s=profile_s,
+                timed=timed, profile=prof, traces=traces, profile_s=profile_s,
                 step_corpus=os.path.join(root, "step"))
 
 
-def one_step_check(device, corpus, pad_n, pad_l):
+def one_step_check(device, corpus, pad_n, pad_l, precision="float32"):
     """One training batch (the first example of the corpus in its
-    ``(pad_n, pad_l)`` bucket) through the kernels (forward_fused_ad) and
-    through plain eager autograd, TF32 off: the loss and every gradient
-    leaf.  Batch 1: eager autograd keeps ~25 activation-sized tensors and
-    three 4d-wide ones per block, about 18 GB at 1 x 50 x 256 and ~70 GB at
-    batch 4."""
+    ``(pad_n, pad_l)`` bucket) through the kernels (forward_fused_ad, at the
+    config's ``precision``: "default" runs their products in one TF32 pass)
+    and through plain eager autograd in fp32, TF32 off: the loss and every
+    gradient leaf.  Batch 1: eager autograd keeps ~25 activation-sized
+    tensors and three 4d-wide ones per block, about 18 GB at 1 x 50 x 256
+    and ~70 GB at batch 4."""
+    import dataclasses
+
     import torch
 
     from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
@@ -1818,7 +1961,9 @@ def one_step_check(device, corpus, pad_n, pad_l):
     for fused_path in (True, False):
         p = map_params(lambda t: t.to(device).requires_grad_(True), params)
         pipe.reset_launch_counts()
-        loss, _ = _batch_loss(p, batch, cfg, TrainConfig(use_pallas=fused_path), get_loss("mre"))
+        run_cfg = dataclasses.replace(cfg, matmul_precision=precision) if fused_path else cfg
+        loss, _ = _batch_loss(p, batch, run_cfg, TrainConfig(use_pallas=fused_path),
+                              get_loss("mre"))
         grads = torch.autograd.grad(loss, param_leaves(p))
         torch.cuda.synchronize()
         out[fused_path] = (loss.item(), [g.detach() for g in grads], dict(pipe.LAUNCHES))
@@ -1830,26 +1975,15 @@ def one_step_check(device, corpus, pad_n, pad_l):
                 launches=nk, n_leaves=len(gk))
 
 
+# The trainer's matmul precisions timed: fp32 products, and one TF32 pass.
+PRECISIONS = ("float32", "default")
+
+
 def profile_training(device, corpus, n_timed=5, n_steps=3):
-    """The training step's time and where it goes, at batch 4 x 50 x 256
-    through ``make_train_step`` (the step ``fit`` runs) on the corpus's
-    batches: after one warm-up, the median host-clock time of ``n_timed``
-    steps, each ended by reading the loss; then ``n_steps`` steps under
-    ``torch.profiler``: the device time per kernel name and step, the
-    device's busy share of the wall time (one stream, so the kernels' time
-    sum is the busy time), and the peak device memory of a step."""
-    import torch
-
-    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    """The training step's time and where it goes, at batch 4 x 50 x 256 on
+    the corpus's batches, at each of ``PRECISIONS`` (:func:`timed_steps`)."""
     from phyloformer_tpu_torch.train.data import BucketedLoader, LoaderConfig, make_pairs
-    from phyloformer_tpu_torch.train.trainer import (
-        TrainConfig, create_train_state, make_train_step)
 
-    params, cfg, _ = load_pretrained(CKPT)
-    tcfg = TrainConfig(loss="mre", learning_rate=1e-4, warmup_steps=2, total_steps=100,
-                       use_pallas=True)
-    state, tx = create_train_state(cfg, tcfg, params=params, device=device)
-    step = make_train_step(cfg, tcfg, tx)
     loader = BucketedLoader(make_pairs(os.path.join(corpus, "trees"),
                                        os.path.join(corpus, "alns")),
                             LoaderConfig(batch_size=4, num_workers=1, shuffle=False))
@@ -1857,18 +1991,44 @@ def profile_training(device, corpus, n_timed=5, n_steps=3):
     if len(batches) != 1 + n_timed + n_steps or any(
             b["codes"].shape != (4, 50, 256) for b in batches):
         fail("profile: the corpus does not give enough batches of 4 x 50 x 256")
+    return {prec: timed_steps(device, batches, n_timed, prec) for prec in PRECISIONS}
+
+
+def timed_steps(device, batches, n_timed, precision):
+    """Train steps through ``make_train_step`` (the step ``fit`` runs) from
+    pf_mre_r5 at ``precision`` on ``batches``: after one warm-up, the median
+    host-clock time of ``n_timed`` steps, each ended by reading the loss,
+    and their peak device memory; then the rest under ``torch.profiler``
+    (:func:`profile_steps`: the device time per kernel name and step, the
+    device's busy share of the wall time)."""
+    import dataclasses
+
+    import torch
+
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    from phyloformer_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state, make_train_step)
+
+    params, cfg, _ = load_pretrained(CKPT)
+    cfg = dataclasses.replace(cfg, matmul_precision=precision)
+    tcfg = TrainConfig(loss="mre", learning_rate=1e-4, warmup_steps=2, total_steps=100,
+                       use_pallas=True)
+    state, tx = create_train_state(cfg, tcfg, params=params, device=device)
+    step = make_train_step(cfg, tcfg, tx)
     state, logs = step(state, batches[0])
     float(logs["train_loss"])
+    torch.cuda.reset_peak_memory_stats()
     step_ms = []
     for b in batches[1:1 + n_timed]:
         t0 = time.perf_counter()
         state, logs = step(state, b)
         float(logs["train_loss"])
         step_ms.append(1e3 * (time.perf_counter() - t0))
-    torch.cuda.reset_peak_memory_stats()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prof = profile_steps(step, state, batches[1 + n_timed:])
-    return dict(step_ms=statistics.median(step_ms), steps_ms=step_ms,
-                peak_gb=torch.cuda.max_memory_allocated() / 1e9, **prof)
+    del state, tx, step
+    torch.cuda.empty_cache()
+    return dict(step_ms=statistics.median(step_ms), steps_ms=step_ms, peak_gb=peak_gb, **prof)
 
 
 def profile_steps(step, state, batches):
@@ -1896,6 +2056,193 @@ def profile_steps(step, state, batches):
     return dict(wall_ms=wall_ms, device_ms=sum(by_name.values()),
                 top=sorted(by_name.items(), key=lambda kv: -kv[1])[:14],
                 e1_fin_ms=sum(ms for k, ms in by_name.items() if "kernel_e1_fin" in k))
+
+
+def backward_phases(dev_params, device, card):
+    """The fused backward's kernels against their plain versions, at three
+    TF32 passes and at one: C, D and E at the training shape and ragged,
+    then E1 and E2 above 1024 sites (C and D there too, E1 + E2 against E at
+    1024 sites).  Prints each, fails on any bar, and returns the kernels'
+    rows (with ``one_pass``, and for C, D and E2 ``one_pass_long``)."""
+    import torch
+
+    bwd, same_bits = backward_kernel_checks(dev_params, device)
+    bad = [n for n, r in bwd.items() if not summarize(n, r, KERNEL_TOL, "", card)]
+    bad += [n + " (one pass)" for n, r in bwd.items()
+            if not report_one_pass(n, r["one_pass"], " at 4 x 1225 x 256", card)]
+    print(f"backward: two runs give the same bits: {same_bits} (the block), "
+          f"{bwd['kernel_d']['same_bits']} (kernel D)")
+    if bad or not same_bits or not bwd["kernel_d"]["same_bits"]:
+        fail(f"backward kernels disagree with their plain versions or between runs: {bad}")
+    torch.cuda.empty_cache()
+
+    # the L-tiled row backward (above 1024 sites) against its plain versions
+    # and against kernel E
+    bwd_long, e12 = long_backward_kernel_checks(dev_params, device)
+    bad = [n for n, r in bwd_long.items()
+           if not summarize(n, r, E12_TOL, " at 2 x 1225 x 1536", card)]
+    bad += [n + " (one pass)" for n, r in e12["one_pass"].items()
+            if not report_one_pass(n, r, " at 2 x 1225 x 1536 (and ragged 2 x 1225 x 1280)",
+                                   card)]
+    e1 = bwd_long["kernel_e1"]
+    print(f"kernel_e1: {100 * e1['bound_share']:.1f}% of its {e1['bound_by']} bound "
+          f"({e1['bound_ms']:.3f} of {e1['ms']:.3f} ms a launch, 10 queued; "
+          f"{e1['one_launch_ms']:.3f} ms one launch alone, the host's dispatch included); "
+          f"against its factored twin in float64 {e1['max_rel_err_factored']:.3e} "
+          f"(tol {E12_TOL:.0e}); two runs give the same bits: {e1['same_bits']}; at one pass "
+          f"its three-pass bits (exact fp32 at both): {e12['e1_one_pass_bits']} [{card}]")
+    print(f"E1 + E2 vs kernel E at 1024 sites: gx {e12['e12_vs_e']:.3e} (same bits: "
+          f"{e12['e12_vs_e_bits']}), weight gradients {e12['e12_vs_e_grads']:.3e}; vs the plain "
+          f"versions {e12['e12_vs_e_plain']:.3e}; two runs give the same bits: "
+          f"{bwd_long['kernel_e2']['same_bits']} (kernel E2), {e12['same_bits']} (the long "
+          f"block backward)")
+    for name, key, where in (("kernel_c", "kernel_c_long", "2 x 1225 x 1536"),
+                             ("kernel_d", "kernel_d_long", "2 x 1225 x 1536"),
+                             ("kernel_e", "kernel_e_l1024", "2 x 1225 x 1024")):
+        for k in ("ms", "bound_ms", "bound_fp32_simt_ms"):
+            bwd[name][f"{key[len(name) + 1:]}_{k}"] = e12[f"{key}_{k}"]
+        print(f"{name} at {where}: {e12[key + '_ms']:.3f} ms, bound "
+              f"{e12[key + '_bound_ms']:.3f} ms (split TF32; fp32 SIMT "
+              f"{e12[key + '_bound_fp32_simt_ms']:.3f} ms) [{card}]")
+    if (bad or not e12["same_bits"] or not bwd_long["kernel_e2"]["same_bits"]
+            or not e1["same_bits"] or not e1["max_rel_err_factored"] <= E12_TOL
+            or not e12["e12_vs_e"] <= E12_TOL or not e12["e1_one_pass_bits"]
+            or not e12["e12_vs_e_grads"] <= GRAD_TOL or not e12["e12_vs_e_plain"] <= GRAD_TOL):
+        fail(f"E1/E2 disagree with their plain versions, with kernel E or between runs: {bad}")
+    for name in ("kernel_c", "kernel_d"):
+        bwd[name]["one_pass_long"] = e12["one_pass"][name]
+    bwd_long["kernel_e2"]["one_pass"] = e12["one_pass"]["kernel_e2"]
+    bwd_long["kernel_e1"]["one_pass_bits"] = e12["e1_one_pass_bits"]
+    bwd.update(bwd_long)
+    torch.cuda.empty_cache()
+    return bwd
+
+
+def check_one_step(device, corpus, pad_n, pad_l, precision, where, long=False):
+    """:func:`one_step_check` printed and held to its bars: at fp32 loss
+    ``STEP_LOSS_TOL`` and leaves ``STEP_GRAD_TOL``, at one pass both
+    ``STEP_ONE_PASS_TOL``; above 1024 sites also the launches of A1, A2, B,
+    C, D, E1 and E2."""
+    st = one_step_check(device, corpus, pad_n, pad_l, precision)
+    lt, gt = ((STEP_LOSS_TOL, STEP_GRAD_TOL) if precision == "float32"
+              else (STEP_ONE_PASS_TOL, STEP_ONE_PASS_TOL))
+    print(f"one step at {precision}, kernels vs plain fp32 autograd ({where}, "
+          f"{st['n_leaves']} leaves): loss {st['loss']:.6f} rel err {st['loss_rel']:.3e} "
+          f"(tol {lt:.0e}), gradients {st['grad_err']:.3e} (tol {gt:.0e}), launches "
+          f"{st['launches']}")
+    if not (st["loss_rel"] <= lt and st["grad_err"] <= gt):
+        fail(f"one step ({where}, {precision}): the kernel path's loss or gradients disagree "
+             f"with plain autograd")
+    if long and st["launches"] != expected_train_launches(1, 0, 6, True):
+        fail("long one step: the kernel path did not run A1, A2, B, C, D, E1 and E2 per block")
+    return st
+
+
+def report_timed(label, shape, batch, timed, card):
+    """Print the step times, rates, peak memory and profile of
+    :func:`timed_steps` at each precision."""
+    for prec, r in timed.items():
+        print(f"{label} at {prec}: {r['step_ms']:.3f} ms per optimizer step (median after the "
+              f"first; steps {[round(v, 3) for v in r['steps_ms']]}), "
+              f"{1e3 * batch / r['step_ms']:.3f} examples/s at batch {shape}, peak device "
+              f"memory {r['peak_gb']:.2f} GB [{card}]")
+        print(f"{label} profile at {prec}: {r['wall_ms']:.3f} ms per step under the profiler, "
+              f"device busy {r['device_ms']:.3f} ms "
+              f"({100 * r['device_ms'] / r['wall_ms']:.1f}%) [{card}]")
+        for name, ms in r["top"]:
+            print(f"  {label} profile at {prec}: {ms:9.3f} ms/step  {name[:110]}")
+        if r["e1_fin_ms"] > 0:
+            print(f"  {label} profile at {prec}: {r['e1_fin_ms']:9.3f} ms/step  kernel_e1_fin "
+                  f"(E1's finalize)")
+        if r["device_ms"] <= 0:
+            fail(f"{label} profile: the trace holds no device time")
+
+
+def training_phases(device, card):
+    """Training: pf-train-torch through the CLI and a resume, the same 8
+    steps at ``--matmul-precision default``, one step against plain autograd
+    at both precisions, the step's time and profile at both, then the long
+    alignments' path (packed corpus, CLI, time and profile at both
+    precisions, --profile) and its one-step checks.  Prints each, fails on
+    any bar, and returns every run's launches and the numbers for the
+    kernels line."""
+    tp = training_path(device)
+    for k, run in enumerate(tp["runs"]):
+        print(f"training run {k + 1}: launches {run['launches']}, expected {run['expected']} "
+              f"({run['evals']} eval batches), {run['wall_s']:.1f} s")
+    print(f"training: steps {tp['train_steps']}, losses {tp['losses']}, "
+          f"validations at {tp['val_steps']}, checkpoints {tp['ckpts']}")
+    print("training: ms between logged steps 2-8 of the CLI run (validation and checkpoint "
+          f"in 5 and 9): {[round(v, 3) for v in tp['log_step_ms']]}")
+    if any(run["launches"] != run["expected"] for run in tp["runs"]):
+        fail("training: launch counts differ from 6 A + 6 B + 6 C + 6 D + 6 E per step "
+             "and 6 A + 6 B per eval batch")
+    if ([s["steps"] for s in tp["summaries"]] != [8, 12]
+            or "resumed from step 8" not in tp["runs"][1]["stdout"]
+            or tp["train_steps"] != list(range(1, 13)) or tp["val_steps"] != [4, 8, 8, 12, 12]
+            or tp["ckpts"] != ["ckpt_12.pt", "ckpt_4.pt", "ckpt_8.pt"]
+            or not all(math.isfinite(v) for v in tp["losses"])
+            or not all(s["use_pallas"] for s in tp["summaries"])):
+        fail("training: steps, resume, validations, checkpoints or losses are not as expected")
+
+    td = training_path_default(tp)
+    print(f"training at default: launches {td['launches']}, expected {td['expected']} "
+          f"({td['evals']} eval batches), {td['wall_s']:.1f} s; steps {td['steps']}, losses "
+          f"{td['losses']}, relative to the fp32 run's {[f'{v:.2e}' for v in td['loss_rel']]} "
+          f"(tol {TRAIN_ONE_PASS_LOSS_TOL:.0e})")
+    print(f"training: ms between logged steps 2-8, fp32 "
+          f"{[round(v, 3) for v in tp['log_step_ms']]}, default "
+          f"{[round(v, 3) for v in td['log_step_ms']]} [{card}]")
+    if td["launches"] != td["expected"]:
+        fail("training at default: launch counts differ from 6 A + 6 B + 6 C + 6 D + 6 E per "
+             "step and 6 A + 6 B per eval batch")
+    if (td["steps"] != list(range(1, 9)) or td["summary"]["steps"] != 8
+            or not td["summary"]["use_pallas"] or len(td["loss_rel"]) != 8
+            or not all(v <= TRAIN_ONE_PASS_LOSS_TOL for v in td["loss_rel"])):
+        fail("training at default: steps or losses off the fp32 run's")
+
+    st = {prec: check_one_step(device, tp["corpus"], 50, 256, prec, "1 x 50 x 256")
+          for prec in PRECISIONS}
+    prof = profile_training(device, tp["corpus"])
+    report_timed("training", "4 x 50 x 256", 4, prof, card)
+
+    # training on long alignments from a packed corpus
+    lt = long_training_path(device)
+    print(f"long training: pf-preprocess-torch {lt['preprocess_s']:.1f} s; pf-train-torch "
+          f"--packed-data launches {lt['launches']}, expected {lt['expected']}, "
+          f"{lt['wall_s']:.1f} s")
+    print(f"long training: summary {json.dumps(lt['summary'])}, losses {lt['losses']}, "
+          f"validations at {lt['val_steps']}")
+    report_timed("long training", "2 x 50 x 1536", 2, lt["timed"], card)
+    print(f"long training: --profile {json.dumps(lt['profile'])} in {lt['profile_s']:.1f} s, "
+          f"traces {lt['traces']}")
+    if lt["launches"] != lt["expected"]:
+        fail("long training: launch counts differ from 6 A1 + 6 A2 + 6 B + 6 C + 6 D + 6 E1 "
+             "+ 6 E2 per step and 6 A1 + 6 A2 + 6 B per eval batch")
+    if (lt["summary"]["steps"] != 4 or not lt["summary"]["use_pallas"]
+            or lt["val_steps"] != [4] or len(lt["losses"]) != 4
+            or not all(math.isfinite(v) for v in lt["losses"])):
+        fail("long training: steps, validation or losses are not as expected")
+    if lt["profile"]["steps"] != 10 or len(lt["traces"]) != 1:
+        fail("long training: --profile did not trace 10 steps into one trace file")
+    st_long = {prec: check_one_step(device, lt["step_corpus"], 20, 1280, prec,
+                                    "1 x 20 x 1100 in the (20, 1280) bucket", long=True)
+               for prec in PRECISIONS}
+
+    numbers = {"loss_rel_default_vs_fp32": td["loss_rel"],
+               "one_step": {f"{prec} {where}": {k: r[k] for k in ("loss_rel", "grad_err")}
+                            for where, d in (("1 x 50 x 256", st), ("1 x 20 x 1100", st_long))
+                            for prec, r in d.items()}}
+    for prec in PRECISIONS:
+        for key, batch, timed in (("", 4, prof), ("long_", 2, lt["timed"])):
+            r = timed[prec]
+            numbers[f"{key}ms_per_step_{prec}"] = r["step_ms"]
+            numbers[f"{key}examples_per_s_{prec}"] = 1e3 * batch / r["step_ms"]
+            numbers[f"{key}peak_gb_{prec}"] = r["peak_gb"]
+            numbers[f"{key}device_busy_{prec}"] = r["device_ms"] / r["wall_ms"]
+    return dict(runs=[run["launches"] for run in tp["runs"]] + [td["launches"],
+                                                                lt["launches"]],
+                numbers=numbers)
 
 
 SOURCE = "phyloformer_tpu_torch/ops/kernels/csrc/"
@@ -1927,7 +2274,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reduced", action="store_true",
                     help="only build the kernels and run the reduced-precision phases: the "
                          "forward kernels' variants against their plain versions, the fast "
-                         "path, 60 x 1500 at one pass and the accuracy grid")
+                         "path, 60 x 1500 at one pass, the accuracy grid, the backward "
+                         "kernels at one pass (and three) and training at default (and fp32)")
     opts = ap.parse_args(argv)
     reductions_only = opts.reductions
     sys.path.insert(0, ROOT)
@@ -1979,6 +2327,11 @@ def main(argv=None) -> int:
         print(json.dumps({"reduced": fp, "card": card}))
         if bad:
             fail(f"variants off their bars: {bad}")
+        bwd = backward_phases(map_params(lambda t: t.to(device), params), device, card)
+        tr = training_phases(device, card)
+        print(json.dumps({"one_pass": {k: r["one_pass"] for k, r in bwd.items()
+                                       if "one_pass" in r},
+                          "training": tr["numbers"], "card": card}))
         return 0
 
     # the two slot reductions at every shape the paths give them
@@ -2005,8 +2358,8 @@ def main(argv=None) -> int:
         print("sass: no cuobjdump in this toolkit")
     for fn, n in (sass or {}).items():
         print(f"sass: {fn}: {n['HMMA']} HMMA (tensor-core mma), {n['FFMA']} FFMA")
-    no_tc = [k for k in ("kernel_c", "kernel_d", "kernel_e", "kernel_e2")
-             if not (sass or {}).get(k, {}).get("HMMA")]
+    no_tc = [f"{k}<{n}>" for k in ("kernel_c", "kernel_d", "kernel_e", "kernel_e2")
+             for n in (3, 1) if not (sass or {}).get(f"{k}<Li{n}E>", {}).get("HMMA")]
     if no_tc:
         fail(f"no tensor-core (HMMA) instruction found in {no_tc}")
 
@@ -2083,127 +2436,10 @@ def main(argv=None) -> int:
     del weights
     torch.cuda.empty_cache()
 
-    # the fused backward's kernels against their plain versions
-    bwd, same_bits = backward_kernel_checks(dev_params, device)
-    bad = [n for n, r in bwd.items() if not summarize(n, r, KERNEL_TOL, "", card)]
-    print(f"backward: two runs give the same bits: {same_bits} (the block), "
-          f"{bwd['kernel_d']['same_bits']} (kernel D)")
-    if bad or not same_bits or not bwd["kernel_d"]["same_bits"]:
-        fail(f"backward kernels disagree with their plain versions or between runs: {bad}")
-
-    # the L-tiled row backward (above 1024 sites) against its plain versions
-    # and against kernel E
-    bwd_long, e12 = long_backward_kernel_checks(dev_params, device)
-    bad = [n for n, r in bwd_long.items()
-           if not summarize(n, r, E12_TOL, " at 2 x 1225 x 1536", card)]
-    e1 = bwd_long["kernel_e1"]
-    print(f"kernel_e1: {100 * e1['bound_share']:.1f}% of its {e1['bound_by']} bound "
-          f"({e1['bound_ms']:.3f} of {e1['ms']:.3f} ms a launch, 10 queued; "
-          f"{e1['one_launch_ms']:.3f} ms one launch alone, the host's dispatch included); "
-          f"against its factored twin in float64 {e1['max_rel_err_factored']:.3e} "
-          f"(tol {E12_TOL:.0e}); two runs give the same bits: {e1['same_bits']} [{card}]")
-    print(f"E1 + E2 vs kernel E at 1024 sites: gx {e12['e12_vs_e']:.3e} (same bits: "
-          f"{e12['e12_vs_e_bits']}), weight gradients {e12['e12_vs_e_grads']:.3e}; vs the plain "
-          f"versions {e12['e12_vs_e_plain']:.3e}; two runs give the same bits: "
-          f"{bwd_long['kernel_e2']['same_bits']} (kernel E2), {e12['same_bits']} (the long "
-          f"block backward)")
-    for name, key, where in (("kernel_c", "kernel_c_long", "2 x 1225 x 1536"),
-                             ("kernel_d", "kernel_d_long", "2 x 1225 x 1536"),
-                             ("kernel_e", "kernel_e_l1024", "2 x 1225 x 1024")):
-        for k in ("ms", "bound_ms", "bound_fp32_simt_ms"):
-            bwd[name][f"{key[len(name) + 1:]}_{k}"] = e12[f"{key}_{k}"]
-        print(f"{name} at {where}: {e12[key + '_ms']:.3f} ms, bound "
-              f"{e12[key + '_bound_ms']:.3f} ms (split TF32; fp32 SIMT "
-              f"{e12[key + '_bound_fp32_simt_ms']:.3f} ms) [{card}]")
-    if (bad or not e12["same_bits"] or not bwd_long["kernel_e2"]["same_bits"]
-            or not e1["same_bits"] or not e1["max_rel_err_factored"] <= E12_TOL
-            or not e12["e12_vs_e"] <= E12_TOL
-            or not e12["e12_vs_e_grads"] <= GRAD_TOL or not e12["e12_vs_e_plain"] <= GRAD_TOL):
-        fail(f"E1/E2 disagree with their plain versions, with kernel E or between runs: {bad}")
-    bwd.update(bwd_long)
-
-    # training through the CLI, then resumed
-    tp = training_path(device)
-    for k, run in enumerate(tp["runs"]):
-        print(f"training run {k + 1}: launches {run['launches']}, expected {run['expected']} "
-              f"({run['evals']} eval batches), {run['wall_s']:.1f} s")
-    print(f"training: steps {tp['train_steps']}, losses {tp['losses']}, "
-          f"validations at {tp['val_steps']}, checkpoints {tp['ckpts']}")
-    print("training: ms between logged steps 2-8 of the CLI run (validation and checkpoint "
-          f"in 5 and 9): {[round(v, 3) for v in tp['log_step_ms']]}")
-    if any(run["launches"] != run["expected"] for run in tp["runs"]):
-        fail("training: launch counts differ from 6 A + 6 B + 6 C + 6 D + 6 E per step "
-             "and 6 A + 6 B per eval batch")
-    if ([s["steps"] for s in tp["summaries"]] != [8, 12]
-            or "resumed from step 8" not in tp["runs"][1]["stdout"]
-            or tp["train_steps"] != list(range(1, 13)) or tp["val_steps"] != [4, 8, 8, 12, 12]
-            or tp["ckpts"] != ["ckpt_12.pt", "ckpt_4.pt", "ckpt_8.pt"]
-            or not all(math.isfinite(v) for v in tp["losses"])
-            or not all(s["use_pallas"] for s in tp["summaries"])):
-        fail("training: steps, resume, validations, checkpoints or losses are not as expected")
-
-    st = one_step_check(device, tp["corpus"], 50, 256)
-    print(f"one step, kernels vs plain autograd (1 x 50 x 256, {st['n_leaves']} leaves): "
-          f"loss {st['loss']:.6f} rel err {st['loss_rel']:.3e} (tol {STEP_LOSS_TOL:.0e}), "
-          f"gradients {st['grad_err']:.3e} (tol {STEP_GRAD_TOL:.0e})")
-    if not (st["loss_rel"] <= STEP_LOSS_TOL and st["grad_err"] <= STEP_GRAD_TOL):
-        fail("one step: the kernel path's loss or gradients disagree with plain autograd")
-
-    prof = profile_training(device, tp["corpus"])
-    ms_step = prof["step_ms"]
-    print(f"training: {ms_step:.3f} ms per optimizer step (median after the first; steps "
-          f"{[round(v, 3) for v in prof['steps_ms']]}), {4e3 / ms_step:.3f} examples/s at "
-          f"batch 4 x 50 x 256 [{card}]")
-    print(f"profile: {prof['wall_ms']:.3f} ms per step under the profiler, device busy "
-          f"{prof['device_ms']:.3f} ms ({100 * prof['device_ms'] / prof['wall_ms']:.1f}%), peak "
-          f"device memory {prof['peak_gb']:.2f} GB [{card}]")
-    for name, ms in prof["top"]:
-        print(f"  profile: {ms:9.3f} ms/step  {name[:110]}")
-    if prof["device_ms"] <= 0:
-        fail("profile: the trace holds no device time")
-
-    # training on long alignments from a packed corpus
-    lt = long_training_path(device)
-    print(f"long training: pf-preprocess-torch {lt['preprocess_s']:.1f} s; pf-train-torch "
-          f"--packed-data launches {lt['launches']}, expected {lt['expected']}, "
-          f"{lt['wall_s']:.1f} s")
-    print(f"long training: summary {json.dumps(lt['summary'])}, losses {lt['losses']}, "
-          f"validations at {lt['val_steps']}")
-    print(f"long training: {lt['step_ms']:.3f} ms per optimizer step (median after the first; "
-          f"steps {[round(v, 3) for v in lt['steps_ms']]}), {2e3 / lt['step_ms']:.3f} "
-          f"examples/s at batch 2 x 50 x 1536, peak device memory {lt['peak_gb']:.2f} GB "
-          f"[{card}]")
-    bd = lt["breakdown"]
-    print(f"long profile: {bd['wall_ms']:.3f} ms per step under the profiler, device busy "
-          f"{bd['device_ms']:.3f} ms ({100 * bd['device_ms'] / bd['wall_ms']:.1f}%) [{card}]")
-    for name, ms in bd["top"]:
-        print(f"  long profile: {ms:9.3f} ms/step  {name[:110]}")
-    print(f"  long profile: {bd['e1_fin_ms']:9.3f} ms/step  kernel_e1_fin (E1's finalize)")
-    print(f"long training: --profile {json.dumps(lt['profile'])} in {lt['profile_s']:.1f} s, "
-          f"traces {lt['traces']}")
-    if lt["launches"] != lt["expected"]:
-        fail("long training: launch counts differ from 6 A1 + 6 A2 + 6 B + 6 C + 6 D + 6 E1 "
-             "+ 6 E2 per step and 6 A1 + 6 A2 + 6 B per eval batch")
-    if (lt["summary"]["steps"] != 4 or not lt["summary"]["use_pallas"]
-            or lt["val_steps"] != [4] or len(lt["losses"]) != 4
-            or not all(math.isfinite(v) for v in lt["losses"])):
-        fail("long training: steps, validation or losses are not as expected")
-    if lt["profile"]["steps"] != 10 or len(lt["traces"]) != 1:
-        fail("long training: --profile did not trace 10 steps into one trace file")
-
-    st = one_step_check(device, lt["step_corpus"], 20, 1280)
-    print(f"one step, kernels vs plain autograd (1 x 20 x 1100 in the (20, 1280) bucket, "
-          f"{st['n_leaves']} leaves): loss {st['loss']:.6f} rel err {st['loss_rel']:.3e} "
-          f"(tol {STEP_LOSS_TOL:.0e}), gradients {st['grad_err']:.3e} "
-          f"(tol {STEP_GRAD_TOL:.0e}), launches {st['launches']}")
-    if not (st["loss_rel"] <= STEP_LOSS_TOL and st["grad_err"] <= STEP_GRAD_TOL):
-        fail("long one step: the kernel path's loss or gradients disagree with plain autograd")
-    if st["launches"] != expected_train_launches(1, 0, 6, True):
-        fail("long one step: the kernel path did not run A1, A2, B, C, D, E1 and E2 per block")
-
+    bwd = backward_phases(dev_params, device, card)
+    tr = training_phases(device, card)
     results.update(bwd)
-    train_launches = {k: sum(run["launches"][k] for run in tp["runs"]) + lt["launches"][k]
-                      for k in KERNELS}
+    train_launches = {k: sum(run[k] for run in tr["runs"]) for k in KERNELS}
     fast_launches = {k: sum(rp[x]["launches"][k] for x in ("float32", "bfloat16", "long"))
                      for k in KERNELS}
     variant_rows = {name: {v.split("/")[1]: {
@@ -2227,7 +2463,8 @@ def main(argv=None) -> int:
                                "max_rel_err_factored", "same_bits", "cases", "long_ms",
                                "long_bound_ms",
                                "long_bound_fp32_simt_ms", "l1024_ms", "l1024_bound_ms",
-                               "l1024_bound_fp32_simt_ms") if k in r}),
+                               "l1024_bound_fp32_simt_ms", "one_pass", "one_pass_long",
+                               "one_pass_bits") if k in r}),
          **({k: r[k] for k in ("shape", "twin_bits", "same_bits", "worst_vs_library",
                                "worst_vs_library_shape")} if name in REDUCTION_ROW else {}),
          **({"variants": variant_rows[name]} if variant_rows.get(name) else {})}
@@ -2239,9 +2476,7 @@ def main(argv=None) -> int:
         "long_one_pass_aln_per_s": rp["long"]["aln_per_s"],
         "fast_path_err": {x: rp[x]["random"] + rp[x]["evolved"] for x in ("float32", "bfloat16")},
         "accuracy_grid": rp["grid"]["rows"],
-        "train_ms_per_step": ms_step, "train_examples_per_s": 4e3 / ms_step,
-        "long_train_ms_per_step": lt["step_ms"], "long_train_examples_per_s": 2e3 / lt["step_ms"],
-        "long_train_peak_gb": lt["peak_gb"]}
+        "training": tr["numbers"]}
     if any(k["launches"] <= 0 for k in line["kernels"]):
         fail("a kernel of the paths was not launched on them")
     print(json.dumps(line))

@@ -7,7 +7,8 @@ continues silently on the CPU.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -22,3 +23,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+@contextlib.contextmanager
+def tf32_products(allow: bool) -> Iterator[None]:
+    """PyTorch's own fp32 products on the card (cuBLAS matmuls, cuDNN
+    convolutions) in one TF32 pass (``allow``) or in IEEE fp32 for the body
+    of the ``with``; the previous settings are restored after it."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

@@ -60,7 +60,7 @@ class InferenceConfig:
     matmul_precision: str = "float32"
     pipeline_act_dtype: str = "float32"  # x1 between the pipeline's kernels: | "bfloat16"
     # FFN activation on the pipeline: "exact" (erf) | "tanh" | "sigmoid" |
-    # "relu" (the last two at fp32 storage only)
+    # "relu", at either storage
     pipeline_gelu: str = "exact"
     # Pipelined kernels (merged block boundaries, in-kernel pair gather and
     # head).  None = where pipeline_supported holds for the bucket, else the
@@ -119,10 +119,6 @@ class InferenceEngine:
         if self.icfg.pipeline_gelu not in GELU_MODES:
             raise ValueError(f"pipeline_gelu={self.icfg.pipeline_gelu!r}: "
                              f"expected one of {GELU_MODES}")
-        if (self.icfg.pipeline_gelu in ("sigmoid", "relu")
-                and self.icfg.pipeline_act_dtype != "float32"):
-            raise ValueError(f"pipeline_gelu={self.icfg.pipeline_gelu!r} runs at "
-                             f"pipeline_act_dtype='float32' only")
         if cfg.matmul_precision != self.icfg.matmul_precision:
             cfg = dataclasses.replace(cfg, matmul_precision=self.icfg.matmul_precision)
         self.cfg = cfg

@@ -18,12 +18,11 @@ gated against.
 
 Both are plain PyTorch (the JAX oracle is XLA code, not a Pallas kernel),
 and on the card both run with TF32 off for PyTorch's products and cuDNN
-(:func:`fp32_products`), so every product is IEEE fp32.
+(:func:`..device.tf32_products`), so every product is IEEE fp32.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Dict, List, Sequence
 
 import numpy as np
@@ -32,22 +31,10 @@ import torch.nn.functional as F
 
 from ..data.fasta import Alignment
 from ..data.pairs import pair_indices
+from ..device import tf32_products
 from ..models.params import PhyloformerConfig, map_params
 from ..models.phyloformer import embed_alignment, forward
 from ..ops.attention import layer_norm, phi, scaled_linear_attention
-
-
-@contextlib.contextmanager
-def fp32_products():
-    """TF32 off for PyTorch's matmuls and cuDNN for the duration; the
-    previous settings are restored after."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def _pass1_chunk(x_c: torch.Tensor, layer, n_heads: int, eps: float):
@@ -115,7 +102,7 @@ def predict_fp32_chunked(
     bounds = np.linspace(0, p, n_chunks + 1).astype(int)
     spans = [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
 
-    with fp32_products(), torch.inference_mode():
+    with tf32_products(False), torch.inference_mode():
         codes_t = torch.as_tensor(np.asarray(codes, np.int32), device=device)
         emb = embed_alignment(params, codes_t[None])[0]  # (n, L, d)
         # the gather-add pair build, one chunk at a time
@@ -145,7 +132,7 @@ def predict_fp32_eager(params: Dict[str, Any], cfg: PhyloformerConfig,
     device = torch.device(device)
     params = map_params(lambda t: t.to(device, torch.float32), params)
     out = []
-    with fp32_products(), torch.inference_mode():
+    with tf32_products(False), torch.inference_mode():
         for a in alns:
             codes = torch.as_tensor(np.asarray(a.codes, np.int32), device=device)[None]
             out.append(forward(params, codes, cfg)[0].cpu().numpy().astype(np.float32))

@@ -158,10 +158,12 @@ def forward_fused_ad(
     (:class:`..ops.kernels.autodiff.FusedAxialBlock`);
     ``PF_PALLAS_BWD=remat`` backpropagates through the eager block instead.
     The embedding, pair build and head are tensor code, as in the JAX
-    package's ``_forward_pallas_ad``.  CUDA tensors run the kernels, CPU
-    tensors their plain versions.  No site cap, and no counterpart of the
-    JAX trainer's ``PF_PALLAS_TRAIN_MAX_SITES`` fallback.  Returns ``(B, P)``
-    distances."""
+    package's ``_forward_pallas_ad``; the head in fp32 at every precision.
+    ``cfg.matmul_precision`` "float32" runs the kernels' products in three
+    TF32 passes, the others in one, forward and backward (JAX's rule, its
+    ``mxu``).  CUDA tensors run the kernels, CPU tensors their plain
+    versions.  No site cap, and no counterpart of the JAX trainer's
+    ``PF_PALLAS_TRAIN_MAX_SITES`` fallback.  Returns ``(B, P)`` distances."""
     mode = os.environ.get("PF_PALLAS_BWD", "fused")
     if mode not in ("fused", "remat"):
         raise ValueError(f"PF_PALLAS_BWD={mode!r}: expected 'fused' or 'remat'")
@@ -172,8 +174,10 @@ def forward_fused_ad(
         seq_mask = torch.ones((b, n_seqs), dtype=torch.bool, device=codes.device)
     smask = site_mask.to(torch.float32).contiguous()
     pmask = pair_mask_from_seq_mask(seq_mask, n_seqs).to(torch.float32).contiguous()
+    mxu = "highest" if cfg.matmul_precision == "float32" else "default"
     x = build_pairs(embed_alignment(params, codes), n_seqs)
     for layer in params["layers"]:
-        x = fused_axial_block_ad(x, layer, smask, pmask, cfg, remat=mode == "remat")
+        x = fused_axial_block_ad(x, layer, smask, pmask, cfg, remat=mode == "remat",
+                                 mxu_precision=mxu)
     h = F.softplus(x @ params["head"]["w"] + params["head"]["b"])[..., 0]
     return (h * smask[:, None, :]).sum(dim=-1) / smask.sum(dim=-1).clamp_min(1.0)[:, None]

@@ -50,11 +50,12 @@ _SIGNATURES = {
     "pf_kernel_b": [_p] * 6 + [_i] * 4 + [_f, _i, _p],
     "pf_bwd_sizes": [_p],
     "pf_bwd_tc_sizes": [_p],
-    "pf_kernel_c": [_p] * 10 + [_i] * 4 + [_f, _p],
-    "pf_kernel_d": [_p] * 10 + [_i] * 4 + [_f, _p],
-    "pf_kernel_e": [_p] * 7 + [_i] * 4 + [_f, _p],
+    # the backward's tensor-core entries end in their TF32 passes
+    "pf_kernel_c": [_p] * 10 + [_i] * 4 + [_f, _i, _p],
+    "pf_kernel_d": [_p] * 10 + [_i] * 4 + [_f, _i, _p],
+    "pf_kernel_e": [_p] * 7 + [_i] * 4 + [_f, _i, _p],
     "pf_kernel_e1": [_p] * 6 + [_i] * 6 + [_f, _p],
-    "pf_kernel_e2": [_p] * 8 + [_i] * 5 + [_f, _p],
+    "pf_kernel_e2": [_p] * 8 + [_i] * 5 + [_f, _i, _p],
     "pf_reduce_slots": [_p] * 2 + [_i] * 5 + [_p],
 }
 

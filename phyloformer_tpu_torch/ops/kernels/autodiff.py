@@ -12,6 +12,12 @@ The counterpart of ``phyloformer_tpu/ops/pallas/autodiff.py``:
   autograd of the eager block (:func:`..models.phyloformer.axial_block`),
   one extra forward; ``PF_PALLAS_BWD=remat`` selects it.
 
+Both take ``mxu_precision`` as a non-differentiable argument (JAX's
+``nondiff_argnums``): "highest" runs the kernels' products in three TF32
+passes, "default" in one, forward and backward; the remat backward then
+recomputes the eager block with PyTorch's products in one TF32 pass on the
+card, as JAX's ``_bwd_remat`` runs under ``default_matmul_precision``.
+
 The layer's leaves enter as flat tensor inputs, in :data:`LAYER_LEAVES`
 order, so that autograd returns their gradients; :func:`fused_axial_block_ad`
 takes and returns the layer as its usual tree.
@@ -23,6 +29,8 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from ...device import tf32_products
+from .axial_block import passes_of
 from .axial_block_bwd import fused_axial_block_bwd
 from .fused import fused_axial_block, fused_axial_block_res
 
@@ -54,10 +62,10 @@ class FusedAxialBlock(torch.autograd.Function):
     sites) and fused backward (kernels C, D, E; C, D, E1, E2 above it)."""
 
     @staticmethod
-    def forward(ctx, x, site_mask, pair_mask, cfg, *leaves):
+    def forward(ctx, x, site_mask, pair_mask, cfg, mxu_precision, *leaves):
         x3, x1, stats = fused_axial_block_res(x, layer_tree(leaves), site_mask, pair_mask,
-                                              cfg.ln_eps)
-        ctx.cfg = cfg
+                                              cfg.ln_eps, mxu_precision)
+        ctx.cfg, ctx.mxu_precision = cfg, mxu_precision
         ctx.save_for_backward(x, x1, stats, site_mask, pair_mask, *leaves)
         return x3
 
@@ -65,8 +73,9 @@ class FusedAxialBlock(torch.autograd.Function):
     def backward(ctx, g3):
         x, x1, stats, site_mask, pair_mask, *leaves = ctx.saved_tensors
         gx, dlayer = fused_axial_block_bwd(x, x1, stats, g3, layer_tree(leaves), site_mask,
-                                           pair_mask, ctx.cfg.n_heads, ctx.cfg.ln_eps)
-        return (gx, None, None, None, *layer_leaves(dlayer))
+                                           pair_mask, ctx.cfg.n_heads, ctx.cfg.ln_eps,
+                                           mxu_precision=ctx.mxu_precision)
+        return (gx, None, None, None, None, *layer_leaves(dlayer))
 
 
 class FusedAxialBlockRemat(torch.autograd.Function):
@@ -74,26 +83,30 @@ class FusedAxialBlockRemat(torch.autograd.Function):
     differentiates through it."""
 
     @staticmethod
-    def forward(ctx, x, site_mask, pair_mask, cfg, *leaves):
-        ctx.cfg = cfg
+    def forward(ctx, x, site_mask, pair_mask, cfg, mxu_precision, *leaves):
+        ctx.cfg, ctx.mxu_precision = cfg, mxu_precision
         ctx.save_for_backward(x, site_mask, pair_mask, *leaves)
-        return fused_axial_block(x, layer_tree(leaves), site_mask, pair_mask, cfg.ln_eps)
+        return fused_axial_block(x, layer_tree(leaves), site_mask, pair_mask, cfg.ln_eps,
+                                 mxu_precision)
 
     @staticmethod
     def backward(ctx, g3):
         from ...models.phyloformer import axial_block as eager_block
 
         x, site_mask, pair_mask, *leaves = ctx.saved_tensors
-        with torch.enable_grad():
+        one_pass = x.is_cuda and passes_of(ctx.mxu_precision) == 1
+        with tf32_products(one_pass), torch.enable_grad():
             inputs = [t.detach().requires_grad_(True) for t in (x, *leaves)]
             out = eager_block(inputs[0], layer_tree(inputs[1:]), ctx.cfg, site_mask.bool(),
                               pair_mask.bool())
             grads = torch.autograd.grad(out, inputs, g3)
-        return (grads[0], None, None, None, *grads[1:])
+        return (grads[0], None, None, None, None, *grads[1:])
 
 
-def fused_axial_block_ad(x, layer, site_mask, pair_mask, cfg, remat: bool = False):
+def fused_axial_block_ad(x, layer, site_mask, pair_mask, cfg, remat: bool = False,
+                         mxu_precision: str = "highest"):
     """One differentiable fused block: ``x`` ``(B, P, L, d)``, ``layer`` a
-    tree of leaves that may require grad, bool masks ``(B, L)`` / ``(B, P)``."""
+    tree of leaves that may require grad, bool masks ``(B, L)`` / ``(B, P)``;
+    ``mxu_precision`` "highest" (three TF32 passes) or "default" (one)."""
     fn = FusedAxialBlockRemat if remat else FusedAxialBlock
-    return fn.apply(x, site_mask, pair_mask, cfg, *layer_leaves(layer))
+    return fn.apply(x, site_mask, pair_mask, cfg, mxu_precision, *layer_leaves(layer))

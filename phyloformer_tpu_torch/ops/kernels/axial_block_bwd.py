@@ -30,6 +30,17 @@ tensors and are general in ``d`` and the head count; the CUDA kernels take
 tensors on the CPU and launches its kernel (adding one to its entry in
 ``pipeline.LAUNCHES``) or raises for CUDA tensors.
 
+``passes``: the TF32 passes of the products of C, D, E and E2, JAX's
+``prec`` (:func:`.axial_block.passes_of` of its ``mxu_precision``).  3 (split
+TF32, within ~2^-22 of fp32) is computed as the plain fp32 product; 1 (one
+TF32 pass, the reduced-precision backward) rounds both operands of every
+product JAX routes through ``_mm`` and ``_mm_at`` as the kernels do
+(:func:`.axial_block.mm`, :func:`_mm_at`), with fp32 accumulation.  JAX's
+``_contract_heads`` / ``_expand_heads`` are 0/1 matmuls written for Mosaic;
+here they stay exact sums and repeats at every pass count.  E1 sums in exact
+fp32 at both counts: its bytes, not its products, bind it, and it takes
+``passes`` only to ignore it.
+
 Weight gradients come back as one flat fp32 vector per kernel, laid out as
 :func:`grad_spec` says, and :func:`fused_axial_block_bwd` unpacks them into
 the JAX tree layout (q/k gradients ``(d, H)``, biases ``(H,)`` / ``(d,)``).
@@ -48,12 +59,13 @@ import torch
 
 from . import _build
 from . import axial_block
-from .axial_block import phi
+from .axial_block import mm, passes_of, phi, tf32_rna
 from .pipeline import (
     D_KERNEL,
     LAUNCHES,
     TILE_SITES,
     WeightGroup,
+    _check_passes,
     _check_width,
     _lib,
     _on_cpu,
@@ -287,8 +299,13 @@ def _guard(s: torch.Tensor) -> torch.Tensor:
     return torch.where(s > 0, s, torch.ones_like(s))
 
 
-def _mm_at(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """aᵀ·b over every leading axis: ``(..., K)``, ``(..., M)`` → ``(K, M)``."""
+def _mm_at(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """aᵀ·b over every leading axis: ``(..., K)``, ``(..., M)`` → ``(K, M)``,
+    a weight gradient with the sites as its depth: the fp32 product at three
+    passes, ``tf32_rna(a)ᵀ·tf32_rna(b)`` accumulated in fp32 at one (JAX's
+    ``_mm_at`` at ``prec``)."""
+    if _check_passes(passes) == 1:
+        a, b = tf32_rna(a), tf32_rna(b)
     return a.reshape(-1, a.shape[-1]).t() @ b.reshape(-1, b.shape[-1])
 
 
@@ -317,7 +334,7 @@ def derive_col_site_grads(stats, a1, n_pairs, n_heads):
 
 # ---- plain versions -------------------------------------------------------
 
-def kernel_c_plain(x1, g3, stats, pmask, pair_count, wc: WeightGroup, eps):
+def kernel_c_plain(x1, g3, stats, pmask, pair_count, wc: WeightGroup, eps, passes=3):
     """``_kernel_c``: ``(g2, A1 (B, L, d), flat weight gradients)``."""
     p = _parts(wc, C_PARTS)
     d = x1.shape[-1]
@@ -330,30 +347,30 @@ def kernel_c_plain(x1, g3, stats, pmask, pair_count, wc: WeightGroup, eps):
     ctx_e = kv / _guard(sk_raw)
 
     hc = ln_fwd(x1, p["cn_s"], p["cn_b"], eps)[0]
-    qn = expand_heads(phi(hc @ p["cwq"] + p["cbq"]), hd) * pm / qm_e[:, None]
+    qn = expand_heads(phi(mm(hc, p["cwq"], passes) + p["cbq"]), hd) * pm / qm_e[:, None]
     attn = qn * ctx_e[:, None]
-    x2 = x1 + attn @ p["cwo"] + p["cbo"]
+    x2 = x1 + mm(attn, p["cwo"], passes) + p["cbo"]
 
     hf, xhat_f, r_f = ln_fwd(x2, p["fn_s"], p["fn_b"], eps)
-    u = hf @ p["w1"] + p["b1"]
+    u = mm(hf, p["w1"], passes) + p["b1"]
     a = 0.5 * u * (1.0 + torch.erf(u * 0.7071067811865476))
-    dfw2 = _mm_at(a, g3)
+    dfw2 = _mm_at(a, g3, passes)
     dfb2 = g3.reshape(-1, d).sum(0)
-    du = (g3 @ p["w2_t"]) * gelu_grad(u)
-    d_hf = du @ p["w1_t"]
-    dfw1 = _mm_at(hf, du)
+    du = mm(g3, p["w2_t"], passes) * gelu_grad(u)
+    d_hf = mm(du, p["w1_t"], passes)
+    dfw1 = _mm_at(hf, du, passes)
     dfb1 = du.reshape(-1, du.shape[-1]).sum(0)
     d_x2_ln, dfs, dfb = ln_bwd(d_hf, xhat_f, r_f, p["fn_s"])
     g2 = g3 + d_x2_ln
 
-    dcwo = _mm_at(attn, g2)
+    dcwo = _mm_at(attn, g2, passes)
     dcbo = g2.reshape(-1, d).sum(0)
-    d_attn = g2 @ p["cwo_t"]
+    d_attn = mm(g2, p["cwo_t"], passes)
     a1 = (d_attn * qn).sum(dim=1)
     return g2, a1, _flat(dcwo, dcbo, dfs, dfb, dfw1, dfb1, dfw2, dfb2)
 
 
-def kernel_d_plain(x1, g2, stats, a1, pmask, pair_count, wd: WeightGroup, eps):
+def kernel_d_plain(x1, g2, stats, a1, pmask, pair_count, wd: WeightGroup, eps, passes=3):
     """``_kernel_d``: ``(g1, flat weight gradients)``."""
     p = _parts(wd, ATT_PARTS)
     d = x1.shape[-1]
@@ -364,12 +381,12 @@ def kernel_d_plain(x1, g2, stats, a1, pmask, pair_count, wd: WeightGroup, eps):
     qm_e, ctx_e, d_skv_e, d_sk_h, d_sq_h = derive_col_site_grads(stats, a1, n_pairs, n_heads)
 
     hc, xhat_c, r_c = ln_fwd(x1, p["ln_s"], p["ln_b"], eps)
-    zq = hc @ p["wq"] + p["bq"]
-    zk = hc @ p["wk"] + p["bk"]
+    zq = mm(hc, p["wq"], passes) + p["bq"]
+    zk = mm(hc, p["wk"], passes) + p["bk"]
     kc_e = expand_heads(phi(zk), hd) * pm
-    vc = hc @ p["wv"] + p["bv"]
+    vc = mm(hc, p["wv"], passes) + p["bv"]
 
-    d_attn = g2 @ p["wo_t"]
+    d_attn = mm(g2, p["wo_t"], passes)
     qm_h = contract_heads(qm_e, n_heads) / hd
     d_q = contract_heads(d_attn * ctx_e[:, None], n_heads) / qm_h[:, None] + d_sq_h[:, None]
     d_zq = d_q * phi_grad(zq) * pm
@@ -377,15 +394,16 @@ def kernel_d_plain(x1, g2, stats, a1, pmask, pair_count, wd: WeightGroup, eps):
     d_zk = d_k * phi_grad(zk) * pm
     d_v = d_skv_e[:, None] * kc_e
 
-    dwq, dbq = _mm_at(hc, d_zq), d_zq.reshape(-1, n_heads).sum(0)
-    dwk, dbk = _mm_at(hc, d_zk), d_zk.reshape(-1, n_heads).sum(0)
-    dwv, dbv = _mm_at(hc, d_v), d_v.reshape(-1, d).sum(0)
-    d_hc = d_zq @ p["wq"].t() + d_zk @ p["wk"].t() + d_v @ p["wv_t"]
+    dwq, dbq = _mm_at(hc, d_zq, passes), d_zq.reshape(-1, n_heads).sum(0)
+    dwk, dbk = _mm_at(hc, d_zk, passes), d_zk.reshape(-1, n_heads).sum(0)
+    dwv, dbv = _mm_at(hc, d_v, passes), d_v.reshape(-1, d).sum(0)
+    d_hc = (mm(d_zq, p["wq"].t(), passes) + mm(d_zk, p["wk"].t(), passes)
+            + mm(d_v, p["wv_t"], passes))
     d_x1_ln, ds, db = ln_bwd(d_hc, xhat_c, r_c, p["ln_s"])
     return g2 + d_x1_ln, _flat(ds, db, dwq, dbq, dwk, dbk, dwv, dbv)
 
 
-def kernel_e_plain(x, g1, smask, we: WeightGroup, eps):
+def kernel_e_plain(x, g1, smask, we: WeightGroup, eps, passes=3):
     """``_kernel_e``: ``(gx, flat weight gradients)``."""
     p = _parts(we, ATT_PARTS)
     d = x.shape[-1]
@@ -393,11 +411,11 @@ def kernel_e_plain(x, g1, smask, we: WeightGroup, eps):
     hd = d // n_heads
     m = smask[:, None, :, None]
     h, xhat_r, r_r = ln_fwd(x, p["ln_s"], p["ln_b"], eps)
-    zq = h @ p["wq"] + p["bq"]
-    zk = h @ p["wk"] + p["bk"]
+    zq = mm(h, p["wq"], passes) + p["bq"]
+    zk = mm(h, p["wk"], passes) + p["bk"]
     q_e = expand_heads(phi(zq), hd) * m
     k_e = expand_heads(phi(zk), hd) * m
-    v = h @ p["wv"] + p["bv"]
+    v = mm(h, p["wv"], passes) + p["bv"]
 
     count = smask.sum(dim=-1).clamp_min(1.0)[:, None, None, None]
     sq_raw = q_e.sum(dim=2, keepdim=True) / count  # (B, P, 1, d): q-mean
@@ -408,7 +426,7 @@ def kernel_e_plain(x, g1, smask, we: WeightGroup, eps):
     qn_r = q_e / qm_r
     attn_r = qn_r * ctx_r
 
-    d_attn = g1 @ p["wo_t"]
+    d_attn = mm(g1, p["wo_t"], passes)
     d_ctx = (d_attn * qn_r).sum(dim=2, keepdim=True)
     d_skv_r = d_ctx / sk_r
     sk_rh = contract_heads(sk_r, n_heads) / hd
@@ -423,19 +441,21 @@ def kernel_e_plain(x, g1, smask, we: WeightGroup, eps):
     d_zq = (contract_heads(d_qn_e, n_heads) / qm_rh + d_sq_rh) * phi_grad(zq) * m
     d_zk = (d_sk_rh + contract_heads(d_skv_r * v, n_heads)) * phi_grad(zk) * m
     d_v = d_skv_r * k_e
-    d_h = d_zq @ p["wq"].t() + d_zk @ p["wk"].t() + d_v @ p["wv_t"]
+    d_h = (mm(d_zq, p["wq"].t(), passes) + mm(d_zk, p["wk"].t(), passes)
+           + mm(d_v, p["wv_t"], passes))
     d_x_ln, ds, db = ln_bwd(d_h, xhat_r, r_r, p["ln_s"])
 
-    dwq, dbq = _mm_at(h, d_zq), d_zq.reshape(-1, n_heads).sum(0)
-    dwk, dbk = _mm_at(h, d_zk), d_zk.reshape(-1, n_heads).sum(0)
-    dwv, dbv = _mm_at(h, d_v), d_v.reshape(-1, d).sum(0)
-    dwo, dbo = _mm_at(attn_r, g1), g1.reshape(-1, d).sum(0)
+    dwq, dbq = _mm_at(h, d_zq, passes), d_zq.reshape(-1, n_heads).sum(0)
+    dwk, dbk = _mm_at(h, d_zk, passes), d_zk.reshape(-1, n_heads).sum(0)
+    dwv, dbv = _mm_at(h, d_v, passes), d_v.reshape(-1, d).sum(0)
+    dwo, dbo = _mm_at(attn_r, g1, passes), g1.reshape(-1, d).sum(0)
     return g1 + d_x_ln, _flat(ds, db, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo)
 
 
-def kernel_e1_plain(x, g1, smask, we: WeightGroup, eps):
+def kernel_e1_plain(x, g1, smask, we: WeightGroup, eps, passes=3):
     """``_kernel_e1``: each pair's raw row sums ``(B, P, 4d)``
-    ``[Σq_e | Σk_e | Σk_e·v | Σ d_attn⊙q_e]`` over the masked site axis."""
+    ``[Σq_e | Σk_e | Σk_e·v | Σ d_attn⊙q_e]`` over the masked site axis, in
+    fp32 at every ``passes`` (taken, and ignored, as the kernel takes it)."""
     p = _parts(we, ATT_PARTS)
     hd = x.shape[-1] // p["wq"].shape[1]
     m = smask[:, None, :, None]
@@ -448,15 +468,15 @@ def kernel_e1_plain(x, g1, smask, we: WeightGroup, eps):
                       (d_attn * q_e).sum(dim=2)], dim=-1)
 
 
-def kernel_e1_factored(x, g1, smask, we: WeightGroup, eps):
+def kernel_e1_factored(x, g1, smask, we: WeightGroup, eps, passes=3):
     """:func:`kernel_e1_plain`'s function in the association of the CUDA
     kernel: ``q_e`` and ``k_e`` are per-head values over each head's lanes,
     so the sums over the sites go through ``M = Σ_l g1ᵀ qH`` and
     ``N = Σ_l hᵀ kH`` (``(B, P, d, H)``) first, and the d x d products with
     ``Wo^T`` and ``Wv`` come once a pair: ``Σ d_attn⊙q_e = Σ_j Wo^T[j, c]
     M[j, head(c)]`` and ``Σ k_e⊙v = Σ_j Wv[j, c] N[j, head(c)] + bv ΣkH``.
-    Exact algebra, other rounding; for the tests (nothing on the path
-    calls it)."""
+    Exact algebra, other rounding, fp32 at every ``passes``; for the tests
+    (nothing on the path calls it)."""
     p = _parts(we, ATT_PARTS)
     hd = x.shape[-1] // p["wq"].shape[1]
     m = smask[:, None, :, None]
@@ -471,7 +491,7 @@ def kernel_e1_factored(x, g1, smask, we: WeightGroup, eps):
     return torch.cat([sq, sk, kv, dq], dim=-1)
 
 
-def kernel_e2_plain(x, g1, rowsums, smask, we: WeightGroup, eps):
+def kernel_e2_plain(x, g1, rowsums, smask, we: WeightGroup, eps, passes=3):
     """``_kernel_e2``: the row backward finalized from the raw row sums of
     :func:`kernel_e1_plain` and the site count: ``(gx, flat weight
     gradients)``, the function of :func:`kernel_e_plain`."""
@@ -481,12 +501,12 @@ def kernel_e2_plain(x, g1, rowsums, smask, we: WeightGroup, eps):
     hd = d // n_heads
     m = smask[:, None, :, None]
     h, xhat_r, r_r = ln_fwd(x, p["ln_s"], p["ln_b"], eps)
-    zq = h @ p["wq"] + p["bq"]
-    zk = h @ p["wk"] + p["bk"]
+    zq = mm(h, p["wq"], passes) + p["bq"]
+    zk = mm(h, p["wk"], passes) + p["bk"]
     q_e = expand_heads(phi(zq), hd) * m
     k_e = expand_heads(phi(zk), hd) * m
-    v = h @ p["wv"] + p["bv"]
-    d_attn = g1 @ p["wo_t"]
+    v = mm(h, p["wv"], passes) + p["bv"]
+    d_attn = mm(g1, p["wo_t"], passes)
 
     count = smask.sum(dim=-1).clamp_min(1.0)[:, None, None, None]
     rs = rowsums[:, :, None, :]  # (B, P, 1, 4d)
@@ -512,14 +532,15 @@ def kernel_e2_plain(x, g1, rowsums, smask, we: WeightGroup, eps):
     d_zq = (contract_heads(d_qn_e, n_heads) / qm_rh + d_sq_rh) * phi_grad(zq) * m
     d_zk = (d_sk_rh + contract_heads(d_skv_r * v, n_heads)) * phi_grad(zk) * m
     d_v = d_skv_r * k_e
-    d_h = d_zq @ p["wq"].t() + d_zk @ p["wk"].t() + d_v @ p["wv_t"]
+    d_h = (mm(d_zq, p["wq"].t(), passes) + mm(d_zk, p["wk"].t(), passes)
+           + mm(d_v, p["wv_t"], passes))
     d_x_ln, ds, db = ln_bwd(d_h, xhat_r, r_r, p["ln_s"])
 
     attn_r = (q_e / qm_r) * ctx_r
-    dwq, dbq = _mm_at(h, d_zq), d_zq.reshape(-1, n_heads).sum(0)
-    dwk, dbk = _mm_at(h, d_zk), d_zk.reshape(-1, n_heads).sum(0)
-    dwv, dbv = _mm_at(h, d_v), d_v.reshape(-1, d).sum(0)
-    dwo, dbo = _mm_at(attn_r, g1), g1.reshape(-1, d).sum(0)
+    dwq, dbq = _mm_at(h, d_zq, passes), d_zq.reshape(-1, n_heads).sum(0)
+    dwk, dbk = _mm_at(h, d_zk, passes), d_zk.reshape(-1, n_heads).sum(0)
+    dwv, dbv = _mm_at(h, d_v, passes), d_v.reshape(-1, d).sum(0)
+    dwo, dbo = _mm_at(attn_r, g1, passes), g1.reshape(-1, d).sum(0)
     return g1 + d_x_ln, _flat(ds, db, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo)
 
 
@@ -601,10 +622,12 @@ def _require_group(wg: WeightGroup, name: str, parts: Sequence[str], mma: str = 
         _require(wg.mma, f"{name}.mma", (mma_size(mma, D_KERNEL, N_HEADS_KERNEL),))
 
 
-def kernel_c(x1, g3, stats, pmask, pair_count, wc: WeightGroup, eps):
-    """``_kernel_c``: ``(g2, A1 (B, L, d), flat weight gradients)``."""
+def kernel_c(x1, g3, stats, pmask, pair_count, wc: WeightGroup, eps, passes=3):
+    """``_kernel_c``: ``(g2, A1 (B, L, d), flat weight gradients)``, its
+    products at ``passes`` TF32 passes."""
+    _check_passes(passes)
     if _on_cpu(x1, g3, stats, pmask, pair_count, wc.flat):
-        return kernel_c_plain(x1, g3, stats, pmask, pair_count, wc, eps)
+        return kernel_c_plain(x1, g3, stats, pmask, pair_count, wc, eps, passes)
     B, P, L, d = x1.shape
     _check_width(d)
     _require(x1, "x1", (B, P, L, d))
@@ -624,19 +647,20 @@ def kernel_c(x1, g3, stats, pmask, pair_count, wc: WeightGroup, eps):
     _build.check(lib, lib.pf_kernel_c(
         x1.data_ptr(), g3.data_ptr(), stats.data_ptr(), pmask.data_ptr(),
         pair_count.data_ptr(), wc.flat.data_ptr(), wc.mma.data_ptr(), g2.data_ptr(),
-        a1_part.data_ptr(),
-        w_part.data_ptr(), B, P, L, S, float(eps), _stream()), "kernel_c")
+        a1_part.data_ptr(), w_part.data_ptr(), B, P, L, S, float(eps), passes, _stream()),
+        "kernel_c")
     LAUNCHES["kernel_c"] += 1
     a1 = reduce_partials(a1_part).view(B, L, d)
     return g2, a1, reduce_partials(w_part)[0]
 
 
-def kernel_d(x1, g2, stats, a1, pmask, pair_count, wd: WeightGroup, eps):
+def kernel_d(x1, g2, stats, a1, pmask, pair_count, wd: WeightGroup, eps, passes=3):
     """``_kernel_d``: ``(g1, flat weight gradients)``.  ``wd`` is
     :func:`e_group`'s of the column attention (the kernel reads its packed
     matrices)."""
+    _check_passes(passes)
     if _on_cpu(x1, g2, stats, a1, pmask, pair_count, wd.flat):
-        return kernel_d_plain(x1, g2, stats, a1, pmask, pair_count, wd, eps)
+        return kernel_d_plain(x1, g2, stats, a1, pmask, pair_count, wd, eps, passes)
     B, P, L, d = x1.shape
     _check_width(d)
     _require(x1, "x1", (B, P, L, d))
@@ -656,16 +680,17 @@ def kernel_d(x1, g2, stats, a1, pmask, pair_count, wd: WeightGroup, eps):
     _build.check(lib, lib.pf_kernel_d(
         x1.data_ptr(), g2.data_ptr(), stats.data_ptr(), a1.data_ptr(), pmask.data_ptr(),
         pair_count.data_ptr(), wd.flat.data_ptr(), wd.mma.data_ptr(), g1.data_ptr(),
-        w_part.data_ptr(), B, P, L, S, float(eps), _stream()), "kernel_d")
+        w_part.data_ptr(), B, P, L, S, float(eps), passes, _stream()), "kernel_d")
     LAUNCHES["kernel_d"] += 1
     return g1, reduce_partials(w_part)[0]
 
 
-def kernel_e(x, g1, smask, we: WeightGroup, eps):
+def kernel_e(x, g1, smask, we: WeightGroup, eps, passes=3):
     """``_kernel_e``: ``(gx, flat weight gradients)``.  ``we`` is
     :func:`e_group`'s (the kernel reads its packed matrices)."""
+    _check_passes(passes)
     if _on_cpu(x, g1, smask, we.flat):
-        return kernel_e_plain(x, g1, smask, we, eps)
+        return kernel_e_plain(x, g1, smask, we, eps, passes)
     B, P, L, d = x.shape
     _check_width(d)
     _require(x, "x", (B, P, L, d))
@@ -684,17 +709,21 @@ def kernel_e(x, g1, smask, we: WeightGroup, eps):
     lib = _bwd_lib()
     _build.check(lib, lib.pf_kernel_e(
         x.data_ptr(), g1.data_ptr(), smask.data_ptr(), we.flat.data_ptr(), we.mma.data_ptr(),
-        gx.data_ptr(), w_part.data_ptr(), B, P, L, S, float(eps), _stream()), "kernel_e")
+        gx.data_ptr(), w_part.data_ptr(), B, P, L, S, float(eps), passes, _stream()),
+        "kernel_e")
     LAUNCHES["kernel_e"] += 1
     return gx, reduce_partials(w_part)[0]
 
 
-def kernel_e1(x, g1, smask, we: WeightGroup, eps):
+def kernel_e1(x, g1, smask, we: WeightGroup, eps, passes=3):
     """``_kernel_e1``: each pair's raw row sums ``(B, P, 4d)``.  The kernel
     sums in :func:`kernel_e1_factored`'s association, its rows split over
-    the card's warps by :func:`e1_plan`."""
+    the card's warps by :func:`e1_plan`, in exact fp32 at every ``passes``:
+    its bytes bind it, so ``passes`` is taken and ignored (at one pass it is
+    more exact than JAX's single-pass ``_kernel_e1``)."""
+    _check_passes(passes)
     if _on_cpu(x, g1, smask, we.flat):
-        return kernel_e1_plain(x, g1, smask, we, eps)
+        return kernel_e1_plain(x, g1, smask, we, eps, passes)
     B, P, L, d = x.shape
     _check_width(d)
     _require(x, "x", (B, P, L, d))
@@ -727,13 +756,14 @@ def e2_grid(B: int, P: int, L: int, device) -> Tuple[int, int]:
     return sp, sc
 
 
-def kernel_e2(x, g1, rowsums, smask, we: WeightGroup, eps):
+def kernel_e2(x, g1, rowsums, smask, we: WeightGroup, eps, passes=3):
     """``_kernel_e2``: ``(gx, flat weight gradients)`` from the row sums of
     :func:`kernel_e1`.  ``we`` is :func:`e_group`'s (the kernel reads its
     packed matrices).  The grid splits pairs into slots and, where the pairs
     alone leave the card idle, the site tiles into chunks (as kernel A2)."""
+    _check_passes(passes)
     if _on_cpu(x, g1, rowsums, smask, we.flat):
-        return kernel_e2_plain(x, g1, rowsums, smask, we, eps)
+        return kernel_e2_plain(x, g1, rowsums, smask, we, eps, passes)
     B, P, L, d = x.shape
     _check_width(d)
     _require(x, "x", (B, P, L, d))
@@ -751,7 +781,7 @@ def kernel_e2(x, g1, rowsums, smask, we: WeightGroup, eps):
     _build.check(lib, lib.pf_kernel_e2(
         x.data_ptr(), g1.data_ptr(), rowsums.data_ptr(), smask.data_ptr(), we.flat.data_ptr(),
         we.mma.data_ptr(), gx.data_ptr(), w_part.data_ptr(), B, P, L, sp, sc, float(eps),
-        _stream()), "kernel_e2")
+        passes, _stream()), "kernel_e2")
     LAUNCHES["kernel_e2"] += 1
     return gx, reduce_partials(w_part)[0]
 
@@ -759,7 +789,7 @@ def kernel_e2(x, g1, rowsums, smask, we: WeightGroup, eps):
 # ---- host function (axial_block_bwd.py:677-1039) ---------------------------
 
 def fused_axial_block_bwd(x, x1, stats, g3, layer, site_mask, pair_mask, n_heads: int,
-                          eps: float = 1e-5, pair_count=None):
+                          eps: float = 1e-5, pair_count=None, mxu_precision: str = "highest"):
     """Backward of one fused axial block.
 
     ``x`` ``(B, P, L, d)`` the block input, ``x1`` the post-row-attention
@@ -767,10 +797,12 @@ def fused_axial_block_bwd(x, x1, stats, g3, layer, site_mask, pair_mask, n_heads
     residuals of :func:`.fused.fused_axial_block_res`); ``g3`` the cotangent
     of the block output; ``layer`` one element of ``params["layers"]`` (or
     its :class:`BwdWeights`); masks bool or 0/1 float; ``pair_count``
-    ``(B,)`` an optional override of the real pair counts.  Returns
-    ``(gx, dlayer)``, ``dlayer`` in the layout of ``layer``.  Any length: the
-    row backward is kernel E up to ``axial_block.RESIDENT_SITES_MAX`` sites
-    (read at call time) and the L-tiled E1 then E2 above it."""
+    ``(B,)`` an optional override of the real pair counts;
+    ``mxu_precision`` "highest" (three TF32 passes) or "default" (one, as
+    JAX maps every other name).  Returns ``(gx, dlayer)``, ``dlayer`` in the
+    layout of ``layer``.  Any length: the row backward is kernel E up to
+    ``axial_block.RESIDENT_SITES_MAX`` sites (read at call time) and the
+    L-tiled E1 then E2 above it."""
     b, p, l, d = x.shape
     w = layer if isinstance(layer, BwdWeights) else BwdWeights.of(layer)
     if w.n_heads != n_heads or d % n_heads:
@@ -786,12 +818,13 @@ def fused_axial_block_bwd(x, x1, stats, g3, layer, site_mask, pair_mask, n_heads
     pair_count = pair_count.to(torch.float32).reshape(b).contiguous()
     x, x1, stats, g3 = (t.contiguous() for t in (x, x1, stats, g3))
 
-    g2, a1, dc = kernel_c(x1, g3, stats, pmask, pair_count, w.c, eps)
-    g1, dd = kernel_d(x1, g2, stats, a1, pmask, pair_count, w.d, eps)
+    n = passes_of(mxu_precision)
+    g2, a1, dc = kernel_c(x1, g3, stats, pmask, pair_count, w.c, eps, n)
+    g1, dd = kernel_d(x1, g2, stats, a1, pmask, pair_count, w.d, eps, n)
     if l > axial_block.RESIDENT_SITES_MAX:
-        gx, de = kernel_e2(x, g1, kernel_e1(x, g1, smask, w.e, eps), smask, w.e, eps)
+        gx, de = kernel_e2(x, g1, kernel_e1(x, g1, smask, w.e, eps, n), smask, w.e, eps, n)
     else:
-        gx, de = kernel_e(x, g1, smask, w.e, eps)
+        gx, de = kernel_e(x, g1, smask, w.e, eps, n)
     dlayer: Dict[str, Dict[str, torch.Tensor]] = {}
     for name, flat in (("kernel_e", de), ("kernel_d", dd), ("kernel_c", dc)):
         unpack_grads(name, flat, d, n_heads, dlayer)

@@ -1,6 +1,6 @@
-"""Time backward kernels C, D, E, E1 and E2 of a checkout of the port, per launch.
+"""Time backward kernels C, D, E, E1 and E2 of a checkout of the port, or hash their outputs.
 
-    python3 phyloformer_tpu_torch/ops/kernels/bwd_timing.py [--root DIR]
+    python3 phyloformer_tpu_torch/ops/kernels/bwd_timing.py [--root DIR] [--hashes]
 
 Imports ``phyloformer_tpu_torch`` from ``DIR`` (default: the checkout this
 file is in), so that one copy of this script times another checkout's
@@ -16,14 +16,21 @@ seed, a seeded cotangent masked as a masked loss makes it):
 - E1 at 2 x 50 x 1536, and E2 there on E1's row sums.
 
 Each time is the median CUDA-event time of one launch (its reductions
-included) over 7 runs after a warm-up.  Needs one NVIDIA card and nvcc.
-Prints one line per shape, the card's name and power limit, and a last JSON
-line with every number.
+included) over 7 runs after a warm-up.  Every kernel runs through its
+wrapper's defaults (three TF32 passes), so checkouts whose wrappers predate
+the pass count run the same calls.  ``--hashes``: instead of the times, the
+first 16 hex digits of the SHA-256 of every output of C, D and E (g2, A1,
+g1, gx, the weight gradients) on a batch of 2 x 30 tips x 300 sites, and of
+C, D, E1 and E2 on 1 x 20 x 1100; two checkouts whose kernels compute the
+same bits print the same line.  Needs one NVIDIA card and nvcc.  Prints one
+line per shape (or the hashes), the card's name and power limit, and a last
+JSON line with every number.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -80,11 +87,46 @@ def inputs(params, layer, b, n, l, device, seed):
                 pcount=pcount, w=w)
 
 
+def hashes(params, layer, device):
+    """The hashes of every output of the backward kernels (C, D and E at
+    300 sites; C, D, E1 and E2 at 1100), by kernel and output."""
+    from phyloformer_tpu_torch.ops.kernels import axial_block_bwd as bw
+
+    out = {}
+
+    def h(name, t):
+        out[name] = hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+    for case, (b, n, l) in {"a": (2, 30, 300), "b": (1, 20, 1100)}.items():
+        t = inputs(params, layer, b, n, l, device, SEED + 1)
+        w = t["w"]
+        for name, v in zip(("g2", "a1", "dw"), bw.kernel_c(t["x1"], t["g3"], t["stats"],
+                                                          t["pmask"], t["pcount"], w.c, 1e-5)):
+            h(f"{case}.c.{name}", v)
+        for name, v in zip(("g1", "dw"), bw.kernel_d(t["x1"], t["g2"], t["stats"], t["a1"],
+                                                     t["pmask"], t["pcount"], w.d, 1e-5)):
+            h(f"{case}.d.{name}", v)
+        if l > 1024:
+            rowsums = bw.kernel_e1(t["x"], t["g1"], t["smask"], w.e, 1e-5)
+            h(f"{case}.e1.rowsums", rowsums)
+            outs = bw.kernel_e2(t["x"], t["g1"], rowsums, t["smask"], w.e, 1e-5)
+            kernel = "e2"
+        else:
+            outs = bw.kernel_e(t["x"], t["g1"], t["smask"], w.e, 1e-5)
+            kernel = "e"
+        for name, v in zip(("gx", "dw"), outs):
+            h(f"{case}.{kernel}.{name}", v)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.abspath(os.path.join(HERE, "..", "..", "..")),
                     help="the checkout whose phyloformer_tpu_torch is timed")
-    root = os.path.abspath(ap.parse_args(argv).root)
+    ap.add_argument("--hashes", action="store_true",
+                    help="print the hashes of the outputs instead of the times")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
 
@@ -104,6 +146,11 @@ def main(argv=None) -> int:
     params, _, _ = load_pretrained(os.path.join(root, "artifacts", "pf_mre_r5.ckpt"))
     params = map_params(lambda t: t.to(device), params)
     layer = params["layers"][0]
+    if args.hashes:
+        out = hashes(params, layer, device)
+        print(f"hashes of {len(out)} outputs [{card}]")
+        print(json.dumps(out, sort_keys=True))
+        return 0
     out = {"root": root, "card": card}
     launch = {
         "kernel_c": lambda t: bw.kernel_c(t["x1"], t["g3"], t["stats"], t["pmask"], t["pcount"],

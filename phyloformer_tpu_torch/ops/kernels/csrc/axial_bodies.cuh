@@ -820,29 +820,17 @@ static int with_storage(int storage, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
-// f(Int<GELU>{}, np, tag) where M and Z are built for the combination
-// (every activation at fp32 storage, exact and tanh at bf16), else an
-// invalid-value error.
-template <int GELU, typename T, typename F, typename NP, typename TG>
-static int gelu_variant(F& f, NP np, TG tag) {
-  if constexpr (GELU >= GELU_SIGMOID && !std::is_same<T, float>::value) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    return f(Int<GELU>{}, np, tag);
-  }
-}
-
-// f(Int<GELU>{}, Int<NP>{}, Tag<T>{}) for the codes of kernels M and Z.
+// f(Int<GELU>{}, Int<NP>{}, Tag<T>{}) for the codes of kernels M and Z (every
+// activation at both pass counts and both storage types).
 template <typename F>
 static int with_variant(int gelu, int passes, int storage, F&& f) {
   return with_passes(passes, [&](auto np) {
     return with_storage(storage, [&](auto tag) -> int {
-      using T = typename std::decay_t<decltype(tag)>::type;
       switch (gelu) {
-        case GELU_EXACT: return gelu_variant<GELU_EXACT, T>(f, np, tag);
-        case GELU_TANH: return gelu_variant<GELU_TANH, T>(f, np, tag);
-        case GELU_SIGMOID: return gelu_variant<GELU_SIGMOID, T>(f, np, tag);
-        case GELU_RELU: return gelu_variant<GELU_RELU, T>(f, np, tag);
+        case GELU_EXACT: return f(Int<GELU_EXACT>{}, np, tag);
+        case GELU_TANH: return f(Int<GELU_TANH>{}, np, tag);
+        case GELU_SIGMOID: return f(Int<GELU_SIGMOID>{}, np, tag);
+        case GELU_RELU: return f(Int<GELU_RELU>{}, np, tag);
         default: return (int)cudaErrorInvalidValue;
       }
     });

@@ -30,10 +30,16 @@
 // 3.35 TB/s: tensor-core arithmetic bounds C and E, the bytes (just) D.
 //
 // Design (as the forward's, axial_pipeline.cu, with the backward's needs).
-// - Every product runs on mma.sync.m16n8k8 TF32 in three passes: both
-//   operands split into big = cvt.rna(x) and small = cvt.rna(x - big),
-//   a_small b_big + a_big b_small + a_big b_big summed in fp32, within
-//   ~2^-22 of the fp32 product.  That covers the activation products (C:
+// - Every product runs on mma.sync.m16n8k8 TF32 in three passes (NP = 3,
+//   the fp32 backward): both operands split into big = cvt.rna(x) and
+//   small = cvt.rna(x - big), a_small b_big + a_big b_small + a_big b_big
+//   summed in fp32, within ~2^-22 of the fp32 product; or in one pass (NP =
+//   1, the reduced-precision backward, JAX's prec = DEFAULT): a_big b_big
+//   alone, tf32_rna(a) tf32_rna(b) accumulated in fp32, the small planes
+//   neither written nor read and only the big halves of the packed weights
+//   loaded (the shared-memory layouts stay those of three passes: at one
+//   pass the small planes go unused).  Each kernel is built for both and the
+//   entries take the count.  That covers the activation products (C:
 //   the q projection, attn Wo_c, hf W1, g3 W2^T, du W1^T, g2 Wo_c^T; D, E
 //   and E2: [q | k] = h [Wq | Wk] on the d x H weights, h Wv, g Wo^T, and
 //   d_h = [dv | dz] [Wv^T ; Wq^T ; Wk^T]) and the weight gradients,
@@ -106,15 +112,20 @@ __device__ __forceinline__ float gelu_grad(float u) {
   return cdf + u * (expf(-0.5f * u * u) * 0.3989422804014327f);
 }
 
-// (a, b) at (r, c), (r, c + 1) of the big plane P and the small plane P + pl.
-template <int ST, int PLN>
+// (a, b) at (r, c), (r, c + 1) of the big plane P and the small plane P + PLN.
+// One pass (NP = 1) reads the big plane alone, so only it is written.
+template <int ST, int PLN, int NP = PASSES_SPLIT>
 __device__ __forceinline__ void put_split(float* P, int r, int c, float a, float b) {
-  uint32_t ba, sa, bb, sb;
-  split_tf32(a, ba, sa);
-  split_tf32(b, bb, sb);
   const int i = r * ST + (c ^ (r & 4));
-  st2(P + i, __uint_as_float(ba), __uint_as_float(bb));
-  st2(P + PLN + i, __uint_as_float(sa), __uint_as_float(sb));
+  if constexpr (NP == PASSES_ONE) {
+    st2(P + i, __uint_as_float(to_tf32(a)), __uint_as_float(to_tf32(b)));
+  } else {
+    uint32_t ba, sa, bb, sb;
+    split_tf32(a, ba, sa);
+    split_tf32(b, bb, sb);
+    st2(P + i, __uint_as_float(ba), __uint_as_float(bb));
+    st2(P + PLN + i, __uint_as_float(sa), __uint_as_float(sb));
+  }
 }
 
 // An mma.m16n8k8 TF32 A fragment from shared memory in one instruction: the
@@ -142,9 +153,12 @@ __device__ __forceinline__ int warp_id() { return threadIdx.x >> 5; }
 // blocks' shared memory leaves L1 little room) are all in flight at once;
 // unrolled by two, C and E ran 16% and 10% slower (bwd_timing, on the card).
 // A fragments come by ldmatrix (ldsm_x4), 1% faster than four 32-bit loads.
-template <int KS, int NI, int AST, int APL, int WPR = 4>
+// NP TF32 passes: 3 (split, as above) or 1 (a_big b_big alone; the small
+// plane is not read and each B fragment is the float2 of its big halves).
+template <int KS, int NI, int AST, int APL, int WPR = 4, int NP = PASSES_SPLIT>
 __device__ __forceinline__ void mma_act(const float* A, const float* __restrict__ Wp, int w_nt,
                                         int k0, int nt, float (&acc)[NI][4]) {
+  static_assert(NP == PASSES_SPLIT || NP == PASSES_ONE, "three TF32 passes or one");
   const int lane = threadIdx.x & 31;
   // ldmatrix.x4 row address of this lane: matrices (rows 0-7 | 8-15) x
   // (columns 0-3 | 4-7) of the k-step, in that order, give a0..a3.
@@ -155,15 +169,21 @@ __device__ __forceinline__ void mma_act(const float* A, const float* __restrict_
   for (int j = 0; j < KS; ++j) {
     uint32_t ab[4], as[4];
     ldsm_x4(a + 8 * j, ab);
-    ldsm_x4(a + APL + 8 * j, as);
+    if constexpr (NP == PASSES_SPLIT) ldsm_x4(a + APL + 8 * j, as);
 #pragma unroll
     for (int ni = 0; ni < NI; ++ni) {
-      const float4 b = __ldg(W + ((k0 + j) * w_nt + nt + ni) * 32 + lane);
-      const uint32_t bb0 = __float_as_uint(b.x), bb1 = __float_as_uint(b.y);
-      const uint32_t bs0 = __float_as_uint(b.z), bs1 = __float_as_uint(b.w);
-      mma_tf32(acc[ni], as, bb0, bb1);
-      mma_tf32(acc[ni], ab, bs0, bs1);
-      mma_tf32(acc[ni], ab, bb0, bb1);
+      const float4* bp = W + ((k0 + j) * w_nt + nt + ni) * 32 + lane;
+      if constexpr (NP == PASSES_SPLIT) {
+        const float4 b = __ldg(bp);
+        const uint32_t bb0 = __float_as_uint(b.x), bb1 = __float_as_uint(b.y);
+        const uint32_t bs0 = __float_as_uint(b.z), bs1 = __float_as_uint(b.w);
+        mma_tf32(acc[ni], as, bb0, bb1);
+        mma_tf32(acc[ni], ab, bs0, bs1);
+        mma_tf32(acc[ni], ab, bb0, bb1);
+      } else {
+        const float2 b = __ldg(reinterpret_cast<const float2*>(bp));
+        mma_tf32(acc[ni], ab, __float_as_uint(b.x), __float_as_uint(b.y));
+      }
     }
   }
 }
@@ -171,8 +191,9 @@ __device__ __forceinline__ void mma_act(const float* A, const float* __restrict_
 // ---- weight gradients: acc[mi][ni] += Σ_{s < BT} X[s, m] Y[s, n] for the
 // rows m = m0 + 16 mi + 8h + g and columns n = n0 + 8 ni + 2t + e of the
 // product X^T Y, the sites as K.  X and Y are split planes (row strides XST,
-// YST; plane sizes XPL, YPL), read transposed: rows t (+4), columns g. ----
-template <int MI, int NI, int XST, int XPL, int YST, int YPL>
+// YST; plane sizes XPL, YPL), read transposed: rows t (+4), columns g.  NP
+// TF32 passes, as mma_act (one pass reads the big planes alone). ----
+template <int MI, int NI, int XST, int XPL, int YST, int YPL, int NP = PASSES_SPLIT>
 __device__ __forceinline__ void mma_grad(const float* X, const float* Y, int m0, int n0,
                                          float (&acc)[MI][NI][4]) {
   const int g = lane_g(), t = lane_t();
@@ -188,7 +209,7 @@ __device__ __forceinline__ void mma_grad(const float* X, const float* Y, int m0,
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         xb[mi][r] = __float_as_uint(X[o[r]]);
-        xs[mi][r] = __float_as_uint(X[XPL + o[r]]);
+        if constexpr (NP == PASSES_SPLIT) xs[mi][r] = __float_as_uint(X[XPL + o[r]]);
       }
     }
 #pragma unroll
@@ -196,12 +217,17 @@ __device__ __forceinline__ void mma_grad(const float* X, const float* Y, int m0,
       const int n = n0 + 8 * ni + g;
       const int o0 = s0 * YST + n, o1 = s1 * YST + (n ^ 4);
       const uint32_t bb0 = __float_as_uint(Y[o0]), bb1 = __float_as_uint(Y[o1]);
-      const uint32_t bs0 = __float_as_uint(Y[YPL + o0]), bs1 = __float_as_uint(Y[YPL + o1]);
+      if constexpr (NP == PASSES_SPLIT) {
+        const uint32_t bs0 = __float_as_uint(Y[YPL + o0]), bs1 = __float_as_uint(Y[YPL + o1]);
 #pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        mma_tf32(acc[mi][ni], xs[mi], bb0, bb1);
-        mma_tf32(acc[mi][ni], xb[mi], bs0, bs1);
-        mma_tf32(acc[mi][ni], xb[mi], bb0, bb1);
+        for (int mi = 0; mi < MI; ++mi) {
+          mma_tf32(acc[mi][ni], xs[mi], bb0, bb1);
+          mma_tf32(acc[mi][ni], xb[mi], bs0, bs1);
+          mma_tf32(acc[mi][ni], xb[mi], bb0, bb1);
+        }
+      } else {
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) mma_tf32(acc[mi][ni], xb[mi], bb0, bb1);
       }
     }
   }
@@ -218,12 +244,12 @@ __device__ __forceinline__ void zero(float* a) {
 // accumulation does not round to nearest: chained over a block's thousands
 // of sites it drifted to 7e-5 of the gradients (on the card), so each chain
 // covers one tile's 32 sites and the sums across tiles are ordinary adds.
-template <int MI, int NI, int XST, int XPL, int YST, int YPL>
+template <int MI, int NI, int XST, int XPL, int YST, int YPL, int NP = PASSES_SPLIT>
 __device__ __forceinline__ void grad_tile(const float* X, const float* Y, int m0, int n0,
                                           float (&run)[MI][NI][4]) {
   float acc[MI][NI][4];
   zero<MI * NI * 4>(&acc[0][0][0]);
-  mma_grad<MI, NI, XST, XPL, YST, YPL>(X, Y, m0, n0, acc);
+  mma_grad<MI, NI, XST, XPL, YST, YPL, NP>(X, Y, m0, n0, acc);
 #pragma unroll
   for (int i = 0; i < MI * NI * 4; ++i) (&run[0][0][0])[i] += (&acc[0][0][0])[i];
 }
@@ -249,8 +275,8 @@ __device__ __forceinline__ void tile_issue(float* dst, const float* src, int nv)
 __device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;" ::: "memory"); }
 
 // LayerNorm of each tile row of X (row stride ST), one warp per row,
-// written split to the planes Y.
-template <int ST, int NW = NWARP>
+// written split to the planes Y (the big plane alone at one pass).
+template <int ST, int NW = NWARP, int NP = PASSES_SPLIT>
 static __device__ void ln_split_rows(const float* X, float* Y, const float* __restrict__ scale,
                                      const float* __restrict__ bias, float eps) {
   const int warp = warp_id(), lane = threadIdx.x & 31;
@@ -261,17 +287,17 @@ static __device__ void ln_split_rows(const float* X, float* Y, const float* __re
     const float da = x.x - mu, db = x.y - mu;
     const float var = warp_sum(da * da + db * db) * (1.f / D);
     const float r = 1.f / sqrtf(var + eps);
-    put_split<BXS, PL>(Y, s, 2 * lane, da * r * sc.x + bi.x, db * r * sc.y + bi.y);
+    put_split<BXS, PL, NP>(Y, s, 2 * lane, da * r * sc.x + bi.x, db * r * sc.y + bi.y);
   }
 }
 
 // The split planes of a tile (row stride ST), one float2 a thread at a time.
-template <int ST, int NTH = NT>
+template <int ST, int NTH = NT, int NP = PASSES_SPLIT>
 __device__ __forceinline__ void split_tile(const float* G, float* P) {
   for (int e = threadIdx.x; e < BT * D / 2; e += NTH) {
     const int r = e / (D / 2), c = 2 * (e % (D / 2));
     const float2 v = ld2(G + tile_at<ST>(r, c));
-    put_split<BXS, PL>(P, r, c, v.x, v.y);
+    put_split<BXS, PL, NP>(P, r, c, v.x, v.y);
   }
 }
 
@@ -280,7 +306,7 @@ __device__ __forceinline__ void split_tile(const float* G, float* P) {
 // out = G + dx for rows < nv goes to dst (·, D) and, if P is given, split to
 // the planes P (zero for rows >= nv).  Adds the columns 2 lane, 2 lane + 1
 // of Σ dh·xhat, Σ dh, Σ G and Σ out to the warp's sums.
-template <int ST, int NW = NWARP>
+template <int ST, int NW = NWARP, int NP = PASSES_SPLIT>
 static __device__ void ln_bwd_tile(const float* X, const float* DH, const float* G,
                                    const float* __restrict__ scale, float eps, int nv,
                                    float* dst, float* P, float (&ds)[2], float (&db)[2],
@@ -289,7 +315,7 @@ static __device__ void ln_bwd_tile(const float* X, const float* DH, const float*
   const float2 sc = ld2(scale + 2 * lane);
   for (int s = warp; s < BT; s += NW) {
     if (s >= nv) {
-      if (P != nullptr) put_split<BXS, PL>(P, s, 2 * lane, 0.f, 0.f);
+      if (P != nullptr) put_split<BXS, PL, NP>(P, s, 2 * lane, 0.f, 0.f);
       continue;
     }
     const float2 x = ld2(X + tile_at<ST>(s, 2 * lane));
@@ -306,7 +332,7 @@ static __device__ void ln_bwd_tile(const float* X, const float* DH, const float*
     const float o0 = g.x + r * (gx0 - m1 - xh0 * m2);
     const float o1 = g.y + r * (gx1 - m1 - xh1 * m2);
     st2(dst + (size_t)s * D + 2 * lane, o0, o1);
-    if (P != nullptr) put_split<BXS, PL>(P, s, 2 * lane, o0, o1);
+    if (P != nullptr) put_split<BXS, PL, NP>(P, s, 2 * lane, o0, o1);
     ds[0] += dh.x * xh0;
     ds[1] += dh.y * xh1;
     db[0] += dh.x;
@@ -394,6 +420,7 @@ constexpr int GMI = 16 / C_WARPS;
 constexpr int GE = 4 * GMI * 2;
 static_assert(CNI >= 1 && GMI >= 1, "kernel C takes 8 or 16 warps");
 
+template <int NP>
 __global__ void __launch_bounds__(C_NT, 1) kernel_c(
     const float* __restrict__ x1, const float* __restrict__ g3, const float* __restrict__ stats,
     const float* __restrict__ pmask, const float* __restrict__ pair_count,
@@ -455,13 +482,13 @@ __global__ void __launch_bounds__(C_NT, 1) kernel_c(
     }
     const float pm = pmask[row_b + p];
     // column attention output (kernel B's math): qn, attn, x2
-    ln_split_rows<BXS, C_WARPS>(X, S.hs, w + CB_CNS, w + CB_CNB, eps);
-    split_tile<BXS, C_NT>(G, S.gs);
+    ln_split_rows<BXS, C_WARPS, NP>(X, S.hs, w + CB_CNS, w + CB_CNB, eps);
+    split_tile<BXS, C_NT, NP>(G, S.gs);
     __syncthreads();
     {
       float acc[CNI][4];
       zero<CE>(&acc[0][0]);
-      mma_act<D / 8, CNI, BXS, PL, CWPR>(S.hs, wm + CTM_CWQ, D / 8, 0, nt0, acc);
+      mma_act<D / 8, CNI, BXS, PL, CWPR, NP>(S.hs, wm + CTM_CWQ, D / 8, 0, nt0, acc);
 #pragma unroll
       for (int ni = 0; ni < CNI; ++ni)
 #pragma unroll
@@ -473,14 +500,14 @@ __global__ void __launch_bounds__(C_NT, 1) kernel_c(
             qn[k + e] = phi(acc[ni][2 * h + e] + w[CB_CBQE + c + e]) * pm / qm[k + e];
             at[e] = qn[k + e] * ctx[k + e];
           }
-          put_split<BXS, PL>(S.as, s, c, at[0], at[1]);
+          put_split<BXS, PL, NP>(S.as, s, c, at[0], at[1]);
         }
     }
     __syncthreads();
     {
       float acc[CNI][4];
       zero<CE>(&acc[0][0]);
-      mma_act<D / 8, CNI, BXS, PL, CWPR>(S.as, wm + CTM_CWO, D / 8, 0, nt0, acc);
+      mma_act<D / 8, CNI, BXS, PL, CWPR, NP>(S.as, wm + CTM_CWO, D / 8, 0, nt0, acc);
 #pragma unroll
       for (int ni = 0; ni < CNI; ++ni)
 #pragma unroll
@@ -494,7 +521,7 @@ __global__ void __launch_bounds__(C_NT, 1) kernel_c(
     }
     __syncthreads();
     // the FFN recomputed and differentiated, one 64-wide hidden chunk at a time
-    ln_split_rows<BXS, C_WARPS>(X, S.hs, w + CB_FNS, w + CB_FNB, eps);
+    ln_split_rows<BXS, C_WARPS, NP>(X, S.hs, w + CB_FNS, w + CB_FNB, eps);
     __syncthreads();
     float dhf[CNI][4];
     zero<CE>(&dhf[0][0]);
@@ -502,7 +529,7 @@ __global__ void __launch_bounds__(C_NT, 1) kernel_c(
     for (int ch = 0; ch < F / D; ++ch) {
       float u[CNI][4];
       zero<CE>(&u[0][0]);
-      mma_act<D / 8, CNI, BXS, PL, CWPR>(S.hs, wm + CTM_W1, F / 8, 0, ch * (D / 8) + nt0, u);
+      mma_act<D / 8, CNI, BXS, PL, CWPR, NP>(S.hs, wm + CTM_W1, F / 8, 0, ch * (D / 8) + nt0, u);
 #pragma unroll
       for (int ni = 0; ni < CNI; ++ni)
 #pragma unroll
@@ -511,18 +538,19 @@ __global__ void __launch_bounds__(C_NT, 1) kernel_c(
           const float* b1 = w + CB_B1 + ch * D + c;
           u[ni][2 * h] += b1[0];
           u[ni][2 * h + 1] += b1[1];
-          put_split<BXS, PL>(S.as, s, c, gelu<0>(u[ni][2 * h]), gelu<0>(u[ni][2 * h + 1]));
+          put_split<BXS, PL, NP>(S.as, s, c, gelu<0>(u[ni][2 * h]),
+                                 gelu<0>(u[ni][2 * h + 1]));
         }
       __syncthreads();
       {
         float acc[GMI][2][4];  // dW2 rows 64 ch .. : a^T g3
         zero<GE>(&acc[0][0][0]);
-        mma_grad<GMI, 2, BXS, PL, BXS, PL>(S.as, S.gs, gm0, gn0, acc);
+        mma_grad<GMI, 2, BXS, PL, BXS, PL, NP>(S.as, S.gs, gm0, gn0, acc);
         grad_add<GE, C_NT>(S.grad + (F / D + ch) * (GE / 4) * C_NT, &acc[0][0][0]);
       }
       float gd[CNI][4];  // g3 W2^T, the chunk's columns
       zero<CE>(&gd[0][0]);
-      mma_act<D / 8, CNI, BXS, PL, CWPR>(S.gs, wm + CTM_W2T, F / 8, 0, ch * (D / 8) + nt0, gd);
+      mma_act<D / 8, CNI, BXS, PL, CWPR, NP>(S.gs, wm + CTM_W2T, F / 8, 0, ch * (D / 8) + nt0, gd);
       __syncthreads();
 #pragma unroll
       for (int ni = 0; ni < CNI; ++ni)
@@ -535,19 +563,19 @@ __global__ void __launch_bounds__(C_NT, 1) kernel_c(
             du[e] = gd[ni][2 * h + e] * gelu_grad(u[ni][2 * h + e]);
             if (s < nv) db1[ch][2 * ni + e] += du[e];
           }
-          put_split<BXS, PL>(S.as, s, c, du[0], du[1]);
+          put_split<BXS, PL, NP>(S.as, s, c, du[0], du[1]);
         }
       __syncthreads();
       {
         float acc[GMI][2][4];  // dW1 columns 64 ch .. : hf^T du
         zero<GE>(&acc[0][0][0]);
-        mma_grad<GMI, 2, BXS, PL, BXS, PL>(S.hs, S.as, gm0, gn0, acc);
+        mma_grad<GMI, 2, BXS, PL, BXS, PL, NP>(S.hs, S.as, gm0, gn0, acc);
         grad_add<GE, C_NT>(S.grad + ch * (GE / 4) * C_NT, &acc[0][0][0]);
       }
       {  // d_hf += du W1^T (the chunk's k-steps; chains of one chunk, as grad_tile)
         float acc[CNI][4];
         zero<CE>(&acc[0][0]);
-        mma_act<D / 8, CNI, BXS, PL, CWPR>(S.as, wm + CTM_W1T, D / 8, ch * (D / 8), nt0, acc);
+        mma_act<D / 8, CNI, BXS, PL, CWPR, NP>(S.as, wm + CTM_W1T, D / 8, ch * (D / 8), nt0, acc);
 #pragma unroll
         for (int k = 0; k < CE; ++k) (&dhf[0][0])[k] += (&acc[0][0])[k];
       }
@@ -560,23 +588,23 @@ __global__ void __launch_bounds__(C_NT, 1) kernel_c(
         st2(S.as + sw(act_row<CWPR>(h), act_col<CWPR>(ni)), dhf[ni][2 * h], dhf[ni][2 * h + 1]);
     __syncthreads();
     // g2 = g3 + LN_f backward; attn split again (hs is free now)
-    ln_bwd_tile<BXS, C_WARPS>(X, S.as, G, w + CB_FNS, eps, nv, g2 + off, S.gs, vfs, vfb, vb2,
-                              vbo);
+    ln_bwd_tile<BXS, C_WARPS, NP>(X, S.as, G, w + CB_FNS, eps, nv, g2 + off, S.gs, vfs, vfb,
+                                  vb2, vbo);
 #pragma unroll
     for (int ni = 0; ni < CNI; ++ni)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int k = 4 * ni + 2 * h;
-        put_split<BXS, PL>(S.hs, act_row<CWPR>(h), act_col<CWPR>(ni), qn[k] * ctx[k],
-                           qn[k + 1] * ctx[k + 1]);
+        put_split<BXS, PL, NP>(S.hs, act_row<CWPR>(h), act_col<CWPR>(ni), qn[k] * ctx[k],
+                               qn[k + 1] * ctx[k + 1]);
       }
     __syncthreads();
     // dWo_c += attn^T g2; d_attn = g2 Wo_c^T and the A1 sum
-    grad_tile<GMI, 2, BXS, PL, BXS, PL>(S.hs, S.gs, gm0, gn0, dwo);
+    grad_tile<GMI, 2, BXS, PL, BXS, PL, NP>(S.hs, S.gs, gm0, gn0, dwo);
     {
       float acc[CNI][4];
       zero<CE>(&acc[0][0]);
-      mma_act<D / 8, CNI, BXS, PL, CWPR>(S.gs, wm + CTM_CWOT, D / 8, 0, nt0, acc);
+      mma_act<D / 8, CNI, BXS, PL, CWPR, NP>(S.gs, wm + CTM_CWOT, D / 8, 0, nt0, acc);
 #pragma unroll
       for (int k = 0; k < CE; ++k) a1r[k] = fmaf(acc[k >> 2][k & 3], qn[k], a1r[k]);
     }
@@ -665,6 +693,7 @@ __device__ __forceinline__ void head_z(const float (&z)[1][4], float (&zq)[2], f
 // The three products of a tile: [zq | zk] = h [Wq | Wk] (the d x H
 // weights), v = h Wv and d_attn = g Wo^T, for the warp's rows and head; hs
 // and gs are the split planes of h and g.
+template <int NP>
 __device__ __forceinline__ void row_products(const float* hs, const float* gs,
                                              const float* __restrict__ wm, float (&z)[1][4],
                                              float (&v)[2][4], float (&da)[2][4]) {
@@ -672,9 +701,9 @@ __device__ __forceinline__ void row_products(const float* hs, const float* gs,
   zero<8>(&v[0][0]);
   zero<8>(&da[0][0]);
   const int nt = 2 * (warp_id() & 3);
-  mma_act<D / 8, 1, BXS, PL>(hs, wm + EM_WQK, 1, 0, 0, z);
-  mma_act<D / 8, 2, BXS, PL>(hs, wm + EM_WV, D / 8, 0, nt, v);
-  mma_act<D / 8, 2, BXS, PL>(gs, wm + EM_WOT, D / 8, 0, nt, da);
+  mma_act<D / 8, 1, BXS, PL, 4, NP>(hs, wm + EM_WQK, 1, 0, 0, z);
+  mma_act<D / 8, 2, BXS, PL, 4, NP>(hs, wm + EM_WV, D / 8, 0, nt, v);
+  mma_act<D / 8, 2, BXS, PL, 4, NP>(gs, wm + EM_WOT, D / 8, 0, nt, da);
 }
 
 // Sum over the thread's quad (the 4 lanes t of a row): with its own four
@@ -684,26 +713,35 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// dzq and dzk of row s and head hh, split into the [dzq | dzk] planes.
+// dzq and dzk of row s and head hh, split into the [dzq | dzk] planes (the
+// big plane alone at one pass).
+template <int NP>
 __device__ __forceinline__ void put_dz(float* dz, int s, int hh, float dzq, float dzk) {
-  uint32_t big, small;
-  split_tf32(dzq, big, small);
-  dz[s * DZS + (hh ^ (s & 4))] = __uint_as_float(big);
-  dz[DZPL + s * DZS + (hh ^ (s & 4))] = __uint_as_float(small);
-  split_tf32(dzk, big, small);
-  dz[s * DZS + ((H + hh) ^ (s & 4))] = __uint_as_float(big);
-  dz[DZPL + s * DZS + ((H + hh) ^ (s & 4))] = __uint_as_float(small);
+  const int iq = s * DZS + (hh ^ (s & 4)), ik = s * DZS + ((H + hh) ^ (s & 4));
+  if constexpr (NP == PASSES_ONE) {
+    dz[iq] = __uint_as_float(to_tf32(dzq));
+    dz[ik] = __uint_as_float(to_tf32(dzk));
+  } else {
+    uint32_t big, small;
+    split_tf32(dzq, big, small);
+    dz[iq] = __uint_as_float(big);
+    dz[DZPL + iq] = __uint_as_float(small);
+    split_tf32(dzk, big, small);
+    dz[ik] = __uint_as_float(big);
+    dz[DZPL + ik] = __uint_as_float(small);
+  }
 }
 
 // d_h = [d_v | dz] [Wv^T ; Wq^T ; Wk^T] for the warp's rows and head, into
 // the big plane of hs (fp32) once every warp is done reading hs.
+template <int NP>
 __device__ __forceinline__ void dh_product(const float* vs, const float* dz,
                                            const float* __restrict__ wm, float* hs) {
   const int hh = warp_id() & 3;
   float dh[2][4];
   zero<8>(&dh[0][0]);
-  mma_act<D / 8, 2, BXS, PL>(vs, wm + EM_WDH, D / 8, 0, 2 * hh, dh);
-  mma_act<1, 2, DZS, DZPL>(dz, wm + EM_WDH, D / 8, D / 8, 2 * hh, dh);
+  mma_act<D / 8, 2, BXS, PL, 4, NP>(vs, wm + EM_WDH, D / 8, 0, 2 * hh, dh);
+  mma_act<1, 2, DZS, DZPL, 4, NP>(dz, wm + EM_WDH, D / 8, D / 8, 2 * hh, dh);
   __syncthreads();
 #pragma unroll
   for (int ni = 0; ni < 2; ++ni)
@@ -741,7 +779,7 @@ __device__ __forceinline__ void pair_terms(float* pc, float sq, float sk_raw, fl
 // pass 2 emits gx and the weight gradients.  E2 (FROM_SUMS true) runs pass
 // 2 alone on the tiles [t0, t1) of its site chunk (block slot * SC +
 // chunk), each pair's terms finalized from its raw sums in rowsums (E1's).
-template <bool FROM_SUMS>
+template <bool FROM_SUMS, int NP>
 __device__ __forceinline__ void row_bwd(SmemE& S, const float* __restrict__ x,
                                         const float* __restrict__ g1,
                                         const float* __restrict__ rowsums,
@@ -808,11 +846,11 @@ __device__ __forceinline__ void row_bwd(SmemE& S, const float* __restrict__ x,
       const float* rs = rowsums + (row_b + p) * 4 * D;
       pair_terms(S.pc, rs[t], rs[D + t], rs[2 * D + t], rs[3 * D + t], S.count);
     }
-    ln_split_rows<D>(X, S.hs, w + AG_LNS, w + AG_LNB, eps);
-    split_tile<D>(G, S.gs);
+    ln_split_rows<D, NWARP, NP>(X, S.hs, w + AG_LNS, w + AG_LNB, eps);
+    split_tile<D, NT, NP>(G, S.gs);
     __syncthreads();
     float z[1][4], v[2][4], da[2][4], zq[2], zk[2], m[2];
-    row_products(S.hs, S.gs, wm, z, v, da);
+    row_products<NP>(S.hs, S.gs, wm, z, v, da);
     head_z(z, zq, zk);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -894,21 +932,21 @@ __device__ __forceinline__ void row_bwd(SmemE& S, const float* __restrict__ x,
             at[e] = (q / S.pc[c + e]) * S.pc[D + c + e];
             dbv[2 * ni + e] += dv[e];
           }
-          put_split<BXS, PL>(S.vs, s, c, dv[0], dv[1]);
-          put_split<BXS, PL>(S.as, s, c, at[0], at[1]);
+          put_split<BXS, PL, NP>(S.vs, s, c, dv[0], dv[1]);
+          put_split<BXS, PL, NP>(S.as, s, c, at[0], at[1]);
         }
         if (lane_t() == 0) {
-          put_dz(S.dz, s, hh, dzq, dzk);
+          put_dz<NP>(S.dz, s, hh, dzq, dzk);
           dzs[0] += dzq;
           dzs[1] += dzk;
         }
       }
     }
     __syncthreads();
-    grad_tile<2, 2, BXS, PL, BXS, PL>(S.hs, S.vs, 32 * wmr, 16 * hh, dwv);  // h^T d_v
-    grad_tile<2, 2, BXS, PL, BXS, PL>(S.as, S.gs, 32 * wmr, 16 * hh, dwo);  // attn^T g1
-    if (warp < 4) grad_tile<1, 1, BXS, PL, DZS, DZPL>(S.hs, S.dz, 16 * warp, 0, dwqk);
-    dh_product(S.vs, S.dz, wm, S.hs);
+    grad_tile<2, 2, BXS, PL, BXS, PL, NP>(S.hs, S.vs, 32 * wmr, 16 * hh, dwv);  // h^T d_v
+    grad_tile<2, 2, BXS, PL, BXS, PL, NP>(S.as, S.gs, 32 * wmr, 16 * hh, dwo);  // attn^T g1
+    if (warp < 4) grad_tile<1, 1, BXS, PL, DZS, DZPL, NP>(S.hs, S.dz, 16 * warp, 0, dwqk);
+    dh_product<NP>(S.vs, S.dz, wm, S.hs);
     __syncthreads();
     ln_bwd_tile<D>(X, S.hs, G, w + AG_LNS, eps, nv, gx + off, nullptr, vds, vdb, vbo, unused);
   }
@@ -955,22 +993,24 @@ __device__ __forceinline__ void row_bwd(SmemE& S, const float* __restrict__ x,
   }
 }
 
+template <int NP>
 __global__ void __launch_bounds__(NT, 2) kernel_e(
     const float* __restrict__ x, const float* __restrict__ g1, const float* __restrict__ smask,
     const float* __restrict__ w, const float* __restrict__ wm, float* __restrict__ gx,
     float* __restrict__ w_part, int P, int L, int S_, float eps) {
   extern __shared__ float4 smem_raw[];
-  row_bwd<false>(*reinterpret_cast<SmemE*>(smem_raw), x, g1, nullptr, smask, w, wm, gx, w_part,
-                 P, L, S_, 1, eps);
+  row_bwd<false, NP>(*reinterpret_cast<SmemE*>(smem_raw), x, g1, nullptr, smask, w, wm, gx,
+                     w_part, P, L, S_, 1, eps);
 }
 
+template <int NP>
 __global__ void __launch_bounds__(NT, 2) kernel_e2(
     const float* __restrict__ x, const float* __restrict__ g1, const float* __restrict__ rowsums,
     const float* __restrict__ smask, const float* __restrict__ w, const float* __restrict__ wm,
     float* __restrict__ gx, float* __restrict__ w_part, int P, int L, int SP, int SC, float eps) {
   extern __shared__ float4 smem_raw[];
-  row_bwd<true>(*reinterpret_cast<SmemE*>(smem_raw), x, g1, rowsums, smask, w, wm, gx, w_part, P,
-                L, SP, SC, eps);
+  row_bwd<true, NP>(*reinterpret_cast<SmemE*>(smem_raw), x, g1, rowsums, smask, w, wm, gx,
+                    w_part, P, L, SP, SC, eps);
 }
 
 // ======================= kernel D =======================
@@ -1040,6 +1080,7 @@ __device__ __forceinline__ void col_site_terms(SmemD& S, const float* __restrict
 // pair's terms replaced by the per-site terms of the tile.  A block owns a
 // contiguous range of pairs of one batch element and walks the site tiles
 // outermost, its pairs innermost, so the site terms are built once a tile.
+template <int NP>
 __global__ void __launch_bounds__(NT, 2) kernel_d(
     const float* __restrict__ x1, const float* __restrict__ g2, const float* __restrict__ stats,
     const float* __restrict__ a1, const float* __restrict__ pmask,
@@ -1088,11 +1129,11 @@ __global__ void __launch_bounds__(NT, 2) kernel_d(
       cp_commit();
     }
     if (p == p0) col_site_terms(S, stats_b, a1_b, l0, nv, n_pairs);  // read after the barrier
-    ln_split_rows<D>(X, S.hs, w + AG_LNS, w + AG_LNB, eps);
-    split_tile<D>(G, S.gs);
+    ln_split_rows<D, NWARP, NP>(X, S.hs, w + AG_LNS, w + AG_LNB, eps);
+    split_tile<D, NT, NP>(G, S.gs);
     __syncthreads();
     float z[1][4], v[2][4], da[2][4], zq[2], zk[2];
-    row_products(S.hs, S.gs, wm, z, v, da);  // d_attn = g2 Wo_c^T
+    row_products<NP>(S.hs, S.gs, wm, z, v, da);  // d_attn = g2 Wo_c^T
     head_z(z, zq, zk);
     const float pm = pmask[row_b + p];
 #pragma unroll
@@ -1125,18 +1166,18 @@ __global__ void __launch_bounds__(NT, 2) kernel_d(
         const float dv0 = skv[2 * ni] * kk, dv1 = skv[2 * ni + 1] * kk;
         dbv[2 * ni] += dv0;
         dbv[2 * ni + 1] += dv1;
-        put_split<BXS, PL>(S.vs, s, act_col(ni), dv0, dv1);
+        put_split<BXS, PL, NP>(S.vs, s, act_col(ni), dv0, dv1);
       }
       if (lane_t() == 0) {
-        put_dz(S.dz, s, hh, dzq, dzk);
+        put_dz<NP>(S.dz, s, hh, dzq, dzk);
         dzs[0] += dzq;
         dzs[1] += dzk;
       }
     }
     __syncthreads();
-    grad_tile<2, 2, BXS, PL, BXS, PL>(S.hs, S.vs, 32 * wmr, 16 * hh, dwv);  // hc^T d_v
-    if (warp < 4) grad_tile<1, 1, BXS, PL, DZS, DZPL>(S.hs, S.dz, 16 * warp, 0, dwqk);
-    dh_product(S.vs, S.dz, wm, S.hs);
+    grad_tile<2, 2, BXS, PL, BXS, PL, NP>(S.hs, S.vs, 32 * wmr, 16 * hh, dwv);  // hc^T d_v
+    if (warp < 4) grad_tile<1, 1, BXS, PL, DZS, DZPL, NP>(S.hs, S.dz, 16 * warp, 0, dwqk);
+    dh_product<NP>(S.vs, S.dz, wm, S.hs);
     __syncthreads();
     ln_bwd_tile<D>(X, S.hs, G, w + AG_LNS, eps, nv, g1 + off, nullptr, vds, vdb, unused, unused);
   }
@@ -1210,45 +1251,60 @@ int pf_bwd_tc_sizes(int* out) {
   return 0;
 }
 
+// Each entry takes the products' TF32 passes (3 or 1; any other count is an
+// invalid-value error) and launches the kernel built for them.
 int pf_kernel_c(const float* x1, const float* g3, const float* stats, const float* pmask,
                 const float* pair_count, const float* w, const float* wm, float* g2,
                 float* a1_part, float* w_part, int B, int P, int L, int S_, float eps,
-                void* stream) {
-  cudaError_t e = allow_smem_of<SmemC>(kernel_c);
-  if (e != cudaSuccess) return (int)e;
-  kernel_c<<<dim3(S_, B), C_NT, sizeof(SmemC), (cudaStream_t)stream>>>(
-      x1, g3, stats, pmask, pair_count, w, wm, g2, a1_part, w_part, P, L, S_, eps);
-  return (int)cudaGetLastError();
+                int passes, void* stream) {
+  return with_passes(passes, [&](auto np) {
+    auto* kernel_c = bt::kernel_c<decltype(np)::value>;
+    cudaError_t e = allow_smem_of<SmemC>(kernel_c);
+    if (e != cudaSuccess) return (int)e;
+    kernel_c<<<dim3(S_, B), C_NT, sizeof(SmemC), (cudaStream_t)stream>>>(
+        x1, g3, stats, pmask, pair_count, w, wm, g2, a1_part, w_part, P, L, S_, eps);
+    return (int)cudaGetLastError();
+  });
 }
 
 int pf_kernel_d(const float* x1, const float* g2, const float* stats, const float* a1,
                 const float* pmask, const float* pair_count, const float* w, const float* wm,
-                float* g1, float* w_part, int B, int P, int L, int S_, float eps, void* stream) {
-  cudaError_t e = allow_smem_of<SmemD>(kernel_d);
-  if (e != cudaSuccess) return (int)e;
-  kernel_d<<<dim3(S_, B), pf::NT, sizeof(SmemD), (cudaStream_t)stream>>>(
-      x1, g2, stats, a1, pmask, pair_count, w, wm, g1, w_part, P, L, S_, eps);
-  return (int)cudaGetLastError();
+                float* g1, float* w_part, int B, int P, int L, int S_, float eps, int passes,
+                void* stream) {
+  return with_passes(passes, [&](auto np) {
+    auto* kernel_d = bt::kernel_d<decltype(np)::value>;
+    cudaError_t e = allow_smem_of<SmemD>(kernel_d);
+    if (e != cudaSuccess) return (int)e;
+    kernel_d<<<dim3(S_, B), pf::NT, sizeof(SmemD), (cudaStream_t)stream>>>(
+        x1, g2, stats, a1, pmask, pair_count, w, wm, g1, w_part, P, L, S_, eps);
+    return (int)cudaGetLastError();
+  });
 }
 
 int pf_kernel_e(const float* x, const float* g1, const float* smask, const float* w,
                 const float* wm, float* gx, float* w_part, int B, int P, int L, int S_,
-                float eps, void* stream) {
-  cudaError_t e = allow_smem_of<SmemE>(kernel_e);
-  if (e != cudaSuccess) return (int)e;
-  kernel_e<<<dim3(S_, B), pf::NT, sizeof(SmemE), (cudaStream_t)stream>>>(x, g1, smask, w, wm, gx,
-                                                                     w_part, P, L, S_, eps);
-  return (int)cudaGetLastError();
+                float eps, int passes, void* stream) {
+  return with_passes(passes, [&](auto np) {
+    auto* kernel_e = bt::kernel_e<decltype(np)::value>;
+    cudaError_t e = allow_smem_of<SmemE>(kernel_e);
+    if (e != cudaSuccess) return (int)e;
+    kernel_e<<<dim3(S_, B), pf::NT, sizeof(SmemE), (cudaStream_t)stream>>>(
+        x, g1, smask, w, wm, gx, w_part, P, L, S_, eps);
+    return (int)cudaGetLastError();
+  });
 }
 
 int pf_kernel_e2(const float* x, const float* g1, const float* rowsums, const float* smask,
                  const float* w, const float* wm, float* gx, float* w_part, int B, int P, int L,
-                 int SP, int SC, float eps, void* stream) {
-  cudaError_t e = allow_smem_of<SmemE>(kernel_e2);
-  if (e != cudaSuccess) return (int)e;
-  kernel_e2<<<dim3(SP * SC, B), pf::NT, sizeof(SmemE), (cudaStream_t)stream>>>(
-      x, g1, rowsums, smask, w, wm, gx, w_part, P, L, SP, SC, eps);
-  return (int)cudaGetLastError();
+                 int SP, int SC, float eps, int passes, void* stream) {
+  return with_passes(passes, [&](auto np) {
+    auto* kernel_e2 = bt::kernel_e2<decltype(np)::value>;
+    cudaError_t e = allow_smem_of<SmemE>(kernel_e2);
+    if (e != cudaSuccess) return (int)e;
+    kernel_e2<<<dim3(SP * SC, B), pf::NT, sizeof(SmemE), (cudaStream_t)stream>>>(
+        x, g1, rowsums, smask, w, wm, gx, w_part, P, L, SP, SC, eps);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // extern "C"

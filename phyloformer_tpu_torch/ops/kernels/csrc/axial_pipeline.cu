@@ -57,8 +57,8 @@
 //   place between its passes; at bf16 that would round x3 as well, so its
 //   second pass runs kernel B again on the stored x1 instead (x3 is the
 //   same bits both times): bf16 storage costs M a second kernel B.
-// - The FFN's activation in M and Z: exact, tanh, sigmoid, relu; sigmoid
-//   and relu only at fp32 storage (the entries refuse the rest).
+// - The FFN's activation in M and Z: exact, tanh, sigmoid, relu, each at
+//   both pass counts and both storage types (16 instantiations of each).
 //
 // Design.
 // - One block of 256 threads (8 warps, two blocks an SM: ~104 KB of shared

@@ -2,7 +2,7 @@
 // _kernel_m (phyloformer_tpu/ops/pallas/pipeline.py:176): kernel B of block
 // i, then kernel A of block i+1, x1 in place.  Its design, bounds and
 // variants are described in the note of axial_pipeline.cu; it lives in a
-// source of its own so that its twelve variants build beside the other
+// source of its own so that its sixteen variants build beside the other
 // kernels (one nvcc per source, in parallel).
 
 #include "axial_bodies.cuh"

@@ -19,8 +19,8 @@ The kernels take the JAX pipeline's static variants: the TF32 passes of
 every product (``passes``: 3, split TF32, at ``mxu_precision="highest"``;
 1, one TF32 pass, otherwise), the storage type of x1 between the kernels
 (fp32 or bf16: P0 takes it as ``act_dtype``, A-only, M and Z read it from
-their x1) and, in M and Z, the FFN's activation (:data:`.axial_block.GELU_MODES`;
-sigmoid and relu at fp32 storage only).  At bf16 the stored x1 is rounded
+their x1) and, in M and Z, the FFN's activation (:data:`.axial_block.GELU_MODES`,
+each at both storage types).  At bf16 the stored x1 is rounded
 to nearest even and the column stats are taken from the rounded values.
 
 Each wrapper takes its plain PyTorch version only for tensors on the CPU.
@@ -414,16 +414,12 @@ def kernel_a_only(x, smask, pmask, rw: WeightGroup, cw: WeightGroup, eps, passes
     return x, reduce_stats(partial)
 
 
-def _gelu_code(gelu_mode: str, storage: int) -> int:
-    """The activation's kernel code; M and Z are built with sigmoid and relu
-    at fp32 storage only."""
+def _gelu_code(gelu_mode: str) -> int:
+    """The activation's kernel code (M and Z are built for each, at both
+    storage types)."""
     if gelu_mode not in GELU_MODES:
         raise ValueError(f"gelu mode {gelu_mode!r}: expected one of {GELU_MODES}")
-    code = GELU_MODES.index(gelu_mode)
-    if code >= GELU_MODES.index("sigmoid") and storage != STORAGE_CODES[torch.float32]:
-        raise ValueError(f"gelu mode {gelu_mode!r}: kernels M and Z run it at fp32 storage "
-                         f"only, not bf16")
-    return code
+    return GELU_MODES.index(gelu_mode)
 
 
 def kernel_m(x1, stats, smask, pmask, pair_count, bw: WeightGroup, rw: WeightGroup,
@@ -432,7 +428,7 @@ def kernel_m(x1, stats, smask, pmask, pair_count, bw: WeightGroup, rw: WeightGro
     x1 fp32 or bf16.  On the card x1 is updated in place; the stats come in
     a new buffer."""
     storage = _storage_code(x1.dtype)
-    gelu = _gelu_code(gelu_mode, storage)
+    gelu = _gelu_code(gelu_mode)
     _check_passes(passes)
     if _on_cpu(x1, stats, smask, pmask, pair_count, bw.flat, rw.flat, cw.flat):
         return kernel_m_plain(x1, stats, smask, pmask, pair_count, bw, rw, cw, eps, gelu_mode,
@@ -463,7 +459,7 @@ def kernel_z(x1, stats, smask, pair_count, bw: WeightGroup, hw: WeightGroup, eps
     """Last block's kernel B + head → ``(B, P)`` distances; x1 fp32 or
     bf16, the head fp32."""
     storage = _storage_code(x1.dtype)
-    gelu = _gelu_code(gelu_mode, storage)
+    gelu = _gelu_code(gelu_mode)
     _check_passes(passes)
     if _on_cpu(x1, stats, smask, pair_count, bw.flat, hw.flat):
         return kernel_z_plain(x1, stats, smask, pair_count, bw, hw, eps, gelu_mode, passes)

@@ -13,10 +13,12 @@ resumes from the latest checkpoint of a directory
 (``<output-dir>/checkpoints_<run-name>``).  ``--packed-data`` reads shards
 written by ``pf-preprocess-torch`` (or the JAX package's ``pf-preprocess``);
 ``--profile`` traces 10 steps into ``<output-dir>/profile`` and exits;
-``--debug-nans`` stops at the first non-finite loss or gradient.  Not yet
-ported, and refused: the mesh flags, ``--shard-pairs``,
-``--distributed-init``, dropout > 0 and ``--matmul-precision`` other than
-``float32``.
+``--debug-nans`` stops at the first non-finite loss or gradient.
+``--matmul-precision tensorfloat32`` or ``default`` trains at reduced
+precision: the kernels' products, forward and backward, in one TF32 pass
+(the plain versions round their operands the same way on ``--device
+cpu``), the eager route's in TF32.  Not yet ported, and refused: the mesh
+flags, ``--shard-pairs``, ``--distributed-init`` and dropout > 0.
 """
 
 from __future__ import annotations
@@ -59,7 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
     arch.add_argument("--nb-heads", "-H", type=int, default=4)
     arch.add_argument("--matmul-precision", default="float32",
                       choices=["float32", "tensorfloat32", "default"],
-                      help="float32 = IEEE fp32 products (the only mode ported)")
+                      help="float32 = IEEE fp32 products; tensorfloat32 | default = one "
+                           "TF32 pass in the kernels' products (and PyTorch's on the "
+                           "eager route)")
 
     train = p.add_argument_group("training")
     train.add_argument("--nb-epochs", "-e", type=int, default=100)
@@ -125,7 +129,6 @@ def _refuse_unported(args) -> None:
         "--mesh-pair": args.mesh_pair != 1,
         "--shard-pairs": args.shard_pairs,
         "--distributed-init": args.distributed_init,
-        f"--matmul-precision {args.matmul_precision}": args.matmul_precision != "float32",
         f"--dropout {args.dropout}": args.dropout != 0.0,
     }
     for flag, used in unported.items():

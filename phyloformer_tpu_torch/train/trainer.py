@@ -8,7 +8,10 @@ when ``grad_accum > 1``) and the count of micro-batches.  ``use_pallas``
 runs the fused kernels forward and backward
 (:func:`..models.phyloformer.forward_fused_ad`); otherwise the eager model
 runs under plain autograd, the JAX package's XLA path.  Steps run on the
-device of the parameters; fp32 products, TF32 off.
+device of the parameters.  ``matmul_precision`` "float32" computes every
+product in fp32 (the kernels' in three TF32 passes, PyTorch's with TF32
+off); "tensorfloat32" and "default" run the kernels' products in one TF32
+pass and, on the eager route, PyTorch's in TF32 (:func:`_step_products`).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 from ..data.pairs import n_pairs
-from ..device import resolve_device
+from ..device import resolve_device, tf32_products
 from ..infer.engine import real_pair_selector
 from ..models.params import Params, PhyloformerConfig, init_params, map_params
 from ..models.phyloformer import forward, forward_fused_ad, pair_mask_from_seq_mask
@@ -145,8 +148,6 @@ def _check_supported(cfg: PhyloformerConfig, tcfg: TrainConfig, mesh) -> None:
         raise _not_ported("shard_pairs")
     if cfg.dropout:
         raise _not_ported(f"dropout={cfg.dropout}")
-    if cfg.matmul_precision != "float32":
-        raise _not_ported(f"matmul_precision={cfg.matmul_precision!r}")
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Optional[torch.Tensor]]:
@@ -172,10 +173,15 @@ def _batch_loss(params, batch, cfg, tcfg, loss_fn):
     return loss_fn(preds, batch["dists"], pair_mask), (preds, pair_mask)
 
 
-def _fp32_products(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+def _step_products(cfg: PhyloformerConfig, tcfg: TrainConfig, device: torch.device):
+    """PyTorch's own products in a step, as JAX runs its XLA parts under
+    ``jax.default_matmul_precision(cfg.matmul_precision)``: one TF32 pass on
+    the card for the eager route at "tensorfloat32" or "default", IEEE fp32
+    otherwise (the fused route's kernels take their passes from the config,
+    and its head stays fp32).  A context manager; the flags are restored
+    after it."""
+    one_pass = cfg.matmul_precision != "float32" and not tcfg.use_pallas
+    return tf32_products(device.type == "cuda" and one_pass)
 
 
 def make_train_step(
@@ -196,16 +202,16 @@ def make_train_step(
     loss_fn = get_loss(tcfg.loss)
     sched = linear_warmup_decay(tcfg.learning_rate, tcfg.warmup_steps, tcfg.total_steps)
     every_k = max(1, tcfg.grad_accum)
-    _fp32_products(tx.leaves[0].device)
 
     def step_fn(state: TrainState, batch, dropout_key=None):
         leaves = param_leaves(state["params"])
         b = batch_to_device(batch, leaves[0].device)
-        loss, _ = _batch_loss(state["params"], b, cfg, tcfg, loss_fn)
-        checks = nan_checks_enabled()
-        if checks:
-            check_finite(loss)  # a NaN from the forward, before the backward sees it
-        grads = torch.autograd.grad(loss, leaves)
+        with _step_products(cfg, tcfg, leaves[0].device):
+            loss, _ = _batch_loss(state["params"], b, cfg, tcfg, loss_fn)
+            checks = nan_checks_enabled()
+            if checks:
+                check_finite(loss)  # a NaN from the forward, before the backward sees it
+            grads = torch.autograd.grad(loss, leaves)
         if checks:
             check_finite(loss, grads)
         logs = {"train_loss": loss.detach(), "grad_norm": global_norm(grads).detach(),
@@ -225,9 +231,8 @@ def make_eval_step(cfg: PhyloformerConfig, tcfg: TrainConfig, mesh=None) -> Call
 
     def eval_fn(params, batch):
         device = param_leaves(params)[0].device
-        _fp32_products(device)
         b = batch_to_device(batch, device)
-        with torch.no_grad():
+        with _step_products(cfg, tcfg, device), torch.no_grad():
             loss, (preds, pair_mask) = _batch_loss(params, b, cfg, tcfg, loss_fn)
             out = {"val_loss": loss}
             out.update({f"val_{k}": v

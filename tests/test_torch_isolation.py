@@ -212,8 +212,6 @@ print(json.dumps(res))
 @pytest.mark.parametrize("flags", [["--mesh-data", "2"], ["--mesh-data", "1"],
                                    ["--mesh-pair", "2"], ["--shard-pairs"],
                                    ["--distributed-init"], ["--dropout", "0.1"],
-                                   ["--matmul-precision", "default"],
-                                   ["--matmul-precision", "tensorfloat32"],
                                    ["--packed-data", "x", "--shard-pairs"]])
 def test_train_cli_refuses_unported_flags(flags, tmp_path):
     out = _run(f"""
@@ -227,6 +225,61 @@ except ValueError as e:
 print(json.dumps({{"msg": msg}}))
 """)
     assert "not yet ported, see ROADMAP.md" in out["msg"], out
+
+
+def _tiny_corpus(root: pathlib.Path, n_examples: int = 6, n: int = 5, l: int = 20) -> None:
+    """``root/trees`` and ``root/alns``: caterpillar trees with random
+    branch lengths and random protein alignments of ``n`` tips."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    (root / "trees").mkdir(parents=True)
+    (root / "alns").mkdir()
+    for k in range(n_examples):
+        names = [f"t{k}_{i}" for i in range(n)]
+        tree = f"{names[0]}:{rng.uniform(0.05, 0.5):.4f}"
+        for name in names[1:]:
+            tree = f"({tree},{name}:{rng.uniform(0.05, 0.5):.4f}):{rng.uniform(0.05, 0.5):.4f}"
+        (root / "trees" / f"ex{k}.nwk").write_text(tree.rsplit(":", 1)[0] + ";\n")
+        seqs = np.array(list("ARNDCQEGHILKMFPSTWYV"))[rng.integers(0, 20, (n, l))]
+        (root / "alns" / f"ex{k}.fa").write_text(
+            "".join(f">{name}\n{''.join(seq)}\n" for name, seq in zip(names, seqs)))
+
+
+@pytest.mark.parametrize("precision", ["default", "tensorfloat32"])
+def test_train_cli_runs_at_reduced_precision(precision, tmp_path):
+    """``pf-train-torch --device cpu --matmul-precision {default,
+    tensorfloat32} --use-pallas on``: two fused steps through the one-pass
+    plain versions, their losses in the metrics file, the first within the
+    6e-3 gate of (and not equal to) the float32 run's from the same seed."""
+    _tiny_corpus(tmp_path / "corpus")
+    common = ["-t", str(tmp_path / "corpus" / "trees"), "-a", str(tmp_path / "corpus" / "alns"),
+              "--device", "cpu", "--use-pallas", "on", "--nb-blocks", "2", "--batch-size", "2",
+              "--max-steps", "2", "--log-every", "1", "--num-workers", "1",
+              "--hard-loss-ceiling", "1e6", "-o", str(tmp_path / "out")]
+    out = _run(f"""
+import contextlib, io, json
+from phyloformer_tpu_torch.train import cli
+res = {{}}
+for name, prec in (("run", {precision!r}), ("fp32", "float32")):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main({common!r} + ["-n", name, "--matmul-precision", prec])
+    res[name] = {{"rc": rc, "summary": json.loads(buf.getvalue().strip().splitlines()[-1])}}
+print(json.dumps(res))
+""")
+    for name in ("run", "fp32"):
+        assert out[name]["rc"] == 0, out
+        summary = out[name]["summary"]
+        assert summary["steps"] == 2 and summary["use_pallas"] is True, summary
+        assert summary["device"] == "cpu", summary
+    losses = {}
+    for name in ("run", "fp32"):
+        lines = (tmp_path / "out" / f"{name}_metrics.jsonl").read_text().splitlines()
+        losses[name] = [r["train_loss"] for r in map(json.loads, lines) if "train_loss" in r]
+        assert len(losses[name]) == 2 and all(map(math.isfinite, losses[name])), losses
+    first, ref = losses["run"][0], losses["fp32"][0]
+    assert first != ref and abs(first - ref) <= 6e-3 * abs(ref), losses
 
 
 def test_training_knobs_refuse_what_is_not_ported():

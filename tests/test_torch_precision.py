@@ -6,8 +6,9 @@ package's, on the CPU.
   P0 and as A-only, random 2- and 3-block parameters and ``pf_mre_r5``:
   - the sigmoid and relu activations at fp32 storage, within 5e-5 max-abs
     on real pairs (the JAX package's bar for its pipeline);
-  - bf16 storage of x1 (``act_dtype_name="bfloat16"``), within
-    ``BF16_TOL`` of max(1, max|ref|).  Both sides round the same fp32 x1 to
+  - bf16 storage of x1 (``act_dtype_name="bfloat16"``), with the exact,
+    tanh, sigmoid and relu activations, within ``BF16_TOL`` of
+    max(1, max|ref|).  Both sides round the same fp32 x1 to
     nearest even, but their fp32 values differ by ~1e-7 relative (sums in
     another order), so a few elements in each block round to the
     neighbouring bf16 value (2^-8 relative apart); the flips propagate to
@@ -32,7 +33,7 @@ package's, on the CPU.
   against JAX's engine with the same configuration (``use_pallas=True``),
   within the gate of max(1, max|ref|) (measured at most 1.6e-3);
   ``pf-infer-torch --matmul-precision tensorfloat32`` on the CPU; the knobs
-  that stay refused.
+  that stay refused, and sigmoid and relu at bf16 storage, which now run.
 - The variant codes of ``axial_pipeline.cuh`` against the wrapper's.
 
 JAX runs in this process (the engine in a subprocess of its own); the port
@@ -83,6 +84,10 @@ CASES = {
                             "float32"),
     "a_only_one_pass_bf16_ckpt": ("ckpt", [(7, 18), (9, 20)], 9, 20, 0.2, "a_only", "tanh",
                                   "default", "bfloat16"),
+    "p0_sigmoid_bf16_2blocks": ((76, 2), [(9, 16), (6, 11)], 9, 16, 0.0, "p0", "sigmoid",
+                                "highest", "bfloat16"),
+    "a_only_relu_bf16_2blocks_gapped": ((77, 2), [(8, 14), (9, 16)], 9, 16, 0.3, "a_only",
+                                        "relu", "highest", "bfloat16"),
 }
 
 
@@ -329,14 +334,14 @@ def test_cli_matmul_precision_writes_phylip(engine_case):
 
 
 def test_refused_knobs_raise(engine_case):
-    """bf16 parameters stay unported; unknown names and the activations M and
-    Z are not built for at bf16 storage raise."""
+    """bf16 parameters stay unported and unknown names raise; sigmoid at bf16
+    storage now constructs an engine, and kernel Z runs relu on a bf16 x1."""
     msgs = json.loads(str(engine_case[3]["msgs"]))
     assert "not yet ported, see ROADMAP.md" in msgs[0]
     assert "matmul_precision='bfloat16'" in msgs[1]
     assert "pipeline_act_dtype='float16'" in msgs[2]
-    assert "float32' only" in msgs[3]
-    assert "fp32 storage only" in msgs[4]
+    assert msgs[3] == "ran"
+    assert msgs[4] == "ran"
 
 
 def test_variant_codes_match_wrapper(tmp_path_factory):

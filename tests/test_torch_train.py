@@ -69,15 +69,16 @@ def _block_inputs(seed):
 
 # ---- the three kernels ------------------------------------------------------
 
-def _jax_kernels(layer, x, x1, stats, g3, site_mask, pair_mask):
+def _jax_kernels(layer, x, x1, stats, g3, site_mask, pair_mask,
+                 prec=jax.lax.Precision.HIGHEST):
     """_kernel_c, _kernel_d (on C's g2 and A1) and _kernel_e (on D's g1),
-    one grid step per batch element, with their outputs by name."""
+    one grid step per batch element, with their outputs by name; ``prec``
+    the products' precision."""
     from jax.experimental import pallas as pl
     from jax.experimental.pallas import tpu as pltpu
 
     from phyloformer_tpu.ops.pallas import axial_block_bwd as jb
 
-    prec = jax.lax.Precision.HIGHEST
     f32, f = jnp.float32, 4 * D
     la, ca, ffn = layer["row_attn"], layer["col_attn"], layer["ffn"]
     rn, cn, fn = layer["row_norm"], layer["col_norm"], layer["ffn_norm"]
