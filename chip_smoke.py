@@ -89,7 +89,28 @@
    1536 at fp32 and at "default", ``--profile`` (10 traced steps), and one
    step against plain eager fp32 autograd at 1 x 20 x 1100 sites at both
    precisions;
-11. prints the ``kernels`` JSON line and the throughputs, then, as its last
+11. serving and the checkpoint lifecycle: ``pf-ckpt-torch export`` of
+   pf_mre_r5.ckpt and ``convert`` of the export to ``.npz``, each loading
+   back bit-equal; ``pf-infer-torch`` on phase 8's checkpoint directory,
+   its PHYLIP text equal to that of the engine on the restored parameters;
+   ``pf-serve-torch``'s server built by ``serve.cli.build_server`` (port 0,
+   its default flags: one TF32 pass, the kernels) answering a warm-up
+   request, then 24 concurrent requests (16 related 60 x 250 alignments, 8
+   ragged ones of 20-50 tips and 100-600 sites as FASTA and JSON bodies) and
+   ``?format=phylip``, ``?tree=nj`` and ``?tree=bme``, and the same burst at
+   ``--precision float32``: every answer equal to the engine replaying the
+   micro-batch it was served in (``KERNEL_TOL``), within ``KERNEL_TOL``
+   (three passes) or ``ONE_PASS_TOL`` (one) of an in-process engine given
+   all 24 at once (an answer depends on its batch-mates through the batch
+   size, which sets the column stats' order of summation), within ``GATE``
+   of the plain fp32 model; fewer batches than requests, P0 or A-only, M
+   and Z launched; requests/s and p50/p99 latency; the engine at
+   ``precision="bfloat16"`` on the kernel route against its plain twins on
+   the card (``BF16_TWIN_TOL``), the eager route at fp32 and bf16 (no
+   kernel launched; bf16 within ``EAGER_BF16_ULPS`` of the same route on
+   the CPU, fp32 beyond it), each route's aln/s and error against the plain
+   fp32 model;
+12. prints the ``kernels`` JSON line and the throughputs, then, as its last
    line, ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line.  Nothing falls back to
@@ -187,6 +208,16 @@ ONE_PASS_P999 = 5e-4
 # --max-rel default).
 GATE = 6e-3
 GRID_MAX_REL = 0.01
+# The engine at precision "bfloat16" (kernel route, three passes) against
+# its plain twins on the card, relative to max(1, max|ref|): the CPU tests'
+# bar for the same route against JAX (tests/test_torch_serve.py).
+BF16_TWIN_TOL = 5e-5
+# The eager route at bf16 on the card against the same route on the CPU, on
+# the first EAGER_CPU_ALNS alignments, in bf16 ulps of max|ref|: the CPU
+# tests' bar for that route against JAX's XLA route, which the eager fp32
+# route exceeds (tests/test_torch_serve.py).
+EAGER_BF16_ULPS = 2
+EAGER_CPU_ALNS = 2
 # The slot reductions are timed over this many back-to-back launches.  A
 # partial of at most L2_MB stays in the 50 MB L2 between its producer and
 # the reduction, as on the paths, so a share of the HBM bound above 100%
@@ -1070,13 +1101,16 @@ def reduction_checks(device, card):
     return results, rows
 
 
-def write_fasta(path, codes, rng_ids):
+def fasta_text(codes, ids):
     from phyloformer_tpu_torch.data.alphabet import ALPHABET
 
+    return "".join(f">{i}\n{bytes(ALPHABET[c] for c in row).decode()}\n"
+                   for i, row in zip(ids, codes))
+
+
+def write_fasta(path, codes, rng_ids):
     with open(path, "w") as fh:
-        for r, row in enumerate(codes):
-            fh.write(f">{rng_ids}_{r}\n")
-            fh.write(bytes(ALPHABET[c] for c in row).decode() + "\n")
+        fh.write(fasta_text(codes, [f"{rng_ids}_{r}" for r in range(len(codes))]))
 
 
 def expected_launches(plan, n_blocks, pipelined):
@@ -2242,6 +2276,371 @@ def training_phases(device, card):
             numbers[f"{key}device_busy_{prec}"] = r["device_ms"] / r["wall_ms"]
     return dict(runs=[run["launches"] for run in tp["runs"]] + [td["launches"],
                                                                 lt["launches"]],
+                numbers=numbers, ckpt_dir=os.path.join(tp["out"], "checkpoints_smoke"),
+                alns_dir=os.path.join(tp["corpus"], "alns"))
+
+
+def plain_pipeline(w, codes, site_mask, seq_mask, passes, eps=1e-5):
+    """The pipelined forward through the kernels' plain versions on the
+    tensors' device (the engine's kernel route, plain): ``(B, P)``."""
+    import torch
+
+    from phyloformer_tpu_torch.data.pairs import pair_indices
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+
+    n, l = codes.shape[1:]
+    i, j = pair_indices(n)
+    ii, jj = (torch.as_tensor(t, device=codes.device) for t in (i, j))
+    emb = torch.relu((w.embed_w[codes.long()] + w.embed_b).to(w.param_dtype)).float()
+    smask = site_mask.float()
+    pmask = (seq_mask[:, ii.long()] & seq_mask[:, jj.long()]).float()
+    pcount = pmask.sum(dim=1)
+    if pipe.uses_gather(n, l, D):
+        x1, st = pipe.kernel_p0_plain(emb, ii, jj, smask, pmask, w.row[0], w.col[0], eps, passes)
+    else:
+        x0 = emb[:, ii.long()] + emb[:, jj.long()]
+        x1, st = pipe.kernel_a_only_plain(x0, smask, pmask, w.row[0], w.col[0], eps, passes)
+    for k in range(len(w.row) - 1):
+        x1, st = pipe.kernel_m_plain(x1, st, smask, pmask, pcount, w.b[k], w.row[k + 1],
+                                     w.col[k + 1], eps, "exact", passes)
+    return pipe.kernel_z_plain(x1, st, smask, pcount, w.b[-1], w.head, eps, "exact", passes)
+
+
+def engine_vs_plain(engine, alns, passes):
+    """The engine's predictions and their largest error (relative to
+    max(1, max|ref|)) against :func:`plain_pipeline` on the same batches."""
+    import torch
+
+    from phyloformer_tpu_torch.infer.engine import real_pair_selector
+
+    preds, worst = engine.predict(alns), 0.0
+    with torch.inference_mode():
+        for (pad_n, pad_l), idxs in engine._plan(alns):
+            codes, sm, qm = engine._batch_inputs(alns, pad_n, pad_l, idxs)
+            plain = plain_pipeline(engine.weights, codes, sm, qm, passes).cpu().numpy()
+            for row, idx in enumerate(idxs):
+                sel = real_pair_selector(pad_n, alns[idx].n_seqs)
+                worst = max(worst, rel_err(preds[idx], plain[row, sel]))
+            del codes, sm, qm, plain
+            torch.cuda.empty_cache()
+    return preds, worst
+
+
+def post(url, body, ctype="text/plain", timeout=600):
+    """(status, body text, seconds) of one POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": ctype})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, text = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        code, text = e.code, e.read().decode()
+    return code, text, time.perf_counter() - t0
+
+
+def ckpt_round_trip(device, train_dir, alns_dir):
+    """pf-ckpt-torch export and convert of pf_mre_r5.ckpt (every parameter
+    back bit-equal), then pf-infer-torch on the training phase's checkpoint
+    directory against the engine on the restored parameters (the PHYLIP
+    text equal).  Returns the numbers and the CLI run's launches."""
+    import torch
+
+    from phyloformer_tpu_torch.data.fasta import read_fasta
+    from phyloformer_tpu_torch.data.phylip import vec_to_phylip
+    from phyloformer_tpu_torch.infer import cli as infer_cli
+    from phyloformer_tpu_torch.infer.engine import InferenceEngine
+    from phyloformer_tpu_torch.io import cli as ckpt_cli
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    from phyloformer_tpu_torch.models.params import map_params
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+
+    root = os.path.join(WORK, "serve")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    exp, npz = os.path.join(root, "export.ckpt"), os.path.join(root, "export.npz")
+    with contextlib.redirect_stderr(io.StringIO()):
+        rcs = [ckpt_cli.main(["export", CKPT, exp]), ckpt_cli.main(["convert", exp, npz])]
+
+    def leaves(path):
+        out = []
+        map_params(out.append, load_pretrained(path)[0])
+        return out
+
+    ref = leaves(CKPT)
+    bit_equal = {name: len(got) == len(ref) == 160
+                 and all(torch.equal(a, b) for a, b in zip(got, ref))
+                 for name, got in (("export", leaves(exp)), ("npz", leaves(npz)))}
+
+    out_dir = os.path.join(root, "trained")
+    pipe.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rcs.append(infer_cli.main([train_dir, alns_dir, "-o", out_dir, "--device",
+                                   device.type]))
+    torch.cuda.synchronize()
+    launches = dict(pipe.LAUNCHES)
+    params, cfg, meta = load_pretrained(train_dir)
+    names = sorted(f for f in os.listdir(alns_dir) if f.endswith(".fa"))
+    alns = [read_fasta(os.path.join(alns_dir, f)) for f in names]
+    preds = InferenceEngine(params, cfg, device=device).predict(alns)
+    same_text = all(open(os.path.join(out_dir, f[:-3] + ".phy")).read()
+                    == vec_to_phylip(p, a.ids)[1] for f, a, p in zip(names, alns, preds))
+    return dict(rcs=rcs, bit_equal=bit_equal, trained_step=meta.get("step"),
+                n_trained_alns=len(alns), same_text=same_text, launches=launches)
+
+
+# (tips, sites) of the served requests: 16 related, then 8 ragged random ones
+SERVE_DIMS = [(60, 250)] * 16 + [(20, 100), (24, 180), (28, 260), (32, 340), (36, 420),
+                                 (40, 480), (45, 540), (50, 600)]
+
+
+def serve_burst(extra_flags, bodies, queries=()):
+    """pf-serve-torch's server from serve.cli.build_server (port 0, its
+    default flags plus ``extra_flags``) takes one warm-up request, then
+    every body at once, then each query on body 16.  The engine's micro-batches are recorded as it served
+    them (alignments and predictions, around its predict).  Returns the
+    answers, the batches, healthz, the launches and the burst's times."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+    from phyloformer_tpu_torch.serve import cli as serve_cli
+
+    server = serve_cli.build_server([CKPT, "--port", "0", "--host", "127.0.0.1"]
+                                    + extra_flags)
+    engine, batches = server.batcher.engine, []
+    predict = engine.predict
+
+    def recording(alns):
+        preds = predict(alns)
+        batches.append((list(alns), preds))
+        return preds
+
+    engine.predict = recording
+    server.start_background()
+    url = f"http://127.0.0.1:{server.port}"
+    post(url + "/predict", *bodies[0])  # warm: the server's first request is not timed
+    batches.clear()
+    engine_s0 = engine.stats["device_s"]
+    answers = [None] * len(bodies)
+
+    def worker(k):
+        answers[k] = post(url + "/predict", *bodies[k])
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(len(bodies))]
+    pipe.reset_launch_counts()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    n_burst, engine_s = len(batches), engine.stats["device_s"] - engine_s0
+    extra = {q: post(url + f"/predict?{q}", *bodies[16]) for q in queries}
+    torch.cuda.synchronize()
+    launches = dict(pipe.LAUNCHES)
+    with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+        health = json.loads(r.read().decode())
+    server.shutdown()
+    if not all(a is not None and a[0] == 200 for a in answers + list(extra.values())):
+        fail(f"serving ({extra_flags}): answers {[a and a[0] for a in answers]}, "
+             f"{ {q: a[0] for q, a in extra.items()} }")
+    return dict(answers=answers, extra=extra, batches=batches, n_burst=n_burst,
+                icfg=engine.icfg, health=health, launches=launches, wall_s=wall,
+                engine_s=engine_s)
+
+
+def serving(device, params, cfg):
+    """24 concurrent requests to pf-serve-torch's server at its default
+    flags (one TF32 pass), then phylip, nj and bme on one of them, and the
+    same burst at ``--precision float32``.  Each answer against the engine
+    replaying the micro-batch it was served in, against an in-process engine
+    of the server's configuration given all 24 at once (how far an answer
+    depends on its batch-mates), and against the plain fp32 model.  Returns
+    the checks' numbers, the launches, the rates and the latencies."""
+    from phyloformer_tpu_torch.data.fasta import Alignment
+    from phyloformer_tpu_torch.data.phylip import read_phylip
+    from phyloformer_tpu_torch.infer.engine import InferenceEngine
+
+    rng = np.random.default_rng(SEED + 9)
+    alns = []
+    for k, (n, l) in enumerate(SERVE_DIMS):
+        codes = evolved_alignment(rng, n, l) if k < 16 else random_alignment(rng, n, l)
+        alns.append(Alignment(codes.astype(np.int8), [f"r{k}_{j}" for j in range(n)]))
+    bodies = []
+    for k, a in enumerate(alns):
+        text = fasta_text(a.codes, a.ids)
+        bodies.append((json.dumps({"fasta": text}).encode(), "application/json")
+                      if k >= 16 and k % 2 else (text.encode(), "text/plain"))
+    on_cpu = ["--device", "cpu"] if device.type == "cpu" else []
+    runs = {"one_pass": serve_burst(on_cpu, bodies, ("format=phylip", "tree=nj", "tree=bme")),
+            "float32": serve_burst(on_cpu + ["--precision", "float32"], bodies)}
+
+    index = {a.ids[0]: k for k, a in enumerate(alns)}
+    out = {}
+    for name, run in runs.items():
+        served = []
+        for a, (_, text, _) in zip(alns, run["answers"]):
+            got = json.loads(text)
+            if got["ids"] != a.ids:
+                fail("serving: an answer's ids differ from its request's")
+            i, j = np.triu_indices(a.n_seqs, 1)
+            served.append(np.array(got["distances"])[i, j])
+        twin = InferenceEngine(params, cfg, run["icfg"], device=device)
+        replay, as_served = 0.0, True
+        for b, (batch, preds) in enumerate(run["batches"]):
+            for a, p, q in zip(batch, preds, twin.predict(batch)):
+                replay = max(replay, rel_err(q, p))
+                if b < run["n_burst"]:  # the burst's answers are these predictions
+                    as_served &= bool(np.array_equal(np.round(p.astype(np.float64), 10),
+                                                     served[index[a.ids[0]]]))
+        together = twin.predict(alns)
+        lat = [a[2] for a in run["answers"]]
+        out[name] = dict(
+            replay=replay, as_served=as_served,
+            batch_mates=max(rel_err(s, w) for s, w in zip(served, together)),
+            health=run["health"], launches=run["launches"], engine_s=run["engine_s"],
+            burst_batches=run["n_burst"], req_per_s=len(alns) / run["wall_s"], p50_ms=1e3 * float(np.percentile(lat, 50)),
+            p99_ms=1e3 * float(np.percentile(lat, 99)), served=served)
+    r = out["one_pass"]
+    plain = plain_refs(params, cfg, alns, device)
+    r["vs_plain"] = max(rel_err(s, p) for s, p in zip(r["served"], plain))
+    r["vs_plain_related"] = max(rel_err(s, p) for s, p in zip(r["served"][:16], plain[:16]))
+    extra = runs["one_pass"]["extra"]
+    dm, ids = read_phylip(extra["format=phylip"][1])
+    i, j = np.triu_indices(len(ids), 1)
+    r["phylip_ok"] = ids == alns[16].ids and np.abs(dm[i, j] - r["served"][16]).max() <= 1e-9
+    r["trees_ok"] = all(sorted(t.split(":")[0].strip("(),;") for t in
+                               json.loads(extra[q][1])["newick"].split(","))
+                        == sorted(alns[16].ids) for q in ("tree=nj", "tree=bme"))
+    for v in out.values():
+        del v["served"]
+    return out
+
+
+def routes_on_card(device, params, cfg, alns, refs):
+    """The engine at precision "bfloat16" (kernels, three passes) against
+    its plain twins on the card, and the eager route at fp32 and bf16: each
+    route's aln/s, launches and error against the plain fp32 model."""
+    from phyloformer_tpu_torch.infer.engine import InferenceConfig, InferenceEngine
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+
+    out = {}
+    for name, icfg in (("kernels_bf16", InferenceConfig(precision="bfloat16")),
+                       ("eager_fp32", InferenceConfig(use_kernels=False)),
+                       ("eager_bf16", InferenceConfig(use_kernels=False, precision="bfloat16"))):
+        eng = InferenceEngine(params, cfg, icfg, device=device)
+        pipe.reset_launch_counts()
+        rate = throughput(eng, alns)
+        launches = dict(pipe.LAUNCHES)
+        if name == "kernels_bf16":
+            preds, twin = engine_vs_plain(eng, alns, 3)
+        else:
+            preds, twin = eng.predict(alns), None
+        out[name] = dict(aln_per_s=rate, launches=launches, twin_err=twin,
+                         finite=all(np.isfinite(p).all() for p in preds),
+                         vs_plain=abs_rel(preds, refs), preds=preds)
+        del eng
+    cpu = InferenceEngine(params, cfg, InferenceConfig(use_kernels=False, precision="bfloat16"),
+                          device="cpu").predict(alns[:EAGER_CPU_ALNS])
+    ulp = 2.0 ** (np.floor(np.log2(max(float(np.abs(c).max()) for c in cpu))) - 7)
+    for name in ("eager_bf16", "eager_fp32"):
+        out[name]["vs_cpu_bf16_ulps"] = max(
+            float(np.abs(p - c).max()) for p, c in zip(out[name]["preds"], cpu)) / ulp
+    return out
+
+
+def serving_phase(device, card, train_dir, alns_dir, head_alns, head_refs, kernel_rate,
+                  kernel_err):
+    """The checkpoint round trip, serving through pf-serve-torch's entry
+    point, and the bf16 and eager routes on the card; fails on any bar.
+    Returns the launches of every run that counts and the numbers."""
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+
+    t = time.perf_counter()
+    ck = ckpt_round_trip(device, train_dir, alns_dir)
+    print(f"checkpoints: pf-ckpt-torch export / convert / pf-infer-torch exit {ck['rcs']}; "
+          f"export and npz bit-equal to pf_mre_r5.ckpt: {ck['bit_equal']}; pf-infer-torch on "
+          f"the trainer's directory (step {ck['trained_step']}, {ck['n_trained_alns']} "
+          f"alignments) gives the engine's PHYLIP text: {ck['same_text']}; launches "
+          f"{ {k: v for k, v in ck['launches'].items() if v} }")
+    if ck["rcs"] != [0, 0, 0] or not all(ck["bit_equal"].values()) or not ck["same_text"]:
+        fail("checkpoints: the round trip or the trainer directory's predictions differ")
+
+    params, cfg, _ = load_pretrained(CKPT)
+    out = serving(device, params, cfg)
+    sv, s32 = out["one_pass"], out["float32"]
+    for name, r in out.items():
+        print(f"serving ({name}): {r['health']['requests']} requests in "
+              f"{r['health']['batches']} batches; launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }; {r['req_per_s']:.3f} "
+              f"requests/s, latency p50 {r['p50_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms "
+              f"(16 x 60 x 250 related + 8 ragged 20-50 x 100-600; the burst in "
+              f"{r['burst_batches']} micro-batches, {r['engine_s']:.3f} s inside the engine's "
+              f"predict) [{card}]")
+        print(f"serving ({name}): answers vs the engine replaying their micro-batches "
+              f"{r['replay']:.3e} (tol {KERNEL_TOL:.0e}; the served JSON is the batch's "
+              f"prediction: {r['as_served']}); vs an engine of the server's configuration "
+              f"given all 24 at once {r['batch_mates']:.3e} (tol "
+              f"{ONE_PASS_TOL if name == 'one_pass' else KERNEL_TOL:.0e})")
+    print(f"serving (one_pass): vs the plain fp32 model {sv['vs_plain']:.3e} (related "
+          f"{sv['vs_plain_related']:.3e}; gate {GATE:.0e}); phylip {sv['phylip_ok']}, nj/bme "
+          f"leaf sets {sv['trees_ok']}")
+    for name, r in out.items():
+        lc = r["launches"]
+        if not (r["health"]["batches"] < r["health"]["requests"] and lc["kernel_m"] > 0
+                and lc["kernel_z"] > 0 and lc["kernel_p0"] + lc["kernel_a_only"] > 0):
+            fail(f"serving ({name}): no micro-batching, or the served batches did not run "
+                 "P0/A-only, M, Z")
+        if not (r["replay"] <= KERNEL_TOL and r["as_served"]):
+            fail(f"serving ({name}): answers differ from their micro-batches' replay")
+    # an answer depends on its batch-mates through the batch size, which
+    # sets the column stats' slot count and so their order of summation: an
+    # fp32 rounding at three passes, a TF32 rounding flip at one
+    if not (s32["batch_mates"] <= KERNEL_TOL and sv["batch_mates"] <= ONE_PASS_TOL):
+        fail("serving: answers depend on their batch-mates beyond the bars")
+    if not (sv["vs_plain"] <= GATE and sv["phylip_ok"] and sv["trees_ok"]):
+        fail("serving: answers off the gate, or phylip/tree answers wrong")
+
+    rt = routes_on_card(device, params, cfg, head_alns, head_refs)
+    print(f"routes on {len(head_alns)} alignments of 60 x 250 vs the plain fp32 model (max abs, "
+          f"relative): kernels fp32 {kernel_rate:.3f} aln/s (the main path's worst relative "
+          f"{kernel_err:.3e}); "
+          + "; ".join(f"{n} {r['aln_per_s']:.3f} aln/s ({r['vs_plain'][0]:.3e}, "
+                      f"{r['vs_plain'][1]:.3e})" for n, r in rt.items()) + f" [{card}]")
+    kb = rt["kernels_bf16"]
+    print(f"kernels at bf16 parameters vs their plain twins on the card {kb['twin_err']:.3e} "
+          f"(tol {BF16_TWIN_TOL:.0e}); launches {kb['launches']}; eager launches "
+          f"{sum(rt['eager_fp32']['launches'].values())}, "
+          f"{sum(rt['eager_bf16']['launches'].values())}")
+    if not kb["twin_err"] <= BF16_TWIN_TOL or not kb["launches"]["kernel_m"]:
+        fail("bf16 kernel route: off its plain twins, or the kernels did not run")
+    if any(sum(rt[n]["launches"].values()) for n in ("eager_fp32", "eager_bf16")):
+        fail("the eager route launched a kernel")
+    eb, ef = rt["eager_bf16"]["vs_cpu_bf16_ulps"], rt["eager_fp32"]["vs_cpu_bf16_ulps"]
+    print(f"eager bf16 on the card vs the eager bf16 route on the CPU ({EAGER_CPU_ALNS} "
+          f"alignments): {eb:.3f} bf16 ulps of max|ref| (bar {EAGER_BF16_ULPS}); eager fp32 "
+          f"on the card: {ef:.3f}")
+    if not (eb <= EAGER_BF16_ULPS < ef):
+        fail("the eager bf16 route on the card is off its CPU run, or the bar does not tell "
+             "it from fp32")
+    if not all(r["finite"] for r in rt.values()) or not rt["eager_fp32"]["vs_plain"][1] <= DIST_TOL:
+        fail("the eager route's distances are off the plain model")
+    print(f"serving phase: {time.perf_counter() - t:.1f} s")
+    numbers = {"served": {name: {k: r[k] for k in ("req_per_s", "p50_ms", "p99_ms", "replay",
+                                                  "batch_mates", "health", "engine_s",
+                                                  "burst_batches")}
+                          for name, r in out.items()},
+               "served_vs_plain": sv["vs_plain"],
+               "routes": {n: {"aln_per_s": r["aln_per_s"], "vs_plain": r["vs_plain"],
+                              "twin_err": r["twin_err"],
+                              "vs_cpu_bf16_ulps": r.get("vs_cpu_bf16_ulps")}
+                          for n, r in rt.items()}}
+    return dict(runs=[ck["launches"], sv["launches"], s32["launches"], kb["launches"]],
                 numbers=numbers)
 
 
@@ -2439,7 +2838,9 @@ def main(argv=None) -> int:
     bwd = backward_phases(dev_params, device, card)
     tr = training_phases(device, card)
     results.update(bwd)
-    train_launches = {k: sum(run[k] for run in tr["runs"]) for k in KERNELS}
+    sp = serving_phase(device, card, tr["ckpt_dir"], tr["alns_dir"], mp["head_alns"],
+                       mp["head_refs"], mp["aln_per_s"], mp["dist_err"])
+    train_launches = {k: sum(run[k] for run in tr["runs"] + sp["runs"]) for k in KERNELS}
     fast_launches = {k: sum(rp[x]["launches"][k] for x in ("float32", "bfloat16", "long"))
                      for k in KERNELS}
     variant_rows = {name: {v.split("/")[1]: {
@@ -2476,7 +2877,7 @@ def main(argv=None) -> int:
         "long_one_pass_aln_per_s": rp["long"]["aln_per_s"],
         "fast_path_err": {x: rp[x]["random"] + rp[x]["evolved"] for x in ("float32", "bfloat16")},
         "accuracy_grid": rp["grid"]["rows"],
-        "training": tr["numbers"]}
+        "training": tr["numbers"], "serving": sp["numbers"]}
     if any(k["launches"] <= 0 for k in line["kernels"]):
         fail("a kernel of the paths was not launched on them")
     print(json.dumps(line))

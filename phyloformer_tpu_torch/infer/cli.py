@@ -4,8 +4,11 @@
 
 Writes one 10-decimal PHYLIP distance matrix per alignment (``<stem>.phy``),
 optionally a neighbour-joining tree (``--trees``, ``<stem>.nj.nwk``) and the
-native BME+NNI+SPR tree (``--fastme``, ``<stem>.nwk``).  Runs on the card
-unless ``--device cpu`` is given.
+native BME+NNI+SPR tree (``--fastme``, ``<stem>.nwk``).  The weights are a
+reference ``.ckpt``, an ``.npz`` or a ``pf-train-torch`` checkpoint
+directory.  Runs the hand-written kernels on the card unless ``--eager``
+(the eager model) or ``--device cpu`` is given; ``--pallas`` names the
+kernels explicitly, so a JAX ``pf-infer`` command line runs unchanged.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="pf-infer-torch",
         description="Infer evolutionary distances with Phyloformer (PyTorch/CUDA)",
     )
-    parser.add_argument("weights", help="reference model checkpoint (.ckpt)")
+    parser.add_argument("weights", help="model weights: reference .ckpt, .npz, or a "
+                                        "pf-train-torch checkpoint directory")
     parser.add_argument("alndir", help="directory containing .fa/.fasta alignments")
     parser.add_argument("--outdir", "-o", default=None,
                         help="output directory for .phy distance matrices")
@@ -37,10 +41,16 @@ def build_parser() -> argparse.ArgumentParser:
                              "matrix and write final trees (<stem>.nwk)")
     parser.add_argument("--tree-method", default="bme", choices=["bme", "nj", "bionj"],
                         help="construction method for --fastme")
+    parser.add_argument("--precision", choices=["float32", "bfloat16"], default="float32",
+                        help="parameter dtype (bfloat16: rounded as the JAX engine casts them)")
     parser.add_argument("--matmul-precision", default="float32",
                         choices=["float32", "tensorfloat32", "default"],
                         help="products of the kernels: float32 = three TF32 passes "
                              "(fp32 grade); tensorfloat32 and default = one TF32 pass")
+    route = parser.add_mutually_exclusive_group()
+    route.add_argument("--pallas", action="store_true",
+                       help="the hand-written kernels (the default)")
+    route.add_argument("--eager", action="store_true", help="the eager model")
     parser.add_argument("--gelu", choices=["exact", "tanh"], default="exact",
                         help="FFN activation: exact = erf GELU; tanh = the tanh "
                              "approximation")
@@ -96,7 +106,8 @@ def main(argv=None) -> int:
         return 1
 
     common = dict(max_batch_tokens=args.batch_tokens, max_batch_size=args.max_batch_size,
-                  pipeline_gelu=args.gelu, matmul_precision=args.matmul_precision)
+                  pipeline_gelu=args.gelu, matmul_precision=args.matmul_precision,
+                  precision=args.precision, use_kernels=not args.eager)
     if args.no_bucketing:
         icfg = InferenceConfig(n_buckets=(), l_buckets=(), allow_oversize=True, **common)
     else:

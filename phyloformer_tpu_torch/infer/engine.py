@@ -15,6 +15,15 @@ passes (the fp32 bar); "tensorfloat32" and "default" run them in one
 pipeline's kernels as fp32 or bf16 (compute stays fp32), and
 ``pipeline_gelu`` picks the pipeline's FFN activation; the fused forward
 keeps fp32 storage and exact GELU, as in the JAX package.
+
+``precision="bfloat16"`` rounds the parameters to bf16, as the JAX engine
+casts them.  On the kernel route the pipeline then takes JAX's bf16 stages
+(the embedding and block 0's pair sum and row LayerNorm at bf16, the rest
+fp32: :class:`..ops.kernels.pipeline.PipelineWeights`); the fused forward
+at bf16 is not yet ported.  ``use_kernels=False`` (JAX's ``use_pallas=False``)
+runs the eager model (:func:`..models.phyloformer.forward`) on the engine's
+device, in bf16 throughout at ``precision="bfloat16"``, with PyTorch's fp32
+products in one TF32 pass unless ``matmul_precision`` is "float32".
 """
 
 from __future__ import annotations
@@ -29,9 +38,9 @@ import torch
 
 from ..data.fasta import Alignment
 from ..data.pairs import n_pairs, pair_indices
-from ..device import resolve_device
+from ..device import resolve_device, tf32_products
 from ..models.params import MATMUL_PRECISIONS, Params, PhyloformerConfig, map_params
-from ..models.phyloformer import forward_fused
+from ..models.phyloformer import forward, forward_fused
 from ..ops.kernels import _build
 from ..ops.kernels.axial_block import GELU_MODES
 from ..ops.kernels.pipeline import (
@@ -40,6 +49,9 @@ from ..ops.kernels.pipeline import (
     forward_fused_pipeline,
     pipeline_supported,
 )
+
+# The parameters' type by the JAX engine's ``precision`` name.
+PRECISIONS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 DEFAULT_N_BUCKETS = (10, 20, 30, 40, 50, 60, 80, 100, 120, 150, 200)
 DEFAULT_L_BUCKETS = (128, 256, 384, 512, 640, 768, 1024, 1280, 1536, 2048,
@@ -54,7 +66,7 @@ class InferenceConfig:
     # channels * 4 B = 1 GiB per fp32 activation tensor.
     max_batch_tokens: int = 1 << 22
     max_batch_size: int = 64
-    precision: str = "float32"  # parameter/activation dtype ("bfloat16": not yet ported)
+    precision: str = "float32"  # parameter dtype: "float32" | "bfloat16"
     # Products: "float32" = three TF32 passes; "tensorfloat32" | "default" =
     # one TF32 pass (final distance error ~1e-3 relative, the bench gate).
     matmul_precision: str = "float32"
@@ -69,6 +81,8 @@ class InferenceConfig:
     allow_oversize: bool = True  # n/L beyond the last bucket: exact shape
     # Round batch sizes up to powers of two (padding rows are masked no-ops).
     pad_batch_sizes: bool = False
+    # The hand-written kernels (True; JAX's use_pallas) or the eager model.
+    use_kernels: bool = True
 
 
 def _not_ported(what: str) -> ValueError:
@@ -95,8 +109,9 @@ def real_pair_selector(pad_n: int, n: int) -> np.ndarray:
 class InferenceEngine:
     """Runs Phyloformer forward passes over many alignments.
 
-    ``device``: ``None`` or ``"cuda"`` runs the CUDA kernels and raises
-    without a card; ``"cpu"`` runs the plain PyTorch versions.
+    ``device``: ``None`` or ``"cuda"`` runs the CUDA kernels (the eager
+    model with ``use_kernels=False``) and raises without a card; ``"cpu"``
+    runs the plain PyTorch versions (or the eager model).
     """
 
     def __init__(
@@ -108,8 +123,9 @@ class InferenceEngine:
     ):
         self.device = resolve_device(device)
         self.icfg = icfg or InferenceConfig()
-        if self.icfg.precision != "float32":
-            raise _not_ported(f"precision={self.icfg.precision!r}")
+        if self.icfg.precision not in PRECISIONS:
+            raise ValueError(f"precision={self.icfg.precision!r}: expected one of "
+                             f"{tuple(PRECISIONS)}")
         if self.icfg.matmul_precision not in MATMUL_PRECISIONS:
             raise ValueError(f"matmul_precision={self.icfg.matmul_precision!r}: "
                              f"expected one of {MATMUL_PRECISIONS}")
@@ -124,9 +140,22 @@ class InferenceEngine:
         self.cfg = cfg
         # the JAX engine's rule: fp32-grade products, or one pass otherwise
         self.mxu_precision = "highest" if cfg.matmul_precision == "float32" else "default"
-        params = map_params(lambda t: t.to(self.device, torch.float32), params)
-        self.weights = PipelineWeights.from_params(params)
+        dtype = PRECISIONS[self.icfg.precision]
+        # to fp32 first, so that every precision rounds from the same values
+        params = map_params(lambda t: t.to(self.device, torch.float32).to(dtype), params)
+        # the eager route reads the tree, the kernel route its arrangement
+        self.params = None if self.icfg.use_kernels else params
+        self.weights = PipelineWeights.from_params(params) if self.icfg.use_kernels else None
         self.stats = {"compile_s": 0.0, "device_s": 0.0, "batches": 0, "alignments": 0}
+
+    def load_kernels(self) -> None:
+        """Build (if needed) and load the kernel library now, where this
+        engine runs the kernels on the card; otherwise nothing.  Its first
+        ``predict`` calls this too."""
+        if self.icfg.use_kernels and self.device.type == "cuda":
+            t = time.perf_counter()
+            _build.load()
+            self.stats["compile_s"] += time.perf_counter() - t
 
     # -- batching ------------------------------------------------------------
     def _plan(self, alns: Sequence[Alignment]):
@@ -171,25 +200,14 @@ class InferenceEngine:
         queued on the device before any result is copied back."""
         out: List[Optional[np.ndarray]] = [None] * len(alns)
         plan = self._plan(alns)
-        if self.device.type == "cuda" and self.stats["batches"] == 0:
-            t = time.perf_counter()
-            _build.load()
-            self.stats["compile_s"] += time.perf_counter() - t
+        if self.stats["batches"] == 0:
+            self.load_kernels()
         t0 = time.perf_counter()
         pending = []
         with torch.inference_mode():
             for (pad_n, pad_l), idxs in plan:
                 codes, site_mask, seq_mask = self._batch_inputs(alns, pad_n, pad_l, idxs)
-                pipeline = self.icfg.use_pipeline
-                if pipeline is None:
-                    pipeline = pipeline_supported(pad_n, pad_l, self.mxu_precision)
-                if pipeline:
-                    preds = forward_fused_pipeline(
-                        self.weights, codes, site_mask, seq_mask, eps=self.cfg.ln_eps,
-                        gelu_mode=self.icfg.pipeline_gelu, mxu_precision=self.mxu_precision,
-                        act_dtype_name=self.icfg.pipeline_act_dtype)
-                else:
-                    preds = forward_fused(self.weights, codes, self.cfg, site_mask, seq_mask)
+                preds = self._forward(codes, site_mask, seq_mask, pad_n, pad_l)
                 pending.append((pad_n, idxs, preds))
                 self.stats["batches"] += 1
                 self.stats["alignments"] += len(idxs)
@@ -200,6 +218,24 @@ class InferenceEngine:
                     out[idx] = preds[row, sel].astype(np.float32)
         self.stats["device_s"] += time.perf_counter() - t0
         return out  # type: ignore[return-value]
+
+    def _forward(self, codes, site_mask, seq_mask, pad_n: int, pad_l: int) -> torch.Tensor:
+        """One batch's ``(B, P)`` distances on the configured route."""
+        if not self.icfg.use_kernels:
+            with tf32_products(self.cfg.matmul_precision != "float32"):
+                return forward(self.params, codes, self.cfg, site_mask, seq_mask).float()
+        pipeline = self.icfg.use_pipeline
+        if pipeline is None:
+            pipeline = pipeline_supported(pad_n, pad_l, self.mxu_precision)
+        if pipeline:
+            return forward_fused_pipeline(
+                self.weights, codes, site_mask, seq_mask, eps=self.cfg.ln_eps,
+                gelu_mode=self.icfg.pipeline_gelu, mxu_precision=self.mxu_precision,
+                act_dtype_name=self.icfg.pipeline_act_dtype)
+        if self.icfg.precision != "float32":
+            raise _not_ported(f"precision={self.icfg.precision!r} on the fused forward "
+                              f"({pad_l} sites, above the pipeline's limit)")
+        return forward_fused(self.weights, codes, self.cfg, site_mask, seq_mask)
 
     def predict_one(self, aln: Alignment) -> np.ndarray:
         return self.predict([aln])[0]

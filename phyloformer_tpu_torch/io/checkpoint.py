@@ -7,7 +7,8 @@
   manager; the two directory formats are not interchangeable.
 - :func:`save_params_npz` / :func:`load_params_npz`: a parameter tree as a
   flat ``.npz`` with ``/``-joined keys (``layers/0/ffn/w1``), the JAX
-  package's layout, so that either package reads the other's file.
+  package's layout, so that either package reads the other's file;
+  :func:`_infer_config` reads the architecture off such a tree.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..models.params import PhyloformerConfig
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -128,3 +131,12 @@ def load_params_npz(path) -> Dict[str, Any]:
         return node
 
     return fix_lists(root)
+
+
+def _infer_config(params: Dict[str, Any]) -> PhyloformerConfig:
+    """The architecture of a parameter tree (arrays or tensors), from its
+    shapes: the embedding's width, the number of layers and the q
+    projection's heads."""
+    d = int(params["embed"]["w"].shape[1])
+    n_heads = int(params["layers"][0]["row_attn"]["wq"].shape[1])
+    return PhyloformerConfig(n_blocks=len(params["layers"]), n_heads=n_heads, embed_dim=d)

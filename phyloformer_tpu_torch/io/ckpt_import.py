@@ -11,18 +11,26 @@ Key schema of the 161-tensor reference state dict::
 
 Torch Conv2d 1x1 kernels are ``(out, in, 1, 1)`` and Linear weights
 ``(out, in)``; the port stores ``(in, out)`` so application is ``x @ w``.
-Orbax directories are not yet ported; ``.npz`` parameter files load with
-:func:`.checkpoint.load_params_npz`.
+
+:func:`load_pretrained` reads a reference ``.ckpt``, an ``.npz`` parameter
+file (either package's) and a directory of the port's trainer;
+:func:`save_reference_checkpoint` writes the reference format back.  The JAX
+trainer's Orbax directories are not yet ported.
 """
 
 from __future__ import annotations
 
+import collections
 import os
+import pathlib
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
-from ..models.params import Params, PhyloformerConfig
+from ..data.pairs import pair_indices
+from ..models.params import Params, PhyloformerConfig, params_from_numpy
+from .checkpoint import CheckpointManager, _infer_config, load_params_npz
 
 
 def _lin(state: Dict[str, torch.Tensor], key: str) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -70,12 +78,104 @@ def params_from_state_dict(
 
 
 def load_pretrained(path: "str | os.PathLike") -> Tuple[Params, PhyloformerConfig, Dict[str, Any]]:
-    """Reference ``.ckpt`` → ``(params on the CPU, config, hyper_parameters)``."""
-    if os.path.isdir(path) or str(path).endswith(".npz"):
-        raise ValueError(
-            f"{path}: Orbax directories are not yet ported, see ROADMAP.md; .npz "
-            "parameter files load with io.checkpoint.load_params_npz; pass a reference .ckpt")
+    """Model weights from any container the port reads → ``(params on the
+    CPU, config, metadata)``:
+
+    - a reference ``.ckpt``: metadata is its ``hyper_parameters``;
+    - an ``.npz`` parameter file (:func:`.checkpoint.save_params_npz`, or
+      the JAX package's): the config is read off the shapes, metadata ``{}``;
+    - a directory of the port's trainer (:class:`.checkpoint.CheckpointManager`):
+      the latest step's parameters, the config it saved and
+      ``{"step": step, **metadata}``.
+    """
+    p = pathlib.Path(path)
+    if p.is_dir():
+        mgr = CheckpointManager(p)
+        if mgr.latest_step() is None:
+            raise ValueError(
+                f"{path}: no ckpt_<step>.pt of the port's trainer; Orbax directories of the "
+                "JAX trainer are not yet ported, see ROADMAP.md")
+        state, step = mgr.restore()
+        meta = state.get("metadata") or {}
+        if "config" not in meta:
+            raise ValueError(f"{path}: step {step} has no metadata['config']; the port's "
+                             "trainer writes one with every checkpoint")
+        return state["params"], PhyloformerConfig(**meta["config"]), {"step": step, **meta}
+    if p.suffix == ".npz":
+        params = params_from_numpy(load_params_npz(p))
+        return params, _infer_config(params), {}
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     hparams = dict(ckpt.get("hyper_parameters") or {})
     cfg = PhyloformerConfig.from_reference_hparams(hparams)
     return params_from_state_dict(ckpt["state_dict"], cfg), cfg, hparams
+
+
+def _f32(t) -> torch.Tensor:
+    return torch.as_tensor(t).detach().to("cpu", torch.float32).contiguous()
+
+
+def _to_conv(w) -> torch.Tensor:
+    """(in, out) → torch Conv2d 1x1 ``(out, in, 1, 1)``."""
+    return _f32(w).t().contiguous()[:, :, None, None]
+
+
+def state_dict_from_params(params: Params, cfg: PhyloformerConfig, include_seq2pair: bool = True,
+                           seq2pair_n: int = 50) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`params_from_state_dict`: the reference's
+    ``model.``-prefixed state dict (160 keys, 161 with the buffer) in torch
+    layouts — Conv2d 1x1 ``(out, in, 1, 1)`` for the embedding, FFN and head,
+    Linear ``(out, in)`` for the attention projections — and, with
+    ``include_seq2pair``, the non-learnable ``model.seq2pair`` buffer
+    ``(C(n, 2), n)`` the published checkpoints carry at n = 50."""
+    state: Dict[str, torch.Tensor] = collections.OrderedDict()
+
+    def put_norm(key, p):
+        state[f"{key}.weight"] = _f32(p["scale"])
+        state[f"{key}.bias"] = _f32(p["bias"])
+
+    def put_attn(key, p):
+        for ours, theirs in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                             ("o", "out_proj")):
+            state[f"{key}.{theirs}.weight"] = _f32(p["w" + ours]).t().contiguous()
+            state[f"{key}.{theirs}.bias"] = _f32(p["b" + ours])
+
+    state["model.embedding_block.0.weight"] = _to_conv(params["embed"]["w"])
+    state["model.embedding_block.0.bias"] = _f32(params["embed"]["b"])
+    for i, layer in enumerate(params["layers"]):
+        base = f"model.attention_blocks.{i}"
+        put_norm(f"{base}.row_norm", layer["row_norm"])
+        put_attn(f"{base}.row_attention", layer["row_attn"])
+        put_norm(f"{base}.col_norm", layer["col_norm"])
+        put_attn(f"{base}.col_attention", layer["col_attn"])
+        put_norm(f"{base}.ffn_norm", layer["ffn_norm"])
+        state[f"{base}.ffn.0.weight"] = _to_conv(layer["ffn"]["w1"])
+        state[f"{base}.ffn.0.bias"] = _f32(layer["ffn"]["b1"])
+        state[f"{base}.ffn.3.weight"] = _to_conv(layer["ffn"]["w2"])
+        state[f"{base}.ffn.3.bias"] = _f32(layer["ffn"]["b2"])
+    state["model.pwFNN.0.weight"] = _to_conv(params["head"]["w"])
+    state["model.pwFNN.0.bias"] = _f32(params["head"]["b"])
+    if include_seq2pair:
+        i_idx, j_idx = pair_indices(seq2pair_n)
+        m = np.zeros((len(i_idx), seq2pair_n), np.float32)
+        m[np.arange(len(i_idx)), i_idx] = 1.0
+        m[np.arange(len(j_idx)), j_idx] = 1.0
+        state["model.seq2pair"] = torch.from_numpy(m)
+    return state
+
+
+def save_reference_checkpoint(path, params: Params, cfg: PhyloformerConfig,
+                              include_seq2pair: bool = True) -> None:
+    """Write a reference-format ``.ckpt`` with ``torch.save``: ``state_dict``
+    (:func:`state_dict_from_params`) and ``hyper_parameters`` in both
+    spellings — the published checkpoints' ``nb_blocks/nb_heads/embed_dim``
+    and the reference constructor's ``n_blocks/n_heads/h_dim``, which
+    swallows unknown names, so a non-default architecture needs the second."""
+    torch.save({
+        "state_dict": state_dict_from_params(params, cfg, include_seq2pair),
+        "hyper_parameters": {
+            "nb_blocks": int(cfg.n_blocks), "nb_heads": int(cfg.n_heads),
+            "embed_dim": int(cfg.embed_dim), "n_blocks": int(cfg.n_blocks),
+            "n_heads": int(cfg.n_heads), "h_dim": int(cfg.embed_dim),
+            "dropout": float(cfg.dropout),
+        },
+    }, path)

@@ -12,6 +12,13 @@ yet ported (the published checkpoints use 0).
 runs the same network through the fused axial-block kernels
 (:mod:`..ops.kernels.fused`), and :func:`forward_fused_ad` does so for
 training, with the fused backward kernels (:mod:`..ops.kernels.autodiff`).
+
+On bf16 parameters (the engine's ``precision="bfloat16"``) :func:`forward`
+runs in bf16 and rounds where XLA rounds the JAX package's bf16 model on
+the CPU: after every op, except the squares and the residual sums that a
+LayerNorm's mean reads (:func:`..ops.attention.layer_norm`), the argument
+of the GELU's ``erfc`` (:func:`gelu`), and the quotient of the site mean,
+which is fp32.
 """
 
 from __future__ import annotations
@@ -30,6 +37,24 @@ from ..ops.kernels.axial_block import head
 from ..ops.kernels.fused import BlockWeights, fused_axial_block
 from ..ops.kernels.pipeline import PipelineWeights
 from .params import Params, PhyloformerConfig
+
+
+def gelu(h: torch.Tensor) -> torch.Tensor:
+    """Exact GELU.  On bf16 ``h``, JAX's form ``0.5·h·erfc(-h·√½)`` as XLA
+    compiles it: ``0.5·h``, the ``erfc`` and the product each rounded to
+    bf16, the ``erfc``'s argument (with √½ rounded to bf16) not."""
+    if h.dtype != torch.bfloat16:
+        return F.gelu(h, approximate="none")
+    sqrt_half = float(torch.tensor(0.5 ** 0.5, dtype=torch.bfloat16))
+    return 0.5 * h * torch.erfc(-h.float() * sqrt_half).to(h.dtype)
+
+
+def softplus(h: torch.Tensor) -> torch.Tensor:
+    """log(1 + eˣ).  On bf16 ``h``, JAX's ``logaddexp(h, 0)`` op by op,
+    each op rounded to bf16, as XLA compiles it."""
+    if h.dtype != torch.bfloat16:
+        return F.softplus(h)
+    return h.clamp_min(0) + torch.log1p(torch.exp(-h.abs()))
 
 
 def embed_alignment(params: Params, codes: torch.Tensor) -> torch.Tensor:
@@ -56,6 +81,33 @@ def pair_mask_from_seq_mask(seq_mask: torch.Tensor, n_seqs: int) -> torch.Tensor
     return seq_mask.index_select(1, i_idx) & seq_mask.index_select(1, j_idx)
 
 
+def _residual(x: torch.Tensor, h: torch.Tensor):
+    """``x + h`` in ``x``'s type, and, where that rounds (bf16), the fp32
+    sum it rounds, for the next LayerNorm's mean; else None."""
+    s = x.float() + h.float()
+    return s.to(x.dtype), (s if x.dtype != s.dtype else None)
+
+
+def _block(x, x_sum, layer, cfg, site_mask, pair_mask):
+    """:func:`axial_block` on ``x`` and the fp32 sum it rounds (or None);
+    returns the same pair for the block's output."""
+    row_mask = site_mask[:, None, :] if site_mask is not None else None  # (B,1,L)
+    col_mask = pair_mask[:, None, :] if pair_mask is not None else None  # (B,1,P)
+
+    h = layer_norm(x, layer["row_norm"]["scale"], layer["row_norm"]["bias"], cfg.ln_eps, x_sum)
+    x, x_sum = _residual(x, scaled_linear_attention(h, layer["row_attn"], cfg.n_heads,
+                                                    mask=row_mask))
+
+    h = layer_norm(x, layer["col_norm"]["scale"], layer["col_norm"]["bias"], cfg.ln_eps, x_sum)
+    h = scaled_linear_attention(h.transpose(1, 2), layer["col_attn"], cfg.n_heads,
+                                mask=col_mask)
+    x, x_sum = _residual(x, h.transpose(1, 2))
+
+    h = layer_norm(x, layer["ffn_norm"]["scale"], layer["ffn_norm"]["bias"], cfg.ln_eps, x_sum)
+    h = gelu(h @ layer["ffn"]["w1"] + layer["ffn"]["b1"])
+    return _residual(x, h @ layer["ffn"]["w2"] + layer["ffn"]["b2"])
+
+
 def axial_block(
     x: torch.Tensor,
     layer: Dict[str, Any],
@@ -64,20 +116,7 @@ def axial_block(
     pair_mask: Optional[torch.Tensor],
 ) -> torch.Tensor:
     """One Phyloformer layer on ``(B, P, L, d)``."""
-    row_mask = site_mask[:, None, :] if site_mask is not None else None  # (B,1,L)
-    col_mask = pair_mask[:, None, :] if pair_mask is not None else None  # (B,1,P)
-
-    h = layer_norm(x, layer["row_norm"]["scale"], layer["row_norm"]["bias"], cfg.ln_eps)
-    x = x + scaled_linear_attention(h, layer["row_attn"], cfg.n_heads, mask=row_mask)
-
-    h = layer_norm(x, layer["col_norm"]["scale"], layer["col_norm"]["bias"], cfg.ln_eps)
-    h = scaled_linear_attention(h.transpose(1, 2), layer["col_attn"], cfg.n_heads,
-                                mask=col_mask)
-    x = x + h.transpose(1, 2)
-
-    h = layer_norm(x, layer["ffn_norm"]["scale"], layer["ffn_norm"]["bias"], cfg.ln_eps)
-    h = F.gelu(h @ layer["ffn"]["w1"] + layer["ffn"]["b1"], approximate="none")
-    return x + (h @ layer["ffn"]["w2"] + layer["ffn"]["b2"])
+    return _block(x, None, layer, cfg, site_mask, pair_mask)[0]
 
 
 def forward(
@@ -88,26 +127,28 @@ def forward(
     seq_mask: Optional[torch.Tensor] = None,
     remat: bool = False,
 ) -> torch.Tensor:
-    """Predict pairwise distances: ``(B, n, L)`` codes → ``(B, P)``,
+    """Predict pairwise distances: ``(B, n, L)`` codes → ``(B, P)`` fp32,
     ``P = n(n-1)/2`` in upper-triangle order.  Padded pairs hold garbage;
     mask them with :func:`pair_mask_from_seq_mask`.  ``remat``: keep only
     each block's input for the backward and recompute the block there
     (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``)."""
     n_seqs = codes.shape[1]
-    x = build_pairs(embed_alignment(params, codes), n_seqs)
+    emb = embed_alignment(params, codes)
+    i_idx, j_idx = _pair_index_tensors(n_seqs, emb.device)
+    x, x_sum = _residual(emb.index_select(1, i_idx), emb.index_select(1, j_idx))
     pair_mask = pair_mask_from_seq_mask(seq_mask, n_seqs) if seq_mask is not None else None
     for layer in params["layers"]:
         if remat:
-            x = checkpoint(axial_block, x, layer, cfg, site_mask, pair_mask,
-                           use_reentrant=False)
+            x, x_sum = checkpoint(_block, x, x_sum, layer, cfg, site_mask, pair_mask,
+                                  use_reentrant=False)
         else:
-            x = axial_block(x, layer, cfg, site_mask, pair_mask)
+            x, x_sum = _block(x, x_sum, layer, cfg, site_mask, pair_mask)
 
-    h = F.softplus(x @ params["head"]["w"] + params["head"]["b"])[..., 0]  # (B, P, L)
+    h = softplus(x @ params["head"]["w"] + params["head"]["b"])[..., 0]  # (B, P, L)
     if site_mask is not None:
         m = site_mask[:, None, :].to(h.dtype)
-        return (h * m).sum(dim=-1) / m.sum(dim=-1).clamp_min(1.0)
-    return h.mean(dim=-1)
+        return (h * m).sum(dim=-1).float() / m.sum(dim=-1).clamp_min(1.0).float()
+    return h.float().mean(dim=-1)
 
 
 def forward_fused(

@@ -24,11 +24,14 @@ def phi(x: torch.Tensor) -> torch.Tensor:
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
+               eps: float = 1e-5, x_sum: Optional[torch.Tensor] = None) -> torch.Tensor:
     """LayerNorm over the channel (last) axis, written out as the JAX
-    package writes it (biased variance)."""
-    mu = x.mean(dim=-1, keepdim=True)
-    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    package writes it (biased variance).  On bf16 ``x`` every op rounds to
+    bf16 except where XLA does not round JAX's bf16 LayerNorm: the mean is
+    taken from ``x_sum`` (fp32, the residual sum that ``x`` is the rounding
+    of) when given, and the squares are summed in fp32 unrounded."""
+    mu = (x if x_sum is None else x_sum).float().mean(dim=-1, keepdim=True).to(x.dtype)
+    var = (x - mu).float().square().mean(dim=-1, keepdim=True).to(x.dtype)
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
 
 

@@ -186,7 +186,11 @@ def b_group(layer) -> WeightGroup:
 
 @dataclass(frozen=True)
 class PipelineWeights:
-    """A model's parameters arranged for the pipeline (q/k pre-expanded)."""
+    """A model's parameters arranged for the pipeline (q/k pre-expanded),
+    held as fp32.  ``param_dtype`` is the type the parameters came in:
+    bf16 parameters (JAX's ``precision="bfloat16"``) are held as their exact
+    fp32 values, and the embedding is then computed at bf16, as JAX computes
+    it from bf16 weights, and widened to fp32 for block 0."""
 
     embed_w: torch.Tensor
     embed_b: torch.Tensor
@@ -194,15 +198,24 @@ class PipelineWeights:
     col: List[WeightGroup]
     b: List[WeightGroup]
     head: WeightGroup
+    param_dtype: torch.dtype = torch.float32
 
     @classmethod
     def from_params(cls, params) -> "PipelineWeights":
+        """``params``: a tree of fp32 tensors, or of bf16 tensors."""
+        from ...models.params import map_params  # models imports this module
+
+        param_dtype = params["embed"]["w"].dtype
+        if param_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"parameters of type {param_dtype}: expected fp32 or bf16")
+        params = map_params(lambda t: t.to(torch.float32), params)
         layers = [expand_qk_weights(ly) for ly in params["layers"]]
         return cls(
             embed_w=params["embed"]["w"], embed_b=params["embed"]["b"],
             row=[row_group(ly) for ly in layers], col=[col_group(ly) for ly in layers],
             b=[b_group(ly) for ly in layers],
-            head=WeightGroup.of((params["head"]["w"], params["head"]["b"])))
+            head=WeightGroup.of((params["head"]["w"], params["head"]["b"])),
+            param_dtype=param_dtype)
 
 
 # ---- plain versions -------------------------------------------------------
@@ -536,7 +549,11 @@ def forward_fused_pipeline(
     ii = torch.as_tensor(i_np, device=device)
     jj = torch.as_tensor(j_np, device=device)
 
-    emb = torch.relu(weights.embed_w[codes.long()] + weights.embed_b)  # (B, n, L, d)
+    # (B, n, L, d) fp32.  At bf16 parameters w + b is rounded to bf16, as JAX
+    # adds two bf16 arrays, and block 0 takes it widened to fp32 (or x1's
+    # storage type), as JAX's XLA-gather head does on hardware.
+    emb = torch.relu((weights.embed_w[codes.long()] + weights.embed_b)
+                     .to(weights.param_dtype)).float()
     smask = site_mask.to(torch.float32).contiguous()
     pmask = (seq_mask.index_select(1, ii.long())
              & seq_mask.index_select(1, jj.long())).to(torch.float32).contiguous()

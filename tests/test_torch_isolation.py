@@ -100,7 +100,8 @@ print(json.dumps(res))
 
 
 def test_unported_knobs_raise():
-    """bf16 parameters and the sharded engine stay unported; the reduced
+    """The sharded engine and bf16 parameters on the fused forward (above
+    the pipeline's site limit) stay unported; bf16 parameters, the reduced
     matmul precisions and bf16 storage of x1 are ported and construct."""
     out = _run("""
 import json
@@ -127,11 +128,17 @@ from phyloformer_tpu_torch.data.fasta import Alignment
 eng = InferenceEngine(params, cfg, device="cpu")
 codes = np.random.default_rng(0).integers(0, 20, (4, 1100)).astype(np.int8)
 long_pred = eng.predict([Alignment(codes, list("abcd"))])[0]
+try:
+    InferenceEngine(params, cfg, InferenceConfig(precision="bfloat16"),
+                    device="cpu").predict([Alignment(codes, list("abcd"))])
+    msgs.append("ran")
+except ValueError as e:
+    msgs.append(str(e))
 print(json.dumps({"msgs": msgs, "long": long_pred.tolist()}))
 """)
-    assert len(out["msgs"]) == 4, out
-    assert out["msgs"][1:3] == ["ran", "ran"], out
-    assert all("not yet ported, see ROADMAP.md" in out["msgs"][k] for k in (0, 3)), out
+    assert len(out["msgs"]) == 5, out
+    assert out["msgs"][0:3] == ["ran", "ran", "ran"], out
+    assert all("not yet ported, see ROADMAP.md" in out["msgs"][k] for k in (3, 4)), out
     assert len(out["long"]) == 6 and all(math.isfinite(v) for v in out["long"]), out
 
 
@@ -157,6 +164,31 @@ print(json.dumps({"names": [m.name for m in pkgutil.walk_packages(pkg.__path__,
 """)
     for name in ("infer.oracle", "bench", "bench.accuracy", "bench.cli"):
         assert "phyloformer_tpu_torch." + name in out["names"], name
+
+
+def test_serve_and_ckpt_modules_import_no_jax_and_serve_defaults_to_cuda():
+    """The serving package and pf-ckpt-torch pull in neither JAX nor the JAX
+    package; pf-serve-torch runs on the card by default and raises without
+    one, before it listens."""
+    out = _run(f"""
+import json, sys, torch
+import phyloformer_tpu_torch.serve, phyloformer_tpu_torch.serve.server
+import phyloformer_tpu_torch.serve.cli, phyloformer_tpu_torch.io.cli
+from phyloformer_tpu_torch.serve import cli
+res = {{"cuda": torch.cuda.is_available(), "loaded": sorted(sys.modules),
+       "default": cli.build_parser().parse_args(["w.ckpt"]).device}}
+if not res["cuda"]:
+    try:
+        cli.build_server([{str(REPO / "artifacts" / "pf_mre_r5.ckpt")!r}, "--port", "0"])
+        res["serve"] = "ran"
+    except RuntimeError as e:
+        res["serve"] = str(e)
+print(json.dumps(res))
+""")
+    assert not [m for m in out["loaded"] if _forbidden(m)]
+    assert out["default"] == "cuda"
+    if not out["cuda"]:
+        assert "no CUDA device" in out["serve"], out
 
 
 def test_bench_cli_defaults_to_cuda(tmp_path):

@@ -32,8 +32,8 @@ package's, on the CPU.
 - The engine at ``matmul_precision="tensorfloat32"`` with bf16 storage
   against JAX's engine with the same configuration (``use_pallas=True``),
   within the gate of max(1, max|ref|) (measured at most 1.6e-3);
-  ``pf-infer-torch --matmul-precision tensorfloat32`` on the CPU; the knobs
-  that stay refused, and sigmoid and relu at bf16 storage, which now run.
+  ``pf-infer-torch --matmul-precision tensorfloat32`` on the CPU; unknown
+  knob values, which raise, and sigmoid and relu at bf16 storage, which run.
 - The variant codes of ``axial_pipeline.cuh`` against the wrapper's.
 
 JAX runs in this process (the engine in a subprocess of its own); the port
@@ -290,7 +290,7 @@ with contextlib.redirect_stdout(buf):
     OUT["cli.rc"] = cli.main([{str(CKPT)!r}, {str(aln_dir)!r}, "-o", {str(root / "cli")!r},
                               "--device", "cpu", "--matmul-precision", "tensorfloat32"])
 msgs = []
-for kw in ({{"precision": "bfloat16"}}, {{"matmul_precision": "bfloat16"}},
+for kw in ({{"precision": "float16"}}, {{"matmul_precision": "bfloat16"}},
            {{"pipeline_act_dtype": "float16"}},
            {{"pipeline_gelu": "sigmoid", "pipeline_act_dtype": "bfloat16"}}):
     try:
@@ -334,10 +334,11 @@ def test_cli_matmul_precision_writes_phylip(engine_case):
 
 
 def test_refused_knobs_raise(engine_case):
-    """bf16 parameters stay unported and unknown names raise; sigmoid at bf16
-    storage now constructs an engine, and kernel Z runs relu on a bf16 x1."""
+    """Unknown names raise (bf16 parameters are ported, test_torch_serve.py);
+    sigmoid at bf16 storage constructs an engine, and kernel Z runs relu on
+    a bf16 x1."""
     msgs = json.loads(str(engine_case[3]["msgs"]))
-    assert "not yet ported, see ROADMAP.md" in msgs[0]
+    assert "precision='float16'" in msgs[0]
     assert "matmul_precision='bfloat16'" in msgs[1]
     assert "pipeline_act_dtype='float16'" in msgs[2]
     assert msgs[3] == "ran"
