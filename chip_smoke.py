@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--reductions | --reduced]
+    python3 chip_smoke.py [--reductions | --reduced | --sharded]
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written CUDA kernels from this checkout's sources (one
@@ -110,8 +110,32 @@
    kernel launched; bf16 within ``EAGER_BF16_ULPS`` of the same route on
    the CPU, fp32 beyond it), each route's aln/s and error against the plain
    fp32 model;
-12. prints the ``kernels`` JSON line and the throughputs, then, as its last
-   line, ``{"ok": true, "device": {...}}``.
+12. the ('data', 'pair') mesh on ``torch.distributed`` (``--sharded``: only
+   this): every kernel of the sharded paths against its plain version at
+   pair-shard shapes (local P with a padding pair, the global pair count),
+   and kernel B on a shard of a 200 x 1000 alignment from the global stats
+   timed (the row of ``sharded.py:_kernel_b_host``); then two worker ranks
+   of this script on the card over gloo (NCCL refuses two ranks on one
+   device: the collectives are staged through the host, so the numbers
+   measure correctness and overheads, not scaling):
+   ``ShardedInferenceEngine`` at data 1 x pair 2 on one related 200 x 1000
+   alignment, one 40 x 1100 and a ragged pair with a padding pair, against
+   the single-process two-kernel forward (``SHARD_TOL``; both ranks the
+   same bits; aln/s and the bytes all-reduced, read from the tensors the
+   ranks reduce), at data 2 x pair
+   1 on 16 of the 60 x 250 alignments against the single-card engine, and
+   one sharded training step (``make_train_step(mesh=..., shard_pairs)``)
+   at 4 x 50 x 256 and 2 x 50 x 1536 against the single-process fused step
+   (loss ``SHARD_TOL``, every gradient leaf ``SHARD_GRAD_TOL`` of its own
+   largest magnitude; C, D, E or E1, E2 launched on each rank), and the
+   first with A1 left unreduced, which must break the gradient bar; beside
+   them ``pf-infer-torch --distributed-init --mesh-data 1`` at world size 1
+   over nccl; then ``pf-serve-torch --distributed-init gloo --mesh-pair 2``
+   as two ranks, a burst of 8 requests answered within ``ONE_PASS_TOL`` of
+   the unsharded server's;
+13. prints the ``kernels`` JSON line (with the row of ``_kernel_b_host``)
+   and the throughputs, then, as its last line, ``{"ok": true, "device":
+   {...}}``.
 
 Any failed phase exits non-zero before the last line.  Nothing falls back to
 the CPU or to a plain version.
@@ -1983,9 +2007,10 @@ def one_step_check(device, corpus, pad_n, pad_l, precision="float32"):
     from phyloformer_tpu_torch.models.params import map_params
     from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
     from phyloformer_tpu_torch.train.data import load_example
+    from phyloformer_tpu_torch.models.phyloformer import (
+        forward, forward_fused_ad, pair_mask_from_seq_mask)
     from phyloformer_tpu_torch.train.losses import get_loss
-    from phyloformer_tpu_torch.train.trainer import (
-        TrainConfig, _batch_loss, batch_to_device, make_batch, param_leaves)
+    from phyloformer_tpu_torch.train.trainer import batch_to_device, make_batch, param_leaves
 
     params, cfg, _ = load_pretrained(CKPT)
     aln, vec = load_example(os.path.join(corpus, "trees", "ex00.nwk"),
@@ -1996,8 +2021,10 @@ def one_step_check(device, corpus, pad_n, pad_l, precision="float32"):
         p = map_params(lambda t: t.to(device).requires_grad_(True), params)
         pipe.reset_launch_counts()
         run_cfg = dataclasses.replace(cfg, matmul_precision=precision) if fused_path else cfg
-        loss, _ = _batch_loss(p, batch, run_cfg, TrainConfig(use_pallas=fused_path),
-                              get_loss("mre"))
+        preds = (forward_fused_ad if fused_path else forward)(
+            p, batch["codes"], run_cfg, batch["site_mask"], batch["seq_mask"])
+        loss = get_loss("mre")(preds, batch["dists"],
+                               pair_mask_from_seq_mask(batch["seq_mask"], pad_n))
         grads = torch.autograd.grad(loss, param_leaves(p))
         torch.cuda.synchronize()
         out[fused_path] = (loss.item(), [g.detach() for g in grads], dict(pipe.LAUNCHES))
@@ -2644,6 +2671,662 @@ def serving_phase(device, card, train_dir, alns_dir, head_alns, head_refs, kerne
                 numbers=numbers)
 
 
+# ---- the sharded phase: the ('data', 'pair') mesh on one card ----------------
+# Two gloo ranks on the one card: NCCL refuses two ranks on one device, so
+# every collective here is staged through the host, and the numbers measure
+# correctness and overheads, not scaling.  The NCCL route runs at world 1.
+
+# The engine at data 1 x pair 2: one 200 x 1000 related alignment (19,900
+# pairs, 2.6 GB an activation on each rank), one 40 x 1100 (the L-tiled
+# A1/A2/B per shard) and a ragged pair in the (10, 256) bucket (45 pairs: the
+# second shard holds a padding pair).
+SHARD_ENGINE_DIMS = [(200, 1000), (40, 1100), (10, 180), (9, 230)]
+# Training at data 1 x pair 2, one step at each shape (E1/E2 per shard at 1536).
+SHARD_TRAIN_SHAPES = [(4, 50, 256), (2, 50, 1536)]
+# Two ranks against the single-process two-kernel forward, relative to
+# max(1, max|ref|); the sharded step's loss (relative) against the
+# single-process fused step, JAX's bar (tests/test_training.py).  The
+# parameters after the step are not compared: one Adam step from zero
+# moments moves each by lr.g/(|g| + 1e-8), so two runs differ by at most
+# 2.lr whatever their gradients.  The gradients are held instead: each
+# leaf's largest error relative to its own largest magnitude, floored at
+# SHARD_GRAD_FLOOR of the largest leaf's (a few leaves, the column
+# attention's q and k biases, are sums that cancel to near zero, so their
+# own magnitude is no scale for their rounding).  A planted fault (A1 left
+# unreduced) must break that bar.
+SHARD_TOL = 1e-5
+SHARD_GRAD_TOL = 1e-4
+SHARD_GRAD_FLOOR = 1e-2
+SHARD_HEAD = 16  # 60 x 250 alignments at data 2 x pair 1
+SHARD_SERVE = 8  # requests of the sharded server's burst
+
+
+def shard_of(n_seqs, pair_index, pair, device):
+    """A rank's pair shard of ``n_seqs`` sequences on a pair axis of ``pair``
+    (its indices only: no process group)."""
+    from phyloformer_tpu_torch.ops.kernels.sharded import pair_shard
+    from phyloformer_tpu_torch.parallel.mesh import Mesh
+
+    return pair_shard(n_seqs, Mesh({"data": 1, "pair": pair}, pair_index), device)
+
+
+def shard_inputs(w, rng, dims, pad_n, pad_l, pair_index, device):
+    """A random padded batch as block 0 of one pair shard (of two) sees it:
+    the float masks, the global pair counts and the shard's pairs."""
+    import torch
+
+    from phyloformer_tpu_torch.ops.kernels.sharded import real_pairs
+
+    codes, site_mask, seq_mask = batch_inputs(rng, dims, pad_n, pad_l, device)
+    shard = shard_of(pad_n, pair_index, 2, device)
+    emb = torch.relu(w.embed_w[codes.long()] + w.embed_b)
+    return (site_mask.float().contiguous(), shard.pair_mask(seq_mask).float().contiguous(),
+            real_pairs(seq_mask).sum(1).float(), shard.build(emb).contiguous())
+
+
+def shard_kernel_checks(params, device):
+    """Every kernel of the sharded paths against its plain version at the
+    shapes a pair shard gives it (local P with padding pairs, the global
+    pair count): A and B on the ragged pair's second shard, A1, A2 and B on
+    the 40 x 1100 one's, C, D and E at 4 x 50 x 256 and E1, E2 at 2 x 50 x
+    1536 (second shards, each with a padding pair); and kernel B on the
+    200 x 1000 alignment's first shard from the global stats, timed beside
+    its plain version and bound: the row of ``sharded.py:_kernel_b_host``.
+    Returns each kernel's largest relative error and that row."""
+    import torch
+
+    from phyloformer_tpu_torch.ops.kernels import axial_block_bwd as bw
+    from phyloformer_tpu_torch.ops.kernels import fused
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+
+    w = pipe.PipelineWeights.from_params(params)
+    rng = np.random.default_rng(SEED + 13)
+    eps, errs = 1e-5, {}
+
+    def hold(name, got, want):
+        errs[name] = max(errs.get(name, 0.0), errors(got, want)[1])
+
+    # A and B, A1, A2 and B
+    for dims, pad_n, pad_l in (([(10, 180), (9, 230)], 10, 256), ([(40, 1100)], 40, 1280)):
+        smask, pmask, pcount, x = shard_inputs(w, rng, dims, pad_n, pad_l, 1, device)
+        if pad_l <= 1024:
+            got = fused.kernel_a(x, smask, pmask, w.row[0], w.col[0], eps)
+            want = pipe.kernel_a_only_plain(x, smask, pmask, w.row[0], w.col[0], eps)
+            hold("kernel_a", got[0], want[0])
+            hold("kernel_a", got[1], want[1])
+        else:
+            rowstats = fused.kernel_a1_plain(x, smask, w.row[0], eps)
+            hold("kernel_a1", fused.kernel_a1(x, smask, w.row[0], eps), rowstats)
+            got = fused.kernel_a2(x, rowstats, smask, pmask, w.row[0], w.col[0], eps)
+            want = fused.kernel_a2_plain(x, rowstats, smask, pmask, w.row[0], w.col[0], eps)
+            hold("kernel_a2", got[0], want[0])
+            hold("kernel_a2", got[1], want[1])
+        x1, stats = want
+        hold("kernel_b", fused.kernel_b_host(x1, stats, pcount, w_layer(w, 0), eps),
+             fused.kernel_b_plain(x1, stats, pcount, w.b[0], eps))
+        del x, x1, stats, got, want
+    # C, D, E; C, D, E1, E2
+    layer = params["layers"][0]
+    wb = bw.BwdWeights.of(layer)
+    for dims, pad_n, pad_l in (([(50, 256)] * 4, 50, 256), ([(50, 1536)] * 2, 50, 1536)):
+        smask, pmask, pcount, x = shard_inputs(w, rng, dims, pad_n, pad_l, 1, device)
+        _, x1, stats = fused.fused_axial_block_res(x, layer, smask, pmask)
+        g3 = (torch.randn(x.shape, device=device,
+                          generator=torch.Generator(device).manual_seed(SEED))
+              * smask[:, None, :, None] * pmask[:, :, None, None]).contiguous()
+        got = bw.kernel_c(x1, g3, stats, pmask, pcount, wb.c, eps)
+        want = bw.kernel_c_plain(x1, g3, stats, pmask, pcount, wb.c, eps)
+        for a, b in zip(got, want):
+            hold("kernel_c", a, b)
+        g2, a1 = want[0], want[1]
+        got = bw.kernel_d(x1, g2, stats, a1, pmask, pcount, wb.d, eps)
+        want = bw.kernel_d_plain(x1, g2, stats, a1, pmask, pcount, wb.d, eps)
+        for a, b in zip(got, want):
+            hold("kernel_d", a, b)
+        g1 = want[0]
+        if pad_l <= 1024:
+            got, want = (bw.kernel_e(x, g1, smask, wb.e, eps),
+                         bw.kernel_e_plain(x, g1, smask, wb.e, eps))
+            for a, b in zip(got, want):
+                hold("kernel_e", a, b)
+        else:
+            rows = bw.kernel_e1_plain(x, g1, smask, wb.e, eps)
+            hold("kernel_e1", bw.kernel_e1(x, g1, smask, wb.e, eps), rows)
+            got, want = (bw.kernel_e2(x, g1, rows, smask, wb.e, eps),
+                         bw.kernel_e2_plain(x, g1, rows, smask, wb.e, eps))
+            for a, b in zip(got, want):
+                hold("kernel_e2", a, b)
+        del x, x1, stats, g1, g2, g3, got, want
+        torch.cuda.empty_cache()
+
+    # kernel B on the 200 x 1000 alignment's first shard, from the global stats
+    codes = evolved_alignment(rng, 200, 1000)
+    padded = np.zeros((1, 200, 1024), np.int32)
+    padded[0, :, :1000] = codes
+    codes = torch.from_numpy(padded).to(device)
+    smask = (torch.arange(1024, device=device) < 1000).float()[None].contiguous()
+    emb = torch.relu(w.embed_w[codes.long()] + w.embed_b)
+    stats, count = 0, torch.full((1,), 19900.0, device=device)
+    for k in (1, 0):
+        shard = shard_of(200, k, 2, device)
+        pmask = shard.pair_mask(torch.ones((1, 200), dtype=torch.bool, device=device)).float()
+        x1, st = fused.kernel_a(shard.build(emb).contiguous(), smask, pmask.contiguous(),
+                                w.row[0], w.col[0], eps)
+        stats = stats + st
+    del emb
+    torch.cuda.empty_cache()
+    got = fused.kernel_b_host(x1, stats, count, w_layer(w, 0), eps)
+    hold("kernel_b_host", got, fused.kernel_b_plain(x1, stats, count, w.b[0], eps))
+    del got
+    torch.cuda.empty_cache()
+    sites = x1.shape[0] * x1.shape[1] * x1.shape[2]
+    ms, by, _ = bound_tc(FLOPS_B * sites, 2 * 4 * D * sites + 4 * x1.shape[2] * 3 * D)
+    row = dict(shape=list(x1.shape),
+               ms=time_ms(lambda: fused.kernel_b_host(x1, stats, count, w_layer(w, 0), eps)),
+               plain_ms=time_ms(lambda: fused.kernel_b_plain(x1, stats, count, w.b[0], eps),
+                                reps=2),
+               bound_ms=ms, bound_by=by, library_ms=None)
+    del x1, stats
+    torch.cuda.empty_cache()
+    return errs, row
+
+
+def w_layer(w, k):
+    """Layer ``k`` of PipelineWeights as the host functions take it."""
+    from phyloformer_tpu_torch.ops.kernels.fused import BlockWeights
+
+    return BlockWeights(w.row[k], w.col[k], w.b[k])
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_env(rank, world, port):
+    """torchrun's env:// variables for ``rank`` of ``world`` on the one card."""
+    return {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def wait_ranks(procs, timeout, what):
+    """Wait for every process; on the first failure or at the time limit kill
+    the rest and fail.  Returns their (stdout, stderr)."""
+    deadline = time.monotonic() + timeout
+    while any(p.poll() is None for p in procs):
+        if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            break
+        time.sleep(0.2)
+    outs = [p.communicate() for p in procs]
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"{what}: rank {r} exited {p.returncode}: {err[-3000:]}")
+    return outs
+
+
+def sharded_worker(job_dir):
+    """One rank of the sharded phase (``--sharded-worker DIR``, two ranks on
+    the card over gloo): ShardedInferenceEngine at data 1 x pair 2 on
+    ``SHARD_ENGINE_DIMS`` and at data 2 x pair 1 on the 60 x 250 set, then
+    one sharded training step at each of ``SHARD_TRAIN_SHAPES`` (data 1 x
+    pair 2, ``shard_pairs``); writes its results and launches to DIR."""
+    import torch
+
+    from phyloformer_tpu_torch.data.fasta import Alignment
+    from phyloformer_tpu_torch.infer.engine import InferenceConfig, ShardedInferenceEngine
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    from phyloformer_tpu_torch.ops.kernels import axial_block_bwd as bwd_mod
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+    from phyloformer_tpu_torch.ops.kernels import sharded as sharded_mod
+    from phyloformer_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from phyloformer_tpu_torch.parallel.mesh import shutdown_distributed
+    from phyloformer_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state, make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = init_distributed("gloo", "cuda")
+    rank = torch.distributed.get_rank()
+    inp = dict(np.load(os.path.join(job_dir, "inputs.npz")))
+    params, cfg, _ = load_pretrained(CKPT)
+    out, info = {}, {"launches": {}, "s": {}, "reduced": {}}
+    # every all-reduce over a group of the sharded paths, read from the
+    # tensor reduced: (what, shape, bytes)
+    reduced = []
+
+    def tallied(what, reduce):
+        def counting(t, group):
+            if group is not None:
+                kind = what if what == "a1" else ("stats" if t.dim() == 3 else "gradients")
+                reduced.append((kind, list(t.shape), t.numel() * t.element_size()))
+            return reduce(t, group)
+        return counting
+
+    sharded_mod.all_reduce_sum = tallied("sharded", sharded_mod.all_reduce_sum)
+    bwd_mod.all_reduce_sum = tallied("a1", bwd_mod.all_reduce_sum)
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        pipe.reset_launch_counts()
+        reduced.clear()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        info["s"][name] = time.perf_counter() - t0
+        info["launches"][name] = dict(pipe.LAUNCHES)
+        info["reduced"][name] = list(reduced)
+        return res
+
+    def alns(prefix):
+        keys = sorted((k for k in inp if k.startswith(prefix)), key=lambda k: int(k[len(prefix):]))
+        return [Alignment(inp[k], [str(i) for i in range(len(inp[k]))]) for k in keys]
+
+    pair = ShardedInferenceEngine(params, cfg, make_mesh(1, 2), InferenceConfig(),
+                                  device=device)
+    big = alns("engine")
+    for k, p in enumerate(run("engine_pair", lambda: pair.predict(big))):
+        out[f"engine{k}"] = p
+    run("big_timed", lambda: pair.predict(big[:1]))  # 200 x 1000 alone, warm
+    data = ShardedInferenceEngine(params, cfg, make_mesh(2, 1), InferenceConfig(),
+                                  device=device)
+    head = alns("head")
+    for k, p in enumerate(run("engine_data", lambda: data.predict(head))):
+        out[f"head{k}"] = p
+    run("head_timed", lambda: data.predict(head))
+    del pair, data
+    torch.cuda.empty_cache()
+
+    mesh = make_mesh(1, 2)
+    tcfg = TrainConfig(loss="mre", learning_rate=1e-4, warmup_steps=0, total_steps=100,
+                       use_pallas=True, shard_pairs=True)
+    for b, n, l in SHARD_TRAIN_SHAPES:
+        tag = f"train{l}"
+        state, tx = create_train_state(cfg, tcfg, params=params, device=device)
+        step = make_train_step(cfg, tcfg, tx, mesh=mesh)
+        grads = capture_grads(tx)
+        batch = {k: inp[f"{tag}.{k}"] for k in ("codes", "dists", "site_mask", "seq_mask")}
+        state, logs = run(tag, lambda: step(state, batch))
+        out[f"{tag}.loss"] = np.float64(logs["train_loss"].item())
+        for i, g in enumerate(grads):
+            out[f"{tag}.grad{i}"] = g.cpu().numpy()
+        grads.clear()
+        run(tag + "_timed", lambda: step(state, batch))  # a second step, warm
+        del state, tx, step, grads
+        torch.cuda.empty_cache()
+    # the planted fault, outside the counted runs: the first shape's step
+    # with A1 left unreduced (each shard's partial alone)
+    b, n, l = SHARD_TRAIN_SHAPES[0]
+    bwd = sharded_mod.fused_axial_block_bwd
+    sharded_mod.fused_axial_block_bwd = lambda *a, **k: bwd(*a, **{**k, "pair_group": None})
+    state, tx = create_train_state(cfg, tcfg, params=params, device=device)
+    grads = capture_grads(tx)
+    make_train_step(cfg, tcfg, tx, mesh=mesh)(
+        state, {k: inp[f"train{l}.{k}"] for k in ("codes", "dists", "site_mask", "seq_mask")})
+    for i, g in enumerate(grads):
+        out[f"no_a1.grad{i}"] = g.cpu().numpy()
+    sharded_mod.fused_axial_block_bwd = bwd
+    del state, tx, grads
+    np.savez(os.path.join(job_dir, f"rank{rank}.npz"), **out)
+    with open(os.path.join(job_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(info, fh)
+    shutdown_distributed()
+    return 0
+
+
+def leaf_names(tree, prefix=""):
+    """The paths of a parameter tree's leaves, in the trainer's order."""
+    if isinstance(tree, dict):
+        return [q for k, v in tree.items() for q in leaf_names(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [q for k, v in enumerate(tree) for q in leaf_names(v, f"{prefix}/{k}")]
+    return [prefix]
+
+
+def capture_grads(tx):
+    """Record the gradients the optimizer ``tx`` is given (the step's,
+    after their all-reduce) into the returned list."""
+    seen = []
+    update = tx.update
+
+    def recording(grads):
+        seen.extend(g.detach().clone() for g in grads)
+        return update(grads)
+
+    tx.update = recording
+    return seen
+
+
+def single_train_steps(params, cfg, inp, device):
+    """The single-process fused step at each of ``SHARD_TRAIN_SHAPES``: its
+    loss and gradients, and a warm step's seconds."""
+    import torch
+
+    from phyloformer_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state, make_train_step)
+
+    refs = {}
+    for b, n, l in SHARD_TRAIN_SHAPES:
+        tag = f"train{l}"
+        tcfg = TrainConfig(loss="mre", learning_rate=1e-4, warmup_steps=0, total_steps=100,
+                           use_pallas=True)
+        state, tx = create_train_state(cfg, tcfg, params=params, device=device)
+        grads = capture_grads(tx)
+        batch = {k: inp[f"{tag}.{k}"] for k in ("codes", "dists", "site_mask", "seq_mask")}
+        step = make_train_step(cfg, tcfg, tx)
+        state, logs = step(state, batch)
+        refs[tag] = dict(loss=logs["train_loss"].item(), grads=[g.cpu().numpy() for g in grads])
+        grads.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, logs = step(state, batch)  # a second step, warm
+        logs["train_loss"].item()
+        refs[tag]["step_s"] = time.perf_counter() - t0
+        del state, tx, grads, step
+        torch.cuda.empty_cache()
+    return refs
+
+
+def sharded_inputs(rng, head_alns):
+    """The workers' inputs: the engine's alignments (``SHARD_ENGINE_DIMS``,
+    the first related), ``SHARD_HEAD`` of the 60 x 250 set and a ragged
+    random batch at each training shape."""
+    from phyloformer_tpu_torch.data.pairs import n_pairs
+
+    inp = {}
+    for k, (n, l) in enumerate(SHARD_ENGINE_DIMS):
+        codes = evolved_alignment(rng, n, l) if k == 0 else random_alignment(rng, n, l)
+        inp[f"engine{k}"] = codes.astype(np.int8)
+    for k, a in enumerate(head_alns[:SHARD_HEAD]):
+        inp[f"head{k}"] = a.codes
+    for b, n, l in SHARD_TRAIN_SHAPES:
+        tag = f"train{l}"
+        site_mask = np.ones((b, l), bool)
+        site_mask[-1, l - l // 10:] = False
+        seq_mask = np.ones((b, n), bool)
+        seq_mask[-1, n - 5:] = False
+        inp.update({f"{tag}.codes": rng.integers(0, 20, (b, n, l)).astype(np.int32),
+                    f"{tag}.dists": rng.uniform(0.05, 2.0, (b, n_pairs(n))).astype(np.float32),
+                    f"{tag}.site_mask": site_mask, f"{tag}.seq_mask": seq_mask})
+    return inp
+
+
+def post_all(url, bodies):
+    """Every body POSTed at once; (status, text, seconds) each, and the wall
+    seconds of the burst."""
+    import threading
+
+    answers = [None] * len(bodies)
+
+    def worker(k):
+        answers[k] = post(url, *bodies[k])
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return answers, time.perf_counter() - t0
+
+
+def sharded_serving(bodies):
+    """``pf-serve-torch --distributed-init gloo --mesh-pair 2`` as two ranks
+    on the card, and the unsharded server of the same (default) flags in
+    this process: the burst of ``bodies`` at each.  Returns both answer
+    sets and the sharded burst's wall seconds."""
+    import signal
+
+    from phyloformer_tpu_torch.serve import cli as serve_cli
+
+    flags = [CKPT, "--port", "0", "--host", "127.0.0.1"]
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, "-m", "phyloformer_tpu_torch.serve.cli"] + flags
+                              + ["--distributed-init", "gloo", "--mesh-pair", "2"], cwd=ROOT,
+                              env=rank_env(r, 2, port), stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        line = ""
+        deadline = time.monotonic() + 300
+        while "listening on" not in line:
+            line = procs[0].stderr.readline()
+            if not line or time.monotonic() > deadline:
+                fail("sharded serving: rank 0 stopped before listening")
+        url = f"http://127.0.0.1:{int(line.strip().rsplit(':', 1)[1])}/predict"
+        post(url, *bodies[0])  # warm
+        sharded, wall = post_all(url, bodies)
+        procs[0].send_signal(signal.SIGINT)
+        wait_ranks(procs, 120, "sharded serving")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    server = serve_cli.build_server(flags)
+    server.start_background()
+    try:
+        url = f"http://127.0.0.1:{server.port}/predict"
+        post(url, *bodies[0])
+        single, _ = post_all(url, bodies)
+    finally:
+        server.shutdown()
+    return sharded, single, wall
+
+
+def nccl_cli(alns_dir, out_dir):
+    """``pf-infer-torch --distributed-init --mesh-data 1`` at world size 1:
+    the process group on nccl, on the card (started, not waited for)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "phyloformer_tpu_torch.infer.cli", CKPT, alns_dir, "-o", out_dir,
+         "--distributed-init", "--mesh-data", "1", "--stats"], cwd=ROOT,
+        env=rank_env(0, 1, free_port()), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def sharded_phase(device, card, head_alns):
+    """The sharded phase (see the module's docstring, item 12).  Fails on
+    any bar; returns the launches of every sharded run, each kernel's error
+    at the shard shapes, the row of ``_kernel_b_host`` and the numbers."""
+    import torch
+
+    from phyloformer_tpu_torch.data.fasta import Alignment
+    from phyloformer_tpu_torch.data.phylip import read_phylip
+    from phyloformer_tpu_torch.infer.engine import InferenceConfig, InferenceEngine
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    from phyloformer_tpu_torch.models.params import map_params
+
+    t = time.perf_counter()
+    params, cfg, _ = load_pretrained(CKPT)
+    dev_params = map_params(lambda x: x.to(device), params)
+    errs, b_host = shard_kernel_checks(dev_params, device)
+    bad = {k: e for k, e in errs.items() if e > (E12_TOL if k in ("kernel_e1", "kernel_e2")
+                                                  else KERNEL_TOL)}
+    print(f"sharded: kernels at pair-shard shapes vs their plain versions (relative): "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+    if bad:
+        fail(f"sharded: kernels off their plain versions at shard shapes: {bad}")
+    print(f"sharded: kernel_b_host (one process: kernel B on a pair shard {b_host['shape']}, "
+          f"both shards' stats summed) "
+          f"{b_host['ms']:.3f} ms vs plain {b_host['plain_ms']:.3f} ms, bound "
+          f"{b_host['bound_ms']:.3f} ms ({b_host['bound_by']}) [{card}]")
+
+    # the single-process references
+    rng = np.random.default_rng(SEED + 14)
+    job = os.path.join(WORK, "sharded")
+    shutil.rmtree(job, ignore_errors=True)
+    os.makedirs(job)
+    inp = sharded_inputs(rng, head_alns)
+    np.savez(os.path.join(job, "inputs.npz"), **inp)
+
+    def as_alns(prefix, count):
+        return [Alignment(inp[f"{prefix}{k}"], [str(i) for i in range(len(inp[f"{prefix}{k}"]))])
+                for k in range(count)]
+
+    big = as_alns("engine", len(SHARD_ENGINE_DIMS))
+    two_kernel = InferenceEngine(params, cfg, InferenceConfig(use_pipeline=False), device=device)
+    refs = two_kernel.predict(big)
+    t0 = time.perf_counter()
+    two_kernel.predict(big[:1])
+    single_big_s = time.perf_counter() - t0
+    del two_kernel
+    head = as_alns("head", SHARD_HEAD)
+    engine = InferenceEngine(params, cfg, InferenceConfig(), device=device)
+    head_refs = engine.predict(head)
+    train_refs = single_train_steps(params, cfg, inp, device)
+    del engine
+    torch.cuda.empty_cache()
+
+    # the NCCL route at world 1, beside the two gloo ranks
+    nccl_dir = os.path.join(job, "nccl")
+    os.makedirs(os.path.join(nccl_dir, "alns"))
+    for k, a in enumerate(head[:4]):
+        write_fasta(os.path.join(nccl_dir, "alns", f"a{k}.fa"), a.codes, k)
+    nccl = nccl_cli(os.path.join(nccl_dir, "alns"), os.path.join(nccl_dir, "out"))
+    port = free_port()
+    workers = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-worker",
+                                 job], cwd=ROOT, env=rank_env(r, 2, port),
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+               for r in range(2)]
+    wait_ranks(workers, 600, "sharded workers")
+    (nccl_out, _), = wait_ranks([nccl], 300, "pf-infer-torch over nccl")
+    ranks = [dict(np.load(os.path.join(job, f"rank{r}.npz"))) for r in range(2)]
+    infos = []
+    for r in range(2):
+        with open(os.path.join(job, f"rank{r}.json")) as fh:
+            infos.append(json.load(fh))
+    same_bits = all(np.array_equal(ranks[0][k], ranks[1][k]) for k in ranks[0])
+
+    big_err = max(rel_err(ranks[0][f"engine{k}"], r) for k, r in enumerate(refs))
+    head_err = max(rel_err(ranks[0][f"head{k}"], r) for k, r in enumerate(head_refs))
+    finite = all(np.isfinite(v).all() for v in ranks[0].values())
+    # the stats all-reduced per block, by shape, as the ranks reduced them
+    stats_bytes = {}
+    for kind, shape, nbytes in infos[0]["reduced"]["engine_pair"]:
+        if kind == "stats":
+            stats_bytes[str(tuple(shape))] = nbytes
+    big_stats = [x[2] for x in infos[0]["reduced"]["big_timed"] if x[0] == "stats"]
+    big_s = infos[0]["s"]["big_timed"]
+    head_s = infos[0]["s"]["head_timed"]
+    print(f"sharded engine, data 1 x pair 2 (two ranks on one card, gloo; three TF32 passes): "
+          f"vs the single-process two-kernel forward {big_err:.3e} (tol {SHARD_TOL:.0e}), every "
+          f"value finite {finite}; both ranks the same bits {same_bits}; 200 x 1000: "
+          f"{1 / big_s:.3f} aln/s ({big_s:.3f} s; one process {single_big_s:.3f} s); "
+          f"stats all-reduced per block, by shape (B, L, 3d): {stats_bytes} bytes; 200 x 1000 "
+          f"alone: {len(big_stats)} all-reduces, {sum(big_stats)} bytes [{card}]")
+    print(f"sharded engine, data 2 x pair 1 on {SHARD_HEAD} x 60 x 250: vs the single-card "
+          f"engine {head_err:.3e} (tol {KERNEL_TOL:.0e}); {SHARD_HEAD / head_s:.3f} aln/s "
+          f"[{card}]")
+    if not (same_bits and finite and big_err <= SHARD_TOL and head_err <= KERNEL_TOL):
+        fail("sharded engine: ranks differ, or off the single-process forward")
+    if len(big_stats) != cfg.n_blocks:
+        fail(f"sharded engine: {len(big_stats)} stats all-reduces at 200 x 1000, "
+             f"not one a block")
+
+    names = leaf_names(params)
+
+    def leaf_errs(prefix, ref_grads):
+        """Each leaf's largest error relative to its own largest magnitude,
+        floored at ``SHARD_GRAD_FLOOR`` of the largest leaf's."""
+        floor = SHARD_GRAD_FLOOR * max(float(np.abs(g).max()) for g in ref_grads)
+        return [float(np.abs(ranks[0][f"{prefix}.grad{i}"] - g).max()
+                      / max(float(np.abs(g).max()), floor)) for i, g in enumerate(ref_grads)]
+
+    train = {}
+    for b, n, l in SHARD_TRAIN_SHAPES:
+        tag, ref = f"train{l}", train_refs[f"train{l}"]
+        loss = float(ranks[0][f"{tag}.loss"])
+        errs_l = leaf_errs(tag, ref["grads"])
+        mags = [float(np.abs(g).max()) for g in ref["grads"]]
+        reduced = {}
+        for kind, _, nbytes in infos[0]["reduced"][tag]:
+            reduced[kind] = reduced.get(kind, 0) + nbytes
+        train[tag] = dict(
+            loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]), grad_err=max(errs_l),
+            worst_leaf=names[int(np.argmax(errs_l))], leaf_max_abs=[min(mags), max(mags)],
+            allreduce_bytes=reduced, step_s=infos[0]["s"][tag + "_timed"],
+            single_step_s=ref["step_s"],
+            launches=[{k: v for k, v in info["launches"][tag].items() if v} for info in infos])
+        r = train[tag]
+        print(f"sharded training step {b} x {n} x {l} (data 1 x pair 2, two ranks on one card, "
+              f"gloo): loss {r['loss_rel']:.3e} relative (tol {SHARD_TOL:.0e}), gradients: "
+              f"worst leaf {r['grad_err']:.3e} of its own max|g| ({r['worst_leaf']}, floor "
+              f"{SHARD_GRAD_FLOOR:.0e} of the largest, tol {SHARD_GRAD_TOL:.0e}; the {len(mags)} "
+              f"leaves' max|g| from {min(mags):.3e} to {max(mags):.3e}) from the single-process "
+              f"fused step; a warm step "
+              f"{1e3 * r['step_s']:.1f} ms (one process {1e3 * r['single_step_s']:.1f} ms); "
+              f"all-reduced bytes a step {reduced}; launches per rank {r['launches']} [{card}]")
+        bwd = ("kernel_e1", "kernel_e2") if l > 1024 else ("kernel_e",)
+        if not (r["loss_rel"] <= SHARD_TOL and r["grad_err"] <= SHARD_GRAD_TOL):
+            fail(f"sharded training at {l} sites: off the single-process step")
+        if any(lc.get(k, 0) != cfg.n_blocks for lc in r["launches"]
+               for k in ("kernel_c", "kernel_d") + bwd):
+            fail(f"sharded training at {l} sites: C, D, E (E1, E2) not launched once a block on "
+                 "each rank")
+    planted = leaf_errs("no_a1", train_refs[f"train{SHARD_TRAIN_SHAPES[0][2]}"]["grads"])
+    print(f"sharded training, planted fault (A1 not all-reduced) at {SHARD_TRAIN_SHAPES[0]}: "
+          f"worst leaf {max(planted):.3e} ({names[int(np.argmax(planted))]}; must exceed "
+          f"{SHARD_GRAD_TOL:.0e}), "
+          f"{sum(e > SHARD_GRAD_TOL for e in planted)} of {len(planted)} leaves beyond it")
+    if not max(planted) > SHARD_GRAD_TOL:
+        fail("sharded training: the gradient bar does not see A1 left unreduced")
+
+    stats = json.loads(nccl_out.strip().splitlines()[-1])
+    nccl_err = 0.0
+    for k in range(4):
+        dm, _ = read_phylip(os.path.join(nccl_dir, "out", f"a{k}.phy"))
+        i, j = np.triu_indices(len(dm), 1)
+        nccl_err = max(nccl_err, rel_err(dm[i, j], head_refs[k]))
+    print(f"pf-infer-torch --distributed-init --mesh-data 1 (world 1): backend "
+          f"{stats.get('backend')}, mesh {stats.get('mesh')}, {stats['alignments']} alignments, "
+          f"vs the engine {nccl_err:.3e} (tol {KERNEL_TOL:.0e}; 10-decimal PHYLIP)")
+    if stats.get("backend") != "nccl" or not nccl_err <= KERNEL_TOL:
+        fail("pf-infer-torch over nccl: not nccl, or off the engine")
+
+    srng = np.random.default_rng(SEED + 15)
+    bodies = []
+    for k in range(SHARD_SERVE):
+        n, l = (60, 250) if k < SHARD_SERVE // 2 else (int(srng.integers(20, 51)),
+                                                        int(srng.integers(100, 601)))
+        codes = evolved_alignment(srng, n, l) if k < SHARD_SERVE // 2 else random_alignment(
+            srng, n, l)
+        bodies.append((fasta_text(codes, [f"s{k}_{i}" for i in range(n)]).encode(),))
+    sharded, single, wall = sharded_serving(bodies)
+    if not all(a[0] == 200 for a in sharded + single):
+        fail(f"sharded serving: statuses {[a[0] for a in sharded]}, {[a[0] for a in single]}")
+    serve_err = max(rel_err(np.array(json.loads(a[1])["distances"]),
+                            np.array(json.loads(b[1])["distances"]))
+                    for a, b in zip(sharded, single))
+    print(f"pf-serve-torch --distributed-init gloo --mesh-pair 2 (two ranks on one card, gloo; "
+          f"default flags, one TF32 pass): {SHARD_SERVE} concurrent requests in {wall:.3f} s "
+          f"({SHARD_SERVE / wall:.3f} requests/s), answers vs the unsharded server "
+          f"{serve_err:.3e} (tol {ONE_PASS_TOL:.0e}) [{card}]")
+    if not serve_err <= ONE_PASS_TOL:
+        fail("sharded serving: answers off the unsharded server's")
+    print(f"sharded phase: {time.perf_counter() - t:.1f} s")
+    runs = [info["launches"][k] for info in infos for k in
+            ("engine_pair", "big_timed", "engine_data", "head_timed")
+            + tuple(f"train{l}{x}" for _, _, l in SHARD_TRAIN_SHAPES for x in ("", "_timed"))]
+    b_host["launches"] = sum(info["launches"][k]["kernel_b"] for info in infos
+                             for k in info["launches"])
+    b_host["max_abs_err"] = b_host["max_rel_err"] = errs.pop("kernel_b_host")
+    numbers = {"engine_pair": {"vs_single": big_err, "aln_per_s_200x1000": 1 / big_s,
+                               "single_process_s_200x1000": single_big_s,
+                               "stats_allreduce_bytes_per_block": stats_bytes},
+               "engine_data": {"vs_single": head_err, "aln_per_s": SHARD_HEAD / head_s},
+               "training": {k: {x: v for x, v in r.items() if x != "launches"}
+                            for k, r in train.items()},
+               "planted_no_a1_worst_leaf": max(planted),
+               "nccl_cli": {"backend": stats.get("backend"), "vs_engine": nccl_err},
+               "serving": {"req_per_s": SHARD_SERVE / wall, "vs_unsharded": serve_err},
+               "kernels_at_shard_shapes": errs, "note": "two ranks on one card, gloo"}
+    return dict(runs=runs, errs=errs, b_host=b_host, numbers=numbers)
+
+
 SOURCE = "phyloformer_tpu_torch/ops/kernels/csrc/"
 # name: (source, TPU kernel it replaces)
 KERNELS = {
@@ -2663,6 +3346,9 @@ KERNELS = {
     "kernel_e2": ("axial_bwd_tc.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:534"),
     "reduce_partials": ("slot_reduce.cu", "phyloformer_tpu/ops/pallas/axial_block_bwd.py:241"),
 }
+# The sharded forward's kernel B on a pair shard: not a kernel of its own, a
+# composition over pf_kernel_b (fused.kernel_b_host), with its own row.
+B_HOST = ("kernel_b_host", "axial_fused.cu", "phyloformer_tpu/ops/pallas/sharded.py:287")
 
 
 def main(argv=None) -> int:
@@ -2675,6 +3361,9 @@ def main(argv=None) -> int:
                          "forward kernels' variants against their plain versions, the fast "
                          "path, 60 x 1500 at one pass, the accuracy grid, the backward "
                          "kernels at one pass (and three) and training at default (and fp32)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="only build the kernels and run the sharded phase")
+    ap.add_argument("--sharded-worker", metavar="DIR", help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
     reductions_only = opts.reductions
     sys.path.insert(0, ROOT)
@@ -2682,6 +3371,8 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
+    if opts.sharded_worker:  # one rank of the sharded phase, started by it
+        return sharded_worker(opts.sharded_worker)
     import phyloformer_tpu_torch
     from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
     from phyloformer_tpu_torch.models.params import map_params
@@ -2704,6 +3395,17 @@ def main(argv=None) -> int:
     for line in _build.ptxas_log.splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+
+    if opts.sharded:
+        from phyloformer_tpu_torch.data.fasta import Alignment
+
+        rng = np.random.default_rng(SEED + 1)
+        head = [Alignment(random_alignment(rng, 60, 250).astype(np.int8),
+                          [f"T{j}" for j in range(60)]) for _ in range(SHARD_HEAD)]
+        sh = sharded_phase(torch.device("cuda"), card, head)
+        print(json.dumps({"sharded": sh["numbers"], "kernel_b_host": sh["b_host"],
+                          "card": card}))
+        return 0
 
     if opts.reduced:
         params, cfg, _ = load_pretrained(CKPT)
@@ -2840,7 +3542,12 @@ def main(argv=None) -> int:
     results.update(bwd)
     sp = serving_phase(device, card, tr["ckpt_dir"], tr["alns_dir"], mp["head_alns"],
                        mp["head_refs"], mp["aln_per_s"], mp["dist_err"])
-    train_launches = {k: sum(run[k] for run in tr["runs"] + sp["runs"]) for k in KERNELS}
+    torch.cuda.empty_cache()
+    sh = sharded_phase(device, card, mp["head_alns"])
+    for name, err in sh["errs"].items():
+        results[name]["sharded_max_rel_err"] = err
+    train_launches = {k: sum(run[k] for run in tr["runs"] + sp["runs"] + sh["runs"])
+                      for k in KERNELS}
     fast_launches = {k: sum(rp[x]["launches"][k] for x in ("float32", "bfloat16", "long"))
                      for k in KERNELS}
     variant_rows = {name: {v.split("/")[1]: {
@@ -2868,8 +3575,17 @@ def main(argv=None) -> int:
                                "one_pass_bits") if k in r}),
          **({k: r[k] for k in ("shape", "twin_bits", "same_bits", "worst_vs_library",
                                "worst_vs_library_shape")} if name in REDUCTION_ROW else {}),
-         **({"variants": variant_rows[name]} if variant_rows.get(name) else {})}
-        for name, r in results.items()],
+         **({"variants": variant_rows[name]} if variant_rows.get(name) else {}),
+         **({"sharded_max_rel_err": r["sharded_max_rel_err"]}
+            if "sharded_max_rel_err" in r else {})}
+        for name, r in results.items()] + [
+        {"name": B_HOST[0], "route": "cuda", "source": SOURCE + B_HOST[1],
+         "replaces": B_HOST[2], "tolerance": KERNEL_TOL,
+         **{k: sh["b_host"][k] for k in ("launches", "max_abs_err", "max_rel_err", "ms",
+                                          "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                          "shape")},
+         "composition_of": "kernel_b",
+         "note": "one process: kernel B at a pair-shard shape with both shards' stats summed"}],
         "card": card, "aln_per_s": mp["aln_per_s"], "long_aln_per_s": mp["long_aln_per_s"],
         "two_kernel_aln_per_s": aln_per_s2,
         "fast_path_aln_per_s": rp["float32"]["aln_per_s"],
@@ -2877,7 +3593,7 @@ def main(argv=None) -> int:
         "long_one_pass_aln_per_s": rp["long"]["aln_per_s"],
         "fast_path_err": {x: rp[x]["random"] + rp[x]["evolved"] for x in ("float32", "bfloat16")},
         "accuracy_grid": rp["grid"]["rows"],
-        "training": tr["numbers"], "serving": sp["numbers"]}
+        "training": tr["numbers"], "serving": sp["numbers"], "sharded": sh["numbers"]}
     if any(k["launches"] <= 0 for k in line["kernels"]):
         fail("a kernel of the paths was not launched on them")
     print(json.dumps(line))

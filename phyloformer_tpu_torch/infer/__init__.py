@@ -1,3 +1,3 @@
-from .engine import InferenceConfig, InferenceEngine
+from .engine import InferenceConfig, InferenceEngine, ShardedInferenceEngine
 
-__all__ = ["InferenceConfig", "InferenceEngine"]
+__all__ = ["InferenceConfig", "InferenceEngine", "ShardedInferenceEngine"]

@@ -9,6 +9,18 @@ reference ``.ckpt``, an ``.npz`` or a ``pf-train-torch`` checkpoint
 directory.  Runs the hand-written kernels on the card unless ``--eager``
 (the eager model) or ``--device cpu`` is given; ``--pallas`` names the
 kernels explicitly, so a JAX ``pf-infer`` command line runs unchanged.
+
+Over several ranks (one process per card, started with ``torchrun``, or
+processes given torchrun's ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+``MASTER_PORT``): ``--distributed-init`` joins the process group (nccl on
+the card, gloo on the CPU; ``--distributed-init gloo`` runs gloo on the
+card), ``--mesh-data`` / ``--mesh-pair`` shape the ranks into a mesh
+(:class:`..infer.engine.ShardedInferenceEngine`; rank 0 writes the
+outputs), and ``--multihost`` instead splits the files over the ranks,
+each writing its own::
+
+    torchrun --nproc-per-node 4 -m phyloformer_tpu_torch.infer.cli W alns/ \
+        --distributed-init --mesh-pair 4
 """
 
 from __future__ import annotations
@@ -63,22 +75,64 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda = the hand-written kernels on the card (default); "
                              "cpu = their plain PyTorch versions")
+    add_distributed_flags(parser)
+    parser.add_argument("--multihost", action="store_true",
+                        help="split the alignment list over the ranks (each rank runs "
+                             "its share alone and writes its own outputs)")
     return parser
+
+
+def add_distributed_flags(parser: argparse.ArgumentParser) -> None:
+    """``--distributed-init``, ``--mesh-data`` and ``--mesh-pair``, as the
+    CLIs of the port take them."""
+    parser.add_argument("--distributed-init", nargs="?", const="auto", default=None,
+                        choices=["auto", "nccl", "gloo"],
+                        help="join the torch.distributed process group from torchrun's "
+                             "env:// variables first (auto: nccl on the card, gloo on "
+                             "the CPU; gloo also runs on the card)")
+    parser.add_argument("--mesh-data", type=int, default=None,
+                        help="run over a ('data', 'pair') mesh of ranks: data-axis size "
+                             "(default: all ranks / --mesh-pair)")
+    parser.add_argument("--mesh-pair", type=int, default=1,
+                        help="pair-axis mesh size: splits the quadratic pair activations "
+                             "over the ranks, for alignments beyond one card's memory")
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    from ..device import resolve_device
+    from ..parallel.mesh import init_distributed, shutdown_distributed
+
+    device = (init_distributed(args.distributed_init, args.device) if args.distributed_init
+              else resolve_device(args.device))
+    try:
+        return _run(args, device)
+    finally:
+        shutdown_distributed()
+
+
+def _run(args, device) -> int:
     from ..data.fasta import has_fasta_ext, read_fasta
     from ..data.phylip import vec_to_phylip
-    from ..device import resolve_device
-    from ..infer.engine import InferenceConfig, InferenceEngine
+    from ..infer.engine import InferenceConfig, InferenceEngine, ShardedInferenceEngine
     from ..io.ckpt_import import load_pretrained
+    from ..parallel.mesh import host_local_slice, make_mesh, world
+    from torch import distributed as dist
 
-    device = resolve_device(args.device)
+    meshed = args.mesh_data is not None or args.mesh_pair > 1
+    if args.multihost and meshed:
+        raise ValueError("--multihost splits the files over the ranks; --mesh-data and "
+                         "--mesh-pair run every batch on every rank: pass one or the other")
+    # a world of several ranks runs a mesh (data parallel by default) unless
+    # the files are split
+    mesh = make_mesh(args.mesh_data, args.mesh_pair) if (
+        meshed or (world()[1] > 1 and not args.multihost)) else None
+    writes = mesh is None or mesh.rank == 0
     in_dir = os.path.abspath(args.alndir)
     out_dir = os.path.abspath(args.outdir) if args.outdir else os.path.join(in_dir, "predictions")
-    os.makedirs(out_dir, exist_ok=True)
+    if writes:
+        os.makedirs(out_dir, exist_ok=True)
 
     t0 = time.perf_counter()
     params, cfg, _ = load_pretrained(args.weights)
@@ -91,6 +145,11 @@ def main(argv=None) -> int:
     if not paths:
         print(f"no alignments found in {in_dir}", file=sys.stderr)
         return 1
+    if args.multihost:
+        start, stop = host_local_slice(len(paths))
+        paths = paths[start:stop]
+        if not paths:
+            return 0
 
     alns, kept_paths, skipped = [], [], []
     for p in paths:
@@ -112,11 +171,18 @@ def main(argv=None) -> int:
         icfg = InferenceConfig(n_buckets=(), l_buckets=(), allow_oversize=True, **common)
     else:
         icfg = InferenceConfig(**common)
-    engine = InferenceEngine(params, cfg, icfg, device=device)
+    if mesh is not None:
+        if writes:
+            print(f"mesh: {dict(mesh.shape)}", file=sys.stderr)
+        engine = ShardedInferenceEngine(params, cfg, mesh, icfg, device=device)
+    else:
+        engine = InferenceEngine(params, cfg, icfg, device=device)
 
     t1 = time.perf_counter()
     preds = engine.predict(alns)
     infer_s = time.perf_counter() - t1
+    if not writes:
+        return 0
 
     for path, aln, vec in zip(paths, alns, preds):
         stem = Path(path).stem
@@ -141,6 +207,8 @@ def main(argv=None) -> int:
         stats = dict(engine.stats)
         stats.update(
             device=str(device),
+            mesh=None if mesh is None else dict(mesh.shape),
+            backend=dist.get_backend() if dist.is_initialized() else None,
             model_load_s=round(load_s, 4),
             total_infer_s=round(infer_s, 4),
             alignments=len(alns),

@@ -24,6 +24,10 @@ at bf16 is not yet ported.  ``use_kernels=False`` (JAX's ``use_pallas=False``)
 runs the eager model (:func:`..models.phyloformer.forward`) on the engine's
 device, in bf16 throughout at ``precision="bfloat16"``, with PyTorch's fp32
 products in one TF32 pass unless ``matmul_precision`` is "float32".
+
+:class:`ShardedInferenceEngine` runs over a ``torch.distributed`` mesh of
+ranks (:mod:`..parallel.mesh`): the batch over its data axis, and with a
+pair axis the pair activations split over the ranks of a pair row.
 """
 
 from __future__ import annotations
@@ -49,6 +53,8 @@ from ..ops.kernels.pipeline import (
     forward_fused_pipeline,
     pipeline_supported,
 )
+from ..ops.kernels.sharded import forward_fused_sharded, pair_shard
+from ..parallel.mesh import Mesh, batch_slice
 
 # The parameters' type by the JAX engine's ``precision`` name.
 PRECISIONS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -179,10 +185,14 @@ class InferenceEngine:
                 batches.append(((pad_n, pad_l), idxs[start : start + bsz]))
         return batches
 
+    def _padded_bsz(self, n: int) -> int:
+        """Rows of a batch of ``n`` alignments: ``n``, or with
+        ``pad_batch_sizes`` the next power of two (padding rows are masked
+        no-ops)."""
+        return 1 << (n - 1).bit_length() if self.icfg.pad_batch_sizes else n
+
     def _batch_inputs(self, alns, pad_n, pad_l, idxs):
-        bsz = len(idxs)
-        if self.icfg.pad_batch_sizes:
-            bsz = 1 << (bsz - 1).bit_length()
+        bsz = self._padded_bsz(len(idxs))
         codes = np.zeros((bsz, pad_n, pad_l), dtype=np.int32)
         site_mask = np.zeros((bsz, pad_l), dtype=bool)
         seq_mask = np.zeros((bsz, pad_n), dtype=bool)
@@ -241,8 +251,59 @@ class InferenceEngine:
         return self.predict([aln])[0]
 
 
-class ShardedInferenceEngine:
-    """Multi-device inference (batch and pair-axis sharding) — not yet ported."""
+class ShardedInferenceEngine(InferenceEngine):
+    """Inference over a :class:`..parallel.mesh.Mesh` of ranks: the batch
+    over its ``data`` axis and, for alignments whose pair axis outgrows one
+    card, the activation pair axis over its ``pair`` axis.  Every rank
+    calls :meth:`predict` with the same alignments and gets every result.
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("ShardedInferenceEngine")
+    The routes are the JAX engine's: with ``pair`` > 1 the kernels run
+    :func:`..ops.kernels.sharded.forward_fused_sharded` (kernel A per pair
+    shard, the stats all-reduced over the pair row, kernel B local) and
+    ``use_kernels=False`` the eager model on its pair shard
+    (:func:`..models.phyloformer.forward` with ``shard``, the counterpart of
+    JAX's ``act_sharding``).  Otherwise each rank runs the single-card route
+    (the pipeline or the fused forward, or the eager model) on its rows of
+    the batch; JAX runs XLA there because a Pallas call does not partition
+    under GSPMD, a limit of its toolchain, not of the function.  The results
+    are gathered over the mesh."""
+
+    def __init__(self, params: Params, cfg: PhyloformerConfig, mesh: Mesh,
+                 icfg: Optional[InferenceConfig] = None, device=None):
+        super().__init__(params, cfg, icfg, device)
+        self.mesh = mesh
+
+    def _plan(self, alns: Sequence[Alignment]):
+        """The batches of :meth:`InferenceEngine._plan`, each index list
+        rounded up to a multiple of the data axis by repeating its last
+        index: the repeats are real forward passes, and ``predict`` writes
+        results by index, so they overwrite the same slot."""
+        ndata = self.mesh.data
+        fixed = []
+        for shape, idxs in super()._plan(alns):
+            idxs = idxs + idxs[-1:] * (-len(idxs) % ndata)
+            fixed.append((shape, idxs))
+        return fixed
+
+    def _padded_bsz(self, n: int) -> int:
+        """The base rule, then rounded up to a multiple of the data axis."""
+        ndata = self.mesh.data
+        return -(-super()._padded_bsz(n) // ndata) * ndata
+
+    def _forward(self, codes, site_mask, seq_mask, pad_n: int, pad_l: int) -> torch.Tensor:
+        mesh, bsz, p = self.mesh, codes.shape[0], n_pairs(pad_n)
+        if mesh.pair > 1 and self.icfg.use_kernels:
+            if self.icfg.precision != "float32":
+                raise _not_ported(f"precision={self.icfg.precision!r} on the sharded fused "
+                                  f"forward")
+            return forward_fused_sharded(self.weights, codes, self.cfg, mesh, site_mask,
+                                         seq_mask)[:, :p]
+        rows = batch_slice(mesh, bsz)
+        if mesh.pair > 1:
+            shard = pair_shard(pad_n, mesh, codes.device)
+            with tf32_products(self.cfg.matmul_precision != "float32"):
+                local = forward(self.params, codes[rows], self.cfg, site_mask[rows],
+                                seq_mask[rows], shard=shard).float()
+            return mesh.gather(local, bsz, shard.p_pad, pair_sharded=True)[:, :p]
+        local = super()._forward(codes[rows], site_mask[rows], seq_mask[rows], pad_n, pad_l)
+        return mesh.gather(local, bsz, p, pair_sharded=False)

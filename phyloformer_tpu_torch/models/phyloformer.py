@@ -36,6 +36,7 @@ from ..ops.kernels.autodiff import fused_axial_block_ad
 from ..ops.kernels.axial_block import head
 from ..ops.kernels.fused import BlockWeights, fused_axial_block
 from ..ops.kernels.pipeline import PipelineWeights
+from ..parallel.mesh import all_reduce_sum_ad
 from .params import Params, PhyloformerConfig
 
 
@@ -88,9 +89,10 @@ def _residual(x: torch.Tensor, h: torch.Tensor):
     return s.to(x.dtype), (s if x.dtype != s.dtype else None)
 
 
-def _block(x, x_sum, layer, cfg, site_mask, pair_mask):
+def _block(x, x_sum, layer, cfg, site_mask, pair_mask, pair_sum=None):
     """:func:`axial_block` on ``x`` and the fp32 sum it rounds (or None);
-    returns the same pair for the block's output."""
+    returns the same pair for the block's output.  ``pair_sum``: on a pair
+    shard, the sum of a column-attention partial over the shards."""
     row_mask = site_mask[:, None, :] if site_mask is not None else None  # (B,1,L)
     col_mask = pair_mask[:, None, :] if pair_mask is not None else None  # (B,1,P)
 
@@ -100,7 +102,7 @@ def _block(x, x_sum, layer, cfg, site_mask, pair_mask):
 
     h = layer_norm(x, layer["col_norm"]["scale"], layer["col_norm"]["bias"], cfg.ln_eps, x_sum)
     h = scaled_linear_attention(h.transpose(1, 2), layer["col_attn"], cfg.n_heads,
-                                mask=col_mask)
+                                mask=col_mask, axis_sum=pair_sum)
     x, x_sum = _residual(x, h.transpose(1, 2))
 
     h = layer_norm(x, layer["ffn_norm"]["scale"], layer["ffn_norm"]["bias"], cfg.ln_eps, x_sum)
@@ -126,23 +128,39 @@ def forward(
     site_mask: Optional[torch.Tensor] = None,
     seq_mask: Optional[torch.Tensor] = None,
     remat: bool = False,
+    shard=None,
 ) -> torch.Tensor:
     """Predict pairwise distances: ``(B, n, L)`` codes → ``(B, P)`` fp32,
     ``P = n(n-1)/2`` in upper-triangle order.  Padded pairs hold garbage;
     mask them with :func:`pair_mask_from_seq_mask`.  ``remat``: keep only
     each block's input for the backward and recompute the block there
-    (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``)."""
+    (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
+
+    ``shard``: a :class:`..ops.kernels.sharded.PairShard`, the pair-axis
+    sharding of JAX's ``act_sharding``: only this rank's block of pairs is
+    built and returned, ``(B, per)``, under its pair mask (padding pairs
+    masked), and the column attention's pair-axis sums are all-reduced over
+    the shard's pair group, differentiably."""
     n_seqs = codes.shape[1]
     emb = embed_alignment(params, codes)
-    i_idx, j_idx = _pair_index_tensors(n_seqs, emb.device)
+    if shard is None:
+        i_idx, j_idx = _pair_index_tensors(n_seqs, emb.device)
+        pair_mask = pair_mask_from_seq_mask(seq_mask, n_seqs) if seq_mask is not None else None
+        pair_sum = None
+    else:
+        i_idx, j_idx = shard.i, shard.j
+        if seq_mask is None:
+            seq_mask = torch.ones(codes.shape[:2], dtype=torch.bool, device=codes.device)
+        pair_mask = shard.pair_mask(seq_mask)
+        group = shard.group
+        pair_sum = lambda t: all_reduce_sum_ad(t, group)  # noqa: E731
     x, x_sum = _residual(emb.index_select(1, i_idx), emb.index_select(1, j_idx))
-    pair_mask = pair_mask_from_seq_mask(seq_mask, n_seqs) if seq_mask is not None else None
     for layer in params["layers"]:
         if remat:
-            x, x_sum = checkpoint(_block, x, x_sum, layer, cfg, site_mask, pair_mask,
+            x, x_sum = checkpoint(_block, x, x_sum, layer, cfg, site_mask, pair_mask, pair_sum,
                                   use_reentrant=False)
         else:
-            x, x_sum = _block(x, x_sum, layer, cfg, site_mask, pair_mask)
+            x, x_sum = _block(x, x_sum, layer, cfg, site_mask, pair_mask, pair_sum)
 
     h = softplus(x @ params["head"]["w"] + params["head"]["b"])[..., 0]  # (B, P, L)
     if site_mask is not None:

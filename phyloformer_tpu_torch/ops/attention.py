@@ -12,7 +12,7 @@ replaced by 1 (``where(s > 0, s, 1)``) so no NaN appears.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -40,11 +40,16 @@ def scaled_linear_attention(
     params: Dict[str, torch.Tensor],
     n_heads: int,
     mask: Optional[torch.Tensor] = None,
+    axis_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Scaled linear attention over axis ``-2`` of ``x`` ``(..., A, d)``.
 
     ``params``: ``wq/bq``, ``wk/bk`` ``(d, H)``; ``wv/bv``, ``wo/bo`` ``(d, d)``.
     ``mask``: optional bool ``(..., A)`` (broadcastable); False = padded.
+    ``axis_sum``: where ``x`` holds one shard of the attended axis, the
+    function that sums a partial over the shards (a differentiable
+    all-reduce); it is applied to the attended-axis sums (the count, Σq, Σk
+    and Σk·v), which takes ``mask``.
     """
     d = x.shape[-1]
     head_dim = d // n_heads
@@ -53,13 +58,16 @@ def scaled_linear_attention(
     k = phi(x @ params["wk"] + params["bk"])  # (..., A, H)
     v = x @ params["wv"] + params["bv"]  # (..., A, d)
 
+    if axis_sum is not None and mask is None:
+        raise ValueError("a sharded attended axis needs its mask")
+    total = axis_sum or (lambda t: t)
     if mask is not None:
         m = mask[..., None].to(q.dtype)  # (..., A, 1)
         q = q * m
         k = k * m
-        count = m.sum(dim=-2, keepdim=True)
-        q_mean = q.sum(dim=-2, keepdim=True) / count.clamp_min(1.0)
-        k_sum = k.sum(dim=-2, keepdim=True)
+        count = total(m.sum(dim=-2, keepdim=True))
+        q_mean = total(q.sum(dim=-2, keepdim=True)) / count.clamp_min(1.0)
+        k_sum = total(k.sum(dim=-2, keepdim=True))
         q_mean = torch.where(q_mean > 0, q_mean, torch.ones_like(q_mean))
         k_sum = torch.where(k_sum > 0, k_sum, torch.ones_like(k_sum))
     else:
@@ -71,7 +79,7 @@ def scaled_linear_attention(
 
     # per head h: ctx[h] = Σ_A k[A, h] · v[A, h*hd:(h+1)*hd]
     v_heads = v.reshape(v.shape[:-1] + (n_heads, head_dim))
-    ctx = torch.einsum("...ah,...ahd->...hd", k, v_heads)
+    ctx = total(torch.einsum("...ah,...ahd->...hd", k, v_heads))
     out = torch.einsum("...ah,...hd->...ahd", q, ctx)
     out = out.reshape(out.shape[:-2] + (d,))
     return out @ params["wo"] + params["bo"]

@@ -57,6 +57,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
+from ...parallel.mesh import all_reduce_sum
 from . import _build
 from . import axial_block
 from .axial_block import mm, passes_of, phi, tf32_rna
@@ -789,7 +790,8 @@ def kernel_e2(x, g1, rowsums, smask, we: WeightGroup, eps, passes=3):
 # ---- host function (axial_block_bwd.py:677-1039) ---------------------------
 
 def fused_axial_block_bwd(x, x1, stats, g3, layer, site_mask, pair_mask, n_heads: int,
-                          eps: float = 1e-5, pair_count=None, mxu_precision: str = "highest"):
+                          eps: float = 1e-5, pair_count=None, mxu_precision: str = "highest",
+                          pair_group=None):
     """Backward of one fused axial block.
 
     ``x`` ``(B, P, L, d)`` the block input, ``x1`` the post-row-attention
@@ -799,8 +801,13 @@ def fused_axial_block_bwd(x, x1, stats, g3, layer, site_mask, pair_mask, n_heads
     its :class:`BwdWeights`); masks bool or 0/1 float; ``pair_count``
     ``(B,)`` an optional override of the real pair counts;
     ``mxu_precision`` "highest" (three TF32 passes) or "default" (one, as
-    JAX maps every other name).  Returns ``(gx, dlayer)``, ``dlayer`` in the
-    layout of ``layer``.  Any length: the row backward is kernel E up to
+    JAX maps every other name).  On a pair shard (the sharded training of
+    :mod:`.sharded`), ``pair_count`` is the global count and ``pair_group``
+    the process group of the pair axis: A1, a sum over all pairs and the
+    block backward's only coupling across shards, is all-reduced over it
+    between kernels C and D (JAX's ``psum_axis``); the weight gradients stay
+    this shard's.  Returns ``(gx, dlayer)``, ``dlayer`` in the layout of
+    ``layer``.  Any length: the row backward is kernel E up to
     ``axial_block.RESIDENT_SITES_MAX`` sites (read at call time) and the
     L-tiled E1 then E2 above it."""
     b, p, l, d = x.shape
@@ -820,6 +827,7 @@ def fused_axial_block_bwd(x, x1, stats, g3, layer, site_mask, pair_mask, n_heads
 
     n = passes_of(mxu_precision)
     g2, a1, dc = kernel_c(x1, g3, stats, pmask, pair_count, w.c, eps, n)
+    a1 = all_reduce_sum(a1, pair_group)
     g1, dd = kernel_d(x1, g2, stats, a1, pmask, pair_count, w.d, eps, n)
     if l > axial_block.RESIDENT_SITES_MAX:
         gx, de = kernel_e2(x, g1, kernel_e1(x, g1, smask, w.e, eps, n), smask, w.e, eps, n)

@@ -8,6 +8,8 @@ The PyTorch side of ``pf_kernel_a`` (``csrc/axial_pipeline.cu``) and of
 - :func:`fused_axial_block` / :func:`fused_axial_block_res`: one block,
   ``x → x3`` (and the residuals ``(x3, x1, stats)``);
 - :func:`fused_kernel_a`: kernel A alone, ``(x1, stats)``;
+- :func:`kernel_b_host`: kernel B on a pair shard, from the global stats and
+  pair count (the sharded forward's, :mod:`.sharded`);
 - up to :data:`axial_block.RESIDENT_SITES_MAX` sites, kernel A walks whole
   rows (:func:`kernel_a`); above it the two L-tiled passes run
   (:func:`kernel_a1`, :func:`kernel_a2`); kernel B (:func:`kernel_b`) is
@@ -271,12 +273,29 @@ def fused_axial_block_res(x: torch.Tensor, layer, site_mask: torch.Tensor,
 
 
 def fused_kernel_a(x: torch.Tensor, layer, site_mask: torch.Tensor, pair_mask: torch.Tensor,
-                   eps: float = 1e-5):
+                   eps: float = 1e-5, mxu_precision: str = "highest"):
     """Kernel A alone (L-tiled above ``RESIDENT_SITES_MAX`` sites):
-    ``(x1, stats)`` with the raw column stats."""
+    ``(x1, stats)`` with the raw column stats of the pairs of ``x`` (on a
+    pair shard, this shard's partials).  ``mxu_precision`` as in
+    :func:`fused_axial_block`."""
     smask, pmask = _masks(site_mask, pair_mask)
     w = BlockWeights.of(layer)
     x = x.contiguous()
+    passes = passes_of(mxu_precision)
     if x.shape[2] > axial_block.RESIDENT_SITES_MAX:
-        return _ltiled_kernel_a(x, w, smask, pmask, eps)
-    return kernel_a(x, smask, pmask, w.row, w.col, eps)
+        return _ltiled_kernel_a(x, w, smask, pmask, eps, passes)
+    return kernel_a(x, smask, pmask, w.row, w.col, eps, passes)
+
+
+def kernel_b_host(x1: torch.Tensor, stats: torch.Tensor, pair_count: torch.Tensor, layer,
+                  eps: float = 1e-5, mxu_precision: str = "highest") -> torch.Tensor:
+    """``sharded.py:_kernel_b_host``: kernel B on a local pair shard ``x1``
+    ``(B, P_shard, L, d)`` given the **global** column stats (the shards'
+    partials all-reduced over the pair axis) and the **global** real pair
+    count ``(B,)``; returns x3.  Kernel B is local to each pair-site, so one
+    launch serves every length: above ``RESIDENT_SITES_MAX`` sites it is the
+    L-tiled block's kernel B (:func:`_fused_block_ltiled_impl`) as well."""
+    w = BlockWeights.of(layer)
+    return kernel_b(x1.contiguous(), stats.contiguous(),
+                    pair_count.to(torch.float32).reshape(-1).contiguous(), w.b, eps,
+                    passes_of(mxu_precision))

@@ -12,9 +12,18 @@ Concurrent requests are coalesced by a micro-batcher (it waits up to
 forward rather than one alignment at a time.  Only the batcher's thread
 calls the engine.  On the card the engine's kernels are built and loaded
 before the server listens, so a kernel that does not build stops the start
-instead of the first request.  Standard library only (``http.server`` and
-threads); the same endpoints, parameters, status codes and fields as the
-JAX package's ``pf-serve``.
+instead of the first request.  HTTP through the standard library
+(``http.server`` and threads); the same endpoints, parameters, status
+codes and fields as the JAX package's ``pf-serve``.
+
+On a mesh of ranks (:class:`..infer.engine.ShardedInferenceEngine`), rank 0
+listens and micro-batches through a :class:`MeshLeader`, which broadcasts
+each micro-batch (its shapes, then its codes) to the other ranks before all
+of them predict it; the other ranks :func:`follow` until a broadcast stop.
+After each micro-batch the ranks agree on whether it failed
+(:func:`predict_together`): where every rank failed it, rank 0 answers the
+error and the mesh serves on; where only some did, every rank stops with
+:class:`MeshOutOfStep` and exits non-zero.
 """
 
 from __future__ import annotations
@@ -23,15 +32,25 @@ import json
 import queue
 import threading
 import time
+import traceback
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import List, Optional
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
-from ..data.fasta import read_fasta
+import torch
+import torch.distributed as dist
+
+from ..data.fasta import Alignment, read_fasta
 from ..data.phylip import vec_to_phylip
+from ..parallel.mesh import all_reduce_sum
+
+
+class MeshOutOfStep(RuntimeError):
+    """Some ranks of a mesh failed a micro-batch and the others did not:
+    their collectives no longer pair up, so every rank stops."""
 
 
 @dataclass
@@ -51,6 +70,7 @@ class MicroBatcher:
         self.max_batch = max_batch
         self.q: "queue.Queue[_Request]" = queue.Queue()
         self.stats = {"requests": 0, "batches": 0}
+        self.failure: Optional[MeshOutOfStep] = None
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
@@ -83,6 +103,9 @@ class MicroBatcher:
             except Exception as err:  # every waiter of the batch gets the error
                 for req in batch:
                     req.error = f"{type(err).__name__}: {err}"
+                if isinstance(err, MeshOutOfStep):  # no further batch can run
+                    self.failure = err
+                    self._stop.set()
             self.stats["requests"] += len(batch)
             self.stats["batches"] += 1
             for req in batch:
@@ -136,6 +159,8 @@ def make_handler(batcher: MicroBatcher, model_info: dict, timeout_s: float = 300
                 return
             if req.error:
                 self._send_json(500, {"error": req.error})
+                if batcher.failure is not None:  # after the answer: stop serving
+                    self.server.shutdown()
                 return
 
             params = parse_qs(urlparse(self.path).query)
@@ -159,6 +184,102 @@ def make_handler(batcher: MicroBatcher, model_info: dict, timeout_s: float = 300
     return Handler
 
 
+def broadcast_batch(mesh, alns) -> None:
+    """Rank 0: send a micro-batch (``None``: stop) to the other ranks."""
+    n = -1 if alns is None else len(alns)
+    dist.broadcast(torch.tensor([n], dtype=torch.int64, device=mesh.device), 0,
+                   group=mesh.world_group)
+    if n <= 0:
+        return
+    shapes = torch.tensor([d for a in alns for d in a.codes.shape], dtype=torch.int64)
+    dist.broadcast(shapes.to(mesh.device), 0, group=mesh.world_group)
+    codes = torch.from_numpy(np.concatenate([a.codes.astype(np.int8).ravel() for a in alns]))
+    dist.broadcast(codes.to(mesh.device), 0, group=mesh.world_group)
+
+
+def receive_batch(mesh) -> Optional[List[Alignment]]:
+    """The other ranks: the next micro-batch of rank 0, or None to stop."""
+    n = torch.zeros(1, dtype=torch.int64, device=mesh.device)
+    dist.broadcast(n, 0, group=mesh.world_group)
+    n = int(n.item())
+    if n < 0:
+        return None
+    if n == 0:
+        return []
+    shapes = torch.zeros(2 * n, dtype=torch.int64, device=mesh.device)
+    dist.broadcast(shapes, 0, group=mesh.world_group)
+    shapes = shapes.view(n, 2).tolist()
+    codes = torch.zeros(sum(a * b for a, b in shapes), dtype=torch.int8, device=mesh.device)
+    dist.broadcast(codes, 0, group=mesh.world_group)
+    flat, out, at = codes.cpu().numpy(), [], 0
+    for rows, cols in shapes:
+        out.append(Alignment(flat[at:at + rows * cols].reshape(rows, cols),
+                             [str(k) for k in range(rows)]))
+        at += rows * cols
+    return out
+
+
+def predict_together(engine, mesh, alns):
+    """Every rank's predict of one micro-batch, then one all-reduce of how
+    many ranks failed it.  None: the predictions.  Every rank (the same
+    inputs fail alike, before any collective): this rank's error, and the
+    mesh stays in step.  Some: :class:`MeshOutOfStep` on every rank.  A rank
+    that fails between two collectives of the batch leaves the others
+    waiting in one; they raise when the process group's timeout expires."""
+    try:
+        preds, err = engine.predict(alns), None
+    except Exception as e:  # noqa: BLE001 — the ranks agree on it below
+        preds, err = None, e
+    flag = torch.tensor([0.0 if err is None else 1.0], device=mesh.device)
+    failed = int(all_reduce_sum(flag, mesh.world_group).item())
+    if failed == 0:
+        return preds
+    if failed == mesh.world:
+        raise err
+    raise MeshOutOfStep(f"{failed} of {mesh.world} ranks failed a micro-batch: stopping "
+                        "every rank") from err
+
+
+class MeshLeader:
+    """Rank 0's engine on a mesh: each :meth:`predict` first broadcasts its
+    alignments, so that every rank runs the same sharded batch."""
+
+    def __init__(self, engine, mesh):
+        self.engine, self.mesh = engine, mesh
+        self._lock = threading.Lock()  # one micro-batch, or the stop, at a time
+
+    def load_kernels(self) -> None:
+        """Load the kernels here, then wait until every rank has."""
+        self.engine.load_kernels()
+        self.mesh.barrier()
+
+    def predict(self, alns):
+        with self._lock:
+            broadcast_batch(self.mesh, alns)
+            return predict_together(self.engine, self.mesh, alns)
+
+    def stop(self) -> None:
+        """Release the other ranks from :func:`follow`."""
+        with self._lock:
+            broadcast_batch(self.mesh, None)
+
+
+def follow(engine, mesh) -> None:
+    """The other ranks' serving loop: load the kernels, then predict each
+    micro-batch rank 0 broadcasts, until it broadcasts the stop.  A batch
+    that every rank failed is rank 0's to answer, and the loop goes on;
+    :class:`MeshOutOfStep` ends it."""
+    engine.load_kernels()
+    mesh.barrier()
+    while (alns := receive_batch(mesh)) is not None:
+        try:
+            predict_together(engine, mesh, alns)
+        except MeshOutOfStep:
+            raise
+        except Exception:  # noqa: BLE001 — failed alike on every rank; rank 0 answers it
+            traceback.print_exc()
+
+
 class InferenceServer:
     """``engine``: an :class:`..infer.engine.InferenceEngine` (or anything
     with its ``predict``).  ``port=0`` picks a free port (``self.port``)."""
@@ -177,7 +298,12 @@ class InferenceServer:
         self.port = self.httpd.server_address[1]
 
     def serve_forever(self):
+        """Serve until :meth:`shutdown`; raises :class:`MeshOutOfStep` once
+        the batcher's mesh fell out of step (its answer sent)."""
         self.httpd.serve_forever()
+        if self.batcher.failure is not None:
+            self.httpd.server_close()
+            raise self.batcher.failure
 
     def start_background(self):
         t = threading.Thread(target=self.httpd.serve_forever, daemon=True)
@@ -188,3 +314,6 @@ class InferenceServer:
         self.httpd.shutdown()
         self.httpd.server_close()
         self.batcher.close()
+        stop = getattr(self.batcher.engine, "stop", None)
+        if stop is not None:
+            stop()

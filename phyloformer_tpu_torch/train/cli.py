@@ -17,8 +17,20 @@ written by ``pf-preprocess-torch`` (or the JAX package's ``pf-preprocess``);
 ``--matmul-precision tensorfloat32`` or ``default`` trains at reduced
 precision: the kernels' products, forward and backward, in one TF32 pass
 (the plain versions round their operands the same way on ``--device
-cpu``), the eager route's in TF32.  Not yet ported, and refused: the mesh
-flags, ``--shard-pairs``, ``--distributed-init`` and dropout > 0.
+cpu``), the eager route's in TF32.  Not yet ported, and refused: dropout
+> 0.
+
+Over several ranks (``torchrun``, or processes given torchrun's
+``env://`` variables): ``--distributed-init`` joins the process group (nccl
+on the card, gloo on the CPU, ``--distributed-init gloo`` gloo on the
+card), ``--mesh-data`` / ``--mesh-pair`` shape the ranks (a world of
+several ranks is data parallel by default) and ``--shard-pairs`` splits the
+pair activations over the pair axis.  Every rank builds the same batches
+from the seed and takes its part; rank 0 alone logs, prints and writes
+checkpoints::
+
+    torchrun --nproc-per-node 2 -m phyloformer_tpu_torch.train.cli -t T -a A \
+        --distributed-init --mesh-pair 2 --shard-pairs
 """
 
 from __future__ import annotations
@@ -28,6 +40,8 @@ import dataclasses
 import json
 import os
 import sys
+
+from ..infer.cli import add_distributed_flags
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -86,11 +100,10 @@ def build_parser() -> argparse.ArgumentParser:
                        help="fused kernels forward and backward (auto: on for cuda "
                             "when dropout is 0 and --remat is off)")
 
-    dist = p.add_argument_group("distribution (not yet ported)")
-    dist.add_argument("--mesh-data", type=int, default=None)
-    dist.add_argument("--mesh-pair", type=int, default=1)
-    dist.add_argument("--shard-pairs", action="store_true")
-    dist.add_argument("--distributed-init", action="store_true")
+    dist = p.add_argument_group("distribution")
+    add_distributed_flags(dist)
+    dist.add_argument("--shard-pairs", action="store_true",
+                      help="shard the pair axis of the activations over the mesh's pair axis")
 
     log = p.add_argument_group("logging")
     log.add_argument("--output-dir", "-o", default=".")
@@ -124,16 +137,8 @@ def identifier_from_args(args) -> str:
 
 
 def _refuse_unported(args) -> None:
-    unported = {
-        "--mesh-data": args.mesh_data is not None,
-        "--mesh-pair": args.mesh_pair != 1,
-        "--shard-pairs": args.shard_pairs,
-        "--distributed-init": args.distributed_init,
-        f"--dropout {args.dropout}": args.dropout != 0.0,
-    }
-    for flag, used in unported.items():
-        if used:
-            raise ValueError(f"{flag} is not yet ported, see ROADMAP.md")
+    if args.dropout != 0.0:
+        raise ValueError(f"--dropout {args.dropout} is not yet ported, see ROADMAP.md")
 
 
 def load_base_model(path: str):
@@ -153,12 +158,30 @@ def main(argv=None) -> int:
     _refuse_unported(args)
 
     from ..device import resolve_device
+    from ..parallel.mesh import init_distributed, shutdown_distributed
+
+    device = (init_distributed(args.distributed_init, args.device) if args.distributed_init
+              else resolve_device(args.device))
+    try:
+        return _run(args, device)
+    finally:
+        shutdown_distributed()
+
+
+def _run(args, device) -> int:
     from ..models.params import PhyloformerConfig
+    from ..parallel.mesh import make_mesh, world
     from .data import BucketedLoader, LoaderConfig, choose_data
     from .loop import FitConfig, fit
     from .trainer import TrainConfig
 
-    device = resolve_device(args.device)
+    mesh = None
+    if world()[1] > 1 or args.mesh_pair > 1 or args.mesh_data is not None:
+        mesh = make_mesh(args.mesh_data, args.mesh_pair)
+    main = mesh is None or mesh.rank == 0
+    say = print if main else (lambda *a, **k: None)
+    if mesh is not None:
+        say(f"mesh: {dict(mesh.shape)}")
     cfg = PhyloformerConfig(n_blocks=args.nb_blocks, n_heads=args.nb_heads,
                             embed_dim=args.embed_dim, dropout=args.dropout,
                             matmul_precision=args.matmul_precision)
@@ -168,7 +191,7 @@ def main(argv=None) -> int:
 
         train_data, val_data = split(PackedDataset(args.packed_data),
                                      args.packed_val_fraction, args.seed)
-        print(f"packed train examples: {len(train_data)}"
+        say(f"packed train examples: {len(train_data)}"
               + (f", val examples: {len(val_data)}" if val_data is not None else ""))
     else:
         if not (args.train_trees and args.train_alignments):
@@ -177,7 +200,7 @@ def main(argv=None) -> int:
         train_data, val_data = choose_data(args.train_trees, args.train_alignments,
                                            args.val_trees, args.val_alignments,
                                            args.train_regex, args.val_regex, seed=args.seed)
-        print(f"train examples: {len(train_data)}, val examples: {len(val_data)}")
+        say(f"train examples: {len(train_data)}, val examples: {len(val_data)}")
     if not len(train_data):
         print("no training examples found", file=sys.stderr)
         return 1
@@ -189,7 +212,7 @@ def main(argv=None) -> int:
     accum = max(1, args.grad_accum)
     total_steps = max(1, total_steps // accum)
     warmup_steps = max(1, args.warmup_steps // accum) if args.warmup_steps else 0
-    if warmup_steps >= total_steps:
+    if warmup_steps >= total_steps and main:
         print(f"warning: warmup ({warmup_steps} updates) >= schedule horizon "
               f"({total_steps} updates) — the LR never reaches --learning-rate "
               f"{args.learning_rate}; lower --warmup-steps or raise "
@@ -206,13 +229,14 @@ def main(argv=None) -> int:
         if loaded_cfg is not None and (loaded_cfg.n_blocks, loaded_cfg.n_heads,
                                        loaded_cfg.embed_dim) != (
                 cfg.n_blocks, cfg.n_heads, cfg.embed_dim):
-            print(f"warning: base model architecture {loaded_cfg} != CLI args; "
-                  "using the base model's", file=sys.stderr)
+            say(f"warning: base model architecture {loaded_cfg} != CLI args; "
+                "using the base model's", file=sys.stderr)
             cfg = dataclasses.replace(loaded_cfg, dropout=args.dropout)
 
     tcfg = TrainConfig(loss=args.loss, learning_rate=args.learning_rate,
                        warmup_steps=warmup_steps, total_steps=total_steps, remat=args.remat,
-                       seed=args.seed, use_pallas=use_pallas, grad_accum=args.grad_accum)
+                       seed=args.seed, shard_pairs=args.shard_pairs, use_pallas=use_pallas,
+                       grad_accum=args.grad_accum)
 
     nw = args.num_workers
     if nw is None:
@@ -237,6 +261,9 @@ def main(argv=None) -> int:
         enable_nan_checks()
 
     if args.find_batch_size:
+        if mesh is not None:
+            # a rank out of memory would leave the others in a collective
+            raise ValueError("--find-batch-size searches on one card; run it without a mesh")
         print(json.dumps({"max_batch_size": find_batch_size(cfg, tcfg, device)}))
         return 0
 
@@ -247,12 +274,14 @@ def main(argv=None) -> int:
         from .trainer import create_train_state, make_train_step
 
         state, tx = create_train_state(cfg, tcfg, params=init_params, device=device)
-        step = make_train_step(cfg, tcfg, tx)
+        step = make_train_step(cfg, tcfg, tx, mesh=mesh)
         log_dir = os.path.join(args.output_dir, "profile")
+        if not main:  # each rank its own trace
+            log_dir = os.path.join(log_dir, f"rank{mesh.rank}")
         # as many epochs as 10 steps take
         batches = itertools.chain.from_iterable(iter(train_loader) for _ in itertools.count())
         _, _, done = profile_n_steps(step, state, batches, n_steps=10, log_dir=log_dir)
-        print(json.dumps({"profile_dir": log_dir, "steps": done}))
+        say(json.dumps({"profile_dir": log_dir, "steps": done}))
         return 0
 
     fcfg = FitConfig(
@@ -268,9 +297,9 @@ def main(argv=None) -> int:
         use_tensorboard=args.tensorboard,
         project_name=args.project_name,
     )
-    summary = fit(cfg, tcfg, fcfg, train_loader, val_loader, init_params=init_params,
-                  resume=args.load_checkpoint or False, device=device)
-    print(json.dumps({
+    summary = fit(cfg, tcfg, fcfg, train_loader, val_loader, mesh=mesh,
+                  init_params=init_params, resume=args.load_checkpoint or False, device=device)
+    say(json.dumps({
         "steps": summary["steps"],
         "best_val_loss": summary["best_val_loss"],
         "stop_reason": summary["stop_reason"],
@@ -278,6 +307,7 @@ def main(argv=None) -> int:
         "checkpoint_dir": summary["checkpoint_dir"],
         "device": str(device),
         "use_pallas": use_pallas,
+        "mesh": None if mesh is None else dict(mesh.shape),
     }))
     return 0
 

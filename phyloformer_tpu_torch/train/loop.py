@@ -10,6 +10,11 @@ The counterpart of ``phyloformer_tpu/train/loop.py``:
 - SIGTERM / SIGINT checkpoint and stop at the next step boundary;
 - scalar logs to JSONL, optionally to wandb / TensorBoard;
 - ``resume``: continue from the latest checkpoint of the run's directory.
+
+On a :class:`..parallel.mesh.Mesh` every rank runs the loop on the same
+batches (the loaders are seeded alike) and the step takes each rank's part;
+the losses are global, so every rank stops at the same step.  Rank 0 alone
+logs and writes checkpoints; every rank resumes from the same one.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 
 from ..io.checkpoint import CheckpointManager
 from ..models.params import PhyloformerConfig
+from ..parallel.mesh import all_reduce_sum
 from .data import BucketedLoader
 from .trainer import (
     TrainConfig,
@@ -155,6 +161,15 @@ def _load_into(state, payload) -> None:
     state["step"] = int(payload["step"])
 
 
+def _any_rank(flag: bool, mesh) -> bool:
+    """Whether ``flag`` is set on any rank of ``mesh`` (a signal reaches one
+    rank; every rank must stop at the same step)."""
+    if mesh is None or mesh.world == 1:
+        return flag
+    t = torch.tensor([float(flag)], device=mesh.device)
+    return bool(all_reduce_sum(t, mesh.world_group).item() > 0)
+
+
 def fit(
     cfg: PhyloformerConfig,
     tcfg: TrainConfig,
@@ -169,31 +184,45 @@ def fit(
     """Run training on ``device`` (``None`` = the card); returns a summary
     dict with the final state and why it stopped.  ``resume``: ``True``
     continues from the latest checkpoint of this run's directory, if any; a
-    directory continues from its latest checkpoint, which must exist."""
+    directory continues from its latest checkpoint, which must exist.
+    ``mesh``: every rank of it calls ``fit`` alike; rank 0 logs, prints and
+    writes the checkpoints."""
     out_dir = Path(fcfg.output_dir)
     run_dir = out_dir / f"checkpoints_{fcfg.run_name}"
+    main = mesh is None or mesh.rank == 0
     state, tx = create_train_state(cfg, tcfg, params=init_params, device=device)
     train_step = make_train_step(cfg, tcfg, tx, mesh=mesh)
     eval_step = make_eval_step(cfg, tcfg, mesh=mesh)
-    sinks = []
-    if fcfg.use_wandb:
-        sinks.append(make_wandb_sink(fcfg.project_name, fcfg.run_name, out_dir,
-                                     config=dataclasses.asdict(tcfg)))
-    if fcfg.use_tensorboard:
-        sinks.append(make_tensorboard_sink(out_dir / f"tb_{fcfg.run_name}"))
-    logger = MetricLogger(out_dir / f"{fcfg.run_name}_metrics.jsonl", sinks=sinks)
-    ckpt = CheckpointManager(run_dir, max_to_keep=fcfg.keep_checkpoints)
+    # every rank looks for the same checkpoint before rank 0 makes the directory
     if isinstance(resume, (str, os.PathLike)):
         payload, restored_step = CheckpointManager(resume).restore()
-    elif resume and ckpt.latest_step() is not None:
-        payload, restored_step = ckpt.restore()
+    elif resume and run_dir.is_dir() and CheckpointManager(run_dir).latest_step() is not None:
+        payload, restored_step = CheckpointManager(run_dir).restore()
     else:
         payload = None
+    if mesh is not None:
+        mesh.barrier()
+    logger = ckpt = None
+    if main:
+        sinks = []
+        if fcfg.use_wandb:
+            sinks.append(make_wandb_sink(fcfg.project_name, fcfg.run_name, out_dir,
+                                         config=dataclasses.asdict(tcfg)))
+        if fcfg.use_tensorboard:
+            sinks.append(make_tensorboard_sink(out_dir / f"tb_{fcfg.run_name}"))
+        logger = MetricLogger(out_dir / f"{fcfg.run_name}_metrics.jsonl", sinks=sinks)
+        ckpt = CheckpointManager(run_dir, max_to_keep=fcfg.keep_checkpoints)
     if payload is not None:
         _load_into(state, payload)
-        print(f"resumed from step {restored_step}")
+        if main:
+            print(f"resumed from step {restored_step}")
+
+    def log(step_, **scalars):
+        if logger is not None:
+            logger.log(step_, **scalars)
 
     step = int(state["step"])
+    train_loss = math.nan
     best_val = math.inf
     bad_checks = 0
     stop_reason = None
@@ -219,7 +248,7 @@ def fit(
         if val_loader is not None:
             metrics = evaluate(eval_step, state["params"], val_loader)
         if metrics:
-            logger.log(step, **metrics)
+            log(step, **metrics)
             val_loss = metrics.get("val_loss", math.inf)
             if val_loss < best_val - 1e-12:
                 best_val = val_loss
@@ -228,12 +257,13 @@ def fit(
                 bad_checks += 1
                 if bad_checks >= fcfg.no_improvement_stop:
                     stop_reason = f"early stop: no val improvement for {bad_checks} checks"
-        ckpt.save(step, state, metadata={
-            "step": step,
-            "val": metrics,
-            "config": dataclasses.asdict(cfg),
-            "train_config": dataclasses.asdict(tcfg),
-        })
+        if ckpt is not None:
+            ckpt.save(step, state, metadata={
+                "step": step,
+                "val": metrics,
+                "config": dataclasses.asdict(cfg),
+                "train_config": dataclasses.asdict(tcfg),
+            })
 
     for epoch in range(fcfg.nb_epochs):
         if stop_reason:
@@ -244,22 +274,22 @@ def fit(
             train_loss = float(logs["train_loss"])
             if not math.isfinite(train_loss):
                 stop_reason = f"divergence stop: train_loss={train_loss}"
-                logger.log(step, train_loss=train_loss, event="divergence_stop")
+                log(step, train_loss=train_loss, event="divergence_stop")
                 break
             # the loss ceiling, checked at every logging step
             if (fcfg.log_every and step % fcfg.log_every == 0
                     and train_loss > fcfg.hard_loss_ceiling):
                 stop_reason = (f"divergence stop: train_loss={train_loss} > "
                                f"{fcfg.hard_loss_ceiling}")
-                logger.log(step, train_loss=train_loss, event="divergence_stop")
+                log(step, train_loss=train_loss, event="divergence_stop")
                 break
             if step % fcfg.log_every == 0:
-                logger.log(step, train_loss=train_loss,
+                log(step, train_loss=train_loss,
                            learning_rate=float(logs["learning_rate"]),
                            grad_norm=float(logs["grad_norm"]), epoch=epoch)
             if fcfg.check_val_every and step % fcfg.check_val_every == 0:
                 run_validation()
-            if preempted["flag"]:
+            if _any_rank(preempted["flag"], mesh):
                 stop_reason = "preemption signal: checkpointing and stopping"
             if stop_reason or (fcfg.max_steps and step >= fcfg.max_steps):
                 stop_reason = stop_reason or f"max_steps {fcfg.max_steps} reached"
@@ -268,11 +298,13 @@ def fit(
     run_validation()  # final validation and checkpoint
     for sig, handler in old_handlers.items():
         signal.signal(sig, handler)
-    logger.close()
-    ckpt.close()
+    if main:
+        logger.close()
+        ckpt.close()
     return {
         "state": state,
         "steps": step,
+        "last_train_loss": train_loss,
         "best_val_loss": best_val if best_val < math.inf else None,
         "stop_reason": stop_reason or "completed all epochs",
         "wall_time_s": time.time() - t_start,

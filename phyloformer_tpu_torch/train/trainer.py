@@ -12,6 +12,17 @@ device of the parameters.  ``matmul_precision`` "float32" computes every
 product in fp32 (the kernels' in three TF32 passes, PyTorch's with TF32
 off); "tensorfloat32" and "default" run the kernels' products in one TF32
 pass and, on the eager route, PyTorch's in TF32 (:func:`_step_products`).
+
+With a :class:`..parallel.mesh.Mesh` every rank passes the whole batch and
+takes its part (:func:`route`): with ``shard_pairs`` and a pair axis the
+pair activations are split over the ranks of a pair row
+(:func:`..ops.kernels.sharded.sharded_fused_loss_and_grads`, or the eager
+model on its pair shard), otherwise each rank runs the single-card step on
+its rows of the batch.  The loss is the global masked sum over the global
+count, its gradients all-reduced over the ranks that hold different work,
+so every rank takes the same update.  Without a mesh the steps run on
+:func:`..parallel.mesh.local_mesh`, one rank, where the all-reduces are
+the identity.
 """
 
 from __future__ import annotations
@@ -27,7 +38,14 @@ from ..device import resolve_device, tf32_products
 from ..infer.engine import real_pair_selector
 from ..models.params import Params, PhyloformerConfig, init_params, map_params
 from ..models.phyloformer import forward, forward_fused_ad, pair_mask_from_seq_mask
-from .losses import get_loss, metrics as compute_metrics
+from ..ops.kernels.sharded import (
+    pair_shard,
+    real_pairs,
+    sharded_fused_loss_and_grads,
+    sharded_fused_predict,
+)
+from ..parallel.mesh import Mesh, all_reduce_sum, local_mesh, shard_batch
+from .losses import get_term
 from .profiling import check_finite, nan_checks_enabled
 from .schedule import clip_by_global_norm, global_norm, linear_warmup_decay, make_optimizer
 
@@ -46,7 +64,7 @@ class TrainConfig:
     grad_clip: float = 0.0
     remat: bool = False
     seed: int = 1337
-    shard_pairs: bool = False  # pair-axis sharding: not yet ported
+    shard_pairs: bool = False  # shard the pair axis over the mesh's 'pair' axis
     # The fused kernels forward and backward (dropout 0 only);
     # PF_PALLAS_BWD=remat backpropagates through the eager block instead.
     use_pallas: bool = False
@@ -141,13 +159,24 @@ def create_train_state(
     return {"params": params, "opt_state": tx, "step": 0}, tx
 
 
-def _check_supported(cfg: PhyloformerConfig, tcfg: TrainConfig, mesh) -> None:
-    if mesh is not None:
-        raise _not_ported("training on a device mesh")
-    if tcfg.shard_pairs:
-        raise _not_ported("shard_pairs")
+def _check_supported(cfg: PhyloformerConfig) -> None:
     if cfg.dropout:
         raise _not_ported(f"dropout={cfg.dropout}")
+
+
+def route(tcfg: TrainConfig, mesh: Mesh) -> str:
+    """The step's route, the JAX trainer's (``train/trainer.py:165-203``):
+    "sharded_fused" (the fused kernels, pair axis sharded) or
+    "sharded_eager" (the eager model on a pair shard, JAX's
+    ``act_sharding``) where ``shard_pairs`` meets a pair axis, else "fused"
+    or "eager" on each rank's rows of the batch (JAX falls back to XLA under
+    a mesh because a Pallas call does not partition under GSPMD, a limit of
+    its toolchain).  JAX's ``PF_PALLAS_TRAIN_MAX_SITES`` hatch is not
+    ported: the port's kernels have no site cap, and ``use_pallas=False``
+    selects the eager model."""
+    if tcfg.shard_pairs and mesh.pair > 1:
+        return "sharded_fused" if tcfg.use_pallas else "sharded_eager"
+    return "fused" if tcfg.use_pallas else "eager"
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Optional[torch.Tensor]]:
@@ -161,26 +190,53 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Optional[torch.T
     return out
 
 
-def _batch_loss(params, batch, cfg, tcfg, loss_fn):
-    codes, site_mask, seq_mask = batch["codes"], batch.get("site_mask"), batch.get("seq_mask")
-    if tcfg.use_pallas:
+def _predict(params, batch, cfg, tcfg, how: str, mesh: Mesh):
+    """``(preds, pair mask, targets)`` of this rank's part of a batch (both
+    masks given, :func:`_mesh_batch`) on the route ``how``."""
+    if how == "sharded_fused":
+        return sharded_fused_predict(params, batch, cfg, mesh)
+    batch = shard_batch(mesh, batch)
+    codes, site_mask, seq_mask = batch["codes"], batch["site_mask"], batch["seq_mask"]
+    if how == "sharded_eager":
+        shard = pair_shard(codes.shape[1], mesh, codes.device)
+        preds = forward(params, codes, cfg, site_mask, seq_mask, remat=tcfg.remat, shard=shard)
+        return preds, shard.pair_mask(seq_mask), shard.columns(batch["dists"])
+    if how == "fused":
         preds = forward_fused_ad(params, codes, cfg, site_mask, seq_mask)
     else:
         preds = forward(params, codes, cfg, site_mask, seq_mask, remat=tcfg.remat)
-    pair_mask = None
-    if seq_mask is not None:
-        pair_mask = pair_mask_from_seq_mask(seq_mask, codes.shape[1])
-    return loss_fn(preds, batch["dists"], pair_mask), (preds, pair_mask)
+    return preds, pair_mask_from_seq_mask(seq_mask, codes.shape[1]), batch["dists"]
 
 
-def _step_products(cfg: PhyloformerConfig, tcfg: TrainConfig, device: torch.device):
+def _mesh_batch(batch, mesh: Mesh, device) -> Dict[str, torch.Tensor]:
+    """The whole batch on ``device`` with both masks, its rows padded to a
+    multiple of the data axis with fully masked rows."""
+    b = batch_to_device(batch, device)
+    bsz, n, l = b["codes"].shape
+    if b["site_mask"] is None:
+        b["site_mask"] = torch.ones((bsz, l), dtype=torch.bool, device=device)
+    if b["seq_mask"] is None:
+        b["seq_mask"] = torch.ones((bsz, n), dtype=torch.bool, device=device)
+    pad = -bsz % mesh.data
+    if pad:
+        b = {k: torch.cat([v, v.new_zeros((pad,) + v.shape[1:])]) for k, v in b.items()}
+    return b
+
+
+def _reduce_group(mesh: Mesh, how: str):
+    """The ranks whose work differs: the whole mesh on a pair-sharded route,
+    else the data axis (the ranks of a pair row are then replicas)."""
+    return mesh.world_group if how.startswith("sharded") else mesh.data_group
+
+
+def _step_products(cfg: PhyloformerConfig, how: str, device: torch.device):
     """PyTorch's own products in a step, as JAX runs its XLA parts under
     ``jax.default_matmul_precision(cfg.matmul_precision)``: one TF32 pass on
-    the card for the eager route at "tensorfloat32" or "default", IEEE fp32
-    otherwise (the fused route's kernels take their passes from the config,
-    and its head stays fp32).  A context manager; the flags are restored
+    the card for the eager routes at "tensorfloat32" or "default", IEEE fp32
+    otherwise (the fused routes' kernels take their passes from the config,
+    and their head stays fp32).  A context manager; the flags are restored
     after it."""
-    one_pass = cfg.matmul_precision != "float32" and not tcfg.use_pallas
+    one_pass = cfg.matmul_precision != "float32" and how.endswith("eager")
     return tf32_products(device.type == "cuda" and one_pass)
 
 
@@ -188,7 +244,7 @@ def make_train_step(
     cfg: PhyloformerConfig,
     tcfg: TrainConfig,
     tx: Optimizer,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[..., Tuple[TrainState, Dict[str, Any]]]:
     """The train step ``step(state, batch[, key]) -> (state, logs)``.
 
@@ -197,22 +253,42 @@ def make_train_step(
     the global norm of the micro-batch gradients and the learning rate of
     the update, ``sched(step // grad_accum)``.  The state is updated in
     place.  After :func:`.profiling.enable_nan_checks` a non-finite loss or
-    gradient raises ``FloatingPointError`` before the update."""
-    _check_supported(cfg, tcfg, mesh)
-    loss_fn = get_loss(tcfg.loss)
+    gradient raises ``FloatingPointError`` before the update.
+
+    ``mesh``: every rank of it calls the step with the same whole batch;
+    the routes are :func:`route`'s, the loss and the gradients global (the
+    same on every rank).  None: this process alone."""
+    _check_supported(cfg)
+    term = get_term(tcfg.loss)
+    mesh = mesh if mesh is not None else local_mesh()
     sched = linear_warmup_decay(tcfg.learning_rate, tcfg.warmup_steps, tcfg.total_steps)
     every_k = max(1, tcfg.grad_accum)
 
+    def loss_and_grads(params, leaves, b, how):
+        if how == "sharded_fused":
+            return sharded_fused_loss_and_grads(params, b, cfg, mesh, term)
+        # this rank's share: its masked sum over the global count
+        n_tot = real_pairs(b["seq_mask"]).sum().to(torch.float32).clamp_min(1.0)
+        preds, pair_mask, dists = _predict(params, b, cfg, tcfg, how, mesh)
+        share = (term(preds, dists) * pair_mask.to(preds.dtype)).sum() / n_tot
+        if nan_checks_enabled():  # a NaN from the forward, before the backward sees it;
+            # the sum over the ranks, so that every rank raises alike
+            check_finite(all_reduce_sum(share.detach(), _reduce_group(mesh, how)))
+        grads = torch.autograd.grad(share, leaves)
+        flat = all_reduce_sum(torch.cat([share.detach().reshape(1)]
+                                        + [g.reshape(-1) for g in grads]),
+                              _reduce_group(mesh, how))
+        parts = flat.split([1] + [g.numel() for g in grads])
+        return parts[0][0], [p.view(g.shape) for p, g in zip(parts[1:], grads)]
+
     def step_fn(state: TrainState, batch, dropout_key=None):
         leaves = param_leaves(state["params"])
-        b = batch_to_device(batch, leaves[0].device)
-        with _step_products(cfg, tcfg, leaves[0].device):
-            loss, _ = _batch_loss(state["params"], b, cfg, tcfg, loss_fn)
-            checks = nan_checks_enabled()
-            if checks:
-                check_finite(loss)  # a NaN from the forward, before the backward sees it
-            grads = torch.autograd.grad(loss, leaves)
-        if checks:
+        device = leaves[0].device
+        b = _mesh_batch(batch, mesh, device)
+        how = route(tcfg, mesh)
+        with _step_products(cfg, how, device):
+            loss, grads = loss_and_grads(state["params"], leaves, b, how)
+        if nan_checks_enabled():
             check_finite(loss, grads)
         logs = {"train_loss": loss.detach(), "grad_norm": global_norm(grads).detach(),
                 "learning_rate": sched(state["step"] // every_k)}
@@ -223,21 +299,26 @@ def make_train_step(
     return step_fn
 
 
-def make_eval_step(cfg: PhyloformerConfig, tcfg: TrainConfig, mesh=None) -> Callable:
+def make_eval_step(cfg: PhyloformerConfig, tcfg: TrainConfig,
+                   mesh: Optional[Mesh] = None) -> Callable:
     """Validation step ``eval(params, batch) -> {val_loss, val_mae,
-    val_mre, val_rmse}``, on the forward the train step uses."""
-    _check_supported(cfg, tcfg, mesh)
-    loss_fn = get_loss(tcfg.loss)
+    val_mre, val_rmse}``, on the forward the train step uses; each metric
+    is the masked sum over the count of real pairs, global on a mesh."""
+    _check_supported(cfg)
+    terms = [get_term(k) for k in (tcfg.loss, "mae", "mre", "mse")]
+    mesh = mesh if mesh is not None else local_mesh()
 
     def eval_fn(params, batch):
         device = param_leaves(params)[0].device
-        b = batch_to_device(batch, device)
-        with _step_products(cfg, tcfg, device), torch.no_grad():
-            loss, (preds, pair_mask) = _batch_loss(params, b, cfg, tcfg, loss_fn)
-            out = {"val_loss": loss}
-            out.update({f"val_{k}": v
-                        for k, v in compute_metrics(preds, b["dists"], pair_mask).items()})
-        return out
+        b = _mesh_batch(batch, mesh, device)
+        how = route(tcfg, mesh)
+        with _step_products(cfg, how, device), torch.no_grad():
+            preds, pair_mask, dists = _predict(params, b, cfg, tcfg, how, mesh)
+            m = pair_mask.to(preds.dtype)
+            sums = all_reduce_sum(torch.stack([(t(preds, dists) * m).sum() for t in terms]),
+                                  _reduce_group(mesh, how))
+            loss, mae, mre, mse = sums / real_pairs(b["seq_mask"]).sum().clamp_min(1)
+        return {"val_loss": loss, "val_mae": mae, "val_mre": mre, "val_rmse": mse.sqrt()}
 
     return eval_fn
 

@@ -19,6 +19,7 @@ ordered twin bit for bit.
 """
 
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -801,3 +802,70 @@ def test_reduced_precision_variants_match_plain_on_card(kernel, variant_results)
     assert mine, variant_results
     for v, r in mine.items():
         assert not r["fails"] and r["launched"], (v, r)
+
+
+_SHARDED_CODE = """
+import json, os, sys
+import numpy as np
+import torch
+from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+from phyloformer_tpu_torch.models.phyloformer import forward_fused
+from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+from phyloformer_tpu_torch.ops.kernels.sharded import forward_fused_sharded
+from phyloformer_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = init_distributed("gloo", "cuda")
+params, cfg, _ = load_pretrained("artifacts/pf_mre_r5.ckpt")
+rng = np.random.default_rng(11)
+codes = torch.as_tensor(rng.integers(0, 20, (2, 19, 70)), dtype=torch.int32, device=dev)
+smask = torch.as_tensor(np.arange(70)[None].repeat(2, 0) < [[70], [61]], device=dev)
+qmask = torch.as_tensor(np.arange(19)[None].repeat(2, 0) < [[19], [14]], device=dev)
+from phyloformer_tpu_torch.models.params import map_params
+params = map_params(lambda t: t.to(dev), params)
+pipe.reset_launch_counts()
+got = forward_fused_sharded(params, codes, cfg, make_mesh(1, 2), smask, qmask)[:, :171]
+launched = pipe.LAUNCHES["kernel_a"] + pipe.LAUNCHES["kernel_b"]
+want = forward_fused(params, codes, cfg, smask, qmask)
+i, j = np.triu_indices(19, 1)
+pm = torch.as_tensor(qmask.cpu().numpy()[:, i] & qmask.cpu().numpy()[:, j], device=dev)
+err = ((got - want)[pm].abs().max() / want[pm].abs().max().clamp_min(1.0)).item()
+np.save(sys.argv[1] + f"/rank{torch.distributed.get_rank()}.npy", got.cpu().numpy())
+print(json.dumps({"err": err, "launched": launched}))
+torch.distributed.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def sharded_results(card, tmp_path_factory):
+    import socket
+
+    tmp = tmp_path_factory.mktemp("sharded_card")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "WORLD_SIZE": "2", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    procs = [subprocess.Popen([sys.executable, "-c", _SHARDED_CODE, str(tmp)], cwd=str(REPO),
+                              env={**env, "RANK": str(r)}, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-4000:]
+    import numpy as np
+
+    return ([json.loads(out.strip().splitlines()[-1]) for out, _ in outs],
+            [np.load(tmp / f"rank{r}.npy") for r in range(2)])
+
+
+def test_two_gloo_ranks_on_card_match_single_process(sharded_results):
+    """forward_fused_sharded on two gloo ranks on the one card (data 1 x
+    pair 2, 171 pairs: the second shard holds a padding pair) against the
+    single-process forward_fused, within the kernels' bar; both ranks give
+    the same bits and launch kernels A and B."""
+    import numpy as np
+
+    res, outs = sharded_results
+    np.testing.assert_array_equal(outs[0], outs[1])
+    for r in res:
+        assert r["err"] <= 2e-5 and r["launched"] == 12, r

@@ -100,9 +100,10 @@ print(json.dumps(res))
 
 
 def test_unported_knobs_raise():
-    """The sharded engine and bf16 parameters on the fused forward (above
-    the pipeline's site limit) stay unported; bf16 parameters, the reduced
-    matmul precisions and bf16 storage of x1 are ported and construct."""
+    """bf16 parameters on the fused forward (above the pipeline's site
+    limit) stay unported; bf16 parameters, the reduced matmul precisions,
+    bf16 storage of x1 and the sharded engine (on a mesh of one rank) are
+    ported and construct."""
     out = _run("""
 import json
 from phyloformer_tpu_torch.infer.engine import (InferenceConfig, InferenceEngine,
@@ -117,8 +118,9 @@ for kw in ({"precision": "bfloat16"}, {"matmul_precision": "default"},
         msgs.append("ran")
     except ValueError as e:
         msgs.append(str(e))
+from phyloformer_tpu_torch.parallel.mesh import make_mesh
 try:
-    ShardedInferenceEngine(params, cfg, None)
+    ShardedInferenceEngine(params, cfg, make_mesh(), device="cpu")
     msgs.append("ran")
 except ValueError as e:
     msgs.append(str(e))
@@ -137,8 +139,8 @@ except ValueError as e:
 print(json.dumps({"msgs": msgs, "long": long_pred.tolist()}))
 """)
     assert len(out["msgs"]) == 5, out
-    assert out["msgs"][0:3] == ["ran", "ran", "ran"], out
-    assert all("not yet ported, see ROADMAP.md" in out["msgs"][k] for k in (3, 4)), out
+    assert out["msgs"][0:4] == ["ran", "ran", "ran", "ran"], out
+    assert "not yet ported, see ROADMAP.md" in out["msgs"][4], out
     assert len(out["long"]) == 6 and all(math.isfinite(v) for v in out["long"]), out
 
 
@@ -241,22 +243,42 @@ print(json.dumps(res))
         assert "no CUDA device" in out["state"], out
 
 
-@pytest.mark.parametrize("flags", [["--mesh-data", "2"], ["--mesh-data", "1"],
-                                   ["--mesh-pair", "2"], ["--shard-pairs"],
-                                   ["--distributed-init"], ["--dropout", "0.1"],
-                                   ["--packed-data", "x", "--shard-pairs"]])
+# What pf-train-torch --device cpu does with each flag in one process, on an
+# empty corpus: a mesh larger than the world of one rank raises make_mesh's
+# size error; --mesh-data 1, --shard-pairs and --distributed-init (given a
+# world of one in torchrun's variables) run to the empty corpus (exit 1);
+# with --packed-data the flags pass and the shard directory is read; dropout
+# stays refused.
+TRAIN_FLAG_OUTCOMES = {
+    ("--mesh-data", "2"): "ValueError: mesh 2x1 != 1 devices",
+    ("--mesh-data", "1"): "rc 1",
+    ("--mesh-pair", "2"): "ValueError: 1 devices not divisible by pair=2",
+    ("--shard-pairs",): "rc 1",
+    ("--distributed-init",): "rc 1",
+    ("--dropout", "0.1"): "ValueError: --dropout 0.1 is not yet ported, see ROADMAP.md",
+    ("--packed-data", "x", "--shard-pairs"): "FileNotFoundError",
+}
+
+
+@pytest.mark.parametrize("flags", [list(f) for f in TRAIN_FLAG_OUTCOMES])
 def test_train_cli_refuses_unported_flags(flags, tmp_path):
+    """The flags that were refused before the mesh was ported: each now
+    runs, or raises the mesh's size error; dropout stays refused."""
     out = _run(f"""
-import json
+import json, os, socket
 from phyloformer_tpu_torch.train import cli
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+os.environ.update(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
 try:
-    cli.main(["-t", {str(tmp_path)!r}, "-a", {str(tmp_path)!r}, "--device", "cpu"] + {flags!r})
-    msg = "ran"
-except ValueError as e:
-    msg = str(e)
+    msg = f"rc {{cli.main(['-t', {str(tmp_path)!r}, '-a', {str(tmp_path)!r}, '--device', 'cpu']
+                          + {flags!r})}}"
+except (ValueError, FileNotFoundError) as e:
+    msg = f"{{type(e).__name__}}: {{e}}"
 print(json.dumps({{"msg": msg}}))
 """)
-    assert "not yet ported, see ROADMAP.md" in out["msg"], out
+    assert out["msg"].startswith(TRAIN_FLAG_OUTCOMES[tuple(flags)]), out
 
 
 def _tiny_corpus(root: pathlib.Path, n_examples: int = 6, n: int = 5, l: int = 20) -> None:
@@ -315,7 +337,8 @@ print(json.dumps(res))
 
 
 def test_training_knobs_refuse_what_is_not_ported():
-    """Dropout, pair sharding and a mesh in the train step refuse; fused
+    """Dropout in the train step refuses; pair sharding and a mesh (of one
+    rank) run, the step's loss equal to the step's without them; fused
     training above 1024 sites runs, in the block and in the backward host
     function."""
     out = _run("""
@@ -332,12 +355,21 @@ def attempt(fn):
         msgs.append("ran")
     except ValueError as e:
         msgs.append(str(e))
+from phyloformer_tpu_torch.parallel.mesh import make_mesh
 cfg = PhyloformerConfig(n_blocks=1, embed_dim=32)
 state, tx = create_train_state(cfg, TrainConfig(), device="cpu")
 attempt(lambda: make_train_step(PhyloformerConfig(n_blocks=1, embed_dim=32, dropout=0.1),
                                 TrainConfig(), tx))
-attempt(lambda: make_train_step(cfg, TrainConfig(shard_pairs=True), tx))
-attempt(lambda: make_train_step(cfg, TrainConfig(), tx, mesh=object()))
+g = torch.Generator().manual_seed(1)
+batch = {"codes": torch.randint(0, 20, (2, 5, 12), generator=g),
+         "dists": torch.rand(2, 10, generator=g) + 0.1}
+losses = []
+for tcfg, mesh in ((TrainConfig(), None), (TrainConfig(shard_pairs=True), None),
+                   (TrainConfig(shard_pairs=True, use_pallas=True), make_mesh(data=1))):
+    def step():
+        st, tx_ = create_train_state(cfg, tcfg, device="cpu")
+        losses.append(float(make_train_step(cfg, tcfg, tx_, mesh=mesh)(st, batch)[1]["train_loss"]))
+    attempt(step)
 layer = init_params(cfg)["layers"][0]
 x = torch.randn(1, 1, 1025, 32, generator=torch.Generator().manual_seed(0))
 sm, pm = torch.ones(1, 1025), torch.ones(1, 1)
@@ -346,10 +378,13 @@ gx, = torch.autograd.grad(out.square().sum(), [x])
 from phyloformer_tpu_torch.ops.kernels.fused import fused_axial_block_res
 _, x1, stats = fused_axial_block_res(x.detach(), layer, sm, pm)
 gx2, dl = fused_axial_block_bwd(x.detach(), x1, stats, out.detach(), layer, sm, pm, 4)
-print(json.dumps({"msgs": msgs, "finite": [bool(torch.isfinite(gx).all()),
+print(json.dumps({"msgs": msgs, "losses": losses, "finite": [bool(torch.isfinite(gx).all()),
                                            bool(torch.isfinite(gx2).all())],
                   "same": bool(torch.allclose(2 * gx2, gx, rtol=1e-5, atol=1e-5))}))
 """)
-    assert len(out["msgs"]) == 3, out
-    assert all("not yet ported, see ROADMAP.md" in m for m in out["msgs"]), out
+    assert len(out["msgs"]) == 4, out
+    assert "not yet ported, see ROADMAP.md" in out["msgs"][0], out
+    assert out["msgs"][1:] == ["ran"] * 3, out
+    first = out["losses"][0]
+    assert all(abs(x - first) <= 1e-5 * abs(first) for x in out["losses"]), out
     assert out["finite"] == [True, True] and out["same"], out

@@ -36,7 +36,8 @@ concurrent requests coalesce into fewer batches, each answer within
 ``KERNEL_TOL`` (2e-5 of max(1, max|ref|)) of the request predicted alone
 (bit-equal here: the plain versions sum whole axes; on the card the batch
 size sets the column stats' slot count, which ``chip_smoke.py`` holds).  ``pf-serve-torch`` as a subprocess
-answers one request and stops on SIGINT; the mesh flags are refused.
+answers one request and stops on SIGINT; the mesh flags without a process
+group raise the mesh's size error.
 Every request has its own timeout.
 """
 
@@ -385,8 +386,11 @@ def test_concurrent_requests_coalesce(server_case):
 
 
 def test_mesh_flags_refused(server_case):
+    """``--mesh-data 2`` in one process: a mesh of two ranks in a world of
+    one raises ``make_mesh``'s size error, which says how to start ranks."""
     _, res, _, _ = server_case
-    assert "not yet ported, see ROADMAP.md" in res["mesh"]
+    assert res["mesh"].startswith("mesh 2x1 != 1 devices"), res["mesh"]
+    assert "--distributed-init" in res["mesh"], res["mesh"]
 
 
 def test_serve_cli_answers_and_stops(tmp_path):
