@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--reductions | --reduced | --sharded]
+    python3 chip_smoke.py [--reductions | --reduced | --sharded | --sim]
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written CUDA kernels from this checkout's sources (one
@@ -133,7 +133,25 @@
    over nccl; then ``pf-serve-torch --distributed-init gloo --mesh-pair 2``
    as two ranks, a burst of 8 requests answered within ``ONE_PASS_TOL`` of
    the unsharded server's;
-13. prints the ``kernels`` JSON line (with the row of ``_kernel_b_host``)
+13. the simulators (``--sim``: only this, no kernel built; plain
+   PyTorch, no kernel of their own): ``pf-simulate-trees-torch`` (1024
+   birth-death trees of 50 tips), ``pf-simulate-alignments-torch --engine
+   device --gamma GC --batch-size 256`` on them at 500 sites, twice at one
+   seed (every file written 50 x 500 with distinct rows; the trees left
+   out named by the failure summary, each after 20 attempts with duplicate
+   rows, the reference's rule; the same bytes twice and as the engine
+   called alone), with aln/s with and without the FASTA writes, peak
+   memory and the device's busy share of one batch (``torch.profiler``);
+   the duplicate rate on 128 of the trees x 8 attempts against JAX's
+   engine's (``WITNESS_JAX``), which also bounds the failed share; ``--engine
+   native`` on 32 of them for its aln/s; a two-class ``--mdef`` mixture on
+   256 (composition within ``COMPOSITION_TOL``); the engine's mean
+   p-distance at t = 0.3 over 64 x 6000 sites against the analytic LG
+   value and the topology signal on four tips; 10^6 Gumbel-argmax draws on
+   the card's generator; duplicate rejection on a zero-length tree (every
+   attempt fails, the CLI's failure summary);
+   ``pf-simulate-coevolution-torch`` on 4 trees;
+14. prints the ``kernels`` JSON line (with the row of ``_kernel_b_host``)
    and the throughputs, then, as its last line, ``{"ok": true, "device":
    {...}}``.
 
@@ -3327,6 +3345,408 @@ def sharded_phase(device, card, head_alns):
     return dict(runs=runs, errs=errs, b_host=b_host, numbers=numbers)
 
 
+# -- the simulators ------------------------------------------------------------
+
+SIM_TREES, SIM_TIPS, SIM_SITES, SIM_BATCH = 1024, 50, 500, 256
+SIM_NATIVE = 32  # trees through the native engine, for its rate
+SIM_MIX_TREES = 256
+SIM_CAL_T, SIM_CAL_SITES, SIM_CAL_REPS = 0.3, 6000, 64
+SIM_DRAWS = 10**6
+SIM_COEV_TREES = 4
+SIM_MAX_ATTEMPTS = 20  # pf-simulate-alignments-torch's --max-attempts default
+CAL_MEAN_TOL, CAL_REP_TOL = 0.005, 0.02  # mean p-distance; each replicate
+COMPOSITION_TOL = 0.03  # aggregate composition against the mixture's
+SAMPLER_SE = 5.0  # standard errors a state
+# a fixed, skewed 20-state vector for the sampler
+SKEWED = np.array([0.3, 0.2, 0.12, 0.1, 0.08, 0.06, 0.04, 0.03, 0.02, 0.015, 0.01, 0.005,
+                   0.004, 0.003, 0.002, 0.0005, 0.0003, 0.0001, 0.0001, 0.01])
+# two sharply different frequency classes: A/R against Y/V
+MIX_F1 = np.array([0.41, 0.41] + [0.01] * 18)
+MIX_F2 = np.array([0.01] * 18 + [0.41, 0.41])
+# The duplicate-rate witness: the first WITNESS_TREES trees of the phase's
+# set, WITNESS_ROUNDS attempts each with duplicates allowed (numpy seed SEED,
+# one batch).  WITNESS_JAX is what JAX's engine (``phyloformer_tpu.sim.device``)
+# gives there: attempts with duplicate rows and trees with them in every
+# attempt.  ``tests/test_torch_sim.py::test_device_engine_duplicate_rate_matches_jax``
+# measures it on the CPU and holds the port's engine to it.
+WITNESS_TREES, WITNESS_ROUNDS = 128, 8
+WITNESS_JAX = {"dup_attempts": 328, "always_dup_trees": 8}
+DUP_SHARE_SE = 4.0  # standard errors of a difference of two duplicate shares
+
+
+def duplicate_surplus(sim, trees, alpha_prior):
+    """Surplus rows (rows less distinct rows) of each of ``WITNESS_ROUNDS``
+    attempts of the engine ``sim`` (JAX's ``DeviceSimulator`` or the port's)
+    on each of ``trees``, one batch an attempt: (rounds, trees)."""
+    rng = np.random.default_rng(SEED)
+    out = np.zeros((WITNESS_ROUNDS, len(trees)), np.int64)
+    for r in range(WITNESS_ROUNDS):
+        for k, aln in enumerate(sim.simulate(trees, rng, alpha_prior)):
+            out[r, k] = aln.n_seqs - len({row.tobytes() for row in aln.codes})
+    return out
+
+
+def dup_share_bar(share, n):
+    """``DUP_SHARE_SE`` standard errors of the difference of two shares of
+    ``n`` attempts each at ``share`` (an upper bound: trees that differ in
+    their duplicate rates only lower the variance)."""
+    return DUP_SHARE_SE * math.sqrt(2 * share * (1 - share) / n)
+
+
+def failed_share_bar(always):
+    """The share of trees that may fail every attempt, from ``always`` of the
+    witness's trees with duplicate rows in each of its attempts: a tree fails
+    all SIM_MAX_ATTEMPTS attempts less often than all WITNESS_ROUNDS, and
+    the witness's count is held to DUP_SHARE_SE Poisson standard errors."""
+    return (always + DUP_SHARE_SE * math.sqrt(max(always, 1))) / WITNESS_TREES
+
+
+def run_cli(main, argv):
+    """A CLI's ``main(argv)`` in this process: (exit code, its stderr)."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, err.getvalue()
+
+
+def tree_subset(src, dst, n):
+    """A directory of the first ``n`` trees of ``src`` (file order)."""
+    os.makedirs(dst)
+    for name in sorted(os.listdir(src))[:n]:
+        shutil.copy(os.path.join(src, name), dst)
+
+
+def cli_outcome(rc, err, tree_dir, out_dir, what):
+    """The trees a ``pf-simulate-alignments-torch`` run wrote and those its
+    failure summary names (every one after ``SIM_MAX_ATTEMPTS`` attempts held
+    duplicate rows: the reference's rejection rule; how many is held to JAX's
+    engine by the duplicate-rate witness); fails unless the two split the
+    tree directory and the exit code says so."""
+    stems = {os.path.splitext(n)[0] for n in os.listdir(tree_dir)}
+    written = {os.path.splitext(n)[0] for n in os.listdir(out_dir)}
+    failed = {}
+    for line in err.splitlines():
+        m = re.fullmatch(r"  \('(.*)', (\d+)\)", line)
+        if m:
+            failed[os.path.splitext(os.path.basename(m.group(1)))[0]] = int(m.group(2))
+    if not (rc == (1 if failed else 0) and written.isdisjoint(failed)
+            and written | set(failed) == stems
+            and all(a == SIM_MAX_ATTEMPTS for a in failed.values())
+            and (not failed or f"{len(failed)} simulations failed:" in err)):
+        fail(f"{what}: rc {rc}, {len(written)} files and {len(failed)} failures for "
+             f"{len(stems)} trees: {err[-2000:]}")
+    return written, failed
+
+
+def read_alignments(out_dir, n_rows, n_sites, what, distinct=True):
+    """Every ``.fa`` of ``out_dir``: (name -> codes); fails unless each is
+    ``n_rows`` x ``n_sites``, with distinct rows where ``distinct``."""
+    from phyloformer_tpu_torch.data.fasta import read_fasta
+
+    alns = {}
+    for name in sorted(os.listdir(out_dir)):
+        aln = read_fasta(os.path.join(out_dir, name))
+        if aln.codes.shape != (n_rows, n_sites):
+            fail(f"{what}: {name} is {aln.codes.shape}, not {n_rows} x {n_sites}")
+        if distinct and len({r.tobytes() for r in aln.codes}) != n_rows:
+            fail(f"{what}: {name} has duplicate rows")
+        alns[name] = aln.codes
+    return alns
+
+
+def device_share(fn, device):
+    """(result, wall s, device busy s, the five largest (name, s, count)) of ``fn()``
+    under ``torch.profiler`` tracing the device alone (the host's ops
+    untraced, so the wall stays near an untraced run's): the device
+    activities' times (one stream), read from the raw trace (the parsed
+    event list of some 5 x 10^4 launches takes seconds to build)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ns, n = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return (out, wall, sum(ns for ns, _ in by_name.values()) / 1e9,
+            [(name[:60], ns / 1e9, n) for name, (ns, n) in top])
+
+
+def sim_phase(device, card):
+    """The simulators: pf-simulate-trees-torch, pf-simulate-alignments-torch
+    with the batched engine on ``device`` (the native engine beside it, a
+    frequency mixture), the engine's duplicate rate against JAX's witness,
+    its calibration and sampler, duplicate rejection and
+    pf-simulate-coevolution-torch; returns the numbers."""
+    import torch
+
+    from phyloformer_tpu_torch.data.fasta import write_fasta as write_alignment
+    from phyloformer_tpu_torch.data.newick import parse_newick, read_newick
+    from phyloformer_tpu_torch.sim import cli_coevolution, cli_msa, cli_trees
+    from phyloformer_tpu_torch.sim.device import (DeviceSimulator, gumbel_argmax,
+                                                  simulate_msas_device)
+    from phyloformer_tpu_torch.sim.models import get_model
+    from phyloformer_tpu_torch.sim.msa import MsaSimConfig
+    from phyloformer_tpu_torch.sim.priors import alpha_sampler
+
+    root = os.path.join(WORK, "sim")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    num = {"card": card}
+    split = num["split_s"] = {}
+    shape = f"{SIM_TREES} x {SIM_TIPS} tips"
+    mark = [time.perf_counter()]
+
+    def lap(name):  # the phase's wall time, step by step
+        now = time.perf_counter()
+        split[name] = now - mark[0]
+        mark[0] = now
+
+    # 1. trees: birth-death, the shipped diameter prior
+    trees_dir = os.path.join(root, "trees")
+    t = time.perf_counter()
+    rc, err = run_cli(cli_trees.main, ["-n", str(SIM_TREES), "-t", str(SIM_TIPS), "-o",
+                                       trees_dir, "--seed", str(SEED)])
+    num["trees_s"] = time.perf_counter() - t
+    if rc != 0 or len(os.listdir(trees_dir)) != SIM_TREES:
+        fail(f"pf-simulate-trees-torch -n {SIM_TREES} -t {SIM_TIPS}: rc {rc}: {err}")
+    print(f"sim: pf-simulate-trees-torch, {shape} (birth-death): {num['trees_s']:.3f} s")
+    lap("trees")
+
+    # 2. alignments on the card (GC: alpha from the hogenom prior), twice
+    warm = [parse_newick("((A:0.1,B:0.2):0.1,(C:0.3,D:0.1):0.2);")] * 2
+    simulate_msas_device(warm, MsaSimConfig(length=SIM_SITES), np.random.default_rng(0),
+                         device=device)  # the context, cuBLAS and the generator
+    lap("device_warm_up")
+    gc = ["--engine", "device", "--length", str(SIM_SITES), "--gamma", "GC",
+          "--batch-size", str(SIM_BATCH), "--seed", str(SEED)]
+    what = f"--engine device on {shape} x {SIM_SITES}"
+    outs, walls, outcomes = [os.path.join(root, "msa_a"), os.path.join(root, "msa_b")], [], []
+    for out in outs:
+        t = time.perf_counter()
+        rc, err = run_cli(cli_msa.main, [trees_dir, out] + gc)
+        walls.append(time.perf_counter() - t)
+        outcomes.append(cli_outcome(rc, err, trees_dir, out, what))
+    (written, failed), again = outcomes
+    if again != (written, failed):
+        fail(f"{what}: two runs at --seed {SEED} wrote or failed other trees")
+    num["written"], num["failed"] = len(written), len(failed)
+    num["device_cli_aln_per_s"] = [len(written) / w for w in walls]
+    lap("device_cli_runs")
+
+    # the engine alone at the same seed: the CLI's alignments without the
+    # tree reads and the FASTA writes, and its peak memory
+    names = sorted(os.listdir(trees_dir))
+    trees = [read_newick(os.path.join(trees_dir, n)) for n in names]
+    cfg = MsaSimConfig(length=SIM_SITES, gamma="GC")
+    lap("engine_tree_reads")
+    torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    res, attempts = simulate_msas_device(trees, cfg, np.random.default_rng(SEED), alpha_sampler(),
+                                         batch_size=SIM_BATCH, device=device)
+    num["engine_s"] = time.perf_counter() - t
+    num["peak_mb"] = torch.cuda.max_memory_allocated(device) / 2**20
+    num["engine_aln_per_s"] = len(written) / num["engine_s"]
+    num["attempts"] = {"total": sum(attempts), "max": max(attempts),
+                       "retried": sum(a > 1 for a in attempts)}
+    lap("engine_alone")
+
+    # every alignment SIM_TIPS x SIM_SITES with distinct rows; the files of
+    # both CLI runs and the engine's alignments written out: the same bytes
+    mine = os.path.join(root, "msa_engine")
+    os.makedirs(mine)
+    for name, aln in zip(names, res):
+        stem = os.path.splitext(name)[0]
+        if (aln is None) != (stem in failed):
+            fail(f"device engine: the engine alone and the CLI differ on {stem}")
+        if aln is not None:
+            if aln.codes.shape != (SIM_TIPS, SIM_SITES):
+                fail(f"device engine: {stem} is {aln.codes.shape}, not {SIM_TIPS} x {SIM_SITES}")
+            if len({r.tobytes() for r in aln.codes}) != SIM_TIPS:
+                fail(f"device engine: {stem} has duplicate rows")
+            write_alignment(os.path.join(mine, stem + ".fa"), aln)
+    for name in sorted(os.listdir(mine)):
+        a, b, c = (open(os.path.join(d, name), "rb").read() for d in outs + [mine])
+        if a != b:
+            fail(f"device engine: two runs at --seed {SEED} differ in {name}")
+        if a != c:
+            fail(f"device engine: the engine alone and the CLI differ in {name}")
+    lap("device_checks")
+
+    # one batch of the engine (one attempt a tree) under torch.profiler: the
+    # device's share of its wall time
+    sim = DeviceSimulator(cfg, device)
+    _, wall, busy, top = device_share(
+        lambda: sim.simulate(trees[:SIM_BATCH], np.random.default_rng(SEED), alpha_sampler()),
+        device)
+    num["batch_s"], num["batch_device_busy_s"], num["batch_device_share"] = wall, busy, busy / wall
+    num["device_top"] = top
+    lap("batch_profiled")
+    print(f"sim: pf-simulate-alignments-torch --engine device --gamma GC --batch-size {SIM_BATCH} "
+          f"on {shape} x {SIM_SITES} sites: {len(written)} written, {len(failed)} trees with "
+          f"duplicate rows after {SIM_MAX_ATTEMPTS} attempts: "
+          + ", ".join(f"{r:.1f}" for r in num["device_cli_aln_per_s"])
+          + f" aln/s with the FASTA writes (two runs, the same bytes), "
+          f"{num['engine_aln_per_s']:.1f} aln/s the engine alone ({num['engine_s']:.3f} s, "
+          f"the CLI's alignments; {num['attempts']['total']} attempts, "
+          f"{num['attempts']['retried']} trees retried, at most {num['attempts']['max']} a tree); "
+          f"peak {num['peak_mb']:.0f} MiB the engine alone; one batch of {SIM_BATCH} x "
+          f"{SIM_SITES} sites (one attempt a tree): device busy {busy:.4f} of {wall:.4f} s "
+          f"({100 * num['batch_device_share']:.1f}%, torch.profiler, device activities) [{card}]")
+    print(f"sim: device time by kernel in that batch: " + "; ".join(
+        f"{name} {sec:.4f} s ({n})" for name, sec, n in top))
+
+    # the duplicate rate against JAX's engine: the witness trees, attempts
+    # with duplicate rows within DUP_SHARE_SE standard errors of JAX's share;
+    # trees that fail all SIM_MAX_ATTEMPTS attempts no more common than the
+    # witness's trees with duplicates in every one of its attempts allow
+    by_name = dict(zip(names, trees))
+    surplus = duplicate_surplus(sim, [by_name[f"{i}_{SIM_TIPS}_tips.nwk"]
+                                      for i in range(WITNESS_TREES)], alpha_sampler())
+    share, always = float((surplus > 0).mean()), int((surplus > 0).all(0).sum())
+    jax_share = WITNESS_JAX["dup_attempts"] / surplus.size
+    share_bar = dup_share_bar(jax_share, surplus.size)
+    failed_bar = failed_share_bar(WITNESS_JAX["always_dup_trees"])
+    num["duplicate_rate"] = {"share": share, "jax_share": jax_share, "bar": share_bar,
+                             "always_dup_trees": always,
+                             "failed_share": len(failed) / SIM_TREES, "failed_bar": failed_bar}
+    print(f"sim: duplicate rate, {WITNESS_TREES} of the trees x {WITNESS_ROUNDS} attempts: "
+          f"{share:.4f} of the attempts with duplicate rows against JAX's engine's "
+          f"{jax_share:.4f} (bar {share_bar:.4f}), {always} trees in every attempt (JAX "
+          f"{WITNESS_JAX['always_dup_trees']}); failed {len(failed)} of {SIM_TREES} = "
+          f"{len(failed) / SIM_TREES:.4f} (bar {failed_bar:.4f})")
+    if not abs(share - jax_share) <= share_bar:
+        fail("duplicate rate: the engine's share of duplicate attempts is off JAX's")
+    if not len(failed) / SIM_TREES <= failed_bar:
+        fail("duplicate rate: more trees failed every attempt than JAX's witness allows")
+    lap("duplicate_rate")
+
+    # 3. the native engine on the first trees
+    nat_trees, nat_out = os.path.join(root, "trees_native"), os.path.join(root, "msa_native")
+    tree_subset(trees_dir, nat_trees, SIM_NATIVE)
+    t = time.perf_counter()
+    rc, err = run_cli(cli_msa.main, [nat_trees, nat_out, "--engine", "native", "--length",
+                                     str(SIM_SITES), "--gamma", "GC", "--seed", str(SEED)])
+    wall = time.perf_counter() - t
+    nat, nat_failed = cli_outcome(rc, err, nat_trees, nat_out, "--engine native")
+    read_alignments(nat_out, SIM_TIPS, SIM_SITES, "native engine")
+    num["native_aln_per_s"] = len(nat) / wall
+    print(f"sim: --engine native on {SIM_NATIVE} x {SIM_TIPS} tips x {SIM_SITES} sites (GC): "
+          f"{num['native_aln_per_s']:.2f} aln/s ({len(nat)} written, {len(nat_failed)} "
+          f"failed, {wall:.3f} s) [{card}]")
+
+    lap("native")
+    # 4. a two-class frequency mixture (--mdef): the aggregate composition
+    nexus = os.path.join(root, "mix.nex")
+    with open(nexus, "w") as fh:
+        fh.write("#nexus\nbegin models;\n"
+                 f"  frequency TST_F1 = {' '.join(f'{x:.4f}' for x in MIX_F1)};\n"
+                 f"  frequency TST_F2 = {' '.join(f'{x:.4f}' for x in MIX_F2)};\n"
+                 "  frequency TST_MIX = FMIX{TST_F1:1.0:0.5,TST_F2:1.0:0.5};\nend;\n")
+    mix_trees, mix_out = os.path.join(root, "trees_mix"), os.path.join(root, "msa_mix")
+    tree_subset(trees_dir, mix_trees, SIM_MIX_TREES)
+    rc, err = run_cli(cli_msa.main, [mix_trees, mix_out, "--engine", "device", "--length",
+                                     str(SIM_SITES), "--mdef", nexus, "--batch-size",
+                                     str(SIM_BATCH), "--seed", str(SEED)])
+    cli_outcome(rc, err, mix_trees, mix_out, "--mdef on the device engine")
+    codes = np.stack(list(read_alignments(mix_out, SIM_TIPS, SIM_SITES, "mixture").values()))
+    obs = np.bincount(codes.ravel(), minlength=22)[:20] / codes.size
+    expect = 0.5 * MIX_F1 / MIX_F1.sum() + 0.5 * MIX_F2 / MIX_F2.sum()
+    num["mixture_composition_err"] = float(np.abs(obs - expect).max())
+    print(f"sim: --mdef (two classes) on {SIM_MIX_TREES} x {SIM_TIPS} tips x {SIM_SITES} sites: "
+          f"composition within {num['mixture_composition_err']:.4f} of the mixture's "
+          f"(bar {COMPOSITION_TOL})")
+    if not num["mixture_composition_err"] < COMPOSITION_TOL:
+        fail("mixture: composition off the mixture-weighted class frequencies")
+
+    lap("mixture")
+    # 5. calibration: the mean p-distance at t = 0.3 against the analytic LG
+    # value, and the topology signal on four tips
+    lg = get_model("LG")
+    expected = 1.0 - float((lg.freqs * np.diag(lg.transition_matrix(SIM_CAL_T))).sum())
+    half = SIM_CAL_T / 2
+    res, _ = simulate_msas_device([parse_newick(f"(A:{half},B:{half});")] * SIM_CAL_REPS,
+                                  MsaSimConfig(length=SIM_CAL_SITES), np.random.default_rng(7),
+                                  batch_size=SIM_CAL_REPS, device=device)
+    p = np.array([(a.codes[0] != a.codes[1]).mean() for a in res])
+    num["calibration"] = {"expected": expected, "mean": float(p.mean()),
+                          "mean_err": float(abs(p.mean() - expected)),
+                          "worst_rep_err": float(np.abs(p - expected).max())}
+    res, _ = simulate_msas_device(
+        [parse_newick("((A:0.05,B:0.05):0.3,(C:0.05,D:0.05):0.3);")],
+        MsaSimConfig(length=SIM_CAL_SITES), np.random.default_rng(8), device=device)
+    c = dict(zip(res[0].ids, res[0].codes))
+    num["topology"] = {"AB": float((c["A"] != c["B"]).mean()),
+                       "AC": float((c["A"] != c["C"]).mean())}
+    cal = num["calibration"]
+    print(f"sim: calibration, {SIM_CAL_REPS} x 2 tips x {SIM_CAL_SITES} sites at "
+          f"t = {SIM_CAL_T} (LG): "
+          f"mean p-distance {cal['mean']:.5f} against {expected:.5f} (err {cal['mean_err']:.5f}, "
+          f"bar {CAL_MEAN_TOL}), worst replicate {cal['worst_rep_err']:.5f} (bar {CAL_REP_TOL}); "
+          f"four tips: d(A,B) {num['topology']['AB']:.4f} < d(A,C) {num['topology']['AC']:.4f}")
+    if not (cal["mean_err"] <= CAL_MEAN_TOL and cal["worst_rep_err"] <= CAL_REP_TOL):
+        fail("calibration: p-distance off the analytic LG value")
+    if not num["topology"]["AB"] < num["topology"]["AC"]:
+        fail("calibration: no topology signal on four tips")
+
+    lap("calibration")
+    # 6. the sampler on the device's generator
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    logits = torch.log(torch.as_tensor(SKEWED, dtype=torch.float32, device=device))
+    counts = torch.bincount(gumbel_argmax(logits.expand(SIM_DRAWS, 20), gen), minlength=20)
+    freq = counts.cpu().numpy() / SIM_DRAWS
+    z = np.abs(freq - SKEWED) / np.sqrt(SKEWED * (1 - SKEWED) / SIM_DRAWS)
+    num["sampler_max_z"] = float(z.max())
+    print(f"sim: Gumbel-argmax, {SIM_DRAWS} draws of 20 states: worst state "
+          f"{num['sampler_max_z']:.2f} standard errors off (bar {SAMPLER_SE})")
+    if not num["sampler_max_z"] < SAMPLER_SE:
+        fail("sampler: a state's frequency off its probability")
+
+    lap("sampler")
+    # 7. duplicate rejection: zero-length branches fail every attempt
+    dup_trees, dup_out = os.path.join(root, "trees_dup"), os.path.join(root, "msa_dup")
+    os.makedirs(dup_trees)
+    with open(os.path.join(dup_trees, "zero.nwk"), "w") as fh:
+        fh.write("((A:0,B:0):0,C:0);\n")
+    res, attempts = simulate_msas_device([read_newick(os.path.join(dup_trees, "zero.nwk"))],
+                                         MsaSimConfig(length=50), np.random.default_rng(6),
+                                         device=device)
+    rc, err = run_cli(cli_msa.main, [dup_trees, dup_out, "--engine", "device", "--length", "50",
+                                     "--seed", str(SEED)])
+    summary = (f"1 simulations failed:\n  ('{os.path.join(dup_trees, 'zero.nwk')}', "
+               f"{SIM_MAX_ATTEMPTS})\n")
+    num["duplicates"] = {"attempts": attempts[0], "cli_rc": rc}
+    print(f"sim: duplicate rejection on a zero-length tree: {attempts[0]} attempts, "
+          f"the CLI exits {rc}: {err.strip()!r}")
+    if not (res[0] is None and attempts == [SIM_MAX_ATTEMPTS] and rc == 1 and err == summary):
+        fail("duplicate rejection: expected every attempt to fail and the failure summary")
+
+    lap("duplicates")
+    # 8. coevolution (host code) on a few trees
+    coev_trees, coev_out = os.path.join(root, "trees_coev"), os.path.join(root, "msa_coev")
+    tree_subset(trees_dir, coev_trees, SIM_COEV_TREES)
+    t = time.perf_counter()
+    rc, err = run_cli(cli_coevolution.main, [coev_trees, coev_out, "--seed", str(SEED)])
+    num["coevolution_s"] = time.perf_counter() - t
+    if rc != 0:
+        fail(f"pf-simulate-coevolution-torch: rc {rc}: {err[-2000:]}")
+    read_alignments(coev_out, SIM_TIPS, 500, "coevolution", distinct=False)  # no rejection there
+    print(f"sim: pf-simulate-coevolution-torch on {SIM_COEV_TREES} x {SIM_TIPS} tips x 500 "
+          f"residues: {num['coevolution_s']:.3f} s")
+    lap("coevolution")
+    num["phase_s"] = sum(split.values())
+    print(f"sim: phase {num['phase_s']:.1f} s: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    return num
+
+
 SOURCE = "phyloformer_tpu_torch/ops/kernels/csrc/"
 # name: (source, TPU kernel it replaces)
 KERNELS = {
@@ -3364,6 +3784,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sharded", action="store_true",
                     help="only build the kernels and run the sharded phase")
     ap.add_argument("--sharded-worker", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--sim", action="store_true",
+                    help="only run the simulator phase (no kernel is built)")
     opts = ap.parse_args(argv)
     reductions_only = opts.reductions
     sys.path.insert(0, ROOT)
@@ -3387,6 +3809,9 @@ def main(argv=None) -> int:
     card = gpu_line()
     print(card)
     kind = torch.cuda.get_device_name(0)
+    if opts.sim:
+        print(json.dumps({"sim": sim_phase(device, card), "card": card}))
+        return 0
 
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -3544,6 +3969,7 @@ def main(argv=None) -> int:
                        mp["head_refs"], mp["aln_per_s"], mp["dist_err"])
     torch.cuda.empty_cache()
     sh = sharded_phase(device, card, mp["head_alns"])
+    sm = sim_phase(device, card)
     for name, err in sh["errs"].items():
         results[name]["sharded_max_rel_err"] = err
     train_launches = {k: sum(run[k] for run in tr["runs"] + sp["runs"] + sh["runs"])
@@ -3593,7 +4019,8 @@ def main(argv=None) -> int:
         "long_one_pass_aln_per_s": rp["long"]["aln_per_s"],
         "fast_path_err": {x: rp[x]["random"] + rp[x]["evolved"] for x in ("float32", "bfloat16")},
         "accuracy_grid": rp["grid"]["rows"],
-        "training": tr["numbers"], "serving": sp["numbers"], "sharded": sh["numbers"]}
+        "training": tr["numbers"], "serving": sp["numbers"], "sharded": sh["numbers"],
+        "sim": sm}
     if any(k["launches"] <= 0 for k in line["kernels"]):
         fail("a kernel of the paths was not launched on them")
     print(json.dumps(line))

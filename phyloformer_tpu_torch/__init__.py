@@ -20,6 +20,8 @@ Subpackages
 - ``train``:   losses, schedule, train/eval steps, data loading, the fit
                loop and the ``pf-train-torch`` CLI.
 - ``trees``:   neighbour joining and the native BME/NNI/SPR binding.
+- ``sim``:     tree and alignment simulators (birth-death, LG+G, indels,
+               Gillespie coevolution; the batched evolver on the card).
 """
 
 from .version import __version__

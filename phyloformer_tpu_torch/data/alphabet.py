@@ -36,3 +36,9 @@ def encode_bytes(seq: bytes, strict: bool = True) -> np.ndarray:
     elif (codes < 0).any():
         raise ValueError("unencodable residue byte in sequence")
     return codes.astype(np.int8)
+
+
+def decode_codes(codes: np.ndarray) -> bytes:
+    """Inverse of :func:`encode_bytes`."""
+    table = np.frombuffer(ALPHABET, dtype=np.uint8)
+    return table[np.asarray(codes, dtype=np.int64)].tobytes()

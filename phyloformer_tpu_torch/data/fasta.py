@@ -1,4 +1,4 @@
-"""FASTA reading for protein MSAs.
+"""FASTA reading and writing for protein MSAs.
 
 Ids are the full header text after ``>``; sequences may span several lines;
 all sequences must have the same length.  :func:`read_fasta` returns integer
@@ -7,13 +7,14 @@ codes ``(n, L)``, the compact form the inference engine ships to the device.
 
 from __future__ import annotations
 
+import io
 import os
 from dataclasses import dataclass
 from typing import List, Union
 
 import numpy as np
 
-from .alphabet import encode_bytes
+from .alphabet import decode_codes, encode_bytes
 
 
 @dataclass
@@ -63,6 +64,21 @@ def read_fasta(path_or_bytes: Union[str, os.PathLike, bytes], strict: bool = Tru
         raise ValueError(f"unaligned FASTA: sequence lengths differ ({sorted(lengths)})")
 
     return Alignment(codes=np.stack(seqs).astype(np.int8), ids=ids)
+
+
+def write_fasta(path: Union[str, os.PathLike], aln: Alignment, width: int = 0) -> None:
+    """Write an alignment back to FASTA (width=0 means one line per sequence)."""
+    buf = io.StringIO()
+    for taxon, row in zip(aln.ids, aln.codes):
+        buf.write(f">{taxon}\n")
+        seq = decode_codes(row).decode("ascii")
+        if width and width > 0:
+            for start in range(0, len(seq), width):
+                buf.write(seq[start : start + width] + "\n")
+        else:
+            buf.write(seq + "\n")
+    with open(path, "w") as fh:
+        fh.write(buf.getvalue())
 
 
 def has_fasta_ext(path: Union[str, os.PathLike]) -> bool:

@@ -1,5 +1,6 @@
 """Newick trees: the node used by the tree builders and its printer, the
-parser, and patristic distances (the training targets).
+parser, patristic distances (the training targets) and the tree diameter
+(the simulators' rescaling target).
 
 Supported newick syntax: nested parens, leaf/internal labels, quoted labels
 (``'...'`` with ``''`` escape), branch lengths (``:1.23e-4``), comments in
@@ -234,3 +235,20 @@ def patristic_vector(root: Node, order: Sequence[str]) -> np.ndarray:
     mat, _ = patristic_matrix(root, order)
     iu = np.triu_indices(mat.shape[0], k=1)
     return mat[iu].astype(np.float32)
+
+
+def tree_diameter(root: Node) -> float:
+    """Largest leaf-to-leaf patristic distance (cf. the reference's
+    double-BFS ``tree_diam`` in ``simulate_trees.py``)."""
+    best = 0.0
+    carry: Dict[int, float] = {}
+    for node in root.traverse_postorder():
+        if node.is_leaf:
+            carry[id(node)] = 0.0
+            continue
+        depths = [carry.pop(id(c)) + (c.length or 0.0) for c in node.children]
+        depths.sort(reverse=True)
+        if len(depths) >= 2:
+            best = max(best, depths[0] + depths[1])
+        carry[id(node)] = depths[0] if depths else 0.0
+    return best

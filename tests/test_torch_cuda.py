@@ -10,9 +10,10 @@ reach: a site axis that ends in a partial tile, fewer pairs than blocks, a
 batch element with every sequence but two masked, batch size one, a single
 pair.  The fused kernels (A, B, A1, A2) are checked on site axes above 1024
 (the L-tiled forward) and below it (the two-kernel forward), and so is the
-backward (C, D and E below; C, D, E1 and E2 above).  The kernels
-sum in another order than the plain versions (tiles, blocks, the one-pass
-ctx = Σk·v/Σk): tolerance 2e-5 relative to max(1, max|ref|) per kernel,
+backward (C, D and E below; C, D, E1 and E2 above).  The batched simulator
+(``sim/device.py``, plain PyTorch, no kernel of its own) runs once at 8 x
+20 tips x 300 sites.  The kernels sum in another order than the plain
+versions (tiles, blocks, the one-pass ctx = Σk·v/Σk): tolerance 2e-5 relative to max(1, max|ref|) per kernel,
 1e-4 on distances after six blocks against the eager model.  The two slot
 reductions sum in the order of their launch plan, so they are held to their
 ordered twin bit for bit.
@@ -869,3 +870,41 @@ def test_two_gloo_ranks_on_card_match_single_process(sharded_results):
     np.testing.assert_array_equal(outs[0], outs[1])
     for r in res:
         assert r["err"] <= 2e-5 and r["launched"] == 12, r
+
+
+_SIM_CODE = """
+import json
+import numpy as np
+from phyloformer_tpu_torch.sim.device import simulate_msas_device
+from phyloformer_tpu_torch.sim.msa import MsaSimConfig
+from phyloformer_tpu_torch.sim.trees import TreeSimConfig, simulate_tree
+
+tree_rng = np.random.default_rng(3)
+trees = [simulate_tree(tree_rng, TreeSimConfig(ntips=20)) for _ in range(8)]
+cfg = MsaSimConfig(length=300, gamma="GC")
+runs = [simulate_msas_device(trees, cfg, np.random.default_rng(11), batch_size=8)
+        for _ in range(2)]
+(alns, attempts), (again, _) = runs
+print(json.dumps({
+    "shapes": [list(a.codes.shape) if a is not None else None for a in alns],
+    "distinct_rows": [len({r.tobytes() for r in a.codes}) if a is not None else 0
+                      for a in alns],
+    "attempts": attempts,
+    "same_bytes": all(a is not None and b is not None and a.codes.tobytes() == b.codes.tobytes()
+                      and a.ids == b.ids
+                      for a, b in zip(alns, again))}))
+"""
+
+
+def test_device_simulator_on_card(card):
+    """simulate_msas_device on the card at 8 x 20 tips x 300 sites (GC):
+    every alignment 20 x 300 with distinct rows, and the same bytes from a
+    second run at the same seed."""
+    r = subprocess.run([sys.executable, "-c", _SIM_CODE], capture_output=True, text=True,
+                       cwd=str(REPO), timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    assert res["shapes"] == [[20, 300]] * 8
+    assert res["distinct_rows"] == [20] * 8
+    assert all(1 <= a <= 20 for a in res["attempts"])
+    assert res["same_bytes"]
