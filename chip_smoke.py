@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--reductions | --reduced | --sharded | --sim]
+    python3 chip_smoke.py [--reductions | --reduced | --sharded | --sim | --trees]
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written CUDA kernels from this checkout's sources (one
@@ -151,7 +151,25 @@
    the card's generator; duplicate rejection on a zero-length tree (every
    attempt fails, the CLI's failure summary);
    ``pf-simulate-coevolution-torch`` on 4 trees;
-14. prints the ``kernels`` JSON line (with the row of ``_kernel_b_host``)
+14. the tree toolkit end to end (``--trees``: only this, after the build):
+   64 birth-death trees of 50 tips (``pf-simulate-trees-torch``, seed
+   1234) and 500-site LG alignments evolved on them on the card
+   (``--engine device``; those that pass the duplicate check), then
+   ``pf-bench-torch pipeline pf_mre_r5.ckpt`` on the kernel route (its
+   launches those of the engine's plan) and on the eager fp32 route (TF32
+   off, no launch): each exits 0 and writes model_load, data_load,
+   inference and a fastme and a compare row per alignment, ``mean_kf``
+   finite, the two routes' distances within ``DIST_TOL``, their trees of
+   another topology in at most ``TREES_MAX_FLIPS``; printed without a bar:
+   the inference stage's aln/s, ms a tree of fastme and compare, mean KF
+   and normalised RF of the Phyloformer trees and of
+   ``hamming_fastme_tree`` (Poisson) on the same alignments; then the host
+   CLIs on the kernel route's matrices, each exiting 0:
+   ``pf-tree-torch fastme-dir -j 4`` (the pipeline's trees) and
+   ``compare`` (its KF), ``mlrefine`` and ``likelihood`` on 2 alignments,
+   ``pf-msa-torch stats`` and ``dedup``, ``pf-bench-torch report`` (the
+   pipeline's mean KF);
+15. prints the ``kernels`` JSON line (with the row of ``_kernel_b_host``)
    and the throughputs, then, as its last line, ``{"ok": true, "device":
    {...}}``.
 
@@ -2856,18 +2874,22 @@ def w_layer(w, k):
     return BlockWeights(w.row[k], w.col[k], w.b[k])
 
 
-def free_port():
-    import socket
+def rendezvous():
+    """The ranks' rendezvous store (``TCPStore``), hosted by this process on a
+    port it binds itself (port 0) and holds while the caller keeps the store:
+    the ranks join it as clients, as under torchrun's agent store, so no rank
+    binds a port and none can find it taken between its choice and its bind."""
+    from torch import distributed as dist
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    return dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False)
 
 
-def rank_env(rank, world, port):
-    """torchrun's env:// variables for ``rank`` of ``world`` on the one card."""
+def rank_env(rank, world, store):
+    """torchrun's env:// variables for ``rank`` of ``world`` on the one card,
+    joining ``store`` (:func:`rendezvous`) as a client."""
     return {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
-            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(store.port),
+            "TORCHELASTIC_USE_AGENT_STORE": "True", "TORCHELASTIC_RESTART_COUNT": "0"}
 
 
 def wait_ranks(procs, timeout, what):
@@ -3103,10 +3125,10 @@ def sharded_serving(bodies):
     from phyloformer_tpu_torch.serve import cli as serve_cli
 
     flags = [CKPT, "--port", "0", "--host", "127.0.0.1"]
-    port = free_port()
+    store = rendezvous()  # held until the ranks are waited for
     procs = [subprocess.Popen([sys.executable, "-m", "phyloformer_tpu_torch.serve.cli"] + flags
                               + ["--distributed-init", "gloo", "--mesh-pair", "2"], cwd=ROOT,
-                              env=rank_env(r, 2, port), stdout=subprocess.PIPE,
+                              env=rank_env(r, 2, store), stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for r in range(2)]
     try:
         line = ""
@@ -3136,13 +3158,14 @@ def sharded_serving(bodies):
     return sharded, single, wall
 
 
-def nccl_cli(alns_dir, out_dir):
+def nccl_cli(alns_dir, out_dir, store):
     """``pf-infer-torch --distributed-init --mesh-data 1`` at world size 1:
-    the process group on nccl, on the card (started, not waited for)."""
+    the process group on nccl, on the card, joining ``store`` (started, not
+    waited for)."""
     return subprocess.Popen(
         [sys.executable, "-m", "phyloformer_tpu_torch.infer.cli", CKPT, alns_dir, "-o", out_dir,
          "--distributed-init", "--mesh-data", "1", "--stats"], cwd=ROOT,
-        env=rank_env(0, 1, free_port()), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env=rank_env(0, 1, store), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
 
 
@@ -3204,10 +3227,10 @@ def sharded_phase(device, card, head_alns):
     os.makedirs(os.path.join(nccl_dir, "alns"))
     for k, a in enumerate(head[:4]):
         write_fasta(os.path.join(nccl_dir, "alns", f"a{k}.fa"), a.codes, k)
-    nccl = nccl_cli(os.path.join(nccl_dir, "alns"), os.path.join(nccl_dir, "out"))
-    port = free_port()
+    nccl_store, store = rendezvous(), rendezvous()  # held until the ranks are waited for
+    nccl = nccl_cli(os.path.join(nccl_dir, "alns"), os.path.join(nccl_dir, "out"), nccl_store)
     workers = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-worker",
-                                 job], cwd=ROOT, env=rank_env(r, 2, port),
+                                 job], cwd=ROOT, env=rank_env(r, 2, store),
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                for r in range(2)]
     wait_ranks(workers, 600, "sharded workers")
@@ -3747,6 +3770,255 @@ def sim_phase(device, card):
     return num
 
 
+TREES_N, TREES_TIPS, TREES_SITES = 64, 50, 500  # the reference's training size
+TREES_MAX_FLIPS = 2  # of TREES_N: trees of the two routes' matrices whose topology differs
+TREES_ML = 2  # alignments through pf-tree-torch mlrefine and likelihood
+
+
+@contextlib.contextmanager
+def recording_pipeline(seen):
+    """Record what ``pf-bench-torch pipeline`` computes in this process: the
+    engine's distance vectors, the native trees and their comparisons, in
+    call order, into ``seen["preds"]``, ``["trees"]`` and ``["cmp"]``."""
+    from phyloformer_tpu_torch.infer.engine import InferenceEngine
+    from phyloformer_tpu_torch.trees import native
+
+    predict, build, compare = (InferenceEngine.predict, native.build_tree_from_phylip,
+                               native.compare_newick)
+
+    def rec_predict(self, alns):
+        out = predict(self, alns)
+        seen["preds"] += out
+        return out
+
+    def rec_build(phy, *args):
+        seen["trees"].append(build(phy, *args))
+        return seen["trees"][-1]
+
+    def rec_compare(a, b, *args):
+        seen["cmp"].append(compare(a, b, *args))
+        return seen["cmp"][-1]
+
+    InferenceEngine.predict, native.build_tree_from_phylip, native.compare_newick = (
+        rec_predict, rec_build, rec_compare)
+    try:
+        yield seen
+    finally:
+        InferenceEngine.predict, native.build_tree_from_phylip, native.compare_newick = (
+            predict, build, compare)
+
+
+def host_cli(module, args):
+    """``python -m module args`` (a host CLI of the port, which loads no
+    torch) started in a process of its own; returns the Popen."""
+    return subprocess.Popen([sys.executable, "-m", module] + args, cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def host_cli_wait(proc, what, timeout=300):
+    """(stdout, stderr) of a :func:`host_cli` process; fails unless it exits 0."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        fail(f"{what}: exit {proc.returncode}: {err[-2000:]}")
+    return out, err
+
+
+def trees_phase(device, card):
+    """The tree toolkit end to end (item 14 of the module's docstring).
+    Returns the phase's numbers and the kernel launches of its kernel-route
+    pipeline run."""
+    import torch
+
+    from phyloformer_tpu_torch.bench import cli as bench_cli
+    from phyloformer_tpu_torch.data.fasta import read_fasta
+    from phyloformer_tpu_torch.data.newick import parse_newick
+    from phyloformer_tpu_torch.data.phylip import vec_to_phylip
+    from phyloformer_tpu_torch.infer.engine import InferenceEngine
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+    from phyloformer_tpu_torch.sim import cli_msa, cli_trees
+    from phyloformer_tpu_torch.trees.baselines import hamming_fastme_tree
+    from phyloformer_tpu_torch.trees.native import compare_newick
+
+    root = os.path.join(WORK, "trees")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    num = {"card": card}
+    split = num["split_s"] = {}
+    mark = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        split[name] = now - mark[0]
+        mark[0] = now
+
+    # inputs: birth-death trees, LG alignments evolved on them on the card
+    trees_dir, alns_dir = os.path.join(root, "true"), os.path.join(root, "alns")
+    rc, err = run_cli(cli_trees.main, ["-n", str(TREES_N), "-t", str(TREES_TIPS), "-o",
+                                       trees_dir, "--seed", str(SEED)])
+    if rc != 0:
+        fail(f"trees: pf-simulate-trees-torch: rc {rc}: {err[-2000:]}")
+    rc, err = run_cli(cli_msa.main, [trees_dir, alns_dir, "--engine", "device", "--length",
+                                     str(TREES_SITES), "--seed", str(SEED), "--device",
+                                     device.type])
+    written, failed = cli_outcome(rc, err, trees_dir, alns_dir,
+                                  f"trees: --engine device on {TREES_N} trees")
+    stems = sorted(written)
+    n = num["alignments"] = len(stems)
+    num["failed"] = len(failed)
+    if n < TREES_N // 2:
+        fail(f"trees: only {n} of {TREES_N} alignments passed the duplicate check")
+    alns = [read_fasta(os.path.join(alns_dir, s + ".fa")) for s in stems]
+    lap("inputs")
+
+    params, cfg, _ = load_pretrained(CKPT)
+    expected = expected_launches(InferenceEngine(params, cfg, device="cpu")._plan(alns),
+                                 cfg.n_blocks, pipe.pipeline_supported)
+    runs = {}
+    for route, flags in (("kernels", []), ("eager", ["--eager"])):
+        seen = {"preds": [], "trees": [], "cmp": []}
+        csv_path = os.path.join(root, f"exec_{route}.csv")
+        out = io.StringIO()
+        with recording_pipeline(seen), contextlib.redirect_stdout(out):
+            pipe.reset_launch_counts()
+            rc = bench_cli.main(["pipeline", CKPT, alns_dir, "--true-trees", trees_dir, "-o",
+                                 csv_path, "--device", device.type] + flags)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            seen["launches"] = dict(pipe.LAUNCHES)
+        if rc != 0:
+            fail(f"trees: pf-bench-torch pipeline ({route}) exited {rc}")
+        seen["summary"] = json.loads(out.getvalue())
+        with open(csv_path) as fh:
+            seen["rows"] = [ln.split(",") for ln in fh.read().splitlines()[1:]]
+        runs[route] = seen
+        lap(f"pipeline_{route}")
+    ker, eag = runs["kernels"], runs["eager"]
+
+    # what each run wrote and computed
+    for route, r in runs.items():
+        rows = r["rows"]
+        if ([x[0] for x in rows[:3]] != ["model_load", "data_load", "inference"]
+                or [x[2] for x in rows if x[0] == "fastme"] != stems
+                or [x[2] for x in rows if x[0] == "compare"] != stems or len(rows) != 3 + 2 * n):
+            fail(f"trees: pipeline ({route}): the CSV's rows are not model_load, data_load, "
+                 f"inference, then a fastme and a compare row per alignment")
+        if not (len(r["preds"]) == len(r["trees"]) == len(r["cmp"]) == n
+                and all(np.isfinite(p).all() for p in r["preds"])
+                and math.isfinite(r["summary"].get("mean_kf", math.nan))):
+            fail(f"trees: pipeline ({route}): missing or non-finite distances or mean_kf")
+        r["stage_s"] = {t: [float(x[3]) for x in rows if x[0] == t]
+                        for t in ("model_load", "inference", "fastme", "compare")}
+    if ker["launches"] != expected:
+        fail(f"trees: the kernel route's launches {ker['launches']} differ from the plan's "
+             f"{expected}")
+    if any(eag["launches"].values()):
+        fail(f"trees: the eager route launched kernels: {eag['launches']}")
+    dist_err = max(rel_err(a, b) for a, b in zip(ker["preds"], eag["preds"]))
+    flips = sum(compare_newick(a, b).rf != 0 for a, b in zip(ker["trees"], eag["trees"]))
+    num.update(dist_err=dist_err, flips=flips, launches=ker["launches"])
+
+    # findings: the rates, and the Phyloformer trees beside the Hamming baseline's
+    true = {s: open(os.path.join(trees_dir, s + ".nwk")).read() for s in stems}
+    t = time.perf_counter()
+    ham = [compare_newick(true[s], hamming_fastme_tree(a)) for s, a in zip(stems, alns)]
+    num["hamming_ms_per_tree"] = 1e3 * (time.perf_counter() - t) / n
+    for route, r in runs.items():
+        st = r["stage_s"]
+        num[route] = {
+            "inference_aln_per_s": n / st["inference"][0], "model_load_s": st["model_load"][0],
+            "fastme_ms_per_tree": 1e3 * statistics.mean(st["fastme"]),
+            "compare_ms_per_tree": 1e3 * statistics.mean(st["compare"]),
+            "mean_kf": r["summary"]["mean_kf"],
+            "mean_norm_rf": statistics.mean(c.norm_rf for c in r["cmp"])}
+    num["hamming"] = {"mean_kf": statistics.mean(c.kf for c in ham),
+                      "mean_norm_rf": statistics.mean(c.norm_rf for c in ham)}
+    lap("checks_and_hamming")
+
+    # the host CLIs on the kernel route's matrices and trees
+    mats, built = os.path.join(root, "mats"), os.path.join(root, "built")
+    os.makedirs(mats)
+    for s, a, vec in zip(stems, alns, ker["preds"]):
+        with open(os.path.join(mats, s + ".phy"), "w") as fh:
+            fh.write(vec_to_phylip(vec.astype(np.float64), a.ids)[1])
+    for s, nwk in zip(stems, ker["trees"]):
+        with open(os.path.join(root, s + ".pf.nwk"), "w") as fh:
+            fh.write(nwk + "\n")
+    tree_cli, msa_cli = "phyloformer_tpu_torch.trees.cli", "phyloformer_tpu_torch.data.cli_msa_tools"
+    ml = [(host_cli(tree_cli, ["mlrefine", os.path.join(alns_dir, s + ".fa"),
+                               os.path.join(root, s + ".pf.nwk"), "-o",
+                               os.path.join(root, s + ".ml.nwk")]),
+           host_cli(tree_cli, ["likelihood", os.path.join(alns_dir, s + ".fa"),
+                               os.path.join(root, s + ".pf.nwk")])) for s in stems[:TREES_ML]]
+    first = os.path.join(alns_dir, stems[0] + ".fa")
+    host_cli_wait(host_cli(tree_cli, ["fastme-dir", mats, built, "-j", "4", "--nni", "--spr"]),
+                  "pf-tree-torch fastme-dir")
+    for s, nwk in zip(stems, ker["trees"]):
+        if open(os.path.join(built, s + ".nwk")).read() != nwk + "\n":
+            fail(f"trees: pf-tree-torch fastme-dir built another tree than the pipeline for {s}")
+    host_cli_wait(host_cli(tree_cli, ["compare", trees_dir, built, "-o",
+                                      os.path.join(root, "cmp.csv")]), "pf-tree-torch compare")
+    with open(os.path.join(root, "cmp.csv")) as fh:
+        cmp_rows = [ln.split(",") for ln in fh.read().splitlines()[1:]]
+    if [(x[0], x[4]) for x in cmp_rows] != [(s, f"{c.kf:g}") for s, c in zip(stems, ker["cmp"])]:
+        fail("trees: pf-tree-torch compare's KF differs from the pipeline's")
+    stats, _ = host_cli_wait(host_cli(msa_cli, ["stats", first]), "pf-msa-torch stats")
+    stats = json.loads(stats)
+    if (stats["n_seqs"], stats["seq_len"], stats["n_duplicate_seqs"]) != (TREES_TIPS,
+                                                                         TREES_SITES, 0):
+        fail(f"trees: pf-msa-torch stats: {stats}")
+    dedup = os.path.join(root, "dedup.fa")
+    host_cli_wait(host_cli(msa_cli, ["dedup", first, "-o", dedup]), "pf-msa-torch dedup")
+    if not np.array_equal(read_fasta(dedup).codes, alns[0].codes):
+        fail("trees: pf-msa-torch dedup changed an alignment without duplicates")
+    rep_out, _ = host_cli_wait(host_cli("phyloformer_tpu_torch.bench.cli", [
+        "report", trees_dir, mats, built, "-o", os.path.join(root, "report")]),
+        "pf-bench-torch report")
+    rep = json.loads(rep_out)
+    if rep["topo"]["n_trees"] != n or rep["topo"]["mean_kf"] != ker["summary"]["mean_kf"]:
+        fail(f"trees: pf-bench-torch report's mean KF {rep['topo']} is not the pipeline's")
+    num["ml"] = []
+    for s, a, (mlp, llp) in zip(stems, alns, ml):
+        _, err = host_cli_wait(mlp, "pf-tree-torch mlrefine")
+        ll_ml = json.loads(err.strip().splitlines()[-1])["log_likelihood"]
+        ll_pf = json.loads(host_cli_wait(llp, "pf-tree-torch likelihood")[0])["log_likelihood"]
+        leaves = parse_newick(open(os.path.join(root, s + ".ml.nwk")).read()).leaf_names()
+        if not (math.isfinite(ll_ml) and math.isfinite(ll_pf)
+                and sorted(leaves) == sorted(a.ids)):
+            fail(f"trees: pf-tree-torch mlrefine / likelihood on {s}: {ll_ml}, {ll_pf}")
+        num["ml"].append({"id": s, "ll_pf_tree": ll_pf, "ll_refined": ll_ml})
+    lap("host_clis")
+    num["phase_s"] = sum(split.values())
+
+    kr, er, hr = num["kernels"], num["eager"], num["hamming"]
+    print(f"trees: {n} of {TREES_N} alignments of {TREES_TIPS} x {TREES_SITES} (LG, evolved on "
+          f"the card; {len(failed)} trees with duplicate rows after {SIM_MAX_ATTEMPTS} "
+          f"attempts); pf-bench-torch pipeline, kernels: inference "
+          f"{kr['inference_aln_per_s']:.2f} aln/s, fastme {kr['fastme_ms_per_tree']:.2f} ms a "
+          f"tree, compare {kr['compare_ms_per_tree']:.3f} ms a tree; eager fp32 (TF32 off): "
+          f"inference {er['inference_aln_per_s']:.2f} aln/s [{card}]")
+    print(f"trees: the two routes' distances within {dist_err:.3e} of max(1, max|eager|) (tol "
+          f"{DIST_TOL:.0e}); {flips} of {n} trees of another topology (bar {TREES_MAX_FLIPS}); "
+          f"launches {ker['launches']}")
+    print(f"trees: mean KF {kr['mean_kf']:.5f}, mean normalised RF {kr['mean_norm_rf']:.5f} "
+          f"(Phyloformer, pf_mre_r5); Hamming (Poisson) + BME: {hr['mean_kf']:.5f}, "
+          f"{hr['mean_norm_rf']:.5f} ({num['hamming_ms_per_tree']:.2f} ms a tree); mlrefine on "
+          f"{TREES_ML}: " + ", ".join(f"{m['ll_pf_tree']:.2f} -> {m['ll_refined']:.2f}"
+                                        for m in num["ml"]))
+    print(f"trees: phase {num['phase_s']:.1f} s: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    if not dist_err <= DIST_TOL:
+        fail("trees: the kernel route's distances disagree with the eager fp32 model's")
+    if flips > TREES_MAX_FLIPS:
+        fail(f"trees: {flips} trees of the two routes differ in topology")
+    return num, ker["launches"]
+
+
 SOURCE = "phyloformer_tpu_torch/ops/kernels/csrc/"
 # name: (source, TPU kernel it replaces)
 KERNELS = {
@@ -3786,6 +4058,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sharded-worker", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--sim", action="store_true",
                     help="only run the simulator phase (no kernel is built)")
+    ap.add_argument("--trees", action="store_true",
+                    help="only build the kernels and run the tree-toolkit phase")
     opts = ap.parse_args(argv)
     reductions_only = opts.reductions
     sys.path.insert(0, ROOT)
@@ -3820,6 +4094,11 @@ def main(argv=None) -> int:
     for line in _build.ptxas_log.splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+
+    if opts.trees:
+        tp, _ = trees_phase(device, card)
+        print(json.dumps({"trees": tp, "card": card}))
+        return 0
 
     if opts.sharded:
         from phyloformer_tpu_torch.data.fasta import Alignment
@@ -3970,6 +4249,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     sh = sharded_phase(device, card, mp["head_alns"])
     sm = sim_phase(device, card)
+    tp, trees_launches = trees_phase(device, card)
     for name, err in sh["errs"].items():
         results[name]["sharded_max_rel_err"] = err
     train_launches = {k: sum(run[k] for run in tr["runs"] + sp["runs"] + sh["runs"])
@@ -3985,7 +4265,7 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda", "source": SOURCE + KERNELS[name][0],
          "replaces": KERNELS[name][1],
          "launches": (mp["launches"][name] + launches2[name] + train_launches[name]
-                      + fast_launches[name]),
+                      + fast_launches[name] + trees_launches[name]),
          "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
          "tolerance": E12_TOL if name in ("kernel_e1", "kernel_e2") else KERNEL_TOL,
          "ms": r["ms"],
@@ -4020,7 +4300,7 @@ def main(argv=None) -> int:
         "fast_path_err": {x: rp[x]["random"] + rp[x]["evolved"] for x in ("float32", "bfloat16")},
         "accuracy_grid": rp["grid"]["rows"],
         "training": tr["numbers"], "serving": sp["numbers"], "sharded": sh["numbers"],
-        "sim": sm}
+        "sim": sm, "trees": tp}
     if any(k["launches"] <= 0 for k in line["kernels"]):
         fail("a kernel of the paths was not launched on them")
     print(json.dumps(line))

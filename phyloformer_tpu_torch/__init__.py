@@ -10,7 +10,7 @@ find.  The package imports ``torch`` and numpy, never ``jax`` and nothing of
 Subpackages
 -----------
 - ``data``:    FASTA/PHYLIP codecs, pair indexing, newick trees and
-               patristic distances.
+               patristic distances; the MSA tools (``pf-msa-torch``).
 - ``models``:  configuration, parameter trees, the eager fp32 model.
 - ``io``:      reference ``.ckpt`` import, training checkpoints, ``.npz``
                parameter files.
@@ -19,7 +19,11 @@ Subpackages
 - ``infer``:   bucketed batched inference engine and the ``pf-infer`` CLI.
 - ``train``:   losses, schedule, train/eval steps, data loading, the fit
                loop and the ``pf-train-torch`` CLI.
-- ``trees``:   neighbour joining and the native BME/NNI/SPR binding.
+- ``trees``:   neighbour joining, the native BME/NNI/SPR builder and tree
+               metrics, likelihoods, ML refinement, baselines, and
+               ``pf-tree-torch`` (host code).
+- ``bench``:   the accuracy grid, throughput, and the end-to-end pipeline
+               harness, reports and figures (``pf-bench-torch``).
 - ``sim``:     tree and alignment simulators (birth-death, LG+G, indels,
                Gillespie coevolution; the batched evolver on the card).
 """

@@ -2,7 +2,8 @@ from .alphabet import ALPHABET, ALPHABET_SIZE, GAP_CODE, decode_codes, encode_by
 from .fasta import Alignment, has_fasta_ext, read_fasta, write_fasta
 from .newick import (Node, parse_newick, patristic_matrix, patristic_vector, read_newick,
                      tree_diameter)
-from .pairs import n_pairs, pair_indices, vector_to_square
+from .msa_tools import concat, dedup, remove_gap_columns, sample, subset, trim
+from .pairs import n_pairs, pair_indices, square_to_vector, vector_to_square
 from .phylip import matrix_to_phylip, read_phylip, vec_to_phylip
 
 __all__ = [
@@ -23,6 +24,7 @@ __all__ = [
     "read_fasta",
     "read_newick",
     "read_phylip",
+    "square_to_vector",
     "tree_diameter",
     "vec_to_phylip",
     "vector_to_square",

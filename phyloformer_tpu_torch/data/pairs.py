@@ -38,3 +38,10 @@ def vector_to_square(vec: np.ndarray, n_seqs: int) -> np.ndarray:
     square[..., i_idx, j_idx] = vec
     square[..., j_idx, i_idx] = vec
     return square
+
+
+def square_to_vector(mat: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`vector_to_square` (reads the upper triangle)."""
+    n = mat.shape[-1]
+    i_idx, j_idx = pair_indices(n)
+    return mat[..., i_idx, j_idx]

@@ -19,8 +19,12 @@ keeps fp32 storage and exact GELU, as in the JAX package.
 ``precision="bfloat16"`` rounds the parameters to bf16, as the JAX engine
 casts them.  On the kernel route the pipeline then takes JAX's bf16 stages
 (the embedding and block 0's pair sum and row LayerNorm at bf16, the rest
-fp32: :class:`..ops.kernels.pipeline.PipelineWeights`); the fused forward
-at bf16 is not yet ported.  ``use_kernels=False`` (JAX's ``use_pallas=False``)
+fp32: :class:`..ops.kernels.pipeline.PipelineWeights`).  The fused forward
+(above the pipeline's site limit, ``use_pipeline=False``, or sharded over
+pairs) refuses bf16 parameters: the JAX package's own fused forward raises
+on them (``phyloformer_tpu/ops/pallas/axial_block.py:276`` stores kernel A's
+fp32 x1 into a bf16 output), so there is no reference to hold such a route
+against.  ``use_kernels=False`` (JAX's ``use_pallas=False``)
 runs the eager model (:func:`..models.phyloformer.forward`) on the engine's
 device, in bf16 throughout at ``precision="bfloat16"``, with PyTorch's fp32
 products in one TF32 pass unless ``matmul_precision`` is "float32".
@@ -91,8 +95,13 @@ class InferenceConfig:
     use_kernels: bool = True
 
 
-def _not_ported(what: str) -> ValueError:
-    return ValueError(f"{what} is not yet ported, see ROADMAP.md")
+def _no_bf16_reference(route: str) -> ValueError:
+    return ValueError(
+        f"precision='bfloat16' on {route}: the JAX package's own fused forward raises on "
+        f"bf16 parameters (phyloformer_tpu/ops/pallas/axial_block.py:276 stores an fp32 x1 "
+        f"into a bf16 output), so the port has no reference to hold this route against; "
+        f"the pipeline (up to 1024 sites, 2048 at one TF32 pass) and the eager route "
+        f"(use_kernels=False) run bf16 parameters")
 
 
 def _bucketize(value: int, buckets: Sequence[int], allow_oversize: bool) -> int:
@@ -243,8 +252,7 @@ class InferenceEngine:
                 gelu_mode=self.icfg.pipeline_gelu, mxu_precision=self.mxu_precision,
                 act_dtype_name=self.icfg.pipeline_act_dtype)
         if self.icfg.precision != "float32":
-            raise _not_ported(f"precision={self.icfg.precision!r} on the fused forward "
-                              f"({pad_l} sites, above the pipeline's limit)")
+            raise _no_bf16_reference(f"the fused forward ({pad_l} sites)")
         return forward_fused(self.weights, codes, self.cfg, site_mask, seq_mask)
 
     def predict_one(self, aln: Alignment) -> np.ndarray:
@@ -294,8 +302,7 @@ class ShardedInferenceEngine(InferenceEngine):
         mesh, bsz, p = self.mesh, codes.shape[0], n_pairs(pad_n)
         if mesh.pair > 1 and self.icfg.use_kernels:
             if self.icfg.precision != "float32":
-                raise _not_ported(f"precision={self.icfg.precision!r} on the sharded fused "
-                                  f"forward")
+                raise _no_bf16_reference("the pair-sharded fused forward")
             return forward_fused_sharded(self.weights, codes, self.cfg, mesh, site_mask,
                                          seq_mask)[:, :p]
         rows = batch_slice(mesh, bsz)

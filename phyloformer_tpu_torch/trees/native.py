@@ -1,5 +1,6 @@
 """ctypes binding to the repository's native C++ tree toolkit (``native/``):
-the BME/NJ/BIONJ tree builder with balanced NNI and SPR.
+the BME/NJ/BIONJ tree builder with balanced NNI and SPR, and the tree
+metrics (RF, normalised and weighted RF, KF; the balanced tree length).
 
 The shared library is built on first use from ``native/src`` into this
 package's ``trees/build/`` (listed in ``.gitignore``), named by a hash of the
@@ -17,6 +18,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
@@ -74,6 +76,13 @@ def get_lib():
             ctypes.c_char_p, ctypes.c_int,
         ]
         lib.pftree_build.restype = ctypes.c_int
+        lib.pftree_compare.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_double),
+        ]
+        lib.pftree_compare.restype = ctypes.c_int
+        lib.pftree_pauplin_length.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+        lib.pftree_pauplin_length.restype = ctypes.c_double
         _lib = lib
     return _lib
 
@@ -100,3 +109,32 @@ def build_tree(
     spr: bool = True,
 ) -> str:
     return build_tree_from_phylip(matrix_to_phylip(matrix, ids), method, nni, spr)
+
+
+@dataclass
+class TreeComparison:
+    rf: float
+    norm_rf: float
+    weighted_rf: float
+    kf: float  # phylocompare's kf_score convention (internal bipartitions)
+    n_common: int
+
+
+def compare_newick(
+    nwk_a: str, nwk_b: str, include_external: bool = False
+) -> TreeComparison:
+    lib = get_lib()
+    out = (ctypes.c_double * 5)()
+    rc = lib.pftree_compare(nwk_a.encode(), nwk_b.encode(), int(include_external), out)
+    if rc != 0:
+        raise RuntimeError("pftree_compare failed (leaf sets differ or parse error)")
+    return TreeComparison(
+        rf=out[0], norm_rf=out[1], weighted_rf=out[2], kf=out[3], n_common=int(out[4])
+    )
+
+
+def pauplin_length(phylip_text: str, nwk: str) -> float:
+    """Balanced (Pauplin) length of the topology ``nwk`` under the PHYLIP
+    matrix ``phylip_text``; -1.0 where either does not parse."""
+    lib = get_lib()
+    return float(lib.pftree_pauplin_length(phylip_text.encode(), nwk.encode()))

@@ -27,6 +27,8 @@ import sys
 
 import pytest
 
+from torch_rendezvous import Rendezvous
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 pytestmark = pytest.mark.cuda
@@ -839,17 +841,12 @@ torch.distributed.destroy_process_group()
 
 @pytest.fixture(scope="module")
 def sharded_results(card, tmp_path_factory):
-    import socket
-
     tmp = tmp_path_factory.mktemp("sharded_card")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    env = {**os.environ, "WORLD_SIZE": "2", "LOCAL_RANK": "0",
-           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
-    procs = [subprocess.Popen([sys.executable, "-c", _SHARDED_CODE, str(tmp)], cwd=str(REPO),
-                              env={**env, "RANK": str(r)}, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    with Rendezvous() as rdv:
+        procs = [rdv.popen([sys.executable, "-c", _SHARDED_CODE, str(tmp)], r, 2,
+                           env={**os.environ, "LOCAL_RANK": "0"}, cwd=str(REPO),
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(2)]
     outs = [p.communicate(timeout=600) for p in procs]
     for p, (_, err) in zip(procs, outs):
         assert p.returncode == 0, err[-4000:]

@@ -101,7 +101,8 @@ print(json.dumps(res))
 
 def test_unported_knobs_raise():
     """bf16 parameters on the fused forward (above the pipeline's site
-    limit) stay unported; bf16 parameters, the reduced matmul precisions,
+    limit) are refused, naming the JAX package's own failure there; bf16
+    parameters, the reduced matmul precisions,
     bf16 storage of x1 and the sharded engine (on a mesh of one rank) are
     ported and construct."""
     out = _run("""
@@ -140,7 +141,8 @@ print(json.dumps({"msgs": msgs, "long": long_pred.tolist()}))
 """)
     assert len(out["msgs"]) == 5, out
     assert out["msgs"][0:4] == ["ran", "ran", "ran", "ran"], out
-    assert "not yet ported, see ROADMAP.md" in out["msgs"][4], out
+    assert "the JAX package's own fused forward raises" in out["msgs"][4], out
+    assert "axial_block.py:276" in out["msgs"][4], out
     assert len(out["long"]) == 6 and all(math.isfinite(v) for v in out["long"]), out
 
 
@@ -166,6 +168,29 @@ print(json.dumps({"names": [m.name for m in pkgutil.walk_packages(pkg.__path__,
 """)
     for name in ("infer.oracle", "bench", "bench.accuracy", "bench.cli"):
         assert "phyloformer_tpu_torch." + name in out["names"], name
+
+
+def test_import_walk_covers_tree_toolkit_and_bench_modules():
+    """The tree and MSA toolkit and the end-to-end bench modules are walked
+    (so the guards above cover them), and the host ones load neither torch
+    nor JAX: ``pf-tree-torch``'s process pool and ``pf-msa-torch`` start
+    no CUDA context."""
+    host = ("trees.native", "trees.likelihood", "trees.ml_fast", "trees.baselines",
+            "trees.cli", "data.msa_tools", "data.cli_msa_tools", "bench.harness",
+            "bench.report", "bench.figures", "bench.crossmatrix", "bench.cli")
+    out = _run(f"""
+import importlib, json, pkgutil, sys
+import phyloformer_tpu_torch as pkg
+for name in {host!r}:
+    importlib.import_module("phyloformer_tpu_torch." + name)
+print(json.dumps({{"loaded": sorted(sys.modules),
+                  "names": [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                                  pkg.__name__ + ".")]}}))
+""")
+    for name in host:
+        assert "phyloformer_tpu_torch." + name in out["names"], name
+    assert not [m for m in out["loaded"] if _forbidden(m) or m.split(".")[0] == "torch"]
+    assert "matplotlib" not in out["loaded"]
 
 
 def test_serve_and_ckpt_modules_import_no_jax_and_serve_defaults_to_cuda():
@@ -265,12 +290,15 @@ def test_train_cli_refuses_unported_flags(flags, tmp_path):
     """The flags that were refused before the mesh was ported: each now
     runs, or raises the mesh's size error; dropout stays refused."""
     out = _run(f"""
-import json, os, socket
+import json, os
+from torch import distributed as dist
 from phyloformer_tpu_torch.train import cli
-with socket.socket() as s:
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-os.environ.update(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+# the rendezvous store on a port this process binds itself and holds; the
+# rank joins it as a client (tests/torch_rendezvous.py)
+store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False)
+os.environ.update(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                  MASTER_PORT=str(store.port), TORCHELASTIC_USE_AGENT_STORE="True",
+                  TORCHELASTIC_RESTART_COUNT="0")
 try:
     msg = f"rc {{cli.main(['-t', {str(tmp_path)!r}, '-a', {str(tmp_path)!r}, '--device', 'cpu']
                           + {flags!r})}}"

@@ -222,7 +222,7 @@ def test_bench_cli_throughput_on_cpu(tmp_path):
     assert out["alignments_per_s"] > 0
 
 
-@pytest.mark.parametrize("cmd", ["pipeline", "report"])
+@pytest.mark.parametrize("cmd", ["manifest"])
 def test_bench_cli_unported_subcommands_refuse(cmd, tmp_path):
     r = _cli(["phyloformer_tpu_torch.bench.cli", cmd, "x"], tmp_path)
     assert r.returncode == 2 and "not yet ported, see ROADMAP.md" in r.stderr

@@ -64,6 +64,7 @@ from test_torch_model import (
     flatten,
     random_params,
 )
+from torch_rendezvous import Rendezvous
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FWD_TOL = 1e-5  # of max(1, max|ref|): the fused forward against JAX's
@@ -84,15 +85,7 @@ ENGINE_DIMS = [(12, 33), (11, 40), (12, 38), (10, 29), (12, 40), (7, 64)]
 ENGINE_ICFG = "n_buckets=(12,), l_buckets=(40, 64), pad_batch_sizes=True"
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _rank_env(rank: int, world: int, port: int) -> dict:
-    return {**os.environ, **PORT_THREAD_ENV, "RANK": str(rank), "LOCAL_RANK": str(rank),
-            "WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+_RANK_ENV = {**os.environ, **PORT_THREAD_ENV}  # a rank's environment, before rendezvous
 
 
 def _wait_all(procs, timeout: float):
@@ -131,13 +124,13 @@ def run_ranks(code, inputs, tmp_path, world, timeout=240):
     tmp_path.mkdir(parents=True, exist_ok=True)
     src = tmp_path / "ranks_in.npz"
     np.savez(src, **inputs)
-    port = _free_port()
     prog = _PRELUDE + _RANK_PRELUDE + code + _RANK_EPILOGUE + _EPILOGUE
-    procs = [subprocess.Popen([sys.executable, "-c", prog, str(src),
-                               str(tmp_path / f"rank{r}_out.npz")],
-                              cwd=str(REPO), env=_rank_env(r, world, port),
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in range(world)]
+    with Rendezvous() as rdv:
+        procs = [rdv.popen([sys.executable, "-c", prog, str(src),
+                            str(tmp_path / f"rank{r}_out.npz")], r, world,
+                           cwd=str(REPO), env=_RANK_ENV, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+                 for r in range(world)]
     _wait_all(procs, timeout)
     return [dict(np.load(tmp_path / f"rank{r}_out.npz")) for r in range(world)]
 
@@ -550,11 +543,11 @@ def _module(name, args):
             f"runpy.run_module({name!r}, run_name='__main__', alter_sys=True)\n"] + args
 
 
-def _launch(args, world, port=None):
-    port = port or _free_port()
-    return [subprocess.Popen(_module(args[0], args[1:]), cwd=str(REPO),
-                             env=_rank_env(r, world, port), stdout=subprocess.PIPE,
-                             stderr=subprocess.PIPE, text=True) for r in range(world)]
+def _launch(args, world):
+    with Rendezvous() as rdv:
+        return [rdv.popen(_module(args[0], args[1:]), r, world, cwd=str(REPO), env=_RANK_ENV,
+                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for r in range(world)]
 
 
 def _phy(path):
@@ -635,16 +628,16 @@ def test_train_cli_sharded_matches_one_process(tmp_path):
               "--device", "cpu", "--use-pallas", "on", "--nb-blocks", "2", "--batch-size", "2",
               "--max-steps", "2", "--log-every", "1", "--num-workers", "1", "--warmup-steps",
               "0", "--learning-rate", "1e-3", "--hard-loss-ceiling", "1e6"]
-    port = _free_port()
     single = subprocess.Popen([sys.executable, "-c", _WARM + _TRAIN_HARNESS] + common + [
         "-o", str(tmp_path / "one"), "-n", "run"], cwd=str(REPO),
         env={**os.environ, **PORT_THREAD_ENV}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _WARM + _TRAIN_HARNESS] + common + [
-            "-o", str(tmp_path / "sharded"), "-n", "run", "--distributed-init", "--mesh-pair",
-            "2", "--shard-pairs"], cwd=str(REPO), env=_rank_env(r, 2, port),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    with Rendezvous() as rdv:
+        procs = [rdv.popen(
+            [sys.executable, "-c", _WARM + _TRAIN_HARNESS] + common + [
+                "-o", str(tmp_path / "sharded"), "-n", "run", "--distributed-init",
+                "--mesh-pair", "2", "--shard-pairs"], r, 2, cwd=str(REPO), env=_RANK_ENV,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
     ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in _wait_all(procs, 300)]
     one = json.loads(_wait_all([single], 300)[0][0].strip().splitlines()[-1])
     assert [x["rc"] for x in ranks] == [0, 0] and [x["steps"] for x in ranks] == [2, 2]
@@ -762,6 +755,132 @@ def test_serve_failure_on_one_rank_stops_every_rank(tmp_path):
     assert res[0]["statuses"] == [500, 200, 500], res
     for r in res:
         assert r["calls"] == 3 and r["stopped"].startswith("1 of 2 ranks failed"), res
+
+
+# ---- the harness's rendezvous, and the routes JAX cannot run ------------------
+
+_ALL_REDUCE = """
+import json, torch
+from torch import distributed as dist
+dist.init_process_group("gloo", init_method="env://")
+t = torch.full((3,), float(dist.get_rank() + 1))
+dist.all_reduce(t)
+print(json.dumps({"rank": dist.get_rank(), "sum": t.tolist()}))
+dist.destroy_process_group()
+"""
+
+
+def test_launch_comes_up_when_the_chosen_port_is_taken():
+    """A port chosen as the old harness chose it (bound to port 0, its number
+    read) is taken by another process before any rank binds it, as another
+    test worker may take it.  A rank told to bind that port itself fails
+    (EADDRINUSE: the race); two ranks launched through the harness's
+    ``Rendezvous``, with that port already in their environment, come up
+    and all-reduce, since the store binds and holds its own port."""
+    with socket.socket() as squatter:
+        squatter.bind(("127.0.0.1", 0))
+        squatter.listen()
+        taken = squatter.getsockname()[1]
+        env = {**_RANK_ENV, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(taken)}
+        old = subprocess.run([sys.executable, "-c", _ALL_REDUCE], cwd=str(REPO),
+                             env={**env, "RANK": "0", "WORLD_SIZE": "1"},
+                             capture_output=True, text=True, timeout=120)
+        assert old.returncode != 0 and "EADDRINUSE" in old.stderr, old.stderr[-2000:]
+        with Rendezvous() as rdv:
+            assert rdv.port != taken
+            procs = [rdv.popen([sys.executable, "-c", _ALL_REDUCE], r, 2, cwd=str(REPO),
+                               env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                               text=True) for r in range(2)]
+        outs = _wait_all(procs, 120)
+    got = sorted(json.loads(out.strip().splitlines()[-1])["rank"] for out, _ in outs)
+    assert got == [0, 1]
+    for out, _ in outs:
+        assert json.loads(out.strip().splitlines()[-1])["sum"] == [3.0, 3.0, 3.0]
+
+
+# The three fused-forward routes at bf16 parameters, on 6 sequences: the
+# two-kernel form at 40 sites, the L-tiled A1/A2 form at 1100 sites (both
+# with the pipeline off) and the pair-sharded form (data 1 x pair 2).
+_BF16_ROUTES = ("two_kernel", "l_tiled", "sharded")
+
+_JAX_BF16 = f"""
+import json
+from phyloformer_tpu.data.fasta import Alignment
+from phyloformer_tpu.infer.engine import (InferenceConfig, InferenceEngine,
+                                          ShardedInferenceEngine)
+from phyloformer_tpu.io.ckpt_import import load_pretrained
+from phyloformer_tpu.parallel import make_mesh
+params, cfg, _ = load_pretrained({str(CKPT)!r})
+rng = np.random.default_rng(5)
+def aln(l):
+    return Alignment(rng.integers(0, 20, (6, l)).astype(np.int8), [f"s{{i}}" for i in range(6)])
+icfg = InferenceConfig(precision="bfloat16", use_pallas=True, use_pipeline=False)
+routes = {{
+    "two_kernel": lambda: InferenceEngine(params, cfg, icfg).predict([aln(40)]),
+    "l_tiled": lambda: InferenceEngine(params, cfg, icfg).predict([aln(1100)]),
+    "sharded": lambda: ShardedInferenceEngine(
+        params, cfg, make_mesh(data=1, pair=2, devices=jax.devices()[:2]),
+        InferenceConfig(precision="bfloat16", use_pallas=True)).predict([aln(40)]),
+}}
+res = {{}}
+for name, run in routes.items():
+    try:
+        run()
+        res[name] = "ran"
+    except ValueError as e:
+        res[name] = str(e)
+OUT["res"] = np.asarray(json.dumps(res))
+"""
+
+_PORT_BF16 = f"""
+import json
+from phyloformer_tpu_torch.data.fasta import Alignment
+from phyloformer_tpu_torch.infer.engine import (InferenceConfig, InferenceEngine,
+                                                ShardedInferenceEngine)
+from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+params, cfg, _ = load_pretrained({str(CKPT)!r})
+rng = np.random.default_rng(5)
+def aln(l):
+    return Alignment(rng.integers(0, 20, (6, l)).astype(np.int8), [f"s{{i}}" for i in range(6)])
+icfg = InferenceConfig(precision="bfloat16", use_pipeline=False)
+routes = {{
+    "two_kernel": lambda: InferenceEngine(params, cfg, icfg, device="cpu").predict([aln(40)]),
+    "l_tiled": lambda: InferenceEngine(params, cfg, icfg, device="cpu").predict([aln(1100)]),
+    "sharded": lambda: ShardedInferenceEngine(
+        params, cfg, make_mesh(1, 2), InferenceConfig(precision="bfloat16"),
+        device="cpu").predict([aln(40)]),
+}}
+res = {{}}
+for name, run in routes.items():
+    try:
+        run()
+        res[name] = "ran"
+    except ValueError as e:
+        res[name] = str(e)
+OUT["res"] = np.asarray(json.dumps(res))
+"""
+
+
+def test_bf16_fused_forward_fails_in_jax_and_is_refused_here(tmp_path):
+    """JAX's own fused forward raises on bf16 parameters on each of the three
+    routes (kernel A and A2 store their fp32 x1 into a bf16 output,
+    ``axial_block.py:276`` and ``:391``; Pallas checks the store when it
+    traces the kernel, so a TPU raises too), and the port refuses the same
+    three, naming that failure.  A JAX package that runs these routes makes
+    this test fail: its bf16 forms can then be ported against it."""
+    jax_res = start_jax(_JAX_BF16, {}, tmp_path, "bf16")
+    port = [json.loads(str(o["res"])) for o in run_ranks(_PORT_BF16, {}, tmp_path / "port",
+                                                          world=2, timeout=180)]
+    want = json.loads(str(jax_res()["res"]))
+    assert sorted(want) == sorted(_BF16_ROUTES), want
+    for route in _BF16_ROUTES:
+        assert "Invalid dtype for `swap`" in want[route], (route, want[route])
+        assert "Ref dtype: bfloat16. Value dtype: float32" in want[route], (route, want[route])
+        for rank in port:
+            msg = rank[route]
+            assert msg.startswith("precision='bfloat16' on "), (route, msg)
+            assert "the JAX package's own fused forward raises" in msg, (route, msg)
+            assert "axial_block.py:276" in msg, (route, msg)
 
 
 # ---- one process -------------------------------------------------------------
