@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--reductions | --reduced | --sharded | --sim | --trees]
+    python3 chip_smoke.py [--reductions | --reduced | --sharded | --sim | --trees | --variants]
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written CUDA kernels from this checkout's sources (one
@@ -169,7 +169,28 @@
    ``compare`` (its KF), ``mlrefine`` and ``likelihood`` on 2 alignments,
    ``pf-msa-torch stats`` and ``dedup``, ``pf-bench-torch report`` (the
    pipeline's mean KF);
-15. prints the ``kernels`` JSON line (with the row of ``_kernel_b_host``)
+15. the model variants (``--variants``: only this, after the build; run
+   alone it makes phase 8's corpus and phase 14's test set itself, and its
+   dropout run's directory stands for phase 8's): ``pf-train-torch
+   --base-model pf_mre_r5.ckpt --dropout 0.1 --batch-size 4 --max-steps 8``
+   on phase 8's corpus (the eager route: finite losses, no kernel launched,
+   peak memory) and with ``--use-pallas on`` (JAX's "use_pallas training
+   requires dropout=0"); one dropout step at 1 x 50 x 256 on the card
+   against the same step on the CPU given the card's keep masks (loss
+   ``STEP_LOSS_TOL``, gradients ``STEP_GRAD_TOL``), with ``remat`` against
+   without, the masks' keep share within ``KEEP_SE`` standard errors of 0.9;
+   the dropout step timed at 4 x 50 x 256 with and without ``remat`` (ms,
+   peak memory); ``python -m phyloformer_tpu_torch.tools.eval_testdata_kf``
+   on phase 14's test set through the kernels (its launches the plan's; its
+   mean KF the pipeline's, or each differing alignment a topology flip;
+   aln/s beside the pipeline's); ``tools.eval_curve`` over phase 8's
+   checkpoint directory, one row a saved step, each ``eval_testdata_kf``'s
+   on that step's checkpoint alone; ``multi_head_attention`` and
+   ``linear_kernel_attention`` on the card against the CPU
+   (``ABLATION_TOL``); ``load_pretrained`` on an Orbax layout raising the
+   ``tensorstore`` message where that package is missing (else the
+   committed JAX fixture read bit-equal to its ``.npz``);
+16. prints the ``kernels`` JSON line (with the row of ``_kernel_b_host``)
    and the throughputs, then, as its last line, ``{"ok": true, "device":
    {...}}``.
 
@@ -1851,6 +1872,18 @@ def expected_train_launches(steps, evals, n_blocks, long=False):
     return n
 
 
+# phase 8's corpus: 40 examples in the (50, 256) bucket
+TRAIN_DIMS = [(50, 250)] * 30 + [(45, 250), (50, 230), (42, 200), (48, 256), (50, 180),
+                                 (44, 240), (50, 250), (47, 210), (50, 256), (49, 222)]
+
+
+def train_corpus(root):
+    """Phase 8's synthetic corpus (``TRAIN_DIMS``, seed ``SEED + 4``) under
+    ``root``; returns ``root``."""
+    write_corpus(root, np.random.default_rng(SEED + 4), TRAIN_DIMS)
+    return root
+
+
 def training_path(device):
     """pf-train-torch on a synthetic corpus of 40 examples in the (50, 256)
     bucket (36 train, 4 validation): 8 steps at batch 4 with validations at
@@ -1864,10 +1897,7 @@ def training_path(device):
 
     root = os.path.join(WORK, "train")
     shutil.rmtree(root, ignore_errors=True)
-    rng = np.random.default_rng(SEED + 4)
-    dims = [(50, 250)] * 30 + [(45, 250), (50, 230), (42, 200), (48, 256), (50, 180),
-                               (44, 240), (50, 250), (47, 210), (50, 256), (49, 222)]
-    write_corpus(os.path.join(root, "corpus"), rng, dims)
+    train_corpus(os.path.join(root, "corpus"))
     out = os.path.join(root, "out")
     common = ["-t", os.path.join(root, "corpus", "trees"),
               "-a", os.path.join(root, "corpus", "alns"), "--base-model", CKPT,
@@ -2340,7 +2370,7 @@ def training_phases(device, card):
     return dict(runs=[run["launches"] for run in tp["runs"]] + [td["launches"],
                                                                 lt["launches"]],
                 numbers=numbers, ckpt_dir=os.path.join(tp["out"], "checkpoints_smoke"),
-                alns_dir=os.path.join(tp["corpus"], "alns"))
+                alns_dir=os.path.join(tp["corpus"], "alns"), corpus=tp["corpus"])
 
 
 def plain_pipeline(w, codes, site_mask, seq_mask, passes, eps=1e-5):
@@ -3777,26 +3807,31 @@ TREES_ML = 2  # alignments through pf-tree-torch mlrefine and likelihood
 
 @contextlib.contextmanager
 def recording_pipeline(seen):
-    """Record what ``pf-bench-torch pipeline`` computes in this process: the
-    engine's distance vectors, the native trees and their comparisons, in
-    call order, into ``seen["preds"]``, ``["trees"]`` and ``["cmp"]``."""
+    """Record what ``pf-bench-torch pipeline`` (or another command) computes
+    in this process: the engine's distance vectors, the native trees and
+    their comparisons, in call order, into ``seen["preds"]``, ``["trees"]``
+    and ``["cmp"]``, and the seconds ``predict`` took into
+    ``["predict_s"]``."""
     from phyloformer_tpu_torch.infer.engine import InferenceEngine
     from phyloformer_tpu_torch.trees import native
 
     predict, build, compare = (InferenceEngine.predict, native.build_tree_from_phylip,
                                native.compare_newick)
+    seen.setdefault("predict_s", 0.0)
 
     def rec_predict(self, alns):
-        out = predict(self, alns)
+        t = time.perf_counter()
+        out = predict(self, alns)  # returns with the distances on the host
+        seen["predict_s"] += time.perf_counter() - t
         seen["preds"] += out
         return out
 
-    def rec_build(phy, *args):
-        seen["trees"].append(build(phy, *args))
+    def rec_build(phy, *args, **kw):
+        seen["trees"].append(build(phy, *args, **kw))
         return seen["trees"][-1]
 
-    def rec_compare(a, b, *args):
-        seen["cmp"].append(compare(a, b, *args))
+    def rec_compare(a, b, *args, **kw):
+        seen["cmp"].append(compare(a, b, *args, **kw))
         return seen["cmp"][-1]
 
     InferenceEngine.predict, native.build_tree_from_phylip, native.compare_newick = (
@@ -3828,20 +3863,66 @@ def host_cli_wait(proc, what, timeout=300):
     return out, err
 
 
-def trees_phase(device, card):
-    """The tree toolkit end to end (item 14 of the module's docstring).
-    Returns the phase's numbers and the kernel launches of its kernel-route
-    pipeline run."""
+def tree_test_set(root, device):
+    """Phase 14's test set under ``root``: ``TREES_N`` birth-death trees of
+    ``TREES_TIPS`` tips (``pf-simulate-trees-torch``, seed ``SEED``) and LG
+    alignments of ``TREES_SITES`` sites evolved on them on the card
+    (``--engine device``; those that pass the duplicate check).  Returns
+    (true tree directory, alignment directory, stems written, stems failed)."""
+    from phyloformer_tpu_torch.sim import cli_msa, cli_trees
+
+    trees_dir, alns_dir = os.path.join(root, "true"), os.path.join(root, "alns")
+    rc, err = run_cli(cli_trees.main, ["-n", str(TREES_N), "-t", str(TREES_TIPS), "-o",
+                                       trees_dir, "--seed", str(SEED)])
+    if rc != 0:
+        fail(f"trees: pf-simulate-trees-torch: rc {rc}: {err[-2000:]}")
+    rc, err = run_cli(cli_msa.main, [trees_dir, alns_dir, "--engine", "device", "--length",
+                                     str(TREES_SITES), "--seed", str(SEED), "--device",
+                                     device.type])
+    written, failed = cli_outcome(rc, err, trees_dir, alns_dir,
+                                  f"trees: --engine device on {TREES_N} trees")
+    if len(written) < TREES_N // 2:
+        fail(f"trees: only {len(written)} of {TREES_N} alignments passed the duplicate check")
+    return trees_dir, alns_dir, sorted(written), failed
+
+
+def pipeline_run(alns_dir, trees_dir, csv_path, device, flags, route):
+    """``pf-bench-torch pipeline pf_mre_r5.ckpt`` on a test set, recorded
+    (:func:`recording_pipeline`), with its launches, summary and CSV rows;
+    fails unless it exits 0."""
     import torch
 
     from phyloformer_tpu_torch.bench import cli as bench_cli
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+
+    seen = {"preds": [], "trees": [], "cmp": []}
+    out = io.StringIO()
+    with recording_pipeline(seen), contextlib.redirect_stdout(out):
+        pipe.reset_launch_counts()
+        rc = bench_cli.main(["pipeline", CKPT, alns_dir, "--true-trees", trees_dir, "-o",
+                             csv_path, "--device", device.type] + flags)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seen["launches"] = dict(pipe.LAUNCHES)
+    if rc != 0:
+        fail(f"trees: pf-bench-torch pipeline ({route}) exited {rc}")
+    seen["summary"] = json.loads(out.getvalue())
+    with open(csv_path) as fh:
+        seen["rows"] = [ln.split(",") for ln in fh.read().splitlines()[1:]]
+    return seen
+
+
+def trees_phase(device, card):
+    """The tree toolkit end to end (item 14 of the module's docstring).
+    Returns the phase's numbers, the kernel launches of its kernel-route
+    pipeline run, and its test set with that run's KF per alignment
+    (``{"trees_dir", "alns_dir", "stems", "kf", "mean_kf"}``)."""
     from phyloformer_tpu_torch.data.fasta import read_fasta
     from phyloformer_tpu_torch.data.newick import parse_newick
     from phyloformer_tpu_torch.data.phylip import vec_to_phylip
     from phyloformer_tpu_torch.infer.engine import InferenceEngine
     from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
     from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
-    from phyloformer_tpu_torch.sim import cli_msa, cli_trees
     from phyloformer_tpu_torch.trees.baselines import hamming_fastme_tree
     from phyloformer_tpu_torch.trees.native import compare_newick
 
@@ -3858,21 +3939,9 @@ def trees_phase(device, card):
         mark[0] = now
 
     # inputs: birth-death trees, LG alignments evolved on them on the card
-    trees_dir, alns_dir = os.path.join(root, "true"), os.path.join(root, "alns")
-    rc, err = run_cli(cli_trees.main, ["-n", str(TREES_N), "-t", str(TREES_TIPS), "-o",
-                                       trees_dir, "--seed", str(SEED)])
-    if rc != 0:
-        fail(f"trees: pf-simulate-trees-torch: rc {rc}: {err[-2000:]}")
-    rc, err = run_cli(cli_msa.main, [trees_dir, alns_dir, "--engine", "device", "--length",
-                                     str(TREES_SITES), "--seed", str(SEED), "--device",
-                                     device.type])
-    written, failed = cli_outcome(rc, err, trees_dir, alns_dir,
-                                  f"trees: --engine device on {TREES_N} trees")
-    stems = sorted(written)
+    trees_dir, alns_dir, stems, failed = tree_test_set(root, device)
     n = num["alignments"] = len(stems)
     num["failed"] = len(failed)
-    if n < TREES_N // 2:
-        fail(f"trees: only {n} of {TREES_N} alignments passed the duplicate check")
     alns = [read_fasta(os.path.join(alns_dir, s + ".fa")) for s in stems]
     lap("inputs")
 
@@ -3881,22 +3950,8 @@ def trees_phase(device, card):
                                  cfg.n_blocks, pipe.pipeline_supported)
     runs = {}
     for route, flags in (("kernels", []), ("eager", ["--eager"])):
-        seen = {"preds": [], "trees": [], "cmp": []}
-        csv_path = os.path.join(root, f"exec_{route}.csv")
-        out = io.StringIO()
-        with recording_pipeline(seen), contextlib.redirect_stdout(out):
-            pipe.reset_launch_counts()
-            rc = bench_cli.main(["pipeline", CKPT, alns_dir, "--true-trees", trees_dir, "-o",
-                                 csv_path, "--device", device.type] + flags)
-            if device.type == "cuda":
-                torch.cuda.synchronize()
-            seen["launches"] = dict(pipe.LAUNCHES)
-        if rc != 0:
-            fail(f"trees: pf-bench-torch pipeline ({route}) exited {rc}")
-        seen["summary"] = json.loads(out.getvalue())
-        with open(csv_path) as fh:
-            seen["rows"] = [ln.split(",") for ln in fh.read().splitlines()[1:]]
-        runs[route] = seen
+        runs[route] = pipeline_run(alns_dir, trees_dir, os.path.join(root, f"exec_{route}.csv"),
+                                   device, flags, route)
         lap(f"pipeline_{route}")
     ker, eag = runs["kernels"], runs["eager"]
 
@@ -4016,7 +4071,397 @@ def trees_phase(device, card):
         fail("trees: the kernel route's distances disagree with the eager fp32 model's")
     if flips > TREES_MAX_FLIPS:
         fail(f"trees: {flips} trees of the two routes differ in topology")
-    return num, ker["launches"]
+    test_set = {"trees_dir": trees_dir, "alns_dir": alns_dir, "stems": stems,
+                "kf": [c.kf for c in ker["cmp"]], "trees": ker["trees"],
+                "mean_kf": ker["summary"]["mean_kf"],
+                "aln_per_s": num["kernels"]["inference_aln_per_s"]}
+    return num, ker["launches"], test_set
+
+
+
+DROPOUT_RATE = 0.1  # pf-train-torch --dropout of the variants phase
+DROPOUT_STEPS = 8
+KEEP_SE = 4.0  # standard errors of the keep share
+# the ablation ops' bars against the same op on the CPU: the JAX package's
+# (tests/test_ops_variants.py), relative to max(1, max|ref|)
+ABLATION_TOL = {"multi_head_attention": 1e-5, "linear_kernel_attention": 2e-5}
+ABLATION_SHAPE = (2, 64, 256, D)  # (B, P, L, d): attention over 256 sites
+DROPOUT_BUCKET = (50, 256)  # (tips, sites) of phase 8's corpus
+
+
+def dropout_cli(device, corpus, out, extra):
+    """``pf-train-torch`` from pf_mre_r5 with ``--dropout DROPOUT_RATE`` on
+    the corpus, in this process: (exit code or the ValueError raised, stdout,
+    launches, seconds, peak device memory in GB)."""
+    import torch
+
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+    from phyloformer_tpu_torch.train import cli
+
+    args = ["-t", os.path.join(corpus, "trees"), "-a", os.path.join(corpus, "alns"),
+            "--base-model", CKPT, "--dropout", str(DROPOUT_RATE), "--batch-size", "4",
+            "--loss", "mre", "--check-val-every", "4", "--log-every", "1", "--warmup-steps",
+            "2", "--learning-rate", "1e-4", "--hard-loss-ceiling", "1e6", "--device",
+            device.type, "-o", out, "--num-workers", "1", "--max-steps",
+            str(DROPOUT_STEPS)] + extra
+    pipe.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(args)
+    except ValueError as e:
+        rc = e
+    torch.cuda.synchronize()
+    return (rc, buf.getvalue(), dict(pipe.LAUNCHES), time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def dropout_step_checks(device, corpus):
+    """One training batch at 1 x 50 x 256 (the corpus's first example) on
+    the eager route with dropout: on the card with masks drawn there, with
+    ``remat`` from the same seeds, and on the CPU given the card's masks.
+    Returns the keep share of those masks, and the loss and gradient
+    errors of the CPU and remat runs against the card's."""
+    import torch
+
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    from phyloformer_tpu_torch.models.params import map_params
+    from phyloformer_tpu_torch.models.phyloformer import (
+        Dropout, forward, pair_mask_from_seq_mask)
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+    from phyloformer_tpu_torch.train.data import load_example
+    from phyloformer_tpu_torch.train.losses import get_loss
+    from phyloformer_tpu_torch.train.trainer import batch_to_device, make_batch, param_leaves
+
+    params, cfg, _ = load_pretrained(CKPT)
+    aln, vec = load_example(os.path.join(corpus, "trees", "ex00.nwk"),
+                            os.path.join(corpus, "alns", "ex00.fa"))
+    host = make_batch([aln], [vec], *DROPOUT_BUCKET)
+    seeds = Dropout.draw(DROPOUT_RATE, torch.Generator(device).manual_seed(SEED),
+                         cfg.n_blocks).seeds
+
+    def run(dev, dropout, remat=False):
+        p = map_params(lambda t: t.to(dev).requires_grad_(True), params)
+        b = batch_to_device(host, dev)
+        preds = forward(p, b["codes"], cfg, b["site_mask"], b["seq_mask"], remat=remat,
+                        dropout=dropout)
+        loss = get_loss("mre")(preds, b["dists"],
+                               pair_mask_from_seq_mask(b["seq_mask"], DROPOUT_BUCKET[0]))
+        grads = torch.autograd.grad(loss, param_leaves(p))
+        return loss.item(), [g.detach().cpu() for g in grads]
+
+    drawn = {}
+    pipe.reset_launch_counts()
+    loss, grads = run(device, Dropout(DROPOUT_RATE, seeds=seeds, drawn=drawn))
+    launches = dict(pipe.LAUNCHES)
+    loss_r, grads_r = run(device, Dropout(DROPOUT_RATE, seeds=seeds), remat=True)
+    torch.cuda.synchronize()
+    masks = [[m.cpu() for m in drawn[i]] for i in range(cfg.n_blocks + 1)]
+    kept = sum(int(m.sum()) for ms in masks for m in ms)
+    total = sum(m.numel() for ms in masks for m in ms)
+    del drawn
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    loss_c, grads_c = run(torch.device("cpu"), Dropout(DROPOUT_RATE, masks=masks))
+    cpu_s = time.perf_counter() - t
+    keep = 1.0 - DROPOUT_RATE
+    return dict(keep_share=kept / total, keep_se=(keep * (1 - keep) / total) ** 0.5,
+                masks=sum(len(ms) for ms in masks), mask_elements=total,
+                cpu_loss_rel=abs(loss - loss_c) / abs(loss_c),
+                cpu_grad_err=max(errors(a, b)[1] for a, b in zip(grads, grads_c)),
+                remat_loss_rel=abs(loss_r - loss) / abs(loss),
+                remat_grad_err=max(errors(a, b)[1] for a, b in zip(grads_r, grads)),
+                remat_same_bits=loss_r == loss and all(torch.equal(a, b)
+                                                       for a, b in zip(grads_r, grads)),
+                loss=loss, launches=launches, cpu_step_s=cpu_s)
+
+
+def timed_dropout_steps(device, corpus, remat, n_timed=5):
+    """Train steps with dropout through ``make_train_step`` on the eager
+    route from pf_mre_r5 at 4 x 50 x 256 on the corpus's batches: after one
+    warm-up, the median host-clock time of ``n_timed`` steps, each ended by
+    reading the loss, and their peak device memory."""
+    import dataclasses
+
+    import torch
+
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    from phyloformer_tpu_torch.train.data import BucketedLoader, LoaderConfig, make_pairs
+    from phyloformer_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state, dropout_generator, make_train_step)
+
+    loader = BucketedLoader(make_pairs(os.path.join(corpus, "trees"),
+                                       os.path.join(corpus, "alns")),
+                            LoaderConfig(batch_size=4, num_workers=1, shuffle=False))
+    batches = [b for _, b in zip(range(1 + n_timed), loader)]
+    if any(b["codes"].shape != (4,) + DROPOUT_BUCKET for b in batches):
+        fail(f"variants: the corpus does not give batches of 4 x {DROPOUT_BUCKET}")
+    params, cfg, _ = load_pretrained(CKPT)
+    cfg = dataclasses.replace(cfg, dropout=DROPOUT_RATE)
+    tcfg = TrainConfig(loss="mre", learning_rate=1e-4, warmup_steps=2, total_steps=100,
+                       remat=remat, seed=SEED)
+    state, tx = create_train_state(cfg, tcfg, params=params, device=device)
+    step = make_train_step(cfg, tcfg, tx)
+    gen = dropout_generator(cfg, tcfg, device)
+    state, logs = step(state, batches[0], gen)
+    float(logs["train_loss"])
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        state, logs = step(state, b, gen)
+        float(logs["train_loss"])
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del state, tx, step
+    torch.cuda.empty_cache()
+    return dict(step_ms=statistics.median(step_ms), steps_ms=step_ms, peak_gb=peak_gb)
+
+
+def eval_tool(module, argv, seen):
+    """A tool's ``main(argv)`` in this process, its engine and trees
+    recorded into ``seen`` (:func:`recording_pipeline`): its JSON lines and
+    launches; fails unless it exits 0."""
+    import torch
+
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+
+    buf = io.StringIO()
+    with recording_pipeline(seen), contextlib.redirect_stdout(buf):
+        pipe.reset_launch_counts()
+        rc = module.main(argv)
+        torch.cuda.synchronize()
+        seen["launches"] = dict(pipe.LAUNCHES)
+    if rc != 0:
+        fail(f"variants: {module.__name__} exited {rc}")
+    return [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+
+
+def ablation_checks(device):
+    """``multi_head_attention`` and ``linear_kernel_attention`` at
+    ``ABLATION_SHAPE`` with full-width projections, with and without a
+    mask (the last 31 sites padded), on the card against the same op on the
+    CPU; each timed on the card."""
+    import torch
+
+    from phyloformer_tpu_torch.ops import attention
+
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.randn(ABLATION_SHAPE, generator=g)
+    mask = (torch.arange(ABLATION_SHAPE[2]) < ABLATION_SHAPE[2] - 31).expand(
+        ABLATION_SHAPE[:3]).contiguous()
+    params = {k: (0.2 if k[0] == "w" else 0.05) * torch.randn(
+        (D, D) if k[0] == "w" else (D,), generator=g)
+        for k in ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")}
+    on_card = {k: v.to(device) for k, v in params.items()}
+    xd, md = x.to(device), mask.to(device)
+    out = {}
+    for name, tol in ABLATION_TOL.items():
+        op = getattr(attention, name)
+        for m, m_card, tag in ((None, None, ""), (mask, md, ".masked")):
+            got = op(xd, on_card, H, mask=m_card)
+            out[name + tag] = dict(err=errors(got.cpu(), op(x, params, H, mask=m))[1], tol=tol,
+                                   ms=time_ms(lambda: op(xd, on_card, H, mask=m_card)))
+    return out
+
+
+ORBAX_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "orbax_run")
+
+
+def orbax_check(root):
+    """``load_pretrained`` on a directory with the JAX trainer's Orbax layout:
+    without ``tensorstore`` it must raise naming it; with it, the committed
+    fixture written by the JAX trainer (``tests/fixtures/orbax_run``) reads
+    bit-equal to its ``.npz`` export."""
+    from phyloformer_tpu_torch.io.checkpoint import load_params_npz
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    from phyloformer_tpu_torch.models.params import params_from_numpy
+    from phyloformer_tpu_torch.train.trainer import leaves_like, param_leaves
+
+    try:
+        import tensorstore  # noqa: F401
+    except ImportError:
+        layout = os.path.join(root, "orbax_layout", "3")
+        for sub in ("state", "metadata"):
+            os.makedirs(os.path.join(layout, sub), exist_ok=True)
+        for name in ("_CHECKPOINT_METADATA", "state/_METADATA", "metadata/metadata"):
+            with open(os.path.join(layout, name), "w") as fh:
+                fh.write("{}")
+        try:
+            load_pretrained(os.path.dirname(layout))
+        except ImportError as e:
+            if "tensorstore" not in str(e):
+                fail(f"variants: the Orbax refusal does not name tensorstore: {e}")
+            return dict(tensorstore=False, refusal=str(e))
+        fail("variants: an Orbax directory was read without tensorstore")
+    params, _, meta = load_pretrained(ORBAX_FIXTURE)
+    want = params_from_numpy(load_params_npz(ORBAX_FIXTURE + ".npz"))
+    same = all(a.equal(b) for a, b in zip(param_leaves(want), leaves_like(want, params)))
+    if not same:
+        fail("variants: the Orbax fixture does not read bit-equal to its .npz export")
+    return dict(tensorstore=True, fixture_step=meta["step"], bit_equal=same)
+
+
+def model_variants_phase(device, card, train=None, test_set=None):
+    """Dropout training, the evaluation tools, the ablation ops and the
+    Orbax reader on the card (item 15 of the module's docstring).  ``train``
+    and ``test_set``: phase 8's corpus and checkpoint directory and phase
+    14's test set with its pipeline's KF; None (``--variants`` alone) makes
+    them as those phases do, the dropout run's directory standing for phase
+    8's.  Returns the phase's numbers and the launches of its kernel-route
+    runs."""
+    import torch
+
+    from phyloformer_tpu_torch.data.fasta import read_fasta
+    from phyloformer_tpu_torch.infer.engine import InferenceEngine
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+    from phyloformer_tpu_torch.tools import eval_curve, eval_testdata_kf
+    from phyloformer_tpu_torch.trees.native import compare_newick
+
+    root = os.path.join(WORK, "variants")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    num = {"card": card}
+    t_phase = time.perf_counter()
+    corpus = train["corpus"] if train else train_corpus(os.path.join(root, "corpus"))
+
+    # 1. dropout training on the eager route
+    out = os.path.join(root, "train")
+    rc, stdout, launches, wall_s, peak_gb = dropout_cli(device, corpus, out, ["-n", "dropout"])
+    if rc != 0:
+        fail(f"variants: pf-train-torch --dropout {DROPOUT_RATE} exited {rc}")
+    summary = json.loads(stdout.strip().splitlines()[-1])
+    records = [json.loads(line) for line in
+               open(os.path.join(out, "dropout_metrics.jsonl")).read().splitlines()]
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    times = [r["time"] for r in records if "train_loss" in r]
+    num["cli"] = dict(steps=summary["steps"], use_pallas=summary["use_pallas"], losses=losses,
+                      wall_s=wall_s, peak_gb=peak_gb,
+                      log_step_ms=[1e3 * (b - a) for a, b in zip(times, times[1:])],
+                      launches=sum(launches.values()))
+    if not (summary["steps"] == DROPOUT_STEPS and summary["use_pallas"] is False
+            and len(losses) == DROPOUT_STEPS and all(map(math.isfinite, losses))):
+        fail(f"variants: the dropout run: {summary}, losses {losses}")
+    if any(launches.values()):
+        fail(f"variants: the eager dropout route launched kernels: {launches}")
+    rc, _, _, _, _ = dropout_cli(device, corpus, out,
+                                 ["-n", "dropout_pallas", "--use-pallas", "on"])
+    num["pallas_refusal"] = str(rc)
+    if not (isinstance(rc, ValueError) and str(rc) == "use_pallas training requires dropout=0"):
+        fail(f"variants: --use-pallas on --dropout {DROPOUT_RATE} gave {rc!r}")
+    st = num["step"] = dropout_step_checks(device, corpus)
+    keep = 1.0 - DROPOUT_RATE
+    shape = "4 x {} x {}".format(*DROPOUT_BUCKET)
+    print(f"variants: pf-train-torch --dropout {DROPOUT_RATE}: {DROPOUT_STEPS} steps at {shape} "
+          f"on the eager route, losses {[round(x, 4) for x in losses]}, no kernel "
+          f"launched, peak {peak_gb:.2f} GB; --use-pallas on: {rc} [{card}]")
+    print(f"variants: one step at 1 x {DROPOUT_BUCKET[0]} x {DROPOUT_BUCKET[1]}, card against "
+          f"the CPU on the card's masks: loss {st['cpu_loss_rel']:.3e} relative (tol "
+          f"{STEP_LOSS_TOL:.0e}), gradients {st['cpu_grad_err']:.3e} (tol "
+          f"{STEP_GRAD_TOL:.0e}); remat against not: loss "
+          f"{st['remat_loss_rel']:.3e}, gradients {st['remat_grad_err']:.3e}, same bits "
+          f"{st['remat_same_bits']}; keep share {st['keep_share']:.6f} of "
+          f"{st['mask_elements']} ({st['masks']} masks; {keep} +- {KEEP_SE} x "
+          f"{st['keep_se']:.2e}); the CPU step {st['cpu_step_s']:.1f} s [{card}]")
+    if not (st["cpu_loss_rel"] <= STEP_LOSS_TOL and st["cpu_grad_err"] <= STEP_GRAD_TOL
+            and st["remat_loss_rel"] <= STEP_LOSS_TOL and st["remat_grad_err"] <= STEP_GRAD_TOL
+            and abs(st["keep_share"] - keep) <= KEEP_SE * st["keep_se"]
+            and not any(st["launches"].values())):
+        fail("variants: the dropout step disagrees with the CPU's or remat's, or its keep "
+             "share is off")
+    tm = num["timed"] = {f"remat={r}": timed_dropout_steps(device, corpus, r)
+                         for r in (False, True)}
+    for k, r in tm.items():
+        print(f"variants: dropout train step at {shape}, eager, {k}: "
+              f"{r['step_ms']:.1f} ms (median of {len(r['steps_ms'])}), peak "
+              f"{r['peak_gb']:.2f} GB [{card}]")
+
+    # 2. eval_testdata_kf on phase 14's test set, through the kernels
+    if test_set is None:
+        trees_dir, alns_dir, stems, _ = tree_test_set(os.path.join(root, "trees"), device)
+        ran = pipeline_run(alns_dir, trees_dir, os.path.join(root, "exec.csv"), device, [],
+                           "kernels")
+        test_set = {"trees_dir": trees_dir, "alns_dir": alns_dir, "stems": stems,
+                    "kf": [c.kf for c in ran["cmp"]], "trees": ran["trees"],
+                    "mean_kf": ran["summary"]["mean_kf"],
+                    "aln_per_s": len(stems) / float(next(
+                        x[3] for x in ran["rows"] if x[0] == "inference"))}
+    data = ["--msas", test_set["alns_dir"], "--trees", test_set["trees_dir"], "--device",
+            device.type]
+    alns = [read_fasta(os.path.join(test_set["alns_dir"], s + ".fa")) for s in test_set["stems"]]
+    params, cfg, _ = load_pretrained(CKPT)
+    expected = expected_launches(InferenceEngine(params, cfg, device="cpu")._plan(alns),
+                                 cfg.n_blocks, pipe.pipeline_supported)
+    seen = {"preds": [], "trees": [], "cmp": []}
+    res = eval_tool(eval_testdata_kf, [CKPT] + data, seen)[-1]
+    kf = list(res["kf"].values())
+    n = len(kf)
+    differ = [s for s, a, b in zip(test_set["stems"], kf, test_set["kf"]) if a != b]
+    topo = [s for s, ta, tb in zip(test_set["stems"], seen["trees"], test_set["trees"])
+            if compare_newick(ta, tb).rf != 0]
+    num["eval_testdata_kf"] = dict(mean_kf=res["mean_kf"], median_kf=res["median_kf"], n=n,
+                                   pipeline_mean_kf=test_set["mean_kf"], differ=differ,
+                                   flips=topo, aln_per_s=n / seen["predict_s"],
+                                   pipeline_aln_per_s=test_set["aln_per_s"])
+    print(f"variants: eval_testdata_kf on {n} alignments of {TREES_TIPS} x {TREES_SITES}: mean "
+          f"KF {res['mean_kf']:.6f} (pf-bench-torch pipeline {test_set['mean_kf']:.6f}), "
+          f"median {res['median_kf']:.6f}; {len(differ)} alignments' KF differ, {len(topo)} "
+          f"topology flips; inference {n / seen['predict_s']:.2f} aln/s (the pipeline's "
+          f"{test_set['aln_per_s']:.2f}) [{card}]")
+    tool_launches = dict(seen["launches"])
+    if seen["launches"] != expected:
+        fail(f"variants: eval_testdata_kf's launches {seen['launches']} differ from the plan's "
+             f"{expected}")
+    if n != len(test_set["stems"]) or (res["mean_kf"] != test_set["mean_kf"]
+                                       and not set(differ) <= set(topo)):
+        fail(f"variants: eval_testdata_kf's KF differs from the pipeline's on {differ}, not "
+             f"all of them topology flips ({topo})")
+
+    # 3. eval_curve over a trainer directory, each row eval_testdata_kf's on that step
+    run_dir = train["ckpt_dir"] if train else os.path.join(out, "checkpoints_dropout")
+    seen = {"preds": [], "trees": [], "cmp": []}
+    rows = eval_tool(eval_curve, [run_dir] + data, seen)
+    runs = [seen["launches"]]
+    saved = sorted(int(f[5:-3]) for f in os.listdir(run_dir) if f.startswith("ckpt_"))
+    singles = []
+    for step in saved:  # each step's checkpoint alone in a directory
+        one = os.path.join(root, f"step_{step}")
+        os.makedirs(one)
+        shutil.copy(os.path.join(run_dir, f"ckpt_{step}.pt"), one)
+        seen = {"preds": [], "trees": [], "cmp": []}
+        singles.append(eval_tool(eval_testdata_kf, [one] + data, seen)[-1])
+        runs.append(seen["launches"])
+    num["eval_curve"] = dict(rows=rows, steps=saved, single=[
+        dict(step=r["step"], mean_kf=r["mean_kf"]) for r in singles])
+    print(f"variants: eval_curve over {os.path.relpath(run_dir, ROOT)}: "
+          + ", ".join(f"step {r['step']} mean KF {r['mean_kf']:.6f}" for r in rows)
+          + "; eval_testdata_kf step by step: "
+          + ", ".join(f"{r['mean_kf']:.6f}" for r in singles) + f" [{card}]")
+    if ([r["step"] for r in rows] != saved or [r["step"] for r in singles] != saved
+            or [r["mean_kf"] for r in rows] != [r["mean_kf"] for r in singles]):
+        fail("variants: eval_curve's rows are not one a saved step, each eval_testdata_kf's")
+    for r in runs:
+        tool_launches = {k: tool_launches[k] + r[k] for k in tool_launches}
+
+    # 4. the ablation ops on the card against the CPU
+    ab = num["ablation"] = ablation_checks(device)
+    print("variants: ablation ops at " + " x ".join(map(str, ABLATION_SHAPE)) + ", card "
+          "against the CPU: " + ", ".join(f"{k} {r['err']:.2e} (tol {r['tol']:.0e}) "
+                                          f"{r['ms']:.3f} ms" for k, r in ab.items())
+          + f" [{card}]")
+    if any(not r["err"] <= r["tol"] for r in ab.values()):
+        fail("variants: an ablation op on the card disagrees with the CPU")
+
+    # 5. the Orbax reader
+    ob = num["orbax"] = orbax_check(root)
+    print(f"variants: Orbax directory: {ob} [{card}]")
+    num["phase_s"] = time.perf_counter() - t_phase
+    print(f"variants: phase {num['phase_s']:.1f} s [{card}]")
+    torch.cuda.empty_cache()
+    return num, tool_launches
 
 
 SOURCE = "phyloformer_tpu_torch/ops/kernels/csrc/"
@@ -4060,6 +4505,9 @@ def main(argv=None) -> int:
                     help="only run the simulator phase (no kernel is built)")
     ap.add_argument("--trees", action="store_true",
                     help="only build the kernels and run the tree-toolkit phase")
+    ap.add_argument("--variants", action="store_true",
+                    help="only build the kernels and run the model-variants phase: dropout "
+                         "training, the evaluation tools, the ablation ops, the Orbax reader")
     opts = ap.parse_args(argv)
     reductions_only = opts.reductions
     sys.path.insert(0, ROOT)
@@ -4096,8 +4544,13 @@ def main(argv=None) -> int:
             print("  ptxas:", line.strip())
 
     if opts.trees:
-        tp, _ = trees_phase(device, card)
+        tp, _, _ = trees_phase(device, card)
         print(json.dumps({"trees": tp, "card": card}))
+        return 0
+
+    if opts.variants:
+        vp, _ = model_variants_phase(device, card)
+        print(json.dumps({"model_variants": vp, "card": card}))
         return 0
 
     if opts.sharded:
@@ -4249,7 +4702,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     sh = sharded_phase(device, card, mp["head_alns"])
     sm = sim_phase(device, card)
-    tp, trees_launches = trees_phase(device, card)
+    tp, trees_launches, test_set = trees_phase(device, card)
+    vp, variants_launches = model_variants_phase(device, card, tr, test_set)
     for name, err in sh["errs"].items():
         results[name]["sharded_max_rel_err"] = err
     train_launches = {k: sum(run[k] for run in tr["runs"] + sp["runs"] + sh["runs"])
@@ -4265,7 +4719,8 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda", "source": SOURCE + KERNELS[name][0],
          "replaces": KERNELS[name][1],
          "launches": (mp["launches"][name] + launches2[name] + train_launches[name]
-                      + fast_launches[name] + trees_launches[name]),
+                      + fast_launches[name] + trees_launches[name]
+                      + variants_launches[name]),
          "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
          "tolerance": E12_TOL if name in ("kernel_e1", "kernel_e2") else KERNEL_TOL,
          "ms": r["ms"],
@@ -4300,7 +4755,7 @@ def main(argv=None) -> int:
         "fast_path_err": {x: rp[x]["random"] + rp[x]["evolved"] for x in ("float32", "bfloat16")},
         "accuracy_grid": rp["grid"]["rows"],
         "training": tr["numbers"], "serving": sp["numbers"], "sharded": sh["numbers"],
-        "sim": sm, "trees": tp}
+        "sim": sm, "trees": tp, "model_variants": vp}
     if any(k["launches"] <= 0 for k in line["kernels"]):
         fail("a kernel of the paths was not launched on them")
     print(json.dumps(line))

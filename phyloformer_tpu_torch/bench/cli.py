@@ -4,6 +4,7 @@
     pf-bench-torch crossmatrix --models CKPT... --datasets name=msa_dir:tree_dir... -o DIR
     pf-bench-torch report <true_trees> <matrices> <cmp_trees> -o DIR [--figures]
     pf-bench-torch figures -o DIR [--topos ...] [--dists ...] [--brlens ...] [--exec ...]
+    pf-bench-torch manifest <data_dir> -o DIR
     pf-bench-torch accuracy-grid [--weights CKPT] [--grid 50x250,200x1000] [--reps 2]
     pf-bench-torch throughput CKPT [--tips 60] [--length 250] [--count 256]
 
@@ -12,9 +13,9 @@ throughput) run on the card unless ``--device cpu`` is given; pipeline and
 crossmatrix take ``pf-infer-torch``'s routes: the hand-written kernels by
 default (``--pallas`` names them, so a JAX ``pf-bench`` command line runs
 unchanged), ``--eager`` the eager model.  ``--precision`` is the engine's
-``matmul_precision``.  report and figures run on the host; figures (and
-``report --figures``, crossmatrix's heatmap) need matplotlib.  ``manifest``
-is not yet ported.
+``matmul_precision``.  report, figures and manifest run on the host;
+figures, manifest (the reference's 43-figure roster), ``report --figures``
+and crossmatrix's heatmap need matplotlib.
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ import os
 import sys
 import time
 
-_NOT_PORTED = ("manifest",)
 PRECISIONS = ("float32", "tensorfloat32", "default")
 _DEFAULT_WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "artifacts", "pf_mre_r5.ckpt")
@@ -106,8 +106,13 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--batch-tokens", type=int, default=1 << 23)
     pt.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
 
-    for name in _NOT_PORTED:
-        sub.add_parser(name, help="not yet ported").add_argument("args", nargs=argparse.REMAINDER)
+    pm = sub.add_parser(
+        "manifest",
+        help="render the reference's full 43-figure roster from a data dir "
+             "holding topos_*/dists_*/execution_*/likelihoods_*/brlens_* CSVs",
+    )
+    pm.add_argument("data_dir")
+    pm.add_argument("-o", "--outdir", required=True)
     return p
 
 
@@ -265,15 +270,25 @@ def _throughput(args) -> int:
     return 0
 
 
+def _manifest(args) -> int:
+    from .manifest import render_all, require_matplotlib
+
+    require_matplotlib()
+    rendered = render_all(args.data_dir, args.outdir)
+    print(json.dumps({
+        "outdir": args.outdir,
+        "rendered": sorted(k for k, v in rendered.items() if v),
+        "skipped_missing_inputs": sorted(k for k, v in rendered.items() if v is None),
+    }, indent=2))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     commands = {"pipeline": _pipeline, "crossmatrix": _crossmatrix, "report": _report,
-                "figures": _figures, "accuracy-grid": _accuracy_grid,
+                "figures": _figures, "manifest": _manifest, "accuracy-grid": _accuracy_grid,
                 "throughput": _throughput}
-    if args.cmd in commands:
-        return commands[args.cmd](args)
-    print(f"pf-bench-torch {args.cmd} is not yet ported, see ROADMAP.md", file=sys.stderr)
-    return 2
+    return commands[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -155,13 +155,18 @@ class InferenceEngine:
         self.cfg = cfg
         # the JAX engine's rule: fp32-grade products, or one pass otherwise
         self.mxu_precision = "highest" if cfg.matmul_precision == "float32" else "default"
+        self.set_params(params)
+        self.stats = {"compile_s": 0.0, "device_s": 0.0, "batches": 0, "alignments": 0}
+
+    def set_params(self, params: Params) -> None:
+        """Run on ``params`` from now on, a tree of the same architecture:
+        the engine, its device and its loaded kernels are kept."""
         dtype = PRECISIONS[self.icfg.precision]
         # to fp32 first, so that every precision rounds from the same values
         params = map_params(lambda t: t.to(self.device, torch.float32).to(dtype), params)
         # the eager route reads the tree, the kernel route its arrangement
         self.params = None if self.icfg.use_kernels else params
         self.weights = PipelineWeights.from_params(params) if self.icfg.use_kernels else None
-        self.stats = {"compile_s": 0.0, "device_s": 0.0, "batches": 0, "alignments": 0}
 
     def load_kernels(self) -> None:
         """Build (if needed) and load the kernel library now, where this

@@ -4,7 +4,8 @@
   directory (``ckpt_<step>.pt``: parameters, optimizer state, step and
   metadata), written atomically, with ``latest_step``, ``restore`` and a
   ``max_to_keep`` policy.  It takes the place of the JAX package's Orbax
-  manager; the two directory formats are not interchangeable.
+  manager; the port reads Orbax directories (:mod:`.orbax`), and writes
+  only its own.
 - :func:`save_params_npz` / :func:`load_params_npz`: a parameter tree as a
   flat ``.npz`` with ``/``-joined keys (``layers/0/ffn/w1``), the JAX
   package's layout, so that either package reads the other's file;

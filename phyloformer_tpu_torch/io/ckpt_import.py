@@ -13,9 +13,9 @@ Torch Conv2d 1x1 kernels are ``(out, in, 1, 1)`` and Linear weights
 ``(out, in)``; the port stores ``(in, out)`` so application is ``x @ w``.
 
 :func:`load_pretrained` reads a reference ``.ckpt``, an ``.npz`` parameter
-file (either package's) and a directory of the port's trainer;
-:func:`save_reference_checkpoint` writes the reference format back.  The JAX
-trainer's Orbax directories are not yet ported.
+file (either package's), a directory of the port's trainer and one of the
+JAX trainer's (Orbax, through :mod:`.orbax`, which needs ``tensorstore``);
+:func:`save_reference_checkpoint` writes the reference format back.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import torch
 
 from ..data.pairs import pair_indices
 from ..models.params import Params, PhyloformerConfig, params_from_numpy
+from . import orbax
 from .checkpoint import CheckpointManager, _infer_config, load_params_npz
 
 
@@ -86,15 +87,24 @@ def load_pretrained(path: "str | os.PathLike") -> Tuple[Params, PhyloformerConfi
       the JAX package's): the config is read off the shapes, metadata ``{}``;
     - a directory of the port's trainer (:class:`.checkpoint.CheckpointManager`):
       the latest step's parameters, the config it saved and
-      ``{"step": step, **metadata}``.
+      ``{"step": step, **metadata}``;
+    - a run directory of the JAX trainer (Orbax, told by its committed
+      ``<step>/`` directories): the same three, as the JAX package's
+      ``load_pretrained`` returns them, the config read off the shapes where
+      the step saved none.  Raises where ``tensorstore`` is missing.
     """
     p = pathlib.Path(path)
+    if p.is_dir() and orbax.is_orbax_dir(p):
+        state, step = orbax.read_state(p)
+        meta = orbax.read_metadata(p, step)
+        params = params_from_numpy(state["params"] if "params" in state else state)
+        cfg = PhyloformerConfig(**meta["config"]) if meta.get("config") else _infer_config(params)
+        return params, cfg, {"step": step, **meta}
     if p.is_dir():
         mgr = CheckpointManager(p)
         if mgr.latest_step() is None:
-            raise ValueError(
-                f"{path}: no ckpt_<step>.pt of the port's trainer; Orbax directories of the "
-                "JAX trainer are not yet ported, see ROADMAP.md")
+            raise ValueError(f"{path}: neither a ckpt_<step>.pt of the port's trainer nor a "
+                             "committed <step>/ directory of the JAX trainer")
         state, step = mgr.restore()
         meta = state.get("metadata") or {}
         if "config" not in meta:

@@ -7,8 +7,9 @@
 ``export`` writes a PyTorch checkpoint with the reference's state-dict schema
 (:func:`.ckpt_import.save_reference_checkpoint`), so weights trained with
 ``pf-train-torch`` load in the reference tooling; ``convert`` writes the
-``.npz`` that both packages read.  The same commands and output as the JAX
-package's ``pf-ckpt``.
+``.npz`` that both packages read.  A trainer directory is the port's or the
+JAX trainer's (Orbax, read with ``tensorstore``).  The same commands and
+output as the JAX package's ``pf-ckpt``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ def build_parser() -> argparse.ArgumentParser:
     p_i = sub.add_parser("inspect", help="summarize a checkpoint")
     p_i.add_argument("path")
     p_e = sub.add_parser("export", help="write a reference-format torch .ckpt")
-    p_e.add_argument("src", help="source: reference .ckpt, .npz, or a pf-train-torch directory")
+    p_e.add_argument("src", help="source: reference .ckpt, .npz, or a trainer directory of "
+                          "either package")
     p_e.add_argument("out")
     p_e.add_argument("--no-seq2pair", action="store_true",
                      help="omit the non-learnable seq2pair buffer")

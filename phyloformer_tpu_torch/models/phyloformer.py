@@ -4,8 +4,8 @@ Embedding (one-hot ⊗ Conv1x1 as a table lookup) + ReLU → pair gather-add
 ``pair[k] = emb[i_k] + emb[j_k]`` → n_blocks axial blocks (row attention over
 sites, column attention over pairs, 4× GELU FFN, pre-LN residuals) → softplus
 head → mean over real sites.  Channel-last ``(B, P, L, d)``.  Optional masks
-make padded sites and sequences exact no-ops.  Deterministic: dropout is not
-yet ported (the published checkpoints use 0).
+make padded sites and sequences exact no-ops.  Training may drop out at the
+JAX package's five sites (:class:`Dropout`); inference is deterministic.
 
 :func:`forward` is the plain eager model, differentiable by autograd (with
 ``remat=True`` each block is recomputed in the backward); :func:`forward_fused`
@@ -23,8 +23,9 @@ which is fp32.
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -89,25 +90,106 @@ def _residual(x: torch.Tensor, h: torch.Tensor):
     return s.to(x.dtype), (s if x.dtype != s.dtype else None)
 
 
-def _block(x, x_sum, layer, cfg, site_mask, pair_mask, pair_sum=None):
+class Dropout:
+    """Dropout at the JAX package's five sites (``models/phyloformer.py``,
+    ``_dropout``): in each block the row attention's and the column
+    attention's outputs before their residuals, the FFN hidden after ``w1``
+    (before the GELU) and the FFN's output; after the blocks the head's
+    pre-softplus ``(B, P, L, 1)``.  An element is kept with probability
+    ``keep = 1 - rate`` and scaled by ``1 / keep``, JAX's
+    ``where(mask, x / keep, 0)``.
+
+    The keep masks come from ``seeds``, one per block and one for the head
+    (:meth:`draw`): block ``i`` draws its four masks in the order of the
+    sites, ``rand < keep``, from a generator on the tensors' device seeded
+    with ``seeds[i]``, made anew at each call, so that a block recomputed in
+    the backward (``remat``) draws the masks its forward drew.  Or they are
+    given: ``masks[i]`` holds block ``i``'s four bool tensors (the head's
+    one).  A mask spans the whole batch and every pair: ``rows`` (this
+    rank's rows of a batch of ``batch``) and a pair shard select this rank's
+    part, so that ranks drop what one process drops.  ``drawn``: a dict to
+    which every drawn mask is appended, under its block's index (to give
+    the same masks to another device)."""
+
+    def __init__(self, rate: float, seeds: Optional[Sequence[int]] = None,
+                 masks: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+                 rows: slice = slice(None), batch: Optional[int] = None,
+                 drawn: Optional[Dict[int, List[torch.Tensor]]] = None):
+        if (seeds is None) == (masks is None):
+            raise ValueError("Dropout needs seeds or masks, not both")
+        self.rate, self.keep = rate, 1.0 - rate
+        self.seeds, self.masks, self.rows, self.batch = seeds, masks, rows, batch
+        self.drawn = drawn
+
+    @classmethod
+    def draw(cls, rate: float, generator: torch.Generator, n_blocks: int) -> "Dropout":
+        """One forward's seeds from ``generator``, which advances once."""
+        seeds = torch.randint(0, 2 ** 62, (n_blocks + 1,), generator=generator,
+                              device=generator.device)
+        return cls(rate, seeds=seeds.tolist())
+
+    def for_rows(self, rows: slice, batch: int) -> "Dropout":
+        """The same masks, of which this rank holds ``rows`` of ``batch``."""
+        return Dropout(self.rate, self.seeds, self.masks, rows, batch, self.drawn)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Sites:
+    """What one block (or the head) needs to drop: its index in
+    :class:`Dropout` and this rank's pair shard (or None)."""
+
+    drop: Dropout
+    index: int
+    shard: Any = None
+
+    def start(self):
+        """A function ``h -> dropped h`` for the sites in order, from a
+        fresh generator."""
+        d, shard = self.drop, self.shard
+        state = {"site": 0, "gen": None}
+
+        def apply(h: torch.Tensor) -> torch.Tensor:
+            full = ((d.batch or h.shape[0], shard.p if shard is not None else h.shape[1])
+                    + tuple(h.shape[2:]))
+            if d.masks is not None:
+                m = d.masks[self.index][state["site"]].to(h.device)
+            else:
+                if state["gen"] is None:
+                    state["gen"] = torch.Generator(h.device).manual_seed(d.seeds[self.index])
+                m = torch.rand(full, generator=state["gen"], device=h.device) < d.keep
+                if d.drawn is not None:
+                    d.drawn.setdefault(self.index, []).append(m)
+            state["site"] += 1
+            m = m[d.rows]
+            if shard is not None:  # padding pairs take the last pair's mask
+                pos = torch.arange(shard.start, shard.start + h.shape[1], device=h.device)
+                m = m.index_select(1, pos.clamp_max(shard.p - 1))
+            return torch.where(m, h / d.keep, 0.0)
+
+        return apply
+
+
+def _block(x, x_sum, layer, cfg, site_mask, pair_mask, pair_sum=None, sites=None):
     """:func:`axial_block` on ``x`` and the fp32 sum it rounds (or None);
     returns the same pair for the block's output.  ``pair_sum``: on a pair
-    shard, the sum of a column-attention partial over the shards."""
+    shard, the sum of a column-attention partial over the shards.
+    ``sites``: the block's :class:`_Sites` where it drops out."""
+    drop = sites.start() if sites is not None else (lambda h: h)
     row_mask = site_mask[:, None, :] if site_mask is not None else None  # (B,1,L)
     col_mask = pair_mask[:, None, :] if pair_mask is not None else None  # (B,1,P)
 
     h = layer_norm(x, layer["row_norm"]["scale"], layer["row_norm"]["bias"], cfg.ln_eps, x_sum)
-    x, x_sum = _residual(x, scaled_linear_attention(h, layer["row_attn"], cfg.n_heads,
-                                                    mask=row_mask))
+    x, x_sum = _residual(x, drop(scaled_linear_attention(h, layer["row_attn"], cfg.n_heads,
+                                                         mask=row_mask)))
 
     h = layer_norm(x, layer["col_norm"]["scale"], layer["col_norm"]["bias"], cfg.ln_eps, x_sum)
     h = scaled_linear_attention(h.transpose(1, 2), layer["col_attn"], cfg.n_heads,
                                 mask=col_mask, axis_sum=pair_sum)
-    x, x_sum = _residual(x, h.transpose(1, 2))
+    x, x_sum = _residual(x, drop(h.transpose(1, 2)))
 
     h = layer_norm(x, layer["ffn_norm"]["scale"], layer["ffn_norm"]["bias"], cfg.ln_eps, x_sum)
-    h = gelu(h @ layer["ffn"]["w1"] + layer["ffn"]["b1"])
-    return _residual(x, h @ layer["ffn"]["w2"] + layer["ffn"]["b2"])
+    h = gelu(drop(h @ layer["ffn"]["w1"] + layer["ffn"]["b1"]))
+    return _residual(x, drop(h @ layer["ffn"]["w2"] + layer["ffn"]["b2"]))
 
 
 def axial_block(
@@ -129,6 +211,7 @@ def forward(
     seq_mask: Optional[torch.Tensor] = None,
     remat: bool = False,
     shard=None,
+    dropout: Optional[Dropout] = None,
 ) -> torch.Tensor:
     """Predict pairwise distances: ``(B, n, L)`` codes → ``(B, P)`` fp32,
     ``P = n(n-1)/2`` in upper-triangle order.  Padded pairs hold garbage;
@@ -140,7 +223,10 @@ def forward(
     sharding of JAX's ``act_sharding``: only this rank's block of pairs is
     built and returned, ``(B, per)``, under its pair mask (padding pairs
     masked), and the column attention's pair-axis sums are all-reduced over
-    the shard's pair group, differentiably."""
+    the shard's pair group, differentiably.
+
+    ``dropout``: the training forward's :class:`Dropout` (JAX's
+    ``dropout_key``); None, or a rate of 0, drops nothing."""
     n_seqs = codes.shape[1]
     emb = embed_alignment(params, codes)
     if shard is None:
@@ -154,15 +240,22 @@ def forward(
         pair_mask = shard.pair_mask(seq_mask)
         group = shard.group
         pair_sum = lambda t: all_reduce_sum_ad(t, group)  # noqa: E731
+    if dropout is not None and dropout.rate <= 0.0:
+        dropout = None
+    sites = [None if dropout is None else _Sites(dropout, i, shard)
+             for i in range(len(params["layers"]) + 1)]
     x, x_sum = _residual(emb.index_select(1, i_idx), emb.index_select(1, j_idx))
-    for layer in params["layers"]:
+    for layer, block_sites in zip(params["layers"], sites):
         if remat:
             x, x_sum = checkpoint(_block, x, x_sum, layer, cfg, site_mask, pair_mask, pair_sum,
-                                  use_reentrant=False)
+                                  block_sites, use_reentrant=False)
         else:
-            x, x_sum = _block(x, x_sum, layer, cfg, site_mask, pair_mask, pair_sum)
+            x, x_sum = _block(x, x_sum, layer, cfg, site_mask, pair_mask, pair_sum, block_sites)
 
-    h = softplus(x @ params["head"]["w"] + params["head"]["b"])[..., 0]  # (B, P, L)
+    h = x @ params["head"]["w"] + params["head"]["b"]  # (B, P, L, 1)
+    if sites[-1] is not None:
+        h = sites[-1].start()(h)
+    h = softplus(h)[..., 0]  # (B, P, L)
     if site_mask is not None:
         m = site_mask[:, None, :].to(h.dtype)
         return (h * m).sum(dim=-1).float() / m.sum(dim=-1).clamp_min(1.0).float()

@@ -8,6 +8,10 @@
 A boolean mask over the attended axis enters every reduction, so padded
 positions are exact no-ops.  Fully masked axes give zero sums; they are
 replaced by 1 (``where(s > 0, s, 1)``) so no NaN appears.
+
+:func:`multi_head_attention` (softmax) and :func:`linear_kernel_attention`
+are the JAX package's ablation ops, plain PyTorch; no path of the model
+calls them.
 """
 
 from __future__ import annotations
@@ -83,3 +87,60 @@ def scaled_linear_attention(
     out = torch.einsum("...ah,...hd->...ahd", q, ctx)
     out = out.reshape(out.shape[:-2] + (d,))
     return out @ params["wo"] + params["bo"]
+
+
+def multi_head_attention(
+    x: torch.Tensor,
+    params: Dict[str, torch.Tensor],
+    n_heads: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Softmax attention over axis ``-2``, the JAX package's ablation op
+    (``multi_head_attention``, the reference's unused ``MultiHeadAttention``
+    variant).  Params as in :func:`scaled_linear_attention` but with
+    ``wq``/``wk`` ``(d, d)``; masked keys take a -1e30 logit bias."""
+    d = x.shape[-1]
+    hd = d // n_heads
+
+    def split(t):
+        return t.reshape(t.shape[:-1] + (n_heads, hd))
+
+    q = split(x @ params["wq"] + params["bq"])  # (..., A, H, hd)
+    k = split(x @ params["wk"] + params["bk"])
+    v = split(x @ params["wv"] + params["bv"])
+    logits = torch.einsum("...ahe,...bhe->...hab", q, k) / float(hd) ** 0.5
+    if mask is not None:
+        logits = logits + torch.where(mask[..., None, None, :], 0.0, -1e30).to(logits.dtype)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("...hab,...bhe->...ahe", probs, v)
+    return out.reshape(out.shape[:-2] + (d,)) @ params["wo"] + params["bo"]
+
+
+def linear_kernel_attention(
+    x: torch.Tensor,
+    params: Dict[str, torch.Tensor],
+    n_heads: int,
+    mask: Optional[torch.Tensor] = None,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """Linear-kernel attention with the ``Z`` denominator and full head
+    dims, the JAX package's ablation op (``linear_kernel_attention``, the
+    reference's unused ``LinearKernelAttention`` variant); params as in
+    :func:`multi_head_attention`."""
+    d = x.shape[-1]
+    hd = d // n_heads
+
+    def split(t):
+        return t.reshape(t.shape[:-1] + (n_heads, hd))
+
+    q = phi(split(x @ params["wq"] + params["bq"]))  # (..., A, H, hd)
+    k = phi(split(x @ params["wk"] + params["bk"]))
+    v = split(x @ params["wv"] + params["bv"])
+    if mask is not None:
+        m = mask[..., None, None].to(q.dtype)
+        q, k, v = q * m, k * m, v * m
+    ktv = torch.einsum("...ahe,...ahf->...hef", k, v)
+    ksum = k.sum(dim=-3)  # (..., H, hd)
+    z = 1.0 / (torch.einsum("...ahe,...he->...ah", q, ksum) + eps)
+    out = torch.einsum("...ahe,...hef->...ahf", q, ktv) * z[..., None]
+    return out.reshape(out.shape[:-2] + (d,)) @ params["wo"] + params["bo"]

@@ -7,18 +7,23 @@
 
 Runs on the card unless ``--device cpu`` is given.  ``--use-pallas auto``
 runs the fused kernels forward and backward on ``cuda`` when dropout is 0
-and ``--remat`` is off, at any alignment length.  ``--base-model`` takes a
-reference ``.ckpt`` or an ``.npz`` parameter file; ``--load-checkpoint``
-resumes from the latest checkpoint of a directory
-(``<output-dir>/checkpoints_<run-name>``).  ``--packed-data`` reads shards
-written by ``pf-preprocess-torch`` (or the JAX package's ``pf-preprocess``);
+and ``--remat`` is off, at any alignment length; ``--dropout`` > 0 trains
+the eager model (``--use-pallas on`` with it raises JAX's "use_pallas
+training requires dropout=0"), its masks drawn from a generator seeded
+with ``--seed``.  ``--base-model`` takes a reference ``.ckpt``, an ``.npz``
+parameter file or a checkpoint directory of either package's trainer;
+``--load-checkpoint`` resumes from the latest checkpoint of a directory
+(``<output-dir>/checkpoints_<run-name>``), the port's or the JAX trainer's
+(Orbax: parameters, step, Adam moments and count, schedule position and
+``--grad-accum``'s accumulator; reading it needs ``tensorstore``).
+``--packed-data`` reads shards written by ``pf-preprocess-torch`` (or the
+JAX package's ``pf-preprocess``);
 ``--profile`` traces 10 steps into ``<output-dir>/profile`` and exits;
 ``--debug-nans`` stops at the first non-finite loss or gradient.
 ``--matmul-precision tensorfloat32`` or ``default`` trains at reduced
 precision: the kernels' products, forward and backward, in one TF32 pass
 (the plain versions round their operands the same way on ``--device
-cpu``), the eager route's in TF32.  Not yet ported, and refused: dropout
-> 0.
+cpu``), the eager route's in TF32.
 
 Over several ranks (``torchrun``, or processes given torchrun's
 ``env://`` variables): ``--distributed-init`` joins the process group (nccl
@@ -64,9 +69,11 @@ def build_parser() -> argparse.ArgumentParser:
 
     start = p.add_argument_group("starting point")
     start.add_argument("--load-checkpoint", "-c", default=None,
-                       help="checkpoint directory to resume training from")
+                       help="checkpoint directory to resume training from (the port's, "
+                            "or the JAX trainer's Orbax run directory)")
     start.add_argument("--base-model", "-m", default=None,
-                       help="checkpoint to fine-tune from (.ckpt torch zip or .npz)")
+                       help="checkpoint to fine-tune from (.ckpt torch zip, .npz, or a "
+                            "trainer directory of either package)")
 
     arch = p.add_argument_group("architecture")
     arch.add_argument("--dropout", "-D", type=float, default=0.0)
@@ -136,13 +143,9 @@ def identifier_from_args(args) -> str:
             f"_lr{args.learning_rate:g}_bs{args.batch_size}_{args.loss}_seed{args.seed}")
 
 
-def _refuse_unported(args) -> None:
-    if args.dropout != 0.0:
-        raise ValueError(f"--dropout {args.dropout} is not yet ported, see ROADMAP.md")
-
-
 def load_base_model(path: str):
-    """``(params, config or None)`` from a reference ``.ckpt`` or an ``.npz``."""
+    """``(params, config or None)`` from a reference ``.ckpt``, an ``.npz``
+    or a trainer directory of either package."""
     if str(path).endswith(".npz"):
         from ..io.checkpoint import load_params_npz
 
@@ -155,7 +158,6 @@ def load_base_model(path: str):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
 
     from ..device import resolve_device
     from ..parallel.mesh import init_distributed, shutdown_distributed
@@ -271,7 +273,7 @@ def _run(args, device) -> int:
         import itertools
 
         from .profiling import profile_n_steps
-        from .trainer import create_train_state, make_train_step
+        from .trainer import create_train_state, dropout_generator, make_train_step
 
         state, tx = create_train_state(cfg, tcfg, params=init_params, device=device)
         step = make_train_step(cfg, tcfg, tx, mesh=mesh)
@@ -280,7 +282,8 @@ def _run(args, device) -> int:
             log_dir = os.path.join(log_dir, f"rank{mesh.rank}")
         # as many epochs as 10 steps take
         batches = itertools.chain.from_iterable(iter(train_loader) for _ in itertools.count())
-        _, _, done = profile_n_steps(step, state, batches, n_steps=10, log_dir=log_dir)
+        _, _, done = profile_n_steps(step, state, batches, n_steps=10, log_dir=log_dir,
+                                     generator=dropout_generator(cfg, tcfg, device))
         say(json.dumps({"profile_dir": log_dir, "steps": done}))
         return 0
 
@@ -329,7 +332,7 @@ def find_batch_size(cfg, tcfg, device, n=50, L=512, start=4, limit=4096) -> int:
     import torch
 
     from ..data.pairs import n_pairs
-    from .trainer import create_train_state, make_train_step
+    from .trainer import create_train_state, dropout_generator, make_train_step
 
     def try_bs(bs: int) -> bool:
         try:
@@ -342,7 +345,7 @@ def find_batch_size(cfg, tcfg, device, n=50, L=512, start=4, limit=4096) -> int:
                 "site_mask": np.ones((bs, L), bool),
                 "seq_mask": np.ones((bs, n), bool),
             }
-            _, logs = step(state, batch)
+            _, logs = step(state, batch, dropout_generator(cfg, tcfg, device))
             float(logs["train_loss"])
             return True
         except Exception as e:  # noqa: BLE001 — filtered below

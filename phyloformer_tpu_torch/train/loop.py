@@ -31,6 +31,7 @@ from typing import Dict, Iterable, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..io import orbax
 from ..io.checkpoint import CheckpointManager
 from ..models.params import PhyloformerConfig
 from ..parallel.mesh import all_reduce_sum
@@ -38,6 +39,8 @@ from .data import BucketedLoader
 from .trainer import (
     TrainConfig,
     create_train_state,
+    dropout_generator,
+    leaves_like,
     make_eval_step,
     make_train_step,
     param_leaves,
@@ -152,12 +155,27 @@ def evaluate(eval_step, params, loader: Iterable) -> Dict[str, float]:
     return {k: v / count for k, v in sums.items()}
 
 
+def _restore(path):
+    """``(payload, step)`` of the latest checkpoint of a directory of the
+    port's trainer or of the JAX trainer's (Orbax; its optimizer state
+    under ``"optax"``)."""
+    if orbax.is_orbax_dir(path):
+        tree, step = orbax.read_state(path)
+        return {"params": tree["params"], "optax": tree["opt_state"],
+                "step": int(tree["step"])}, step
+    return CheckpointManager(path).restore()
+
+
 def _load_into(state, payload) -> None:
     """Copy a checkpoint's parameters and optimizer state into ``state``."""
     with torch.no_grad():
-        for leaf, saved in zip(param_leaves(state["params"]), param_leaves(payload["params"])):
-            leaf.copy_(saved)
-    state["opt_state"].load_state_dict(payload["opt_state"])
+        for leaf, saved in zip(param_leaves(state["params"]),
+                               leaves_like(state["params"], payload["params"])):
+            leaf.copy_(torch.as_tensor(saved))
+    if "optax" in payload:
+        state["opt_state"].load_optax(payload["optax"], state["params"])
+    else:
+        state["opt_state"].load_state_dict(payload["opt_state"])
     state["step"] = int(payload["step"])
 
 
@@ -195,7 +213,7 @@ def fit(
     eval_step = make_eval_step(cfg, tcfg, mesh=mesh)
     # every rank looks for the same checkpoint before rank 0 makes the directory
     if isinstance(resume, (str, os.PathLike)):
-        payload, restored_step = CheckpointManager(resume).restore()
+        payload, restored_step = _restore(resume)
     elif resume and run_dir.is_dir() and CheckpointManager(run_dir).latest_step() is not None:
         payload, restored_step = CheckpointManager(run_dir).restore()
     else:
@@ -221,6 +239,8 @@ def fit(
         if logger is not None:
             logger.log(step_, **scalars)
 
+    # the dropout masks' generator starts from the seed, also on a resume
+    generator = dropout_generator(cfg, tcfg, param_leaves(state["params"])[0].device)
     step = int(state["step"])
     train_loss = math.nan
     best_val = math.inf
@@ -269,7 +289,7 @@ def fit(
         if stop_reason:
             break
         for batch in train_loader:
-            state, logs = train_step(state, batch)
+            state, logs = train_step(state, batch, generator)
             step = int(state["step"])
             train_loss = float(logs["train_loss"])
             if not math.isfinite(train_loss):

@@ -48,13 +48,14 @@ def trace(log_dir) -> Iterator[torch.profiler.profile]:
         str(path / f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json"))
 
 
-def profile_n_steps(step_fn, state, batches, n_steps: int, log_dir):
-    """Run ``n_steps`` train steps of ``batches`` under :func:`trace`;
-    returns ``(state, logs, steps run)``."""
+def profile_n_steps(step_fn, state, batches, n_steps: int, log_dir, generator=None):
+    """Run ``n_steps`` train steps of ``batches`` under :func:`trace`, with
+    the dropout ``generator`` (or None); returns ``(state, logs, steps
+    run)``."""
     logs, done = None, 0
     with trace(log_dir):
         for _, batch in zip(range(n_steps), batches):
-            state, logs = step_fn(state, batch)
+            state, logs = step_fn(state, batch, generator)
             done += 1
         if logs is not None:
             float(logs["train_loss"])  # waits for the device

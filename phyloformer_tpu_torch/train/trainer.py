@@ -7,7 +7,10 @@ global-norm clipping, Adam(W) with the schedule, and ``optax.MultiSteps``
 when ``grad_accum > 1``) and the count of micro-batches.  ``use_pallas``
 runs the fused kernels forward and backward
 (:func:`..models.phyloformer.forward_fused_ad`); otherwise the eager model
-runs under plain autograd, the JAX package's XLA path.  Steps run on the
+runs under plain autograd, the JAX package's XLA path.  Dropout > 0 trains
+on the eager model only, as in JAX (the fused routes raise JAX's
+"use_pallas training requires dropout=0"); its masks come from the
+generator given to the step (:func:`dropout_generator`).  Steps run on the
 device of the parameters.  ``matmul_precision`` "float32" computes every
 product in fp32 (the kernels' in three TF32 passes, PyTorch's with TF32
 off); "tensorfloat32" and "default" run the kernels' products in one TF32
@@ -37,21 +40,17 @@ from ..data.pairs import n_pairs
 from ..device import resolve_device, tf32_products
 from ..infer.engine import real_pair_selector
 from ..models.params import Params, PhyloformerConfig, init_params, map_params
-from ..models.phyloformer import forward, forward_fused_ad, pair_mask_from_seq_mask
+from ..models.phyloformer import Dropout, forward, forward_fused_ad, pair_mask_from_seq_mask
 from ..ops.kernels.sharded import (
     pair_shard,
     real_pairs,
     sharded_fused_loss_and_grads,
     sharded_fused_predict,
 )
-from ..parallel.mesh import Mesh, all_reduce_sum, local_mesh, shard_batch
+from ..parallel.mesh import Mesh, all_reduce_sum, batch_slice, local_mesh, shard_batch
 from .losses import get_term
 from .profiling import check_finite, nan_checks_enabled
 from .schedule import clip_by_global_norm, global_norm, linear_warmup_decay, make_optimizer
-
-
-def _not_ported(what: str) -> ValueError:
-    return ValueError(f"{what} is not yet ported, see ROADMAP.md")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +64,7 @@ class TrainConfig:
     remat: bool = False
     seed: int = 1337
     shard_pairs: bool = False  # shard the pair axis over the mesh's 'pair' axis
-    # The fused kernels forward and backward (dropout 0 only);
+    # The fused kernels forward and backward (dropout 0 only, as in JAX);
     # PF_PALLAS_BWD=remat backpropagates through the eager block instead.
     use_pallas: bool = False
     # Average the gradients of this many micro-batches before each update
@@ -82,6 +81,64 @@ def param_leaves(params: Params) -> List[torch.Tensor]:
     out: List[torch.Tensor] = []
     map_params(out.append, params)
     return out
+
+
+def leaves_like(template: Params, tree) -> List[Any]:
+    """The leaves of ``tree``, a tree with ``template``'s keys (in any
+    order), in the order of :func:`param_leaves` of ``template``."""
+    out: List[Any] = []
+
+    def rec(t, n):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                rec(v, n[k])
+        elif isinstance(t, (list, tuple)):
+            if len(t) != len(n):
+                raise ValueError(f"a list of {len(n)} where the parameters hold {len(t)}")
+            for a, b in zip(t, n):
+                rec(a, b)
+        else:
+            out.append(n)
+
+    rec(template, tree)
+    return out
+
+
+def _optax_adam(opt_state, every_k: int):
+    """``(adam, schedule count, multi)`` of the JAX trainer's optax state as
+    :func:`..io.orbax.read_state` returns it: the one Adam state
+    (``count``, ``mu``, ``nu``) and the one schedule count of its chain
+    (optional global-norm clipping, then Adam or AdamW under the schedule;
+    the other links hold no arrays), inside ``MultiSteps`` when
+    ``every_k > 1``.  Raises on any other state."""
+    multi = isinstance(opt_state, dict) and "inner_opt_state" in opt_state
+    if multi != (every_k > 1):
+        raise ValueError(
+            f"the JAX optimizer state {'is' if multi else 'is not'} optax.MultiSteps, but this "
+            f"run has grad_accum={every_k}: resume with --grad-accum as the JAX run trained")
+    adam, counts, other = [], [], []
+
+    def walk(node, path):
+        if isinstance(node, dict) and set(node) == {"count", "mu", "nu"}:
+            adam.append(node)
+        elif isinstance(node, dict) and set(node) == {"count"}:
+            counts.append(int(node["count"]))
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}.{k}")
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{path}.{i}")
+        else:
+            other.append(path.lstrip("."))
+
+    walk(opt_state["inner_opt_state"] if multi else opt_state, "")
+    if len(adam) != 1 or len(counts) != 1 or other:
+        raise ValueError(
+            f"the JAX optimizer state is not the trainer's chain (clipping, Adam or AdamW, "
+            f"the schedule): found {len(adam)} Adam states, {len(counts)} schedule counts "
+            f"and other arrays {other[:8]}; it cannot be resumed here")
+    return adam[0], counts[0], multi
 
 
 class Optimizer:
@@ -135,6 +192,35 @@ class Optimizer:
         self.acc = None if sd["acc"] is None else [a.to(dev) for a in sd["acc"]]
         self.mini_step = int(sd["mini_step"])
 
+    def load_optax(self, opt_state, params: Params) -> None:
+        """Take over the JAX trainer's optax state (from its Orbax
+        directory): Adam's ``mu``, ``nu`` and ``count`` become
+        ``exp_avg``, ``exp_avg_sq`` and ``step``, the schedule's count the
+        ``LambdaLR`` position, and under ``MultiSteps`` its ``mini_step``
+        and accumulated mean this optimizer's.  ``params``: the tree whose
+        leaves this optimizer updates, for the order of the leaves."""
+        adam, sched_count, multi = _optax_adam(opt_state, self.every_k)
+        count = int(adam["count"])
+        if sched_count != count:
+            raise ValueError(f"the JAX optimizer state counts {count} Adam updates but "
+                             f"{sched_count} schedule steps")
+
+        def tensors(tree):
+            return [torch.as_tensor(np.asarray(a, np.float32)) for a in leaves_like(params, tree)]
+
+        sd = self.state_dict()
+        lam = self.sched.lr_lambdas[0]
+        sd["optimizer"]["state"] = {
+            i: {"step": torch.tensor(float(count)), "exp_avg": m, "exp_avg_sq": v}
+            for i, (m, v) in enumerate(zip(tensors(adam["mu"]), tensors(adam["nu"])))}
+        sd["optimizer"]["param_groups"][0]["lr"] = self.sched.base_lrs[0] * lam(count)
+        sd["scheduler"].update(last_epoch=count, _step_count=count + 1,
+                               _last_lr=[sd["optimizer"]["param_groups"][0]["lr"]])
+        mini = int(opt_state["mini_step"]) if multi else 0
+        sd["acc"] = tensors(opt_state["acc_grads"]) if mini else None
+        sd["mini_step"] = mini
+        self.load_state_dict(sd)
+
 
 def create_train_state(
     cfg: PhyloformerConfig,
@@ -159,9 +245,21 @@ def create_train_state(
     return {"params": params, "opt_state": tx, "step": 0}, tx
 
 
-def _check_supported(cfg: PhyloformerConfig) -> None:
-    if cfg.dropout:
-        raise _not_ported(f"dropout={cfg.dropout}")
+def dropout_generator(cfg: PhyloformerConfig, tcfg: TrainConfig,
+                      device) -> Optional[torch.Generator]:
+    """The generator of the train steps' dropout masks: on the training
+    ``device``, seeded with ``tcfg.seed``; None when ``cfg.dropout`` is 0.
+    Each step advances it once.  As the JAX trainer's key
+    (``train/loop.py``), a resumed run starts it again from the seed."""
+    if not cfg.dropout:
+        return None
+    return torch.Generator(torch.device(device)).manual_seed(tcfg.seed)
+
+
+def _check_route(cfg: PhyloformerConfig, how: str) -> None:
+    """The fused routes have no dropout, as in JAX (``train/trainer.py``)."""
+    if cfg.dropout and how in ("fused", "sharded_fused"):
+        raise ValueError("use_pallas training requires dropout=0")
 
 
 def route(tcfg: TrainConfig, mesh: Mesh) -> str:
@@ -190,21 +288,27 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Optional[torch.T
     return out
 
 
-def _predict(params, batch, cfg, tcfg, how: str, mesh: Mesh):
+def _predict(params, batch, cfg, tcfg, how: str, mesh: Mesh,
+             dropout: Optional[Dropout] = None):
     """``(preds, pair mask, targets)`` of this rank's part of a batch (both
-    masks given, :func:`_mesh_batch`) on the route ``how``."""
+    masks given, :func:`_mesh_batch`) on the route ``how``; the eager
+    routes drop out this rank's part of ``dropout``'s masks."""
     if how == "sharded_fused":
         return sharded_fused_predict(params, batch, cfg, mesh)
+    if dropout is not None:
+        dropout = dropout.for_rows(batch_slice(mesh, len(batch["codes"])), len(batch["codes"]))
     batch = shard_batch(mesh, batch)
     codes, site_mask, seq_mask = batch["codes"], batch["site_mask"], batch["seq_mask"]
     if how == "sharded_eager":
         shard = pair_shard(codes.shape[1], mesh, codes.device)
-        preds = forward(params, codes, cfg, site_mask, seq_mask, remat=tcfg.remat, shard=shard)
+        preds = forward(params, codes, cfg, site_mask, seq_mask, remat=tcfg.remat, shard=shard,
+                        dropout=dropout)
         return preds, shard.pair_mask(seq_mask), shard.columns(batch["dists"])
     if how == "fused":
         preds = forward_fused_ad(params, codes, cfg, site_mask, seq_mask)
     else:
-        preds = forward(params, codes, cfg, site_mask, seq_mask, remat=tcfg.remat)
+        preds = forward(params, codes, cfg, site_mask, seq_mask, remat=tcfg.remat,
+                        dropout=dropout)
     return preds, pair_mask_from_seq_mask(seq_mask, codes.shape[1]), batch["dists"]
 
 
@@ -246,7 +350,7 @@ def make_train_step(
     tx: Optimizer,
     mesh: Optional[Mesh] = None,
 ) -> Callable[..., Tuple[TrainState, Dict[str, Any]]]:
-    """The train step ``step(state, batch[, key]) -> (state, logs)``.
+    """The train step ``step(state, batch[, generator]) -> (state, logs)``.
 
     Batch dict: ``codes (B,n,L)`` integers, ``dists (B,P)`` fp32, optional
     ``site_mask (B,L)`` and ``seq_mask (B,n)`` bool.  ``logs``: the loss,
@@ -255,21 +359,27 @@ def make_train_step(
     place.  After :func:`.profiling.enable_nan_checks` a non-finite loss or
     gradient raises ``FloatingPointError`` before the update.
 
+    ``generator`` (:func:`dropout_generator`; JAX's ``dropout_key``): with
+    ``cfg.dropout`` > 0 each step draws its masks' seeds from it
+    (:meth:`..models.phyloformer.Dropout.draw`); None drops nothing, as
+    JAX's step without a key.  Dropout needs the eager route: the fused
+    routes raise JAX's ``"use_pallas training requires dropout=0"``.
+
     ``mesh``: every rank of it calls the step with the same whole batch;
     the routes are :func:`route`'s, the loss and the gradients global (the
     same on every rank).  None: this process alone."""
-    _check_supported(cfg)
     term = get_term(tcfg.loss)
     mesh = mesh if mesh is not None else local_mesh()
+    _check_route(cfg, route(tcfg, mesh))
     sched = linear_warmup_decay(tcfg.learning_rate, tcfg.warmup_steps, tcfg.total_steps)
     every_k = max(1, tcfg.grad_accum)
 
-    def loss_and_grads(params, leaves, b, how):
+    def loss_and_grads(params, leaves, b, how, dropout):
         if how == "sharded_fused":
             return sharded_fused_loss_and_grads(params, b, cfg, mesh, term)
         # this rank's share: its masked sum over the global count
         n_tot = real_pairs(b["seq_mask"]).sum().to(torch.float32).clamp_min(1.0)
-        preds, pair_mask, dists = _predict(params, b, cfg, tcfg, how, mesh)
+        preds, pair_mask, dists = _predict(params, b, cfg, tcfg, how, mesh, dropout)
         share = (term(preds, dists) * pair_mask.to(preds.dtype)).sum() / n_tot
         if nan_checks_enabled():  # a NaN from the forward, before the backward sees it;
             # the sum over the ranks, so that every rank raises alike
@@ -281,13 +391,15 @@ def make_train_step(
         parts = flat.split([1] + [g.numel() for g in grads])
         return parts[0][0], [p.view(g.shape) for p, g in zip(parts[1:], grads)]
 
-    def step_fn(state: TrainState, batch, dropout_key=None):
+    def step_fn(state: TrainState, batch, generator: Optional[torch.Generator] = None):
         leaves = param_leaves(state["params"])
         device = leaves[0].device
         b = _mesh_batch(batch, mesh, device)
         how = route(tcfg, mesh)
+        dropout = (Dropout.draw(cfg.dropout, generator, cfg.n_blocks)
+                   if cfg.dropout and generator is not None else None)
         with _step_products(cfg, how, device):
-            loss, grads = loss_and_grads(state["params"], leaves, b, how)
+            loss, grads = loss_and_grads(state["params"], leaves, b, how, dropout)
         if nan_checks_enabled():
             check_finite(loss, grads)
         logs = {"train_loss": loss.detach(), "grad_norm": global_norm(grads).detach(),
@@ -303,10 +415,11 @@ def make_eval_step(cfg: PhyloformerConfig, tcfg: TrainConfig,
                    mesh: Optional[Mesh] = None) -> Callable:
     """Validation step ``eval(params, batch) -> {val_loss, val_mae,
     val_mre, val_rmse}``, on the forward the train step uses; each metric
-    is the masked sum over the count of real pairs, global on a mesh."""
-    _check_supported(cfg)
+    is the masked sum over the count of real pairs, global on a mesh; no
+    dropout."""
     terms = [get_term(k) for k in (tcfg.loss, "mae", "mre", "mse")]
     mesh = mesh if mesh is not None else local_mesh()
+    _check_route(cfg, route(tcfg, mesh))
 
     def eval_fn(params, batch):
         device = param_leaves(params)[0].device

@@ -11,7 +11,8 @@
 - A directory written by ``pf-train-torch --device cpu`` (2 steps) loads
   with its config and step, and ``pf-infer-torch`` runs on it, its PHYLIP
   values those of an engine on the same restored parameters; a JAX Orbax
-  directory is refused with the ROADMAP message.
+  directory reads bit-equal to the checkpoint it was saved from, and where
+  ``tensorstore`` is missing it is refused with a message that names it.
 
 Bit-equal means ``np.testing.assert_array_equal`` on every parameter, and
 fp32 throughout.  JAX and the port run in subprocesses of their own and
@@ -94,11 +95,15 @@ for name, path in (("ckpt", {str(CKPT)!r}), ("npz", root + "/port.npz")):
     with contextlib.redirect_stdout(buf):
         assert cli.main(["inspect", path]) == 0
     OUT["inspect." + name] = np.asarray(buf.getvalue())
+import sys
+flat(load_pretrained(root + "/orbax")[0], "from_orbax")
+sys.modules["tensorstore"] = None  # as on a machine without it
 try:
     load_pretrained(root + "/orbax")
     OUT["orbax"] = np.asarray("loaded")
-except ValueError as e:
+except ImportError as e:
     OUT["orbax"] = np.asarray(str(e))
+del sys.modules["tensorstore"]
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
     rc = train_cli.main(["-t", root + "/corpus/trees", "-a", root + "/corpus/alns",
@@ -219,9 +224,16 @@ def test_infer_cli_reads_trainer_directory(ckpt_case):
 
 
 def test_orbax_directory_refused(ckpt_case):
-    _, _, port, _ = ckpt_case
+    """Without ``tensorstore`` an Orbax directory is refused, naming it and
+    the conversion that reads it without; with it, the directory's
+    parameters are the checkpoint's, bit for bit."""
+    _, jax_first, port, _ = ckpt_case
     msg = str(port["orbax"])
-    assert "Orbax" in msg and "not yet ported, see ROADMAP.md" in msg, msg
+    assert "Orbax" in msg and "tensorstore" in msg and "pf-ckpt convert" in msg, msg
+    ref = {k[len("ref"):]: v for k, v in jax_first.items() if k.startswith("ref/")}
+    assert len(ref) == 161 - 1
+    for k, v in ref.items():
+        np.testing.assert_array_equal(port["from_orbax" + k], v, err_msg=k)
 
 
 def test_trainer_directory_without_config_refused(tmp_path):

@@ -193,6 +193,32 @@ print(json.dumps({{"loaded": sorted(sys.modules),
     assert "matplotlib" not in out["loaded"]
 
 
+def test_import_walk_covers_orbax_manifest_and_tools():
+    """The Orbax reader, the figure manifest and the evaluation tools are
+    walked (so the guards above cover them); importing them, and the Orbax
+    reader's own imports, load neither JAX nor ``orbax`` nor matplotlib."""
+    mods = ("io.orbax", "bench.manifest", "tools", "tools.eval_testdata_kf",
+            "tools.eval_curve")
+    out = _run(f"""
+import importlib, json, pkgutil, sys
+import phyloformer_tpu_torch as pkg
+for name in {mods!r}:
+    importlib.import_module("phyloformer_tpu_torch." + name)
+from phyloformer_tpu_torch.io import orbax
+try:
+    orbax._tensorstore()
+except ImportError:
+    pass
+print(json.dumps({{"loaded": sorted(sys.modules),
+                  "names": [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                                  pkg.__name__ + ".")]}}))
+""")
+    for name in mods:
+        assert "phyloformer_tpu_torch." + name in out["names"], name
+    assert not [m for m in out["loaded"] if _forbidden(m)]
+    assert "matplotlib" not in out["loaded"]
+
+
 def test_serve_and_ckpt_modules_import_no_jax_and_serve_defaults_to_cuda():
     """The serving package and pf-ckpt-torch pull in neither JAX nor the JAX
     package; pf-serve-torch runs on the card by default and raises without
@@ -273,22 +299,22 @@ print(json.dumps(res))
 # size error; --mesh-data 1, --shard-pairs and --distributed-init (given a
 # world of one in torchrun's variables) run to the empty corpus (exit 1);
 # with --packed-data the flags pass and the shard directory is read; dropout
-# stays refused.
+# runs (to the empty corpus) on the eager route.
 TRAIN_FLAG_OUTCOMES = {
     ("--mesh-data", "2"): "ValueError: mesh 2x1 != 1 devices",
     ("--mesh-data", "1"): "rc 1",
     ("--mesh-pair", "2"): "ValueError: 1 devices not divisible by pair=2",
     ("--shard-pairs",): "rc 1",
     ("--distributed-init",): "rc 1",
-    ("--dropout", "0.1"): "ValueError: --dropout 0.1 is not yet ported, see ROADMAP.md",
+    ("--dropout", "0.1"): "rc 1",
     ("--packed-data", "x", "--shard-pairs"): "FileNotFoundError",
 }
 
 
 @pytest.mark.parametrize("flags", [list(f) for f in TRAIN_FLAG_OUTCOMES])
 def test_train_cli_refuses_unported_flags(flags, tmp_path):
-    """The flags that were refused before the mesh was ported: each now
-    runs, or raises the mesh's size error; dropout stays refused."""
+    """The flags that were refused before the mesh and dropout were
+    ported: each now runs, or raises the mesh's size error."""
     out = _run(f"""
 import json, os
 from torch import distributed as dist
@@ -365,10 +391,10 @@ print(json.dumps(res))
 
 
 def test_training_knobs_refuse_what_is_not_ported():
-    """Dropout in the train step refuses; pair sharding and a mesh (of one
-    rank) run, the step's loss equal to the step's without them; fused
-    training above 1024 sites runs, in the block and in the backward host
-    function."""
+    """Dropout on the fused route refuses with JAX's message; pair
+    sharding and a mesh (of one rank) run, the step's loss equal to the
+    step's without them; fused training above 1024 sites runs, in the block
+    and in the backward host function."""
     out = _run("""
 import json
 import torch
@@ -387,7 +413,7 @@ from phyloformer_tpu_torch.parallel.mesh import make_mesh
 cfg = PhyloformerConfig(n_blocks=1, embed_dim=32)
 state, tx = create_train_state(cfg, TrainConfig(), device="cpu")
 attempt(lambda: make_train_step(PhyloformerConfig(n_blocks=1, embed_dim=32, dropout=0.1),
-                                TrainConfig(), tx))
+                                TrainConfig(use_pallas=True), tx))
 g = torch.Generator().manual_seed(1)
 batch = {"codes": torch.randint(0, 20, (2, 5, 12), generator=g),
          "dists": torch.rand(2, 10, generator=g) + 0.1}
@@ -411,7 +437,7 @@ print(json.dumps({"msgs": msgs, "losses": losses, "finite": [bool(torch.isfinite
                   "same": bool(torch.allclose(2 * gx2, gx, rtol=1e-5, atol=1e-5))}))
 """)
     assert len(out["msgs"]) == 4, out
-    assert "not yet ported, see ROADMAP.md" in out["msgs"][0], out
+    assert out["msgs"][0] == "use_pallas training requires dropout=0", out
     assert out["msgs"][1:] == ["ran"] * 3, out
     first = out["losses"][0]
     assert all(abs(x - first) <= 1e-5 * abs(first) for x in out["losses"]), out
