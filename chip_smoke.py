@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--reductions | --reduced | --sharded | --sim | --trees | --variants]
+    python3 chip_smoke.py [--reductions | --reduced | --sharded | --sim | --trees | --variants |
+                           --grid]
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written CUDA kernels from this checkout's sources (one
@@ -190,7 +191,25 @@
    (``ABLATION_TOL``); ``load_pretrained`` on an Orbax layout raising the
    ``tensorstore`` message where that package is missing (else the
    committed JAX fixture read bit-equal to its ``.npz``);
-16. prints the ``kernels`` JSON line (with the row of ``_kernel_b_host``)
+16. the experiment tools (``--grid``: only this, after the build):
+   ``tools.make_grid_data --reps 1`` (6 tips classes x 3 lengths, the host's
+   engine); ``tools.reference_path`` (the reference's execution structure:
+   batch 1, one-hot and a 1x1 convolution, the seq2pair product, channel
+   first, fp32, TF32 off) on 64 x 60 x 250 with its aln/s beside the engine's
+   on the same alignments (the fast path and the fp32 kernels), its
+   distances on 4 within ``DIST_TOL`` of the eager fp32 model's;
+   ``tools.run_grid`` over the grid with ``GRID_METHODS`` (the host methods
+   capped at ``GRID_ML_FASTME_MAX_TIPS`` and ``GRID_ML_REFINE_MAX_TIPS``
+   tips): PF on the kernels at one TF32 pass (its launches two passes of the
+   engine's plan), its distances within ``GATE`` of the eager fp32 model's,
+   the mean KF by marker and length, PF's aln/s and ms a tree, and
+   ``tools.summarize_grid``; ``--methods FastTree`` raising
+   FileNotFoundError naming the binary; ``accuracy_at_scale.kf_check`` at 100
+   x 1000 x 4 (both means, each topology flip named); ``tools.make_corpus
+   --scale 0.0025`` (about 255 alignments evolved on the card, packed and
+   merged) and two ``pf-train-torch --packed-data .../packed_all
+   --use-pallas on`` steps on it (finite losses, A, B, C, D and E launched);
+17. prints the ``kernels`` JSON line (with the row of ``_kernel_b_host``)
    and the throughputs, then, as its last line, ``{"ok": true, "device":
    {...}}``.
 
@@ -4464,6 +4483,235 @@ def model_variants_phase(device, card, train=None, test_set=None):
     return num, tool_launches
 
 
+GRID_REPS = 1  # make_grid_data --reps: 6 tips classes x 3 lengths, one alignment each
+GRID_METHODS = "PF,Hamming_FastME,ML_FastME,ml_refine"
+# the host methods' tips caps, so that the phase stays within about 150 s
+GRID_ML_FASTME_MAX_TIPS = 40
+GRID_ML_REFINE_MAX_TIPS = 20
+REF_PATH_CHECK = 4  # reference-path alignments held against the eager fp32 model
+CORPUS_SCALE = "0.0025"  # make_corpus --scale: 157 + 65 + 33 alignments
+CORPUS_STEPS = 2
+
+
+def grid_phase(device, card):
+    """The experiment tools on the card (item 16 of the module's docstring).
+    Returns the phase's numbers and the launches of its kernel-route runs."""
+    import csv
+
+    import torch
+
+    from phyloformer_tpu_torch.data.fasta import Alignment, read_fasta
+    from phyloformer_tpu_torch.data.pairs import square_to_vector
+    from phyloformer_tpu_torch.data.phylip import read_phylip
+    from phyloformer_tpu_torch.infer.engine import InferenceEngine
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+    from phyloformer_tpu_torch.tools import (accuracy_at_scale, make_corpus, make_grid_data,
+                                             reference_path, run_grid, summarize_grid)
+    from phyloformer_tpu_torch.train import cli as train_cli
+    from phyloformer_tpu_torch.trees.native import compare_newick
+
+    root = os.path.join(WORK, "grid")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    num = {"card": card}
+    split = num["split_s"] = {}
+    mark = [time.perf_counter()]
+    launches = {k: 0 for k in KERNELS}
+
+    def lap(name):
+        now = time.perf_counter()
+        split[name] = now - mark[0]
+        mark[0] = now
+
+    def count(what):
+        torch.cuda.synchronize()
+        for k in launches:
+            launches[k] += pipe.LAUNCHES[k]
+        num.setdefault("launches", {})[what] = dict(pipe.LAUNCHES)
+        pipe.reset_launch_counts()
+
+    def tool(module, argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = module.main(argv)
+        if rc != 0:
+            fail(f"grid: {module.__name__} {argv} exited {rc}")
+        return out.getvalue()
+
+    params, cfg, _ = load_pretrained(CKPT)
+
+    # 1. the grid's alignments: the native engine on the host
+    data = os.path.join(root, "data")
+    tool(make_grid_data, [data, "--reps", str(GRID_REPS)])
+    lens = list(make_grid_data.LENGTHS)
+    alns = {L: {os.path.splitext(f)[0]: read_fasta(os.path.join(data, f"L{L}", "msas", f))
+                for f in sorted(os.listdir(os.path.join(data, f"L{L}", "msas")))} for L in lens}
+    # a tree whose alignments keep duplicate rows after 60 attempts is left out,
+    # as the tool leaves it out (at 250 sites the 60-100 tips trees, seed 31000)
+    num["alignments"] = {L: sorted(a) for L, a in alns.items()}
+    print(f"grid: make_grid_data --reps {GRID_REPS}: " + ", ".join(
+        f"L{L} {len(a)} of {GRID_REPS * len(make_grid_data.TIPS)}" for L, a in alns.items()))
+    if not all(alns.values()):
+        fail(f"grid: make_grid_data wrote no alignment at some length: {num['alignments']}")
+    lap("grid_data")
+
+    # 2. the reference's execution structure beside the engine, on the same 64
+    ohs = reference_path.random_onehots(np.random.default_rng(0))
+    ref = reference_path.run(params, ohs, device)
+    n_ref = len(ohs)
+    ref_alns = [Alignment(oh.argmax(0).T.astype(np.int8), [f"T{j}" for j in range(oh.shape[2])])
+                for oh in ohs]
+    want = plain_refs(params, cfg, ref_alns[:REF_PATH_CHECK], device)
+    ref_err = max(rel_err(g, w) for g, w in zip(ref["preds"], want))
+    pipe.reset_launch_counts()
+    fast = run_grid.pf_engine(params, cfg, device)
+    fp32 = InferenceEngine(params, cfg, device=device)
+    num["reference_path"] = {
+        "aln_per_s": n_ref / ref["seconds"], "s_per_aln": ref["seconds"] / n_ref,
+        "engine_fast_aln_per_s": throughput(fast, ref_alns),
+        "engine_fp32_aln_per_s": throughput(fp32, ref_alns),
+        "err_vs_eager": ref_err, "shape": [reference_path.N_TIPS, reference_path.SEQ_LEN]}
+    count("engines_on_reference_set")
+    rp = num["reference_path"]
+    print(f"grid: reference structure (batch 1, one-hot + 1x1 conv, seq2pair matmul, "
+          f"channel-first, fp32, TF32 off) {rp['aln_per_s']:.2f} aln/s on {n_ref} x "
+          f"{reference_path.N_TIPS} x {reference_path.SEQ_LEN}; the engine on the same "
+          f"alignments: fast path {rp['engine_fast_aln_per_s']:.2f} aln/s, fp32 kernels "
+          f"{rp['engine_fp32_aln_per_s']:.2f} aln/s; the reference structure against the eager "
+          f"fp32 model on {REF_PATH_CHECK}: {ref_err:.3e} of max(1, max|ref|) (tol "
+          f"{DIST_TOL:.0e}) [{card}]")
+    if not ref_err <= DIST_TOL:
+        fail("grid: the reference structure's distances disagree with the eager fp32 model")
+    del fast, fp32
+    torch.cuda.empty_cache()
+    lap("reference_path")
+
+    # 3. the grid: PF on the kernels at one TF32 pass, the host methods
+    out = os.path.join(root, "out")
+    common = ["--grid-root", data, "--lengths", ",".join(map(str, lens)), "--pf-weights", CKPT]
+    grid_out = tool(run_grid, common + [
+        "--out", out, "--methods", GRID_METHODS,
+        "--ml-fastme-max-tips", str(GRID_ML_FASTME_MAX_TIPS),
+        "--ml-refine-max-tips", str(GRID_ML_REFINE_MAX_TIPS)])
+    count("grid_pf")
+    planner = run_grid.pf_engine(params, cfg, torch.device("cpu"))
+    expected = {k: 0 for k in pipe.LAUNCHES}
+    for L in lens:
+        plan = planner._plan(list(alns[L].values()))
+        for k, v in expected_launches(plan, cfg.n_blocks,
+                                      lambda n, l: pipe.pipeline_supported(n, l, "default")
+                                      ).items():
+            expected[k] += 2 * v  # the untimed compile_warmup pass and the timed one
+    if num["launches"]["grid_pf"] != expected:
+        fail(f"grid: PF's launches {num['launches']['grid_pf']} differ from two passes of the "
+             f"plan's {expected}")
+    pf_err, kf, pf_rate = 0.0, {}, {}
+    for L in lens:
+        stems = list(alns[L])
+        refs = plain_refs(params, cfg, list(alns[L].values()), device)
+        for s, r in zip(stems, refs):
+            mat, ids = read_phylip(os.path.join(out, f"L{L}", "matrices_pf", s + ".phy"))
+            if ids != alns[L][s].ids:
+                fail(f"grid: {s}.phy's ids are not its alignment's")
+            pf_err = max(pf_err, float(np.abs(square_to_vector(mat) - r).max()))
+        for marker in GRID_METHODS.split(","):
+            with open(os.path.join(out, f"L{L}", f"topos_{marker.lower()}.csv")) as fh:
+                rows = list(csv.DictReader(fh))
+            kf[f"{marker}/{L}"] = (statistics.mean(float(r["kf_score"]) for r in rows)
+                                   if rows else None, len(rows))
+        with open(os.path.join(out, f"L{L}", "execution_pf.csv")) as fh:
+            ex = list(csv.DictReader(fh))
+        inf = [float(r["elapsed_sec"]) for r in ex if r["timer"] == "inference"]
+        fme = [float(r["elapsed_sec"]) for r in ex if r["timer"] == "fastme"]
+        if len(inf) != 1 or len(fme) != len(stems):
+            fail(f"grid: execution_pf.csv at L{L} holds {len(inf)} inference and {len(fme)} "
+                 f"fastme rows")
+        pf_rate[L] = {"inference_aln_per_s": len(stems) / inf[0],
+                      "fastme_ms_per_tree": 1e3 * statistics.mean(fme)}
+    num.update(pf_err=pf_err, mean_kf=kf, pf=pf_rate)
+    print("grid: " + grid_out.strip().replace("\n", "; "))
+    print("grid: PF (kernels, one TF32 pass): " + ", ".join(
+        f"L{L} {r['inference_aln_per_s']:.2f} aln/s, fastme {r['fastme_ms_per_tree']:.2f} ms "
+        f"a tree" for L, r in pf_rate.items()) + f"; its distances within {pf_err:.3e} of the "
+        f"eager fp32 model's (gate {GATE:.0e} max-abs) [{card}]")
+    print("grid: mean KF by marker and length: " + ", ".join(
+        f"{k} {v:.4f} (n={n})" for k, (v, n) in kf.items() if v is not None))
+    summary = tool(summarize_grid, [os.path.join(root, "summary.csv"), out])
+    print("grid: summarize_grid:\n" + summary.rstrip())
+    num["summary"] = summary
+    if not pf_err <= GATE:
+        fail("grid: PF's distances are off the eager fp32 model's beyond the fast-path gate")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            run_grid.main(common + ["--out", os.path.join(root, "fasttree"), "--methods",
+                                    "FastTree", "--lengths", str(lens[0])])
+        fail("grid: run_grid --methods FastTree ran without a FastTree binary")
+    except FileNotFoundError as err:
+        num["fasttree_refusal"] = str(err)
+        if "FastTree" not in str(err):
+            fail(f"grid: the FastTree refusal names no binary: {err}")
+    print(f"grid: --methods FastTree: FileNotFoundError: {num['fasttree_refusal']}")
+    lap("run_grid")
+
+    # 4. accuracy at scale: the fast path's KF against the oracle's at 100 x 1000 x 4
+    acc, detail = accuracy_at_scale.kf_check(
+        params, cfg, accuracy_at_scale.N_TIPS, accuracy_at_scale.N_SITES,
+        accuracy_at_scale.REPS, device, os.path.join(root, "acc"))
+    count("accuracy_at_scale")
+    flips = [(k, a, b) for k, ((a, b), f, o) in enumerate(zip(
+        acc["kf_pairs"], detail["trees"]["fused"], detail["trees"]["oracle"]))
+        if compare_newick(f, o).rf]
+    acc_err = max(rel_err(f, o) for f, o in zip(detail["preds"]["fused"],
+                                                 detail["preds"]["oracle"]))
+    num["accuracy_at_scale"] = {**acc, "flips": flips, "dist_rel_err": acc_err}
+    print(f"grid: accuracy at {accuracy_at_scale.N_TIPS} x {accuracy_at_scale.N_SITES} x "
+          f"{accuracy_at_scale.REPS}: mean KF fast path {acc['kf_fused_mean']:.5f}, oracle "
+          f"({acc['oracle']}) {acc['kf_oracle_mean']:.5f}; topology flips (replicate, fast KF, "
+          f"oracle KF): {flips}; distances {acc_err:.3e} of max(1, max|oracle|) [{card}]")
+    if not all(math.isfinite(x) for p in acc["kf_pairs"] for x in p):
+        fail("grid: accuracy at scale: a KF is not finite")
+    lap("accuracy_at_scale")
+
+    # 5. the mixed-length corpus, evolved on the card, and two fused training steps
+    corpus = os.path.join(root, "corpus")
+    corpus_out = tool(make_corpus, [corpus, "--scale", CORPUS_SCALE])
+    counts = {L: int(c * float(CORPUS_SCALE)) for L, c in make_corpus.LENGTH_COUNTS.items()}
+    packed = {L: json.load(open(os.path.join(corpus, f"packed_L{L}", "manifest.json")))[
+        "n_examples"] for L in counts}
+    merged = json.load(open(os.path.join(corpus, "packed_all", "manifest.json")))["n_examples"]
+    num["corpus"] = {"trees": counts, "packed": packed, "merged": merged}
+    print("grid: make_corpus: " + corpus_out.strip().replace("\n", "; "))
+    if merged != sum(packed.values()) or any(not 0 < packed[L] <= counts[L] for L in counts):
+        fail(f"grid: make_corpus packed {packed} of {counts} trees, merged {merged}")
+    lap("make_corpus")
+    run = os.path.join(root, "train")
+    train_out = tool(train_cli, [
+        "--packed-data", os.path.join(corpus, "packed_all"), "--base-model", CKPT,
+        "--batch-size", "4", "--max-steps", str(CORPUS_STEPS), "--use-pallas", "on",
+        "--loss", "mre", "--warmup-steps", "1", "--log-every", "1",
+        "--hard-loss-ceiling", "1e6", "--device", "cuda", "-o", run, "-n", "grid"])
+    count("corpus_training")
+    losses = [r["train_loss"] for r in map(json.loads, open(
+        os.path.join(run, "grid_metrics.jsonl")).read().splitlines()) if "train_loss" in r]
+    num["corpus_training"] = {"losses": losses,
+                              "summary": json.loads(train_out.strip().splitlines()[-1])}
+    tl = num["launches"]["corpus_training"]
+    print(f"grid: pf-train-torch --packed-data packed_all ({merged} examples), "
+          f"{CORPUS_STEPS} fused steps: losses {losses}; launches C {tl['kernel_c']}, D "
+          f"{tl['kernel_d']}, E {tl['kernel_e']} [{card}]")
+    if len(losses) != CORPUS_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"grid: training on the corpus gave losses {losses}")
+    if not all(tl[k] > 0 for k in ("kernel_a", "kernel_b", "kernel_c", "kernel_d", "kernel_e")):
+        fail(f"grid: training on the corpus did not run the fused kernels: {tl}")
+    lap("corpus_training")
+    num["phase_s"] = sum(split.values())
+    print(f"grid: phase {num['phase_s']:.1f} s: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + f" [{card}]")
+    torch.cuda.empty_cache()
+    return num, launches
+
+
 SOURCE = "phyloformer_tpu_torch/ops/kernels/csrc/"
 # name: (source, TPU kernel it replaces)
 KERNELS = {
@@ -4508,6 +4756,10 @@ def main(argv=None) -> int:
     ap.add_argument("--variants", action="store_true",
                     help="only build the kernels and run the model-variants phase: dropout "
                          "training, the evaluation tools, the ablation ops, the Orbax reader")
+    ap.add_argument("--grid", action="store_true",
+                    help="only build the kernels and run the experiment-tools phase: the "
+                         "benchmark grid, the reference structure, accuracy at scale, the "
+                         "corpus and two training steps on it")
     opts = ap.parse_args(argv)
     reductions_only = opts.reductions
     sys.path.insert(0, ROOT)
@@ -4551,6 +4803,11 @@ def main(argv=None) -> int:
     if opts.variants:
         vp, _ = model_variants_phase(device, card)
         print(json.dumps({"model_variants": vp, "card": card}))
+        return 0
+
+    if opts.grid:
+        gp, _ = grid_phase(device, card)
+        print(json.dumps({"grid": gp, "card": card}))
         return 0
 
     if opts.sharded:
@@ -4704,6 +4961,7 @@ def main(argv=None) -> int:
     sm = sim_phase(device, card)
     tp, trees_launches, test_set = trees_phase(device, card)
     vp, variants_launches = model_variants_phase(device, card, tr, test_set)
+    gp, grid_launches = grid_phase(device, card)
     for name, err in sh["errs"].items():
         results[name]["sharded_max_rel_err"] = err
     train_launches = {k: sum(run[k] for run in tr["runs"] + sp["runs"] + sh["runs"])
@@ -4720,7 +4978,7 @@ def main(argv=None) -> int:
          "replaces": KERNELS[name][1],
          "launches": (mp["launches"][name] + launches2[name] + train_launches[name]
                       + fast_launches[name] + trees_launches[name]
-                      + variants_launches[name]),
+                      + variants_launches[name] + grid_launches[name]),
          "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
          "tolerance": E12_TOL if name in ("kernel_e1", "kernel_e2") else KERNEL_TOL,
          "ms": r["ms"],
@@ -4755,7 +5013,7 @@ def main(argv=None) -> int:
         "fast_path_err": {x: rp[x]["random"] + rp[x]["evolved"] for x in ("float32", "bfloat16")},
         "accuracy_grid": rp["grid"]["rows"],
         "training": tr["numbers"], "serving": sp["numbers"], "sharded": sh["numbers"],
-        "sim": sm, "trees": tp, "model_variants": vp}
+        "sim": sm, "trees": tp, "model_variants": vp, "grid": gp}
     if any(k["launches"] <= 0 for k in line["kernels"]):
         fail("a kernel of the paths was not launched on them")
     print(json.dumps(line))

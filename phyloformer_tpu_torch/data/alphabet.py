@@ -38,6 +38,14 @@ def encode_bytes(seq: bytes, strict: bool = True) -> np.ndarray:
     return codes.astype(np.int8)
 
 
+def one_hot(codes: np.ndarray, dtype=np.float32) -> np.ndarray:
+    """One-hot encode integer codes along a new trailing axis of size 22."""
+    codes = np.asarray(codes)
+    out = np.zeros(codes.shape + (ALPHABET_SIZE,), dtype=dtype)
+    np.put_along_axis(out, codes[..., None].astype(np.int64), 1, axis=-1)
+    return out
+
+
 def decode_codes(codes: np.ndarray) -> bytes:
     """Inverse of :func:`encode_bytes`."""
     table = np.frombuffer(ALPHABET, dtype=np.uint8)

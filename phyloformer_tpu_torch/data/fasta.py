@@ -2,7 +2,8 @@
 
 Ids are the full header text after ``>``; sequences may span several lines;
 all sequences must have the same length.  :func:`read_fasta` returns integer
-codes ``(n, L)``, the compact form the inference engine ships to the device.
+codes ``(n, L)``, the compact form the inference engine ships to the device;
+:func:`load_alignment` the reference's one-hot ``(22, L, n)`` layout and the ids.
 """
 
 from __future__ import annotations
@@ -10,11 +11,11 @@ from __future__ import annotations
 import io
 import os
 from dataclasses import dataclass
-from typing import List, Union
+from typing import List, Tuple, Union
 
 import numpy as np
 
-from .alphabet import decode_codes, encode_bytes
+from .alphabet import decode_codes, encode_bytes, one_hot
 
 
 @dataclass
@@ -31,6 +32,11 @@ class Alignment:
     @property
     def seq_len(self) -> int:
         return self.codes.shape[1]
+
+    def one_hot_ref_layout(self, dtype=np.float32) -> np.ndarray:
+        """The reference's ``(22, L, n)`` one-hot layout: codes ``(n, L)`` one-hot
+        on a trailing axis, transposed as torch's ``one_hot(...).permute(2, 1, 0)``."""
+        return one_hot(self.codes, dtype=dtype).transpose(2, 1, 0)
 
 
 def read_fasta(path_or_bytes: Union[str, os.PathLike, bytes], strict: bool = True) -> Alignment:
@@ -64,6 +70,12 @@ def read_fasta(path_or_bytes: Union[str, os.PathLike, bytes], strict: bool = Tru
         raise ValueError(f"unaligned FASTA: sequence lengths differ ({sorted(lengths)})")
 
     return Alignment(codes=np.stack(seqs).astype(np.int8), ids=ids)
+
+
+def load_alignment(path: Union[str, os.PathLike]) -> Tuple[np.ndarray, List[str]]:
+    """The reference's loader: one-hot ``(22, L, n)`` float32 and the ids."""
+    aln = read_fasta(path, strict=True)
+    return aln.one_hot_ref_layout(), aln.ids
 
 
 def write_fasta(path: Union[str, os.PathLike], aln: Alignment, width: int = 0) -> None:

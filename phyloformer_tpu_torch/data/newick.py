@@ -237,6 +237,12 @@ def patristic_vector(root: Node, order: Sequence[str]) -> np.ndarray:
     return mat[iu].astype(np.float32)
 
 
+def load_distance_matrix(path, ids: Sequence[str]) -> np.ndarray:
+    """The reference's target loader: a Newick file's float32 upper-triangle
+    patristic vector in ``ids`` order."""
+    return patristic_vector(read_newick(path), ids)
+
+
 def tree_diameter(root: Node) -> float:
     """Largest leaf-to-leaf patristic distance (cf. the reference's
     double-BFS ``tree_diam`` in ``simulate_trees.py``)."""
@@ -252,3 +258,10 @@ def tree_diameter(root: Node) -> float:
             best = max(best, depths[0] + depths[1])
         carry[id(node)] = depths[0] if depths else 0.0
     return best
+
+
+def scale_branches(root: Node, factor: float) -> None:
+    """Multiply every branch length of the tree by ``factor``, in place."""
+    for node in root.traverse_preorder():
+        if node.length is not None:
+            node.length *= factor

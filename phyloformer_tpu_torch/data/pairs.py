@@ -2,7 +2,8 @@
 
 Pairs are enumerated in upper-triangle order (``for i in range(n): for j in
 range(i+1, n)``), the row order of the reference's seq2pair matrix; the pair
-representation is the gather-add ``pair[k] = seq[i_k] + seq[j_k]``.
+representation is the gather-add ``pair[k] = seq[i_k] + seq[j_k]``;
+:func:`seq2pair_matrix` is that sum as the reference's dense ``(P, n)`` matrix.
 """
 
 from __future__ import annotations
@@ -23,6 +24,17 @@ def pair_indices(n_seqs: int) -> Tuple[np.ndarray, np.ndarray]:
     order."""
     i_idx, j_idx = np.triu_indices(n_seqs, k=1)
     return i_idx.astype(np.int32), j_idx.astype(np.int32)
+
+
+def seq2pair_matrix(n_seqs: int, dtype=np.float32) -> np.ndarray:
+    """The reference's ``(P, n)`` 0/1 seq2pair matrix: row ``k`` has ones at
+    the columns of pair ``k``'s two sequences."""
+    i_idx, j_idx = pair_indices(n_seqs)
+    mat = np.zeros((len(i_idx), n_seqs), dtype=dtype)
+    rows = np.arange(len(i_idx))
+    mat[rows, i_idx] = 1
+    mat[rows, j_idx] = 1
+    return mat
 
 
 def vector_to_square(vec: np.ndarray, n_seqs: int) -> np.ndarray:

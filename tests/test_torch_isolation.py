@@ -219,6 +219,83 @@ print(json.dumps({{"loaded": sorted(sys.modules),
     assert "matplotlib" not in out["loaded"]
 
 
+EXPERIMENT_TOOLS = ("reference_path", "make_grid_data", "run_grid", "summarize_grid",
+                    "accuracy_at_scale", "merge_packed", "make_corpus", "make_ft_corpora",
+                    "scaling_bench", "first_call_check")
+
+
+def test_import_walk_covers_experiment_tools_and_data_api():
+    """The experiment tools are walked (so the guards above cover them);
+    importing them and the reference-API data functions loads neither JAX
+    nor the JAX package."""
+    out = _run(f"""
+import importlib, json, pkgutil, sys
+import phyloformer_tpu_torch as pkg
+for name in {EXPERIMENT_TOOLS!r}:
+    importlib.import_module("phyloformer_tpu_torch.tools." + name)
+from phyloformer_tpu_torch.data import (load_alignment, load_distance_matrix, one_hot,
+                                        seq2pair_matrix)
+from phyloformer_tpu_torch.data.newick import scale_branches
+print(json.dumps({{"loaded": sorted(sys.modules),
+                  "names": [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                                  pkg.__name__ + ".")]}}))
+""")
+    for name in EXPERIMENT_TOOLS:
+        assert "phyloformer_tpu_torch.tools." + name in out["names"], name
+    assert not [m for m in out["loaded"] if _forbidden(m)]
+
+
+# the tools that run the model, and how each is started on the card by default
+CARD_TOOLS = {
+    "reference_path": ["W"],
+    "accuracy_at_scale": ["W"],
+    "run_grid": ["--methods", "PF", "--pf-weights", "W", "--grid-root", "G", "--lengths",
+                 "60", "--out", "O"],
+    "scaling_bench": [],
+}
+
+
+@pytest.mark.parametrize("tool", sorted(CARD_TOOLS))
+def test_experiment_tools_default_to_cuda(tool, tmp_path):
+    """Without a card each tool that runs the model raises unless --device cpu
+    is given."""
+    ckpt = str(REPO / "artifacts" / "pf_mre_r5.ckpt")
+    grid = tmp_path / "grid" / "L60" / "msas"
+    grid.mkdir(parents=True)
+    (grid / "0_3_tips.fa").write_text(">x\nACDEFG\n>y\nACDEFH\n>z\nAC-EFG\n")
+    (tmp_path / "grid" / "L60" / "trees").mkdir()
+    argv = [{"W": ckpt, "G": str(tmp_path / "grid"), "O": str(tmp_path / "out")}.get(a, a)
+            for a in CARD_TOOLS[tool]]
+    out = _run(f"""
+import json, torch
+from phyloformer_tpu_torch.tools import {tool} as mod
+res = {{"cuda": torch.cuda.is_available()}}
+if not res["cuda"]:
+    try:
+        mod.main({argv!r})
+        res["err"] = "ran"
+    except RuntimeError as e:
+        res["err"] = str(e)
+print(json.dumps(res))
+""")
+    if not out["cuda"]:
+        assert "no CUDA device" in out["err"], out
+
+
+def test_make_corpus_evolves_on_the_card_by_default(tmp_path):
+    """make_corpus's alignments are evolved on the card unless --device cpu
+    is given: without a card it raises before it draws a tree."""
+    r = subprocess.run([sys.executable, "-m", "phyloformer_tpu_torch.tools.make_corpus",
+                        str(tmp_path / "c"), "--scale", "0.00008"], capture_output=True,
+                       text=True, cwd=str(REPO), timeout=300)
+    import torch
+
+    if not torch.cuda.is_available():
+        assert r.returncode != 0
+        assert "no CUDA device" in r.stderr, r.stderr[-2000:]
+        assert not (tmp_path / "c" / "trees_L250").exists()
+
+
 def test_serve_and_ckpt_modules_import_no_jax_and_serve_defaults_to_cuda():
     """The serving package and pf-ckpt-torch pull in neither JAX nor the JAX
     package; pf-serve-torch runs on the card by default and raises without

@@ -31,15 +31,10 @@ import sys
 import numpy as np
 import torch
 torch.set_num_threads(2)
-# On a loaded machine the first exp over a large tensor in a fresh process
-# has come out up to 1e-4 relative off on part of the tensor (reproduced with
-# torch.exp alone), once in some 20 processes; the model amplifies that past
-# the tests' bars.  The first call of each transcendental the plain versions
-# use is made here, serially and then on both threads.
-for _f in (torch.exp, torch.erf, torch.log1p, torch.tanh):
-    _f(torch.zeros(8))
-    _f(torch.zeros(1 << 21))
-del _f
+# The port's CPU entry points warm torch's vector math in resolve_device; code
+# here may call the plain versions without one, so it warms it first too.
+from phyloformer_tpu_torch.device import warm_cpu_math
+warm_cpu_math()
 IN = dict(np.load(sys.argv[1]))
 OUT = {}
 
