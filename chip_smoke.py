@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--reductions | --reduced | --sharded | --sim | --trees | --variants |
-                           --grid]
+                           --grid | --recipe]
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written CUDA kernels from this checkout's sources (one
@@ -209,9 +209,33 @@
    --scale 0.0025`` (about 255 alignments evolved on the card, packed and
    merged) and two ``pf-train-torch --packed-data .../packed_all
    --use-pallas on`` steps on it (finite losses, A, B, C, D and E launched);
-17. prints the ``kernels`` JSON line (with the row of ``_kernel_b_host``)
-   and the throughputs, then, as its last line, ``{"ok": true, "device":
-   {...}}``.
+17. the repository's fine-tuning recipe (``--recipe``: only this, after the
+   build; run alone it makes phase 16's corpus itself): ``tools/r5_chain2.sh``
+   ``run_leg``'s command line at 40 steps, ``pf-train-torch --packed-data
+   packed_all --packed-val-fraction 0.02 --loss mre --batch-size 8
+   --max-batch-tokens 2000000 --matmul-precision default --base-model
+   pf_scratch_r5.ckpt --check-val-every 10 --no-improvement-stop 100 --seed
+   90`` (each batch at its bucket's capped size ``min(8, 2e6 // (n(n-1)/2 x
+   L))`` but for an epoch's flush; the median ms a step by batch shape,
+   examples/s, peak memory, the validation losses; A, B, C, D, E and both
+   reductions launched), its first 8 steps again on the eager route
+   (``--use-pallas off --remat``: the same batches, each loss within
+   ``TRAIN_ONE_PASS_LOSS_TOL``, no launch); the indel leg (``--loss mae`` on
+   ``tools.make_ft_corpora``'s gapped corpus, built on the host meanwhile,
+   ``--no-improvement-stop 1 --check-val-every 5``: the early stop fires);
+   ``pf-ckpt-torch export`` of the mre leg's directory (bit-equal to its
+   latest step), ``tools.eval_curve`` over its checkpoints and
+   ``pf-bench-torch crossmatrix`` (the base and the leg, fp32 kernels) on
+   ``make_ft_corpora``'s held-out indel set; ``pf-train-torch
+   --find-batch-size`` at its defaults (every probe printed), its answer
+   fitting and its smallest failing probe failing as out of memory in fresh
+   processes, a full card's failed allocations (the first cuBLAS product,
+   a kernel's first launch, an allocation) read as out of memory in a fresh
+   process, and the search again under a ``FINDER_CAP`` memory fraction on
+   the kernel and the eager route;
+18. prints the whole script's seconds, the ``kernels`` JSON line (with the
+   row of ``_kernel_b_host``) and the throughputs, then, as its last line,
+   ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line.  Nothing falls back to
 the CPU or to a plain version.
@@ -234,6 +258,7 @@ import time
 
 import numpy as np
 
+T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "artifacts", "pf_mre_r5.ckpt")
 WORK = os.path.join(ROOT, "runs", "chip_smoke")  # git-ignored
@@ -4712,6 +4737,458 @@ def grid_phase(device, card):
     return num, launches
 
 
+# ---- phase 17: the repository's fine-tuning recipe -------------------------------
+SCRATCH_CKPT = os.path.join(ROOT, "artifacts", "pf_scratch_r5.ckpt")
+# tools/r5_chain2.sh run_leg, at 40 steps: the flags every leg shares
+RECIPE_COMMON = ["--packed-val-fraction", "0.02", "--batch-size", "8",
+                 "--max-batch-tokens", "2000000", "--matmul-precision", "default",
+                 "--base-model", SCRATCH_CKPT, "--warmup-steps", "8", "--seed", "90",
+                 "--device", "cuda"]
+RECIPE_BATCH, RECIPE_TOKENS = 8, 2_000_000
+MRE_LEG = ["--loss", "mre", "--learning-rate", "1e-4", "--max-steps", "40",
+           "--check-val-every", "10", "--no-improvement-stop", "100", "--log-every", "10"]
+EAGER_STEPS = 8  # the mre leg's first steps again on the eager route
+# the indel leg: make_ft_corpora's gapped corpus, a learning rate 10x the recipe's
+# and one validation example, so that the early stop fires within the run
+FT_INDEL_N, FT_CHERRY_N = 82, 41
+INDEL_LEG = ["--loss", "mae", "--learning-rate", "1e-3", "--max-steps", "100",
+             "--check-val-every", "5", "--no-improvement-stop", "1", "--log-every", "10"]
+# the finder's capped search: this share of the card's memory
+FINDER_CAP = 0.1
+
+
+def token_cap_size(n, L):
+    """The loader's batch size in the (n, L) bucket under the recipe's cap."""
+    return max(1, min(RECIPE_BATCH, RECIPE_TOKENS // (n * (n - 1) // 2 * L)))
+
+
+@contextlib.contextmanager
+def recorded_steps(rows):
+    """The fit loop's train steps and the packed loader's epochs, recorded:
+    each step's batch shape, loss and ms (the card synchronised before and
+    after), and an ``{"epoch": k}`` row where a training epoch starts."""
+    import torch
+
+    from phyloformer_tpu_torch.train import loop, packed
+
+    make, loader = loop.make_train_step, packed.PackedBucketedLoader
+
+    def factory(*a, **k):
+        step = make(*a, **k)
+
+        def timed(state, batch, generator=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, logs = step(state, batch, generator)
+            loss = float(logs["train_loss"])
+            rows.append({"shape": list(batch["codes"].shape), "loss": loss,
+                         "ms": 1e3 * (time.perf_counter() - t0)})
+            return state, logs
+        return timed
+
+    class Epochs(loader):
+        def __iter__(self):
+            if self.cfg.shuffle:
+                rows.append({"epoch": self._epoch})
+            return super().__iter__()
+
+    loop.make_train_step, packed.PackedBucketedLoader = factory, Epochs
+    try:
+        yield rows
+    finally:
+        loop.make_train_step, packed.PackedBucketedLoader = make, loader
+
+
+def recipe_train(argv, what):
+    """``pf-train-torch argv`` in this process with its steps recorded:
+    the summary, stdout, steps, epochs, launches, wall time and peak memory."""
+    import torch
+
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+    from phyloformer_tpu_torch.train import cli
+
+    rows = []
+    pipe.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with recorded_steps(rows), contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"recipe: {what} exited {rc}: {err.getvalue()[-2000:]}")
+    return {"summary": json.loads(out.getvalue().strip().splitlines()[-1]),
+            "counts": out.getvalue().splitlines()[0], "steps": [r for r in rows if "shape" in r],
+            "rows": rows, "launches": dict(pipe.LAUNCHES), "wall_s": wall,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def token_cap_check(rows):
+    """Every training batch at its bucket's capped size, but for the flush
+    that ends an epoch (what its buckets hold, fewer, in bucket order).
+    Returns the sizes by bucket and the failures."""
+    sizes, bad, epoch = {}, [], []
+
+    def close(batches):
+        short = [k for k, (b, n, L) in enumerate(batches) if b != token_cap_size(n, L)]
+        tail = batches[short[0]:] if short else []
+        if short and (short != list(range(short[0], len(batches)))
+                      or any(b > token_cap_size(n, L) for b, n, L in tail)
+                      or [(n, L) for _, n, L in tail] != sorted({(n, L) for _, n, L in tail})):
+            bad.append(batches)
+
+    for r in rows:
+        if "epoch" in r:
+            if epoch:
+                close(epoch)
+            epoch = []
+            continue
+        b, n, L = r["shape"]
+        epoch.append((b, n, L))
+        sizes.setdefault(f"{n}x{L}", set()).add(b)
+    close(epoch)  # the last epoch, cut by --max-steps or ended by its flush
+    return {k: sorted(v) for k, v in sorted(sizes.items())}, bad
+
+
+def median_ms_by_bucket(steps):
+    by = {}
+    for r in steps:
+        b, n, L = r["shape"]
+        by.setdefault(f"{b}x{n}x{L}", []).append(r["ms"])
+    return {k: (statistics.median(v), len(v)) for k, v in sorted(by.items())}
+
+
+def finder_probes(stderr):
+    """``(bs, fits, error)`` of each probe line ``pf-train-torch
+    --find-batch-size`` printed."""
+    out = []
+    for line in stderr.splitlines():
+        m = re.match(r"find-batch-size: batch (\d+) (fits|does not fit: (.*))$", line)
+        if m:
+            out.append((int(m.group(1)), m.group(2) == "fits", m.group(3)))
+    return out
+
+
+def recipe_probe_worker(spec):
+    """One probe in a fresh process (``--recipe-probe JSON``): the finder's
+    step at ``bs`` x 50 x 512 on the default full-width config and route;
+    prints ``{"bs", "fits", "oom", "error"}``."""
+    import torch
+
+    from phyloformer_tpu_torch.models.params import PhyloformerConfig
+    from phyloformer_tpu_torch.train.cli import _is_oom_error, probe_batch
+    from phyloformer_tpu_torch.train.trainer import TrainConfig
+
+    spec = json.loads(spec)
+    res = {"bs": spec["bs"], "fits": True, "oom": None, "error": None}
+    try:
+        probe_batch(PhyloformerConfig(), TrainConfig(use_pallas=True), torch.device("cuda"),
+                    spec["bs"])
+    except Exception as e:  # noqa: BLE001 — reported
+        res.update(fits=False, oom=_is_oom_error(e), error=f"{type(e).__name__}: {e}"[:400])
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(json.dumps(res))
+    return 0
+
+
+def oom_forms_worker():
+    """``--oom-forms``: a fresh process fills the card's memory (the caching
+    allocator's blocks held, 1 MB of them left in its cache), then makes
+    the first cuBLAS product of the process and the first launch of a
+    kernel of the library (its module loads at its first launch), and
+    prints what each raised, with the classifier's reading."""
+    import torch
+
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+    from phyloformer_tpu_torch.train.cli import _is_oom_error
+
+    dev = torch.device("cuda")
+    a = torch.ones(256, 256, device=dev)
+    c = torch.empty(256, 256, device=dev)
+    partial = torch.ones(1, 4, 3 * 64, device=dev)
+    pipe._lib()  # the library open and its layout checked, nothing launched
+    hold = []
+    for chunk in (1 << 30, 1 << 26, 1 << 22, 1 << 20):
+        while True:
+            try:
+                hold.append(torch.empty(chunk, dtype=torch.uint8, device=dev))
+            except torch.OutOfMemoryError:
+                break
+    del hold[-1]  # 1 MB back in the cache, none on the card
+    free = torch.cuda.mem_get_info()[0]
+    res = {"held_gb": sum(h.numel() for h in hold) / 1e9, "free_mb": free / 2**20}
+    for what, fn in (("cublas_first_product", lambda: torch.mm(a, a, out=c)),
+                     ("kernel_first_launch", lambda: pipe.reduce_slots(partial)),
+                     ("allocation", lambda: torch.empty(1 << 30, dtype=torch.uint8,
+                                                        device=dev))):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            res[what] = {"raised": None}
+        except Exception as e:  # noqa: BLE001 — reported
+            res[what] = {"raised": f"{type(e).__name__}: {e}".splitlines()[0][:300],
+                         "oom": _is_oom_error(e)}
+    print(json.dumps(res))
+    return 0
+
+
+def fresh(args, what, timeout=300):
+    """``python3 chip_smoke.py args`` in a process of its own: its last line as JSON."""
+    p = subprocess.run([sys.executable, os.path.abspath(__file__)] + args, cwd=ROOT,
+                       capture_output=True, text=True, timeout=timeout)
+    if p.returncode != 0:
+        fail(f"recipe: {what} exited {p.returncode}: {p.stderr[-2000:]}")
+    return json.loads(p.stdout.strip().splitlines()[-1])
+
+
+def recipe_phase(device, card, corpus=None):
+    """The repository's fine-tuning recipe (item 17 of the module's
+    docstring).  ``corpus``: phase 16's ``make_corpus`` directory, or None
+    to build it.  Returns the phase's numbers and the launches of its
+    kernel-route runs."""
+    import torch
+
+    from phyloformer_tpu_torch.io import cli as io_cli
+    from phyloformer_tpu_torch.io.checkpoint import CheckpointManager
+    from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+    from phyloformer_tpu_torch.models.params import PhyloformerConfig
+    from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+    from phyloformer_tpu_torch.bench import cli as bench_cli
+    from phyloformer_tpu_torch.tools import eval_curve, make_corpus
+    from phyloformer_tpu_torch.train import cli as train_cli
+    from phyloformer_tpu_torch.train.cli import _is_oom_error, find_batch_size
+    from phyloformer_tpu_torch.train.trainer import TrainConfig, param_leaves
+
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "recipe")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    num = {"card": card}
+    split = num["split_s"] = {}
+    mark = [time.perf_counter()]
+    launches = {k: 0 for k in KERNELS}
+
+    def lap(name):
+        now = time.perf_counter()
+        split[name] = now - mark[0]
+        mark[0] = now
+
+    def count(what, got):
+        for k in launches:
+            launches[k] += got[k]
+        num.setdefault("launches", {})[what] = got
+
+    # the indel leg's corpus and the held-out test set, on the host meanwhile
+    ft = os.path.join(root, "ft")
+    ft_proc = host_cli("phyloformer_tpu_torch.tools.make_ft_corpora",
+                       [ft, "--indel-n", str(FT_INDEL_N), "--cherry-n", str(FT_CHERRY_N)])
+    if corpus is None:
+        corpus = os.path.join(root, "corpus")
+        with contextlib.redirect_stdout(io.StringIO()):
+            if make_corpus.main([corpus, "--scale", CORPUS_SCALE]) != 0:
+                fail("recipe: make_corpus failed")
+        lap("make_corpus")
+    packed = os.path.join(corpus, "packed_all")
+    runs = os.path.join(root, "runs")
+
+    # 1. the mre leg on the kernels, then its first steps on the eager route
+    mre = recipe_train(["--packed-data", packed] + RECIPE_COMMON + MRE_LEG + [
+        "--output-dir", os.path.join(runs, "mre_leg"), "--run-name", "mre_leg"], "mre leg")
+    count("mre_leg", mre["launches"])
+    sizes, bad = token_cap_check(mre["rows"])
+    steps = mre["steps"]
+    ms = median_ms_by_bucket(steps)
+    step_s = sum(r["ms"] for r in steps) / 1e3
+    examples = sum(r["shape"][0] for r in steps)
+    recs = [json.loads(x) for x in open(os.path.join(runs, "mre_leg", "mre_leg_metrics.jsonl"))]
+    vals = [(r["step"], r["val_loss"]) for r in recs if "val_loss" in r]
+    num["mre_leg"] = {
+        "counts": mre["counts"], "summary": mre["summary"], "batch_sizes": sizes,
+        "cap_sizes": {k: token_cap_size(*map(int, k.split("x"))) for k in sizes},
+        "median_ms_by_batch": ms, "examples": examples, "step_s": step_s,
+        "examples_per_s": examples / step_s, "examples_per_wall_s": examples / mre["wall_s"],
+        "wall_s": mre["wall_s"], "peak_gb": mre["peak_gb"], "val_losses": vals,
+        "losses": [r["loss"] for r in steps]}
+    m = num["mre_leg"]
+    print(f"recipe: mre leg: {m['counts']}; {len(steps)} steps, stop: "
+          f"{m['summary']['stop_reason']}")
+    print("recipe: batch sizes by bucket (tips x sites: seen; cap formula): " + ", ".join(
+        f"{k}: {v} ({m['cap_sizes'][k]})" for k, v in sizes.items()))
+    print("recipe: median ms a step by batch (b x tips x sites): " + ", ".join(
+        f"{k} {v:.1f} ms (n={c})" for k, (v, c) in ms.items()) + f" [{card}]")
+    print(f"recipe: {examples} examples in {step_s:.2f} s of steps: "
+          f"{m['examples_per_s']:.2f} examples/s ({m['examples_per_wall_s']:.2f} over the run's "
+          f"{m['wall_s']:.2f} s wall), peak {m['peak_gb']:.2f} GB; val losses {vals} [{card}]")
+    if bad:
+        fail(f"recipe: batches off the token cap: {bad}")
+    if len(steps) != 40 or not all(math.isfinite(r["loss"]) for r in steps):
+        fail(f"recipe: the mre leg took {len(steps)} steps, losses {m['losses']}")
+    need = ("kernel_a", "kernel_b", "kernel_c", "kernel_d", "kernel_e", "reduce_stats",
+            "reduce_partials")
+    if not all(mre["launches"][k] > 0 for k in need):
+        fail(f"recipe: the mre leg did not run the training kernels: {mre['launches']}")
+    lap("mre_leg")
+    eager = recipe_train(["--packed-data", packed] + RECIPE_COMMON + MRE_LEG + [
+        "--max-steps", str(EAGER_STEPS), "--use-pallas", "off", "--remat",
+        "--output-dir", os.path.join(runs, "mre_eager"), "--run-name", "mre_eager"],
+        "mre leg, eager")
+    pairs = list(zip(steps[:EAGER_STEPS], eager["steps"]))
+    rel = [abs(k["loss"] - e["loss"]) / abs(e["loss"]) for k, e in pairs]
+    num["mre_eager"] = {"losses": [e["loss"] for e in eager["steps"]], "loss_rel": rel,
+                        "launches": sum(eager["launches"].values()),
+                        "median_ms_by_batch": median_ms_by_bucket(eager["steps"]),
+                        "peak_gb": eager["peak_gb"]}
+    print(f"recipe: the first {EAGER_STEPS} steps, kernels against the eager route "
+          f"(--use-pallas off --remat, TF32 products): losses {[k['loss'] for k, _ in pairs]} "
+          f"against {num['mre_eager']['losses']}, relative {max(rel):.3e} (tol "
+          f"{TRAIN_ONE_PASS_LOSS_TOL:.0e}); eager peak {eager['peak_gb']:.2f} GB, "
+          f"{sum(eager['launches'].values())} kernel launches [{card}]")
+    if (len(pairs) != EAGER_STEPS or any(k["shape"] != e["shape"] for k, e in pairs)
+            or not max(rel) <= TRAIN_ONE_PASS_LOSS_TOL):
+        fail("recipe: the kernel route's first steps disagree with the eager route's")
+    if num["mre_eager"]["launches"]:
+        fail(f"recipe: the eager route launched kernels: {eager['launches']}")
+    lap("mre_eager")
+
+    # 2. the indel leg: gapped alignments, the early stop
+    out, _ = host_cli_wait(ft_proc, "make_ft_corpora")
+    num["ft_corpora"] = out.strip().splitlines()
+    lap("ft_corpora_wait")
+    indel = recipe_train(["--packed-data", os.path.join(ft, "indel", "packed")]
+                         + RECIPE_COMMON + INDEL_LEG + [
+        "--output-dir", os.path.join(runs, "indel_leg"), "--run-name", "indel_leg"],
+        "indel leg")
+    count("indel_leg", indel["launches"])
+    s = indel["summary"]
+    irecs = [json.loads(x) for x in open(os.path.join(runs, "indel_leg",
+                                                      "indel_leg_metrics.jsonl"))]
+    num["indel_leg"] = {"counts": indel["counts"], "summary": s,
+                        "val_losses": [(r["step"], r["val_loss"]) for r in irecs
+                                       if "val_loss" in r],
+                        "median_ms_by_batch": median_ms_by_bucket(indel["steps"]),
+                        "peak_gb": indel["peak_gb"]}
+    print(f"recipe: indel leg ({indel['counts']}): stop at step {s['steps']}: "
+          f"{s['stop_reason']}; val losses {num['indel_leg']['val_losses']} [{card}]")
+    if not s["stop_reason"].startswith("early stop: no val improvement"):
+        fail(f"recipe: the indel leg's early stop did not fire: {s['stop_reason']}")
+    lap("indel_leg")
+
+    # 3. export the mre leg, its KF curve, the cross-matrix
+    run_dir = os.path.join(runs, "mre_leg", "checkpoints_mre_leg")
+    exported = os.path.join(root, "pf_mre_leg.ckpt")
+    rc, err = run_cli(io_cli.main, ["export", run_dir, exported])
+    if rc != 0:
+        fail(f"recipe: pf-ckpt-torch export exited {rc}: {err}")
+    got, cfg, _ = load_pretrained(exported)
+    want, _, _ = load_pretrained(run_dir)
+    latest = CheckpointManager(run_dir).latest_step()
+    same = all(torch.equal(torch.as_tensor(g), torch.as_tensor(w))
+               for g, w in zip(param_leaves(got), param_leaves(want)))
+    num["export"] = {"latest_step": latest, "bit_equal": same,
+                     "config": [cfg.n_blocks, cfg.n_heads, cfg.embed_dim]}
+    print(f"recipe: pf-ckpt-torch export of checkpoints_mre_leg (latest step {latest}): "
+          f"bit-equal to the step's parameters: {same}")
+    if not same or latest != 40:
+        fail("recipe: the exported checkpoint is not the run's latest step")
+    test_msas, test_trees = (os.path.join(ft, "indel_test", d) for d in ("msas", "trees"))
+    pipe.reset_launch_counts()
+    curve_out = io.StringIO()
+    with contextlib.redirect_stdout(curve_out):
+        rc = eval_curve.main([run_dir, "--msas", test_msas, "--trees", test_trees,
+                              "--device", "cuda"])
+    torch.cuda.synchronize()
+    count("eval_curve", dict(pipe.LAUNCHES))
+    curve = [json.loads(x) for x in curve_out.getvalue().strip().splitlines()]
+    num["kf_curve"] = curve
+    print("recipe: eval_curve on indel_test: " + ", ".join(
+        f"step {r['step']} KF {r['mean_kf']:.4f} (n={r['n']})" for r in curve))
+    if rc != 0 or [r["step"] for r in curve] != CheckpointManager(run_dir).all_steps() or \
+            not all(math.isfinite(r["mean_kf"]) for r in curve):
+        fail(f"recipe: eval_curve gave {curve}")
+    pipe.reset_launch_counts()
+    cm_dir = os.path.join(root, "crossmatrix")
+    cm_out = io.StringIO()
+    with contextlib.redirect_stdout(cm_out):
+        rc, err = run_cli(bench_cli.main, [
+            "crossmatrix", "--models", f"base={SCRATCH_CKPT}", f"leg={exported}",
+            "--datasets", f"indel_test={test_msas}:{test_trees}", "-o", cm_dir,
+            "--precision", "float32", "--device", "cuda"])
+    torch.cuda.synchronize()
+    count("crossmatrix", dict(pipe.LAUNCHES))
+    if rc != 0:
+        fail(f"recipe: crossmatrix exited {rc}: {err[-2000:]}")
+    matrix = json.load(open(os.path.join(cm_dir, "crossmatrix.json")))
+    num["crossmatrix"] = {"matrix": matrix, "stderr": err.strip()}
+    print(f"recipe: crossmatrix (mean KF, fp32 kernels): {json.dumps(matrix)}; {err.strip()}")
+    if sorted(matrix) != ["base", "leg"] or not all(
+            math.isfinite(v) for row in matrix.values() for v in row.values()):
+        fail(f"recipe: crossmatrix gave {matrix}")
+    lap("export_curve_crossmatrix")
+
+    # 4. the finder at its defaults, then its answer and first failure in fresh
+    # processes, then the same search under a memory cap on both routes
+    torch.cuda.empty_cache()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = train_cli.main(["--packed-data", packed, "--find-batch-size", "--device", "cuda"])
+    if rc != 0:
+        fail(f"recipe: --find-batch-size exited {rc}: {err.getvalue()[-2000:]}")
+    lo = json.loads(out.getvalue().strip().splitlines()[-1])["max_batch_size"]
+    probes = finder_probes(err.getvalue())
+    failing = sorted(b for b, fits, _ in probes if not fits and b > lo)
+    hi = failing[0] if failing else None
+    num["finder"] = {"answer": lo, "probes": probes, "smallest_failing": hi}
+    print("recipe: --find-batch-size (50 x 512, full width, fp32 kernels): " + "; ".join(
+        f"{b} {'fits' if f else 'fails: ' + e[:120]}" for b, f, e in probes)
+          + f" -> {lo} [{card}]")
+    if not lo or hi is None or not all(_is_oom_error(RuntimeError(e)) or
+                                       e.startswith("OutOfMemoryError")
+                                       for _, f, e in probes if not f):
+        fail(f"recipe: the finder's search gave {lo} after {probes}")
+    lap("finder")
+    fit_lo = fresh(["--recipe-probe", json.dumps({"bs": lo})], "probe lo")
+    fit_hi = fresh(["--recipe-probe", json.dumps({"bs": hi})], "probe hi")
+    num["finder"]["fresh"] = [fit_lo, fit_hi]
+    print(f"recipe: fresh processes: batch {lo}: fits {fit_lo['fits']} (peak "
+          f"{fit_lo['peak_gb']:.2f} GB); batch {hi}: fits {fit_hi['fits']}, read as out of "
+          f"memory: {fit_hi['oom']} ({fit_hi['error'] and fit_hi['error'][:160]}) [{card}]")
+    if not fit_lo["fits"] or fit_hi["fits"] or not fit_hi["oom"]:
+        fail("recipe: the finder's answer does not fit, or its first failure is not out "
+             "of memory, in a fresh process")
+    forms = fresh(["--oom-forms"], "oom forms")
+    num["oom_forms"] = forms
+    print(f"recipe: a full card ({forms['held_gb']:.2f} GB held, {forms['free_mb']:.1f} MB "
+          f"free): " + "; ".join(f"{k}: {v}" for k, v in forms.items() if isinstance(v, dict)))
+    if any(v["raised"] and not v["oom"] for v in forms.values() if isinstance(v, dict)):
+        fail(f"recipe: an allocation failure not read as out of memory: {forms}")
+    lap("fresh_probes")
+    capped = {}
+    torch.cuda.set_per_process_memory_fraction(FINDER_CAP)
+    try:
+        for route, use_pallas in (("kernels", True), ("eager", False)):
+            seen = []
+            tcfg = TrainConfig(use_pallas=use_pallas)
+            bs = find_batch_size(PhyloformerConfig(), tcfg, device,
+                                 report=lambda b, f, e: seen.append(
+                                     (b, f, e and e.splitlines()[0][:200])))
+            capped[route] = {"answer": bs, "probes": seen}
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    num["finder"]["capped"] = capped
+    for route, c in capped.items():
+        print(f"recipe: --find-batch-size under a {FINDER_CAP} memory cap, {route}: "
+              + "; ".join(f"{b} {'fits' if f else 'fails: ' + e}" for b, f, e in c["probes"])
+              + f" -> {c['answer']}")
+    lap("finder_capped")
+    num["phase_s"] = time.perf_counter() - t_phase
+    print(f"recipe: phase {num['phase_s']:.1f} s: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + f" [{card}]")
+    torch.cuda.empty_cache()
+    return num, launches
+
+
 SOURCE = "phyloformer_tpu_torch/ops/kernels/csrc/"
 # name: (source, TPU kernel it replaces)
 KERNELS = {
@@ -4756,6 +5233,11 @@ def main(argv=None) -> int:
     ap.add_argument("--variants", action="store_true",
                     help="only build the kernels and run the model-variants phase: dropout "
                          "training, the evaluation tools, the ablation ops, the Orbax reader")
+    ap.add_argument("--recipe", action="store_true",
+                    help="only build the kernels and run the fine-tuning recipe phase: the "
+                         "mre and indel legs, export, KF curve, cross-matrix, the finder")
+    ap.add_argument("--recipe-probe", metavar="JSON", help=argparse.SUPPRESS)
+    ap.add_argument("--oom-forms", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--grid", action="store_true",
                     help="only build the kernels and run the experiment-tools phase: the "
                          "benchmark grid, the reference structure, accuracy at scale, the "
@@ -4769,6 +5251,10 @@ def main(argv=None) -> int:
         fail("torch.cuda.is_available() is false")
     if opts.sharded_worker:  # one rank of the sharded phase, started by it
         return sharded_worker(opts.sharded_worker)
+    if opts.recipe_probe:  # one probe of the recipe phase's finder, started by it
+        return recipe_probe_worker(opts.recipe_probe)
+    if opts.oom_forms:
+        return oom_forms_worker()
     import phyloformer_tpu_torch
     from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
     from phyloformer_tpu_torch.models.params import map_params
@@ -4808,6 +5294,11 @@ def main(argv=None) -> int:
     if opts.grid:
         gp, _ = grid_phase(device, card)
         print(json.dumps({"grid": gp, "card": card}))
+        return 0
+
+    if opts.recipe:
+        rp, _ = recipe_phase(device, card)
+        print(json.dumps({"recipe": rp, "card": card}))
         return 0
 
     if opts.sharded:
@@ -4962,6 +5453,7 @@ def main(argv=None) -> int:
     tp, trees_launches, test_set = trees_phase(device, card)
     vp, variants_launches = model_variants_phase(device, card, tr, test_set)
     gp, grid_launches = grid_phase(device, card)
+    recipe, recipe_launches = recipe_phase(device, card, os.path.join(WORK, "grid", "corpus"))
     for name, err in sh["errs"].items():
         results[name]["sharded_max_rel_err"] = err
     train_launches = {k: sum(run[k] for run in tr["runs"] + sp["runs"] + sh["runs"])
@@ -4978,7 +5470,8 @@ def main(argv=None) -> int:
          "replaces": KERNELS[name][1],
          "launches": (mp["launches"][name] + launches2[name] + train_launches[name]
                       + fast_launches[name] + trees_launches[name]
-                      + variants_launches[name] + grid_launches[name]),
+                      + variants_launches[name] + grid_launches[name]
+                      + recipe_launches[name]),
          "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
          "tolerance": E12_TOL if name in ("kernel_e1", "kernel_e2") else KERNEL_TOL,
          "ms": r["ms"],
@@ -5013,9 +5506,10 @@ def main(argv=None) -> int:
         "fast_path_err": {x: rp[x]["random"] + rp[x]["evolved"] for x in ("float32", "bfloat16")},
         "accuracy_grid": rp["grid"]["rows"],
         "training": tr["numbers"], "serving": sp["numbers"], "sharded": sh["numbers"],
-        "sim": sm, "trees": tp, "model_variants": vp, "grid": gp}
+        "sim": sm, "trees": tp, "model_variants": vp, "grid": gp, "recipe": recipe}
     if any(k["launches"] <= 0 for k in line["kernels"]):
         fail("a kernel of the paths was not launched on them")
+    print(f"whole script: {time.perf_counter() - T_START:.1f} s [{card}]")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

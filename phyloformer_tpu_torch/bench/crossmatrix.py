@@ -3,13 +3,16 @@
 Phyloformer's figure suite evaluates its model variants against several
 dataset families (``make_plots.py:1929-1977``); this module runs the whole
 grid: for every (checkpoint, dataset) cell, inference → BME+NNI+SPR trees →
-KF against the dataset's true trees, then a heatmap (matplotlib), per-cell
-``topos_*`` CSVs and ``crossmatrix.json``.
+KF against the dataset's true trees, then per-cell ``topos_*`` CSVs,
+``crossmatrix.json`` and a heatmap.  The heatmap needs matplotlib; where it
+is not installed (the card's machine) the rest is written and a note on
+stderr names the missing figure.
 """
 
 from __future__ import annotations
 
 import json
+import sys
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -66,8 +69,14 @@ def run_crossmatrix(
             write_csv(out / f"topos_{model_name}_{ds_name}.csv", rows)
             matrix[model_name][ds_name] = float(np.mean(kfs)) if kfs else float("nan")
 
+    (out / "crossmatrix.json").write_text(json.dumps(matrix, indent=2))
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print(f"matplotlib not installed: no {out / 'misspecification_kf.pdf'}",
+              file=sys.stderr)
+        return matrix
     from .figures import misspecification_heatmap
 
     misspecification_heatmap(matrix, out / "misspecification_kf.pdf")
-    (out / "crossmatrix.json").write_text(json.dumps(matrix, indent=2))
     return matrix

@@ -19,6 +19,9 @@ parameter file or a checkpoint directory of either package's trainer;
 ``--packed-data`` reads shards written by ``pf-preprocess-torch`` (or the
 JAX package's ``pf-preprocess``);
 ``--profile`` traces 10 steps into ``<output-dir>/profile`` and exits;
+``--find-batch-size`` prints each probe on stderr and the largest batch
+size whose step fits as JSON (over a ``data`` mesh, every rank probes its
+rows and the ranks agree on each probe);
 ``--debug-nans`` stops at the first non-finite loss or gradient.
 ``--matmul-precision tensorfloat32`` or ``default`` trains at reduced
 precision: the kernels' products, forward and backward, in one TF32 pass
@@ -202,6 +205,9 @@ def _run(args, device) -> int:
         train_data, val_data = choose_data(args.train_trees, args.train_alignments,
                                            args.val_trees, args.val_alignments,
                                            args.train_regex, args.val_regex, seed=args.seed)
+        if not train_data:
+            print("no training pairs found", file=sys.stderr)
+            return 1
         say(f"train examples: {len(train_data)}, val examples: {len(val_data)}")
     if not len(train_data):
         print("no training examples found", file=sys.stderr)
@@ -263,10 +269,13 @@ def _run(args, device) -> int:
         enable_nan_checks()
 
     if args.find_batch_size:
-        if mesh is not None:
-            # a rank out of memory would leave the others in a collective
-            raise ValueError("--find-batch-size searches on one card; run it without a mesh")
-        print(json.dumps({"max_batch_size": find_batch_size(cfg, tcfg, device)}))
+        def report(bs, fits, error):
+            say(f"find-batch-size: batch {bs} "
+                + ("fits" if fits else f"does not fit: {error.splitlines()[0]}"),
+                file=sys.stderr, flush=True)
+
+        bs = find_batch_size(cfg, tcfg, device, mesh=mesh, report=report)
+        say(json.dumps({"max_batch_size": bs}))
         return 0
 
     if args.profile:
@@ -315,47 +324,125 @@ def _run(args, device) -> int:
     return 0
 
 
+# The forms in which a failed allocation reaches the finder's probe: the
+# caching allocator's ``torch.OutOfMemoryError`` ("CUDA out of memory. Tried
+# to allocate ..."); a CUDA call made outside the allocator raising "CUDA
+# error: out of memory"; the kernel library's launch check on
+# cudaErrorMemoryAllocation (``ops/kernels/_build.check``: "CUDA error 2 (out
+# of memory)"); cuBLAS unable to allocate its handle on a full card ("CUDA
+# error: CUBLAS_STATUS_ALLOC_FAILED when calling `cublasCreate(handle)`", seen
+# on an H100); and on the CPU the default allocator's refusal.  Nothing else
+# is a capacity failure: an illegal memory access, a bad launch
+# configuration or a key named "memory_layout" surface, so that a kernel
+# fault never shrinks the answer.
+OOM_MARKERS = (
+    "CUDA out of memory",
+    "CUDA error: out of memory",
+    "CUDA error 2 (out of memory)",
+    "CUBLAS_STATUS_ALLOC_FAILED",
+    "DefaultCPUAllocator: can't allocate memory",
+)
+
+
 def _is_oom_error(e: BaseException) -> bool:
     """A probe failure that means the batch does not fit in device memory."""
     import torch
 
-    if isinstance(e, torch.cuda.OutOfMemoryError):
+    if isinstance(e, torch.OutOfMemoryError):  # torch.cuda.OutOfMemoryError
         return True
     msg = f"{type(e).__name__}: {e}"
-    return any(m in msg for m in ("out of memory", "Out of memory", "CUDA error: out of memory"))
+    return any(m in msg for m in OOM_MARKERS)
 
 
-def find_batch_size(cfg, tcfg, device, n=50, L=512, start=4, limit=4096) -> int:
-    """The largest batch size (within 1/8) whose train step fits, by
-    doubling then bisection; anything but an out-of-memory error raises."""
+def probe_batch(cfg, tcfg, device, bs: int, n: int = 50, L: int = 512, mesh=None) -> None:
+    """One train step of a fresh model on ``bs`` random alignments of ``n``
+    x ``L``; raises what the step raises.  On a ``data`` mesh the batch is
+    padded to a multiple of the data axis, as the trainer pads it, and this
+    rank steps on its rows alone: the data route computes a rank's rows with
+    no collective before the gradient all-reduce, so a rank out of memory
+    here leaves no other rank waiting."""
     import numpy as np
-    import torch
 
     from ..data.pairs import n_pairs
-    from .trainer import create_train_state, dropout_generator, make_train_step
+    from ..parallel.mesh import shard_batch
+    from .trainer import (create_train_state, dropout_generator, make_train_step,
+                          pad_batch_to_multiple)
+
+    rng = np.random.default_rng(0)
+    batch = {
+        "codes": rng.integers(0, 22, (bs, n, L)).astype(np.int32),
+        "dists": rng.uniform(0.1, 1, (bs, n_pairs(n))).astype(np.float32),
+        "site_mask": np.ones((bs, L), bool),
+        "seq_mask": np.ones((bs, n), bool),
+    }
+    if mesh is not None:
+        batch = shard_batch(mesh, pad_batch_to_multiple(batch, mesh.data))
+    state, tx = create_train_state(cfg, tcfg, device=device)
+    step = make_train_step(cfg, tcfg, tx)
+    _, logs = step(state, batch, dropout_generator(cfg, tcfg, device))
+    float(logs["train_loss"])
+
+
+# a probe's outcome, all-reduced (MIN) over the ranks
+_FITS, _OOM, _FAULT = 1, 0, -1
+
+
+def find_batch_size(cfg, tcfg, device, n=50, L=512, start=4, limit=4096, mesh=None,
+                    report=None) -> int:
+    """The largest batch size (within 1/8) whose train step fits, by
+    doubling then bisection; anything but an out-of-memory error raises.
+
+    After each probe nothing of its step stays referenced and the card's
+    cache is emptied, so that the next probe does not read the last one's
+    fragments as capacity.  ``mesh``: every rank of a ``data`` mesh calls
+    this alike; each probe ends with one all-reduce of the ranks' outcomes
+    (MIN of fits, out of memory, other fault), so every rank takes the same
+    path and returns the same answer (a global batch size).  The sharded
+    routes (``shard_pairs`` over a pair axis) are refused: their step
+    all-reduces inside every block, where a rank that fails leaves the
+    others waiting.  ``report(bs, fits, error)`` sees every probe."""
+    import gc
+
+    import torch
+
+    from .trainer import route
+
+    if mesh is not None and route(tcfg, mesh).startswith("sharded"):
+        raise ValueError("--find-batch-size does not search over a pair-sharded mesh "
+                         "(--shard-pairs with --mesh-pair > 1): a rank out of memory inside "
+                         "a block's all-reduce would leave the others waiting")
+    multi = mesh is not None and mesh.world > 1
 
     def try_bs(bs: int) -> bool:
+        error = fault = None
         try:
-            state, tx = create_train_state(cfg, tcfg, device=device)
-            step = make_train_step(cfg, tcfg, tx)
-            rng = np.random.default_rng(0)
-            batch = {
-                "codes": rng.integers(0, 22, (bs, n, L)).astype(np.int32),
-                "dists": rng.uniform(0.1, 1, (bs, n_pairs(n))).astype(np.float32),
-                "site_mask": np.ones((bs, L), bool),
-                "seq_mask": np.ones((bs, n), bool),
-            }
-            _, logs = step(state, batch, dropout_generator(cfg, tcfg, device))
-            float(logs["train_loss"])
-            return True
+            probe_batch(cfg, tcfg, device, bs, n, L, mesh if multi else None)
+            outcome = _FITS
         except Exception as e:  # noqa: BLE001 — filtered below
+            error = f"{type(e).__name__}: {e}"
             if _is_oom_error(e):
-                return False
+                outcome = _OOM
+            else:
+                outcome, fault = _FAULT, e
+        # the failed step's frames went with the exception: free what they held
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        if multi:
+            t = torch.tensor([outcome], dtype=torch.int64, device=mesh.device)
+            torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MIN,
+                                         group=mesh.world_group)
+            agreed = int(t.item())
+            if agreed != outcome:
+                error = ("another rank's probe failed with a non-memory error"
+                         if agreed == _FAULT else "another rank ran out of memory")
+            outcome = agreed
+        if report is not None:
+            report(bs, outcome == _FITS, error)
+        if outcome == _FAULT:
             raise RuntimeError(f"find_batch_size probe failed at batch={bs} with a "
-                               f"non-memory error: {type(e).__name__}: {e}") from e
-        finally:
-            if device.type == "cuda":
-                torch.cuda.empty_cache()
+                               f"non-memory error: {error}") from fault
+        return outcome == _FITS
 
     good, bs = 0, start
     while bs <= limit and try_bs(bs):
