@@ -1,0 +1,14 @@
+"""The 95th percentile over the window's requests of the handler's answer:
+each ``http.respond`` span, the PHYLIP or JSON matrix (the tree where one
+is asked for) and its write."""
+
+from benchmark import program_spans
+
+
+def read(r):
+    return value(program_spans.recording())
+
+
+def value(rec):
+    return program_spans.p95_ms([program_spans.seconds(s)
+                                 for s in program_spans.named(rec, "http.respond")])

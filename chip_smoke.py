@@ -2562,7 +2562,7 @@ def serve_burst(extra_flags, bodies, queries=()):
     url = f"http://127.0.0.1:{server.port}"
     post(url + "/predict", *bodies[0])  # warm: the server's first request is not timed
     batches.clear()
-    engine_s0 = engine.stats["device_s"]
+    engine_s0 = engine.stats["predict_s"]
     answers = [None] * len(bodies)
 
     def worker(k):
@@ -2576,7 +2576,7 @@ def serve_burst(extra_flags, bodies, queries=()):
     for t in threads:
         t.join(timeout=900)
     wall = time.perf_counter() - t0
-    n_burst, engine_s = len(batches), engine.stats["device_s"] - engine_s0
+    n_burst, engine_s = len(batches), engine.stats["predict_s"] - engine_s0
     extra = {q: post(url + f"/predict?{q}", *bodies[16]) for q in queries}
     torch.cuda.synchronize()
     launches = dict(pipe.LAUNCHES)

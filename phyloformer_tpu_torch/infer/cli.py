@@ -71,7 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--max-batch-size", type=int, default=64)
     parser.add_argument("--no-bucketing", action="store_true",
                         help="run every alignment at its exact shape")
-    parser.add_argument("--stats", action="store_true", help="print timing stats JSON")
+    parser.add_argument("--stats", action="store_true",
+                        help="print the host-clock seconds and counts as JSON")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda = the hand-written kernels on the card (default); "
                              "cpu = their plain PyTorch versions")

@@ -59,6 +59,7 @@ from ..ops.kernels.pipeline import (
 )
 from ..ops.kernels.sharded import forward_fused_sharded, pair_shard
 from ..parallel.mesh import Mesh, batch_slice
+from ..spans import setup_span, span
 
 # The parameters' type by the JAX engine's ``precision`` name.
 PRECISIONS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -136,6 +137,10 @@ class InferenceEngine:
         icfg: Optional[InferenceConfig] = None,
         device=None,
     ):
+        with setup_span("setup.engine"):
+            self._init(params, cfg, icfg, device)
+
+    def _init(self, params, cfg, icfg, device) -> None:
         self.device = resolve_device(device)
         self.icfg = icfg or InferenceConfig()
         if self.icfg.precision not in PRECISIONS:
@@ -156,7 +161,11 @@ class InferenceEngine:
         # the JAX engine's rule: fp32-grade products, or one pass otherwise
         self.mxu_precision = "highest" if cfg.matmul_precision == "float32" else "default"
         self.set_params(params)
-        self.stats = {"compile_s": 0.0, "device_s": 0.0, "batches": 0, "alignments": 0}
+        # host seconds: building the kernels, in predict; counts: batches,
+        # alignments, and the pair-sites of the alignments against those the
+        # batches launched (their padded shapes)
+        self.stats = {"compile_s": 0.0, "predict_s": 0.0, "batches": 0, "alignments": 0,
+                      "pair_sites_real": 0, "pair_sites_padded": 0}
 
     def set_params(self, params: Params) -> None:
         """Run on ``params`` from now on, a tree of the same architecture:
@@ -223,24 +232,35 @@ class InferenceEngine:
         shape ``(C(n_i, 2),)`` per input, in input order.  All batches are
         queued on the device before any result is copied back."""
         out: List[Optional[np.ndarray]] = [None] * len(alns)
-        plan = self._plan(alns)
-        if self.stats["batches"] == 0:
-            self.load_kernels()
-        t0 = time.perf_counter()
-        pending = []
-        with torch.inference_mode():
-            for (pad_n, pad_l), idxs in plan:
-                codes, site_mask, seq_mask = self._batch_inputs(alns, pad_n, pad_l, idxs)
-                preds = self._forward(codes, site_mask, seq_mask, pad_n, pad_l)
-                pending.append((pad_n, idxs, preds))
-                self.stats["batches"] += 1
-                self.stats["alignments"] += len(idxs)
-            for pad_n, idxs, preds in pending:
-                preds = preds.cpu().numpy()  # waits for the device
-                for row, idx in enumerate(idxs):
-                    sel = real_pair_selector(pad_n, alns[idx].n_seqs)
-                    out[idx] = preds[row, sel].astype(np.float32)
-        self.stats["device_s"] += time.perf_counter() - t0
+        with span("engine.predict", alignments=len(alns)):
+            with span("engine.plan"):
+                plan = self._plan(alns)
+            if self.stats["batches"] == 0:
+                self.load_kernels()
+            t0 = time.perf_counter()
+            pending = []
+            with torch.inference_mode():
+                for (pad_n, pad_l), idxs in plan:
+                    # each alignment once: a data mesh repeats an index to fill its ranks
+                    real = sum(n_pairs(alns[i].n_seqs) * alns[i].seq_len
+                               for i in dict.fromkeys(idxs))
+                    padded = self._padded_bsz(len(idxs)) * n_pairs(pad_n) * pad_l
+                    with span("engine.batch", alignments=len(idxs), real_pair_sites=real,
+                              padded_pair_sites=padded):
+                        codes, site_mask, seq_mask = self._batch_inputs(alns, pad_n, pad_l, idxs)
+                        preds = self._forward(codes, site_mask, seq_mask, pad_n, pad_l)
+                    pending.append((pad_n, idxs, preds))
+                    self.stats["batches"] += 1
+                    self.stats["alignments"] += len(idxs)
+                    self.stats["pair_sites_real"] += real
+                    self.stats["pair_sites_padded"] += padded
+                with span("engine.readback"):
+                    for pad_n, idxs, preds in pending:
+                        preds = preds.cpu().numpy()  # waits for the device
+                        for row, idx in enumerate(idxs):
+                            sel = real_pair_selector(pad_n, alns[idx].n_seqs)
+                            out[idx] = preds[row, sel].astype(np.float32)
+            self.stats["predict_s"] += time.perf_counter() - t0
         return out  # type: ignore[return-value]
 
     def _forward(self, codes, site_mask, seq_mask, pad_n: int, pad_l: int) -> torch.Tensor:

@@ -30,6 +30,7 @@ import torch
 
 from ..data.pairs import pair_indices
 from ..models.params import Params, PhyloformerConfig, params_from_numpy
+from ..spans import setup_span
 from . import orbax
 from .checkpoint import CheckpointManager, _infer_config, load_params_npz
 
@@ -93,6 +94,11 @@ def load_pretrained(path: "str | os.PathLike") -> Tuple[Params, PhyloformerConfi
       ``load_pretrained`` returns them, the config read off the shapes where
       the step saved none.  Raises where ``tensorstore`` is missing.
     """
+    with setup_span("setup.weights"):
+        return _load_pretrained(path)
+
+
+def _load_pretrained(path) -> Tuple[Params, PhyloformerConfig, Dict[str, Any]]:
     p = pathlib.Path(path)
     if p.is_dir() and orbax.is_orbax_dir(p):
         state, step = orbax.read_state(p)

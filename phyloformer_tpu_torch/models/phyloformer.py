@@ -38,6 +38,7 @@ from ..ops.kernels.axial_block import head
 from ..ops.kernels.fused import BlockWeights, fused_axial_block
 from ..ops.kernels.pipeline import PipelineWeights
 from ..parallel.mesh import all_reduce_sum_ad
+from ..spans import span
 from .params import Params, PhyloformerConfig
 
 
@@ -325,9 +326,14 @@ def forward_fused_ad(
     if seq_mask is None:
         seq_mask = torch.ones((b, n_seqs), dtype=torch.bool, device=codes.device)
     smask = site_mask.to(torch.float32).contiguous()
-    pmask = pair_mask_from_seq_mask(seq_mask, n_seqs).to(torch.float32).contiguous()
+    # the pair indices are copied from pageable host memory, so the host
+    # waits there for the device's queued work
+    with span("train.wait", on="pair mask"):
+        pmask = pair_mask_from_seq_mask(seq_mask, n_seqs).to(torch.float32).contiguous()
     mxu = "highest" if cfg.matmul_precision == "float32" else "default"
-    x = build_pairs(embed_alignment(params, codes), n_seqs)
+    emb = embed_alignment(params, codes)
+    with span("train.wait", on="pair build"):
+        x = build_pairs(emb, n_seqs)
     for layer in params["layers"]:
         x = fused_axial_block_ad(x, layer, smask, pmask, cfg, remat=mode == "remat",
                                  mxu_precision=mxu)

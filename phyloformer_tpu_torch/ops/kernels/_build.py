@@ -20,6 +20,8 @@ import subprocess
 import time
 from typing import Optional
 
+from ...spans import setup_span
+
 _HERE = pathlib.Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
@@ -120,14 +122,15 @@ def load() -> ctypes.CDLL:
     """Build if needed, open the library and declare its C signatures."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.pf_error_string.argtypes = [ctypes.c_int]
-        lib.pf_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        with setup_span("setup.library"):
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.pf_error_string.argtypes = [ctypes.c_int]
+            lib.pf_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
 
 

@@ -24,6 +24,7 @@ import argparse
 import sys
 
 from ..infer.cli import add_distributed_flags
+from ..spans import setup_span
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,7 +73,11 @@ def build_server(argv=None):
     ``--mesh-data`` or ``--mesh-pair`` asks for more than one rank, or the
     process group has several."""
     args = build_parser().parse_args(argv)
+    with setup_span("setup.server"):
+        return _build_server(args)
 
+
+def _build_server(args):
     from ..infer.engine import InferenceConfig, InferenceEngine, ShardedInferenceEngine
     from ..io.ckpt_import import load_pretrained
     from ..parallel.mesh import init_distributed, make_mesh, world

@@ -46,6 +46,7 @@ import torch.distributed as dist
 from ..data.fasta import Alignment, read_fasta
 from ..data.phylip import vec_to_phylip
 from ..parallel.mesh import all_reduce_sum
+from ..spans import mark, new_id, recording, span
 
 
 class MeshOutOfStep(RuntimeError):
@@ -59,6 +60,8 @@ class _Request:
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[np.ndarray] = None
     error: Optional[str] = None
+    rid: Optional[int] = None  # the HTTP request's spans' id, while spans record
+    submit_ns: int = 0  # when it was queued, while spans record
 
 
 class MicroBatcher:
@@ -75,8 +78,10 @@ class MicroBatcher:
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
-    def submit(self, aln) -> _Request:
-        req = _Request(aln)
+    def submit(self, aln, rid: Optional[int] = None) -> _Request:
+        req = _Request(aln, rid=rid)
+        if recording():
+            req.submit_ns = time.time_ns()
         self.q.put(req)
         return req
 
@@ -97,7 +102,13 @@ class MicroBatcher:
                 except queue.Empty:
                     break
             try:
-                preds = self.engine.predict([r.aln for r in batch])
+                with span("batcher.predict") as s:
+                    if s is not None:  # each request's wait in the queue, until now
+                        s.attrs["rids"] = [r.rid for r in batch]
+                        for r in batch:
+                            if r.submit_ns:
+                                mark("batcher.queue", r.submit_ns, s.start_ns, rid=r.rid)
+                    preds = self.engine.predict([r.aln for r in batch])
                 for req, vec in zip(batch, preds):
                     req.result = vec
             except Exception as err:  # every waiter of the batch gets the error
@@ -141,20 +152,32 @@ def make_handler(batcher: MicroBatcher, model_info: dict, timeout_s: float = 300
             if not self.path.startswith("/predict"):
                 self._send_json(404, {"error": "unknown path"})
                 return
-            try:
-                length = int(self.headers.get("Content-Length", 0))
-                raw = self.rfile.read(length)
-                if self.headers.get("Content-Type", "").startswith("application/json"):
-                    fasta = json.loads(raw)["fasta"].encode()
-                else:
-                    fasta = raw
-                aln = read_fasta(fasta, strict=False)
-            except Exception as err:
-                self._send_json(400, {"error": f"bad request: {err}"})
-                return
+            rid = new_id()
+            with span("http.request", rid=rid):
+                self._predict(rid)
 
-            req = batcher.submit(aln)
-            if not req.done.wait(timeout=timeout_s):
+        def _predict(self, rid):
+            with span("http.parse", rid=rid):
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                    raw = self.rfile.read(length)
+                    if self.headers.get("Content-Type", "").startswith("application/json"):
+                        fasta = json.loads(raw)["fasta"].encode()
+                    else:
+                        fasta = raw
+                    aln = read_fasta(fasta, strict=False)
+                except Exception as err:
+                    self._send_json(400, {"error": f"bad request: {err}"})
+                    return
+
+            req = batcher.submit(aln, rid)
+            with span("http.wait", rid=rid):
+                done = req.done.wait(timeout=timeout_s)
+            with span("http.respond", rid=rid):
+                self._respond(req, done, aln)
+
+        def _respond(self, req, done, aln):
+            if not done:
                 self._send_json(504, {"error": "prediction timed out"})
                 return
             if req.error:

@@ -24,6 +24,7 @@ import numpy as np
 from ..data.fasta import read_fasta
 from ..data.newick import patristic_vector, read_newick
 from ..infer.engine import DEFAULT_L_BUCKETS, DEFAULT_N_BUCKETS, _bucketize
+from ..spans import setup_span, span
 from .trainer import make_batch
 
 TREE_EXTS = (".nwk", ".newick", ".tree", ".treefile")
@@ -118,10 +119,11 @@ class BucketedLoader:
                  load: Optional[Callable] = None):
         if not items:
             raise ValueError("no (tree, alignment) pairs to load")
-        self.items = list(items)
-        self.cfg = cfg
-        self.load = load or (lambda pair: load_example(*pair))
-        self._epoch = 0
+        with setup_span("setup.loader", examples=len(items)):
+            self.items = list(items)
+            self.cfg = cfg
+            self.load = load or (lambda pair: load_example(*pair))
+            self._epoch = 0
 
     def __len__(self):  # number of examples
         return len(self.items)
@@ -145,7 +147,9 @@ class BucketedLoader:
                     if stop.is_set():
                         return
                     try:
-                        out_q.put((i, self.load(self.items[i])))
+                        with span("loader.load"):
+                            example = self.load(self.items[i])
+                        out_q.put((i, example))
                     except Exception as err:  # surface parse errors with context
                         out_q.put((i, err))
             finally:
@@ -182,4 +186,5 @@ class BucketedLoader:
 
     @staticmethod
     def _assemble(items, key) -> Dict[str, np.ndarray]:
-        return make_batch([a for a, _ in items], [v for _, v in items], key[0], key[1])
+        with span("loader.assemble", examples=len(items)):
+            return make_batch([a for a, _ in items], [v for _, v in items], key[0], key[1])

@@ -25,6 +25,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from ..data.fasta import Alignment
+from ..spans import setup_span
 from .data import BucketedLoader, LoaderConfig, load_example
 
 
@@ -68,15 +69,16 @@ class PackedDataset:
 
     def __init__(self, directory):
         self.dir = Path(directory)
-        manifest = json.loads((self.dir / "manifest.json").read_text())
         self._examples: List[Tuple[int, Dict]] = []  # (shard index, index entry)
         self._codes: List[np.ndarray] = []
         self._dists: List[np.ndarray] = []
-        for si, shard in enumerate(manifest["shards"]):
-            self._codes.append(np.load(self.dir / f"{shard}.codes.npy", mmap_mode="r"))
-            self._dists.append(np.load(self.dir / f"{shard}.dists.npy", mmap_mode="r"))
-            for meta in json.loads((self.dir / f"{shard}.index.json").read_text()):
-                self._examples.append((si, meta))
+        with setup_span("setup.loader"):
+            manifest = json.loads((self.dir / "manifest.json").read_text())
+            for si, shard in enumerate(manifest["shards"]):
+                self._codes.append(np.load(self.dir / f"{shard}.codes.npy", mmap_mode="r"))
+                self._dists.append(np.load(self.dir / f"{shard}.dists.npy", mmap_mode="r"))
+                for meta in json.loads((self.dir / f"{shard}.index.json").read_text()):
+                    self._examples.append((si, meta))
 
     def __len__(self) -> int:
         return len(self._examples)

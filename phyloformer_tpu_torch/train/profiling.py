@@ -5,7 +5,9 @@ The counterpart of ``phyloformer_tpu/train/profiling.py``:
 - :func:`trace`: a ``torch.profiler`` trace of the enclosed block (host ops,
   and the card's kernels when there is one; shapes and memory recorded),
   written as a Chrome trace (``*.pt.trace.json``, for Perfetto or
-  TensorBoard) into a directory;
+  TensorBoard) into a directory, with the program's spans of the block
+  (:mod:`..spans`: the loader's threads, the train step, the engine, the
+  micro-batcher and HTTP threads) on rows of their own;
 - :func:`profile_n_steps`: a number of train steps under :func:`trace`
   (``pf-train-torch --profile`` runs 10, then exits);
 - :func:`enable_nan_checks`: fail fast on a non-finite loss or gradient.
@@ -19,6 +21,7 @@ The counterpart of ``phyloformer_tpu/train/profiling.py``:
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import pathlib
 import socket
@@ -27,13 +30,18 @@ from typing import Iterator, Sequence
 
 import torch
 
+from .. import spans
+
 _nan_checks = False
+# the program spans' rows of a Chrome trace: this offset plus the thread's id
+SPAN_ROW = 1 << 32
 
 
 @contextlib.contextmanager
 def trace(log_dir) -> Iterator[torch.profiler.profile]:
-    """Profile the enclosed block into a Chrome trace under ``log_dir``;
-    yields the profiler."""
+    """Profile the enclosed block into a Chrome trace under ``log_dir``,
+    the program's spans of the block added (:func:`add_spans`); yields the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     path = pathlib.Path(log_dir)
@@ -41,11 +49,33 @@ def trace(log_dir) -> Iterator[torch.profiler.profile]:
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    begin = time.time_ns()
     with profile(activities=activities, record_shapes=True, profile_memory=True) as prof:
         yield prof
     # the name TensorBoard's trace handler gives: worker, then a timestamp
-    prof.export_chrome_trace(
-        str(path / f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json"))
+    out = path / f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json"
+    prof.export_chrome_trace(str(out))
+    rec = spans.recorded()
+    if rec is not None and rec.start_ns >= begin:  # this block's recording
+        add_spans(out, rec)
+
+
+def add_spans(path, rec: spans.Recording) -> None:
+    """Append a recording's spans to the Chrome trace at ``path``: complete
+    events on the trace's time base, each thread's on a row of its own."""
+    path = pathlib.Path(path)
+    doc = json.loads(path.read_text())
+    base = int(doc.get("baseTimeNanoseconds", 0))  # the trace's "ts" are us after it
+    pid, events = os.getpid(), doc.setdefault("traceEvents", [])
+    for tid, name in list(rec.threads.items()):
+        events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": SPAN_ROW + tid,
+                       "args": {"name": f"spans: {name}"}})
+    for s in list(rec.spans):
+        events.append({"ph": "X", "cat": "program_span", "name": s.name, "pid": pid,
+                       "tid": SPAN_ROW + s.tid, "ts": (s.start_ns - base) / 1e3,
+                       "dur": (s.end_ns - s.start_ns) / 1e3,
+                       "args": {**s.attrs, "id": s.id, "parent": s.parent}})
+    path.write_text(json.dumps(doc))
 
 
 def profile_n_steps(step_fn, state, batches, n_steps: int, log_dir, generator=None):

@@ -48,6 +48,7 @@ from ..ops.kernels.sharded import (
     sharded_fused_predict,
 )
 from ..parallel.mesh import Mesh, all_reduce_sum, batch_slice, local_mesh, shard_batch
+from ..spans import setup_span, span
 from .losses import get_term
 from .profiling import check_finite, nan_checks_enabled
 from .schedule import clip_by_global_norm, global_norm, linear_warmup_decay, make_optimizer
@@ -172,12 +173,13 @@ class Optimizer:
         grads = [g.clone() for g in grads]
         if self.grad_clip and self.grad_clip > 0:
             clip_by_global_norm(grads, self.grad_clip)
-        for p, g in zip(self.leaves, grads):
-            p.grad = g
-        self.opt.step()
-        self.sched.step()
-        for p in self.leaves:
-            p.grad = None
+        with span("train.apply"):  # Adam's and the schedule's step, in Python over the leaves
+            for p, g in zip(self.leaves, grads):
+                p.grad = g
+            self.opt.step()
+            self.sched.step()
+            for p in self.leaves:
+                p.grad = None
         return True
 
     def state_dict(self) -> Dict[str, Any]:
@@ -232,17 +234,18 @@ def create_train_state(
     """Initialise (or wrap pre-loaded) params and the optimizer on
     ``device`` (``None`` = the card, raising without one; ``"cpu"`` runs
     the plain versions).  ``params`` may hold tensors or numpy arrays."""
-    dev = resolve_device(device)
-    if params is None:
-        params = init_params(cfg, generator or torch.Generator().manual_seed(tcfg.seed))
+    with setup_span("setup.train_state"):
+        dev = resolve_device(device)
+        if params is None:
+            params = init_params(cfg, generator or torch.Generator().manual_seed(tcfg.seed))
 
-    def leaf(t) -> torch.Tensor:
-        t = t if torch.is_tensor(t) else torch.as_tensor(np.asarray(t))
-        return t.to(dev, torch.float32).detach().clone().requires_grad_(True)
+        def leaf(t) -> torch.Tensor:
+            t = t if torch.is_tensor(t) else torch.as_tensor(np.asarray(t))
+            return t.to(dev, torch.float32).detach().clone().requires_grad_(True)
 
-    params = map_params(leaf, params)
-    tx = Optimizer(param_leaves(params), tcfg)
-    return {"params": params, "opt_state": tx, "step": 0}, tx
+        params = map_params(leaf, params)
+        tx = Optimizer(param_leaves(params), tcfg)
+        return {"params": params, "opt_state": tx, "step": 0}, tx
 
 
 def dropout_generator(cfg: PhyloformerConfig, tcfg: TrainConfig,
@@ -309,7 +312,9 @@ def _predict(params, batch, cfg, tcfg, how: str, mesh: Mesh,
     else:
         preds = forward(params, codes, cfg, site_mask, seq_mask, remat=tcfg.remat,
                         dropout=dropout)
-    return preds, pair_mask_from_seq_mask(seq_mask, codes.shape[1]), batch["dists"]
+    with span("train.wait", on="pair mask"):  # the pair indices' pageable copies
+        pair_mask = pair_mask_from_seq_mask(seq_mask, codes.shape[1])
+    return preds, pair_mask, batch["dists"]
 
 
 def _mesh_batch(batch, mesh: Mesh, device) -> Dict[str, torch.Tensor]:
@@ -378,35 +383,43 @@ def make_train_step(
         if how == "sharded_fused":
             return sharded_fused_loss_and_grads(params, b, cfg, mesh, term)
         # this rank's share: its masked sum over the global count
-        n_tot = real_pairs(b["seq_mask"]).sum().to(torch.float32).clamp_min(1.0)
+        with span("train.wait", on="real pairs"):  # the pair indices' pageable copies
+            n_tot = real_pairs(b["seq_mask"]).sum().to(torch.float32).clamp_min(1.0)
         preds, pair_mask, dists = _predict(params, b, cfg, tcfg, how, mesh, dropout)
         share = (term(preds, dists) * pair_mask.to(preds.dtype)).sum() / n_tot
         if nan_checks_enabled():  # a NaN from the forward, before the backward sees it;
             # the sum over the ranks, so that every rank raises alike
             check_finite(all_reduce_sum(share.detach(), _reduce_group(mesh, how)))
-        grads = torch.autograd.grad(share, leaves)
-        flat = all_reduce_sum(torch.cat([share.detach().reshape(1)]
-                                        + [g.reshape(-1) for g in grads]),
-                              _reduce_group(mesh, how))
-        parts = flat.split([1] + [g.numel() for g in grads])
-        return parts[0][0], [p.view(g.shape) for p, g in zip(parts[1:], grads)]
+        with span("train.backward"):
+            grads = torch.autograd.grad(share, leaves)
+        with span("train.reduce"):  # the loss and every gradient, flattened, all-reduced
+            flat = all_reduce_sum(torch.cat([share.detach().reshape(1)]
+                                            + [g.reshape(-1) for g in grads]),
+                                  _reduce_group(mesh, how))
+            parts = flat.split([1] + [g.numel() for g in grads])
+            return parts[0][0], [p.view(g.shape) for p, g in zip(parts[1:], grads)]
 
     def step_fn(state: TrainState, batch, generator: Optional[torch.Generator] = None):
-        leaves = param_leaves(state["params"])
-        device = leaves[0].device
-        b = _mesh_batch(batch, mesh, device)
-        how = route(tcfg, mesh)
-        dropout = (Dropout.draw(cfg.dropout, generator, cfg.n_blocks)
-                   if cfg.dropout and generator is not None else None)
-        with _step_products(cfg, how, device):
-            loss, grads = loss_and_grads(state["params"], leaves, b, how, dropout)
-        if nan_checks_enabled():
-            check_finite(loss, grads)
-        logs = {"train_loss": loss.detach(), "grad_norm": global_norm(grads).detach(),
-                "learning_rate": sched(state["step"] // every_k)}
-        state["opt_state"].update(grads)
-        state["step"] += 1
-        return state, logs
+        with span("train.step"):
+            leaves = param_leaves(state["params"])
+            device = leaves[0].device
+            # copies from pageable host memory: the host waits for the device
+            # to finish the work queued before them
+            with span("train.wait", on="batch_to_device"):
+                b = _mesh_batch(batch, mesh, device)
+            how = route(tcfg, mesh)
+            dropout = (Dropout.draw(cfg.dropout, generator, cfg.n_blocks)
+                       if cfg.dropout and generator is not None else None)
+            with span("train.forward_backward"), _step_products(cfg, how, device):
+                loss, grads = loss_and_grads(state["params"], leaves, b, how, dropout)
+            if nan_checks_enabled():
+                check_finite(loss, grads)
+            with span("train.optimizer"):
+                logs = {"train_loss": loss.detach(), "grad_norm": global_norm(grads).detach(),
+                        "learning_rate": sched(state["step"] // every_k)}
+                state["opt_state"].update(grads)
+            state["step"] += 1
+            return state, logs
 
     return step_fn
 

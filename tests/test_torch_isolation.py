@@ -171,13 +171,13 @@ print(json.dumps({"names": [m.name for m in pkgutil.walk_packages(pkg.__path__,
 
 
 def test_import_walk_covers_tree_toolkit_and_bench_modules():
-    """The tree and MSA toolkit and the end-to-end bench modules are walked
-    (so the guards above cover them), and the host ones load neither torch
-    nor JAX: ``pf-tree-torch``'s process pool and ``pf-msa-torch`` start
-    no CUDA context."""
+    """The tree and MSA toolkit, the end-to-end bench modules and the span
+    recorder are walked (so the guards above cover them), and the host ones
+    load neither torch nor JAX: ``pf-tree-torch``'s process pool and
+    ``pf-msa-torch`` start no CUDA context, and a span site needs no torch."""
     host = ("trees.native", "trees.likelihood", "trees.ml_fast", "trees.baselines",
             "trees.cli", "data.msa_tools", "data.cli_msa_tools", "bench.harness",
-            "bench.report", "bench.figures", "bench.crossmatrix", "bench.cli")
+            "bench.report", "bench.figures", "bench.crossmatrix", "bench.cli", "spans")
     out = _run(f"""
 import importlib, json, pkgutil, sys
 import phyloformer_tpu_torch as pkg
