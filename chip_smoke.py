@@ -467,10 +467,12 @@ def bound_tc(flops, nbytes):
 
 
 def sass_counts(lib_path):
-    """Tensor-core (HMMA) and fp32 FMA (FFMA) instructions of each kernel in
-    the built library, from ``cuobjdump -sass``, by the kernel's short name
-    (``kernel_c``; the template argument of ``kernel_a`` appended); None
-    where the toolkit has no cuobjdump."""
+    """Tensor-core (HMMA: mma.sync; HGMMA: warpgroup MMA) and fp32 FMA
+    (FFMA) instructions of each kernel in the built library, from
+    ``cuobjdump -sass``, by the kernel's short name (``kernel_c``; the
+    template argument of ``kernel_a`` appended; kernel M on warpgroup MMA as
+    ``wg::kernel_m<Li0ELi3E>``, all its template arguments); None where the
+    toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -480,12 +482,16 @@ def sass_counts(lib_path):
     for line in res.stdout.splitlines():
         if "Function :" in line:
             cur = line.split("Function :")[1].strip()
-            counts[cur] = {"HMMA": 0, "FFMA": 0}
+            counts[cur] = {"HMMA": 0, "HGMMA": 0, "FFMA": 0}
         elif cur is not None:
-            for op in ("HMMA", "FFMA"):
+            for op in ("HMMA", "HGMMA", "FFMA"):
                 counts[cur][op] += (" " + op + ".") in line or (" " + op + " ") in line
     short = {}
     for k, v in counts.items():
+        m = re.search(r"2wg\d(kernel_[a-z0-9_]+?)I((?:L[^E]*E)+)E", k)
+        if m:
+            short[f"wg::{m.group(1)}<{m.group(2)}>"] = v
+            continue
         m = re.search(r"\d(kernel_[a-z0-9_]+?)(?:E|I(L[^E]*E))", k)
         if m:
             short[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = v
@@ -541,12 +547,21 @@ def case_errors(results, case, start):
             r["cases"][case] = max(e[1] for e in r["errs"][start[name]:])
 
 
+def bf16_errors(got, want):
+    """:func:`errors` of x1 stored as bf16: what lies beyond one bf16 ulp
+    (:func:`bf16_ulps`), absolute and over max(1, max|want|)."""
+    excess = bf16_ulps(got, want)["excess"]
+    return excess * max(1.0, want.float().abs().max().item()), excess
+
+
 def kernel_checks(weights, device):
     """Each kernel against its plain version on the card, at the headline
-    bucket and on a ragged batch; times at the headline shapes."""
+    bucket and on a ragged batch; times at the headline shapes.  Kernel M
+    runs at both storages of x1: fp32 (kernel_m) and bf16 (kernel_m_bf16)."""
     import torch
 
     from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+    from phyloformer_tpu_torch.ops.kernels.axial_block import body_col_stats
 
     rng = np.random.default_rng(SEED)
     cases = {
@@ -561,7 +576,7 @@ def kernel_checks(weights, device):
     w = weights
     eps = 1e-5
     results = {k: {"errs": [], "cases": {}}
-               for k in ("kernel_p0", "kernel_a_only", "kernel_m", "kernel_z")}
+               for k in ("kernel_p0", "kernel_a_only", "kernel_m", "kernel_m_bf16", "kernel_z")}
     timing_inputs = {}
     for case, (dims, pad_n, pad_l) in cases.items():
         b = len(dims)
@@ -585,6 +600,16 @@ def kernel_checks(weights, device):
             want = pipe.kernel_m_plain(x1, stats, smask, pmask, pcount, w.b[0], w.row[1],
                                        w.col[1], eps, gelu)
             results["kernel_m"]["errs"] += [errors(got[0], want[0]), errors(got[1], want[1])]
+            # M at bf16 storage: x1 held in bf16 ulps (what lies beyond one),
+            # the stats to the plain stats of the kernel's own x1
+            xb = x1.to(torch.bfloat16)
+            got = pipe.kernel_m(xb.clone(), stats, smask, pmask, pcount, w.b[0], w.row[1],
+                                w.col[1], eps, gelu)
+            want = pipe.kernel_m_plain(xb, stats, smask, pmask, pcount, w.b[0], w.row[1],
+                                       w.col[1], eps, gelu)
+            own = body_col_stats(got[0].float(), pmask, w.col[1].parts, eps, 3)
+            results["kernel_m_bf16"]["errs"] += [bf16_errors(got[0], want[0]),
+                                                 errors(got[1], own)]
         # the last block, on the input the main path gives it: the plain
         # versions run through every block boundary
         xz, sz = x1, stats
@@ -638,6 +663,8 @@ def kernel_checks(weights, device):
                           bound_tc(FLOPS_A * ws, 2 * act * ws + 4 * wd["b"] * wd["l"] * 3 * D)),
         "kernel_m": (m(False), m(True), clone_of(h["x1"]),
                      bound_tc((FLOPS_A + FLOPS_B) * hs, 2 * act * hs + 2 * stats_b)),
+        "kernel_m_bf16": (m(False), m(True), clone_of(h["x1"].to(torch.bfloat16)),
+                          bound_tc((FLOPS_A + FLOPS_B) * hs, act * hs + 2 * stats_b)),
         "kernel_z": (z(False), z(True), None,
                      bound_tc((FLOPS_B + FLOPS_HEAD) * hs,
                               act * hs + stats_b + 4 * h["b"] * h["p"])),
@@ -809,18 +836,24 @@ def flip_stats(got, want):
     return (rel > KERNEL_TOL).double().mean().item(), torch.quantile(rel, 0.999).item()
 
 
+def variant_row(kernel, storage):
+    """The kernel row a variant's numbers go to: kernel M at bf16 storage of
+    x1 is a kernel of its own (kernel_m_bf16)."""
+    return "kernel_m_bf16" if (kernel, storage) == ("kernel_m", "bfloat16") else kernel
+
+
 # The forward kernels' variants held against their plain versions: name ->
 # (kernel, TF32 passes, x1 storage, activation).
 VARIANTS = {}
 for _k in ("kernel_p0", "kernel_a_only", "kernel_m", "kernel_z"):
     for _np, _st in ((1, "float32"), (3, "bfloat16"), (1, "bfloat16")):
-        VARIANTS[f"{_k}/p{_np}-{_st}"] = (_k, _np, _st, "exact")
+        VARIANTS[f"{variant_row(_k, _st)}/p{_np}-{_st}"] = (_k, _np, _st, "exact")
 for _k in ("kernel_m", "kernel_z"):  # the fast path's (tanh) and the other activations
     for _st in ("float32", "bfloat16"):
-        VARIANTS[f"{_k}/p1-{_st}-tanh"] = (_k, 1, _st, "tanh")
+        VARIANTS[f"{variant_row(_k, _st)}/p1-{_st}-tanh"] = (_k, 1, _st, "tanh")
         for _np in (3, 1):
             for _g in ("sigmoid", "relu"):
-                VARIANTS[f"{_k}/p{_np}-{_st}-{_g}"] = (_k, _np, _st, _g)
+                VARIANTS[f"{variant_row(_k, _st)}/p{_np}-{_st}-{_g}"] = (_k, _np, _st, _g)
 for _k in ("kernel_a", "kernel_b", "kernel_a1", "kernel_a2"):
     VARIANTS[f"{_k}/p1-float32"] = (_k, 1, "float32", "exact")
 
@@ -932,7 +965,8 @@ def variant_checks(weights, device):
                         # there too, so its distance from the twin on the card
                         # is the TF32 rounding flips' own size
                         cpu = [pipe.WeightGroup(tuple(t.cpu() for t in g.parts), g.flat.cpu(),
-                                                g.mma.cpu()) for g in (w.row[0], w.col[0])]
+                                                g.mma.cpu(), g.wg.cpu())
+                               for g in (w.row[0], w.col[0])]
                         twin_cpu = pipe.kernel_a_only_plain(x0.cpu(), smask.cpu(), pmask.cpu(),
                                                             cpu[0], cpu[1], eps, npass)
                         res[v]["twin_card_vs_cpu"] = max(
@@ -1238,11 +1272,12 @@ def write_fasta(path, codes, rng_ids):
         fh.write(fasta_text(codes, [f"{rng_ids}_{r}" for r in range(len(codes))]))
 
 
-def expected_launches(plan, n_blocks, pipelined):
+def expected_launches(plan, n_blocks, pipelined, storage="float32"):
     """Launch counts of a run of ``plan``: per pipelined batch one block-0
-    kernel (P0 or A-only) + (n_blocks - 1) M + 1 Z; per fused batch, A1, A2
-    and B per block above 1024 sites, A and B per block up to it; n_blocks
-    reductions per batch either way."""
+    kernel (P0 or A-only) + (n_blocks - 1) M + 1 Z, M counted as kernel_m at
+    fp32 ``storage`` of x1 and as kernel_m_bf16 at bf16; per fused batch, A1,
+    A2 and B per block above 1024 sites, A and B per block up to it;
+    n_blocks reductions per batch either way."""
     from phyloformer_tpu_torch.ops.kernels import axial_block
     from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
 
@@ -1250,7 +1285,7 @@ def expected_launches(plan, n_blocks, pipelined):
     for (pad_n, pad_l), _ in plan:
         if pipelined(pad_n, pad_l):
             n["kernel_p0" if pipe.uses_gather(pad_n, pad_l, D) else "kernel_a_only"] += 1
-            n["kernel_m"] += n_blocks - 1
+            n["kernel_m" if storage == "float32" else "kernel_m_bf16"] += n_blocks - 1
             n["kernel_z"] += 1
         elif pad_l > axial_block.RESIDENT_SITES_MAX:
             for k in ("kernel_a1", "kernel_a2", "kernel_b"):
@@ -1516,7 +1551,7 @@ def fast_path(device, alns, refs, long_alns, long_refs):
             matmul_precision="tensorfloat32", pipeline_gelu="tanh", pipeline_act_dtype=st),
             device=device)
         expected = expected_launches(engine._plan(alns), cfg.n_blocks,
-                                     lambda n, l: pipe.pipeline_supported(n, l, "default"))
+                                     lambda n, l: pipe.pipeline_supported(n, l, "default"), st)
         pipe.reset_launch_counts()
         preds = engine.predict(alns)
         torch.cuda.synchronize()
@@ -5195,6 +5230,7 @@ KERNELS = {
     "kernel_p0": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/pipeline.py:100"),
     "kernel_a_only": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/pipeline.py:145"),
     "kernel_m": ("axial_pipeline_m.cu", "phyloformer_tpu/ops/pallas/pipeline.py:176"),
+    "kernel_m_bf16": ("axial_pipeline_m_bf16.cu", "phyloformer_tpu/ops/pallas/pipeline.py:176"),
     "kernel_z": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/pipeline.py:214"),
     "reduce_stats": ("slot_reduce.cu", "phyloformer_tpu/ops/pallas/pipeline.py:136"),
     "kernel_a": ("axial_pipeline.cu", "phyloformer_tpu/ops/pallas/axial_block.py:252"),
@@ -5363,11 +5399,14 @@ def main(argv=None) -> int:
     if sass is None:
         print("sass: no cuobjdump in this toolkit")
     for fn, n in (sass or {}).items():
-        print(f"sass: {fn}: {n['HMMA']} HMMA (tensor-core mma), {n['FFMA']} FFMA")
+        print(f"sass: {fn}: {n['HMMA']} HMMA (tensor-core mma), {n['HGMMA']} HGMMA (warpgroup "
+              f"mma), {n['FFMA']} FFMA")
     no_tc = [f"{k}<{n}>" for k in ("kernel_c", "kernel_d", "kernel_e", "kernel_e2")
              for n in (3, 1) if not (sass or {}).get(f"{k}<Li{n}E>", {}).get("HMMA")]
+    no_tc += [f"wg::kernel_m<{g}, {n}>" for g in range(4) for n in (3, 1)
+              if sass is not None and not sass.get(f"wg::kernel_m<Li{g}ELi{n}E>", {}).get("HGMMA")]
     if no_tc:
-        fail(f"no tensor-core (HMMA) instruction found in {no_tc}")
+        fail(f"no tensor-core (HMMA, HGMMA) instruction found in {no_tc}")
 
     results = kernel_checks(weights, device)
     results.update(fused_kernel_checks(weights, device))

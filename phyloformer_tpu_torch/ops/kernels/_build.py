@@ -25,8 +25,8 @@ from ...spans import setup_span
 _HERE = pathlib.Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
-SOURCES = ("axial_pipeline.cu", "axial_pipeline_m.cu", "axial_fused.cu", "axial_bwd.cu",
-           "axial_bwd_tc.cu", "slot_reduce.cu")
+SOURCES = ("axial_pipeline.cu", "axial_pipeline_m.cu", "axial_pipeline_m_bf16.cu",
+           "axial_fused.cu", "axial_bwd.cu", "axial_bwd_tc.cu", "slot_reduce.cu")
 HEADERS = ("axial_pipeline.cuh", "axial_bodies.cuh", "axial_bwd.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,11 +41,13 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "pf_weight_sizes": [_p],
     # the forward's entries end in their variant codes: passes, then storage
-    # (P0, A-only), or gelu, passes, storage (M, Z)
+    # (P0, A-only), or gelu, passes, storage (Z), or gelu, passes (M at fp32
+    # storage, on warpgroup MMA, and at bf16)
     "pf_kernel_p0": [_p] * 12 + [_i] * 5 + [_f, _i, _i, _p],
     "pf_kernel_a_only": [_p] * 9 + [_i] * 4 + [_f, _i, _i, _p],
     "pf_kernel_a": [_p] * 10 + [_i] * 4 + [_f, _i, _p],
-    "pf_kernel_m": [_p] * 13 + [_i] * 4 + [_f, _i, _i, _i, _p],
+    "pf_kernel_m": [_p] * 13 + [_i] * 4 + [_f, _i, _i, _p],
+    "pf_kernel_m_bf16": [_p] * 13 + [_i] * 4 + [_f, _i, _i, _p],
     "pf_kernel_z": [_p] * 8 + [_i] * 4 + [_f, _i, _i, _i, _p],
     "pf_kernel_a1": [_p] * 5 + [_i] * 4 + [_f, _i, _p],
     "pf_kernel_a2": [_p] * 10 + [_i] * 5 + [_f, _i, _p],

@@ -160,7 +160,7 @@ def e_group(norm, attn) -> WeightGroup:
     if not _kernel_shaped(attn["wq"]):
         return g
     mma = torch.cat([pack_mma(m.contiguous()) for m in e_mma_mats(_parts(g, ATT_PARTS))])
-    return WeightGroup(g.parts, g.flat, mma)
+    return WeightGroup(g.parts, g.flat, mma, g.wg)
 
 
 @dataclass(frozen=True)

@@ -9,7 +9,8 @@
 //   pf_kernel_a_only  <- _kernel_a_only  (pipeline.py:145): kernel A on a gathered pair tensor
 //   pf_kernel_a       <- _kernel_a       (axial_block.py:252): the same function, out of place
 //   pf_kernel_m       <- _kernel_m       (pipeline.py:176): kernel B of block i + kernel A of i+1
-//                        (in axial_pipeline_m.cu, built beside this file)
+//                        (axial_pipeline_m.cu: x1 fp32, on warpgroup MMA, its own design note;
+//                        axial_pipeline_m_bf16.cu: x1 bf16, on the bodies and design below)
 //   pf_kernel_z       <- _kernel_z       (pipeline.py:214): last kernel B + softplus head + site mean
 //
 // The stats accumulation across sequential grid steps (pl.when(pi == 0) init,
@@ -66,11 +67,12 @@
 //   pairs of one batch element and walks each pair row in tiles of 64 sites.
 // - Products: mma.sync.m16n8k8 TF32.  A tile's product is 64 x 64 (the FFN's
 //   64 x 256 in four 64-wide chunks); warp w owns 32 rows x 16 columns, 2 x 2
-//   fragments.  mma.sync rather than wgmma: wgmma wants its B operand in
-//   shared memory, and the weights of M (272 KB in fp32, twice that split)
-//   do not fit beside the tiles; at three passes a 64 x 64 x 64 product is
-//   96 mma a warp, which mma.sync issues faster than the stages around it
-//   can feed them.
+//   fragments; every stage ends at a block-wide barrier, so the SM's warps
+//   either feed the tensor cores or run the stages around them.  Kernel M at
+//   fp32 storage left this design for warpgroup MMA with two warpgroups on
+//   their own tiles, the weights streamed through shared memory one 64 x 64
+//   plane at a time (axial_pipeline_m.cu); the kernels here (and M at bf16
+//   storage) still run mma.sync and are the next candidates for that design.
 // - Operands.  A (the LayerNorm output, the attention output, a GELU chunk)
 //   is split once where it is made and kept in shared memory as a big and a
 //   small plane with a 68-float row stride, so each fragment load of 8 rows
@@ -229,6 +231,10 @@ int pf_weight_sizes(int* out) {
   out[6] = BM_SIZE;
   out[7] = TS;
   out[8] = FT;
+  out[9] = RG_SIZE;
+  out[10] = CG_SIZE;
+  out[11] = BG_SIZE;
+  out[12] = M_CONSUMERS;
   return 0;
 }
 

@@ -124,6 +124,36 @@ constexpr int BM_W1 = BM_CWO + MM_D;
 constexpr int BM_W2 = BM_W1 + 2 * D * F;
 constexpr int BM_SIZE = BM_W2 + 2 * F * D;
 
+// Kernel M's weight planes (axial_pipeline_m.cu; made once per group by
+// `pipeline.pack_wg`): each 64 x 64 K x N block of a group's matrices as
+// the shared-memory image its warpgroup MMA reads, big TF32 image then
+// small, WG_PLANE floats.  Image element (n, k) is float
+// (k / 4) 256 + (n / 8) 32 + (n % 8) 4 + k % 4 of each half.  The w2 planes
+// follow an accumulator used as the A operand from registers, so their
+// rows are permuted: physical k = 8j + s holds logical 8j + 2 (s % 4) + s / 4.
+// Offsets in planes.
+constexpr int WG_PLANE = 2 * D * D;
+constexpr int BG_CWQ = 0;
+constexpr int BG_CWO = 1;
+constexpr int BG_W1 = 2;         // four planes: w1's columns 64c .. 64c + 63
+constexpr int BG_W2 = 6;         // four planes: w2's rows 64c .. 64c + 63, permuted
+constexpr int BG_PLANES = 10;
+constexpr int RG_WQ = 0;
+constexpr int RG_WK = 1;
+constexpr int RG_WV = 2;
+constexpr int RG_WO = 3;
+constexpr int RG_PLANES = 4;
+constexpr int CG_WQ = 0;
+constexpr int CG_WK = 1;
+constexpr int CG_WV = 2;
+constexpr int CG_PLANES = 3;
+constexpr int BG_SIZE = BG_PLANES * WG_PLANE;
+constexpr int RG_SIZE = RG_PLANES * WG_PLANE;
+constexpr int CG_SIZE = CG_PLANES * WG_PLANE;
+// Kernel M's consumer warpgroups a block: each writes its own row-sum and
+// column-partial slots.
+constexpr int M_CONSUMERS = 2;
+
 // Shared memory of one forward block (~104 KB: two blocks an SM).  The
 // products' A operands are kept split, a big and a small TF32 plane each.
 struct Smem {

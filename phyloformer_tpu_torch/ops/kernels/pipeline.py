@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -75,8 +75,15 @@ HEAD_SIZE = D_KERNEL + 1
 ROW_MMA_SIZE = 2 * 4 * D_KERNEL * D_KERNEL
 COL_MMA_SIZE = 2 * 3 * D_KERNEL * D_KERNEL
 B_MMA_SIZE = 2 * (2 * D_KERNEL * D_KERNEL + 2 * 4 * D_KERNEL * D_KERNEL)
+# Kernel M's weight planes (pack_wg): 64 x 64 blocks of the groups'
+# matrices, two TF32 images each, in the order M's products read them.
+WG_PLANE = 2 * D_KERNEL * D_KERNEL
+ROW_WG_SIZE = 4 * WG_PLANE  # wq, wk, wv, wo
+COL_WG_SIZE = 3 * WG_PLANE  # wq, wk, wv
+B_WG_SIZE = 10 * WG_PLANE  # cwq, cwo, w1's four column blocks, w2's four row blocks
+M_CONSUMERS = 2  # kernel M's consumer warpgroups a block, each with its own slots
 LAYOUT = (ROW_SIZE, COL_SIZE, B_SIZE, HEAD_SIZE, ROW_MMA_SIZE, COL_MMA_SIZE, B_MMA_SIZE,
-          TILE_SITES, FWD_TILE_SITES)
+          TILE_SITES, FWD_TILE_SITES, ROW_WG_SIZE, COL_WG_SIZE, B_WG_SIZE, M_CONSUMERS)
 # Storage of x1 between the pipeline's kernels, by JAX's name, and the
 # kernels' codes for it (STORE_F32, STORE_BF16 in axial_pipeline.cuh).
 ACT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -86,8 +93,12 @@ STORAGE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel_a, kernel_b, kernel_a1 and kernel_a2 are the fused forward's
 # (ops/kernels/fused.py), kernel_c, kernel_d, kernel_e, kernel_e1, kernel_e2
 # and reduce_partials the fused backward's (ops/kernels/axial_block_bwd.py).
+#
+# kernel_m counts kernel M at fp32 storage (warpgroup MMA), kernel_m_bf16 at
+# bf16 storage (the mma.sync bodies): a run shows which design ran.
 LAUNCHES: Dict[str, int] = {
-    "kernel_p0": 0, "kernel_a_only": 0, "kernel_m": 0, "kernel_z": 0, "reduce_stats": 0,
+    "kernel_p0": 0, "kernel_a_only": 0, "kernel_m": 0, "kernel_m_bf16": 0, "kernel_z": 0,
+    "reduce_stats": 0,
     "kernel_a": 0, "kernel_b": 0, "kernel_a1": 0, "kernel_a2": 0,
     "kernel_c": 0, "kernel_d": 0, "kernel_e": 0, "kernel_e1": 0, "kernel_e2": 0,
     "reduce_partials": 0,
@@ -140,16 +151,63 @@ def unpack_mma(packed: torch.Tensor, K: int, N: int) -> Tuple[torch.Tensor, torc
     return split[0], split[1]
 
 
+def _k_slots() -> torch.Tensor:
+    """Logical k of each physical k of a w2 plane: kernel M takes the GELU
+    chunk as wgmma's A operand from its accumulator, whose columns
+    ``8j + 2t + e`` land on the A fragment's k slot ``8j + t + 4e``."""
+    s = torch.arange(D_KERNEL)
+    return 8 * (s // 8) + 2 * (s % 4) + (s % 8) // 4
+
+
+def pack_wg(w: torch.Tensor, permute_k: bool = False) -> torch.Tensor:
+    """A ``(64, 64)`` fp32 block ``W[k, n]`` → ``WG_PLANE`` floats: the
+    shared-memory image of kernel M's warpgroup MMA B operand (K-major, no
+    swizzle), big TF32 image then small, element ``(n, k)`` at float
+    ``(k // 4) 256 + (n // 8) 32 + (n % 8) 4 + k % 4`` of each.  With
+    ``permute_k`` physical row ``k`` holds logical row ``_k_slots()[k]``."""
+    if permute_k:
+        w = w[_k_slots()]
+    big = tf32_rna(w)
+    small = tf32_rna(w - big)
+    # (s, kc, kr, n8, nr) with k = 4 kc + kr, n = 8 n8 + nr
+    split = torch.stack([big, small]).view(2, D_KERNEL // 4, 4, D_KERNEL // 8, 8)
+    return split.permute(0, 1, 3, 4, 2).reshape(-1)
+
+
+def unpack_wg(plane: torch.Tensor, permute_k: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The inverse of :func:`pack_wg`: ``(big, small)``, each ``(64, 64)``
+    in logical row order."""
+    split = plane.view(2, D_KERNEL // 4, D_KERNEL // 8, 8, 4).permute(0, 1, 4, 2, 3)
+    split = split.reshape(2, D_KERNEL, D_KERNEL)
+    if permute_k:
+        out = torch.empty_like(split)
+        out[:, _k_slots()] = split
+        split = out
+    return split[0], split[1]
+
+
+def _wg_planes(parts: Sequence[torch.Tensor],
+               planes: Sequence[Tuple[int, int, int, bool]]) -> torch.Tensor:
+    """``planes``: (index in parts, first row, first column, permute_k) of
+    each 64 x 64 block, in kernel M's order."""
+    d = D_KERNEL
+    return torch.cat([pack_wg(parts[i][k0:k0 + d, n0:n0 + d], perm)
+                      for i, k0, n0, perm in planes])
+
+
 @dataclass(frozen=True)
 class WeightGroup:
     """One kernel's weight group: the tensors in the kernel's order (for the
     plain versions), the same values packed into one buffer (for CUDA) and,
     for the forward kernels' groups, the matrices among them in the mma
-    layout (:func:`pack_mma`, concatenated in order; empty otherwise)."""
+    layout (:func:`pack_mma`, concatenated in order; empty otherwise) and
+    kernel M's planes of them (:func:`pack_wg`; empty otherwise)."""
 
     parts: Tuple[torch.Tensor, ...]
     flat: torch.Tensor
     mma: torch.Tensor
+    wg: torch.Tensor
 
     @classmethod
     def of(cls, parts: Sequence[torch.Tensor], mats: Sequence[int] = ()) -> "WeightGroup":
@@ -159,7 +217,7 @@ class WeightGroup:
         flat = torch.cat([p.reshape(-1) for p in parts]).contiguous()
         mma = (torch.cat([pack_mma(parts[i]) for i in mats]) if mats
                else flat.new_empty((0,)))
-        return cls(parts, flat, mma)
+        return cls(parts, flat, mma, flat.new_empty((0,)))
 
 
 def row_group(layer) -> WeightGroup:
@@ -182,6 +240,24 @@ def b_group(layer) -> WeightGroup:
                            ca["wq"], ca["bq"], ca["wo"], ca["bo"],
                            layer["ffn_norm"]["scale"], layer["ffn_norm"]["bias"],
                            ffn["w1"], ffn["b1"], ffn["w2"], ffn["b2"]), mats=(2, 4, 8, 10))
+
+
+# Kernel M's planes of each group's matrices (:func:`_wg_planes`), in the
+# order its products read them: the pipeline's weights carry them
+# (PipelineWeights), the fused forward's groups do without.
+ROW_PLANES = ((2, 0, 0, False), (4, 0, 0, False), (6, 0, 0, False), (8, 0, 0, False))
+COL_PLANES = ((2, 0, 0, False), (4, 0, 0, False), (6, 0, 0, False))
+B_PLANES = (((2, 0, 0, False), (4, 0, 0, False))
+            + tuple((8, 0, D_KERNEL * c, False) for c in range(4))
+            + tuple((10, D_KERNEL * c, 0, True) for c in range(4)))
+
+
+def _with_planes(g: WeightGroup, planes) -> WeightGroup:
+    """``g`` with kernel M's planes; kernel M is built for d = 64 alone, so
+    other widths (which run the plain versions) keep none."""
+    if g.parts[planes[0][0]].shape != (D_KERNEL, D_KERNEL):
+        return g
+    return replace(g, wg=_wg_planes(g.parts, planes))
 
 
 @dataclass(frozen=True)
@@ -212,8 +288,9 @@ class PipelineWeights:
         layers = [expand_qk_weights(ly) for ly in params["layers"]]
         return cls(
             embed_w=params["embed"]["w"], embed_b=params["embed"]["b"],
-            row=[row_group(ly) for ly in layers], col=[col_group(ly) for ly in layers],
-            b=[b_group(ly) for ly in layers],
+            row=[_with_planes(row_group(ly), ROW_PLANES) for ly in layers],
+            col=[_with_planes(col_group(ly), COL_PLANES) for ly in layers],
+            b=[_with_planes(b_group(ly), B_PLANES) for ly in layers],
             head=WeightGroup.of((params["head"]["w"], params["head"]["b"])),
             param_dtype=param_dtype)
 
@@ -435,12 +512,32 @@ def _gelu_code(gelu_mode: str) -> int:
     return GELU_MODES.index(gelu_mode)
 
 
+def m_blocks(P: int, B: int, device: torch.device) -> int:
+    """Kernel M's blocks per batch element: one block an SM (its shared
+    memory and its 384 threads' registers fill one: two consumer warpgroups
+    and a producer warpgroup), the grid no larger than
+    the SM count where B allows, never more blocks than pairs."""
+    return max(1, min(P, _sms(device) // B))
+
+
+def _require_wg(**groups: Tuple[WeightGroup, int, int]) -> None:
+    """Each group's flat buffer and kernel M's planes of it (:func:`pack_wg`):
+    sizes, and the 16-byte alignment of the bulk copies."""
+    for name, (g, size, wg_size) in groups.items():
+        _require(g.flat, name, (size,))
+        _require(g.wg, f"{name} (wgmma planes)", (wg_size,))
+        if g.wg.data_ptr() % 16:
+            raise ValueError(f"{name} (wgmma planes): not 16-byte aligned")
+
+
 def kernel_m(x1, stats, smask, pmask, pair_count, bw: WeightGroup, rw: WeightGroup,
              cw: WeightGroup, eps, gelu_mode="exact", passes=3):
     """Block boundary: (x1, stats) of block i → (x1, stats) of block i+1,
     x1 fp32 or bf16.  On the card x1 is updated in place; the stats come in
-    a new buffer."""
-    storage = _storage_code(x1.dtype)
+    a new buffer.  At fp32 storage it runs ``pf_kernel_m`` (warpgroup MMA,
+    ``csrc/axial_pipeline_m.cu``), at bf16 ``pf_kernel_m_bf16`` (the
+    mma.sync bodies), each counted under its own key of :data:`LAUNCHES`."""
+    _storage_code(x1.dtype)
     gelu = _gelu_code(gelu_mode)
     _check_passes(passes)
     if _on_cpu(x1, stats, smask, pmask, pair_count, bw.flat, rw.flat, cw.flat):
@@ -453,16 +550,32 @@ def kernel_m(x1, stats, smask, pmask, pair_count, bw: WeightGroup, rw: WeightGro
     _require(smask, "smask", (B, L))
     _require(pmask, "pmask", (B, P))
     _require(pair_count, "pair_count", (B,))
-    _require_groups(b=(bw, B_SIZE, B_MMA_SIZE), row=(rw, ROW_SIZE, ROW_MMA_SIZE),
-                    col=(cw, COL_SIZE, COL_MMA_SIZE))
-    S, rowsum, partial = _scratch(B, P, L, x1.device)
     lib = _lib()
+    if x1.dtype == torch.bfloat16:
+        # the mma.sync design: its second pass reruns kernel B on the stored x1
+        _require_groups(b=(bw, B_SIZE, B_MMA_SIZE), row=(rw, ROW_SIZE, ROW_MMA_SIZE),
+                        col=(cw, COL_SIZE, COL_MMA_SIZE))
+        S, rowsum, partial = _scratch(B, P, L, x1.device)
+        _build.check(lib, lib.pf_kernel_m_bf16(
+            x1.data_ptr(), stats.data_ptr(), smask.data_ptr(), pmask.data_ptr(),
+            pair_count.data_ptr(), bw.flat.data_ptr(), bw.mma.data_ptr(), rw.flat.data_ptr(),
+            rw.mma.data_ptr(), cw.flat.data_ptr(), cw.mma.data_ptr(), rowsum.data_ptr(),
+            partial.data_ptr(), B, P, L, S, float(eps), gelu, passes, _stream()),
+            "kernel_m_bf16")
+        LAUNCHES["kernel_m_bf16"] += 1
+        return x1, reduce_stats(partial)
+    _require_wg(b=(bw, B_SIZE, B_WG_SIZE), row=(rw, ROW_SIZE, ROW_WG_SIZE),
+                col=(cw, COL_SIZE, COL_WG_SIZE))
+    G = m_blocks(P, B, x1.device)
+    rowsum = torch.empty((B, P, M_CONSUMERS, 3, D_KERNEL), device=x1.device,
+                         dtype=torch.float32)
+    partial = torch.empty((B, M_CONSUMERS * G, L, 3 * D_KERNEL), device=x1.device,
+                          dtype=torch.float32)
     _build.check(lib, lib.pf_kernel_m(
         x1.data_ptr(), stats.data_ptr(), smask.data_ptr(), pmask.data_ptr(),
-        pair_count.data_ptr(), bw.flat.data_ptr(), bw.mma.data_ptr(), rw.flat.data_ptr(),
-        rw.mma.data_ptr(), cw.flat.data_ptr(), cw.mma.data_ptr(), rowsum.data_ptr(),
-        partial.data_ptr(), B, P, L, S, float(eps), gelu, passes, storage, _stream()),
-        "kernel_m")
+        pair_count.data_ptr(), bw.flat.data_ptr(), bw.wg.data_ptr(), rw.flat.data_ptr(),
+        rw.wg.data_ptr(), cw.flat.data_ptr(), cw.wg.data_ptr(), rowsum.data_ptr(),
+        partial.data_ptr(), B, P, L, G, float(eps), gelu, passes, _stream()), "kernel_m")
     LAUNCHES["kernel_m"] += 1
     return x1, reduce_stats(partial)
 

@@ -632,6 +632,129 @@ def test_backward_kernels_run_on_tensor_cores(kernel, sass):
         assert sass[f"{kernel}<Li{passes}E>"]["HMMA"] > 0, sass
 
 
+@pytest.mark.parametrize("gelu", range(4))
+@pytest.mark.parametrize("passes", [3, 1])
+def test_kernel_m_runs_on_warpgroup_mma(passes, gelu, sass):
+    """Kernel M at fp32 storage (``pf::wg::kernel_m``, every activation at
+    both pass counts) holds warpgroup MMA (HGMMA) instructions and no
+    mma.sync (HMMA)."""
+    n = sass[f"wg::kernel_m<Li{gelu}ELi{passes}E>"]
+    assert n["HGMMA"] > 0 and n["HMMA"] == 0, n
+
+
+# ---- kernel M on warpgroup MMA at the shapes where its split of the work can
+# fail: fewer pairs than SMs (one pair a block: one consumer's tiles only),
+# an odd tile count, ragged last tiles, three batch elements with padded
+# pairs, one pass above 1024 sites, rows of one tile with two and three
+# pairs a block (each consumer's row sums of the other's rows are zeros);
+# against kernel_m_plain, twice for the same bits, and the bf16 route on its
+# own launch count ---------------------------------------------------------------
+
+_M_WG_CODE = """
+import json
+import numpy as np
+import torch
+from phyloformer_tpu_torch.data.pairs import pair_indices
+from phyloformer_tpu_torch.io.ckpt_import import load_pretrained
+from phyloformer_tpu_torch.models.params import map_params
+from phyloformer_tpu_torch.ops.kernels import pipeline as pipe
+
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+params, _, _ = load_pretrained("artifacts/pf_mre_r5.ckpt")
+w = pipe.PipelineWeights.from_params(map_params(lambda t: t.to(dev), params))
+rng = np.random.default_rng(24)
+
+def rel(got, want):
+    want = want.double()
+    d = (got.double() - want).abs().flatten()
+    scale = max(1.0, want.abs().max().item())
+    return d.max().item() / scale, torch.quantile(d[:1 << 24], 0.999).item() / scale
+
+out = {}
+for name, (dims, pad_n, pad_l, passes) in {
+        "p45": ([(10, 250)], 10, 256, (3, 1)),
+        "odd_tiles": ([(20, 320)], 20, 320, (3, 1)),
+        "ragged_1000": ([(12, 1000)], 12, 1000, (3, 1)),
+        "ragged_1100_one_pass": ([(10, 1100)], 10, 1100, (1,)),
+        "b3_padded_pairs": ([(9, 130), (6, 100), (2, 77)], 9, 130, (3, 1)),
+        "one_tile_rows": ([(24, 40)], 24, 40, (3, 1))}.items():
+    b = len(dims)
+    codes = np.zeros((b, pad_n, pad_l), np.int32)
+    smask = np.zeros((b, pad_l), bool)
+    qmask = np.zeros((b, pad_n), bool)
+    for r, (n, l) in enumerate(dims):
+        codes[r, :n, :l] = rng.integers(0, 22, (n, l))
+        smask[r, :l] = True
+        qmask[r, :n] = True
+    codes, smask, qmask = (torch.from_numpy(a).to(dev) for a in (codes, smask, qmask))
+    i, j = (torch.as_tensor(a, device=dev).long() for a in pair_indices(pad_n))
+    emb = torch.relu(w.embed_w[codes.long()] + w.embed_b)
+    x0 = (emb[:, i] + emb[:, j]).contiguous()
+    sm = smask.float().contiguous()
+    pm = (qmask[:, i] & qmask[:, j]).float().contiguous()
+    pc = pm.sum(1)
+    for np_ in passes:
+        x1, stats = pipe.kernel_a_only_plain(x0, sm, pm, w.row[0], w.col[0], 1e-5, np_)
+        want = pipe.kernel_m_plain(x1, stats, sm, pm, pc, w.b[0], w.row[1], w.col[1], 1e-5,
+                                   "exact", np_)
+        pipe.reset_launch_counts()
+        run = lambda: pipe.kernel_m(x1.clone(), stats, sm, pm, pc, w.b[0], w.row[1], w.col[1],
+                                    1e-5, "exact", np_)
+        got, again = run(), run()
+        n_wg = pipe.LAUNCHES["kernel_m"]
+        real = pm.bool()
+        e_x1 = rel(got[0][real], want[0][real])
+        e_st = rel(got[1], want[1])
+        r = {"x1": e_x1, "stats": e_st, "launches": n_wg,
+             "same_bits": bool(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]))}
+        if np_ == 3:
+            x1b = x1.to(torch.bfloat16)
+            pipe.reset_launch_counts()
+            gb = pipe.kernel_m(x1b.clone(), stats, sm, pm, pc, w.b[0], w.row[1], w.col[1], 1e-5)
+            r["bf16_launches"] = (pipe.LAUNCHES["kernel_m"], pipe.LAUNCHES["kernel_m_bf16"])
+            r["bf16_finite"] = bool(torch.isfinite(gb[0].float()).all()
+                                    and torch.isfinite(gb[1]).all())
+        out[f"{name}/{np_}"] = r
+torch.cuda.synchronize()
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def m_wg_results(card):
+    r = subprocess.run([sys.executable, "-c", _M_WG_CODE], capture_output=True, text=True,
+                       cwd=str(REPO), timeout=900)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("case", ["p45/3", "p45/1", "odd_tiles/3", "odd_tiles/1",
+                                  "ragged_1000/3", "ragged_1000/1", "ragged_1100_one_pass/1",
+                                  "b3_padded_pairs/3", "b3_padded_pairs/1",
+                                  "one_tile_rows/3", "one_tile_rows/1"])
+def test_kernel_m_warpgroup_mma_matches_plain_on_card(case, m_wg_results):
+    """x1 on the real pairs and the stats against kernel_m_plain: within
+    2e-5 of max(1, max|ref|) at three passes, ONE_PASS_TOL (largest) and
+    ONE_PASS_P999 (99.9th percentile) at one; the same bits from two runs;
+    one launch counted as kernel_m; at bf16 storage the mma.sync kernel,
+    counted as kernel_m_bf16."""
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import ONE_PASS_P999, ONE_PASS_TOL
+
+    res = m_wg_results[case]
+    three = case.endswith("/3")
+    for key in ("x1", "stats"):
+        worst, p999 = res[key]
+        if three:
+            assert worst <= 2e-5, res
+        else:
+            assert worst <= ONE_PASS_TOL and p999 <= ONE_PASS_P999, res
+    assert res["same_bits"] and res["launches"] == 2, res
+    if three:
+        assert res["bf16_launches"] == [0, 1] and res["bf16_finite"], res
+
+
 # ---- the backward at one TF32 pass -------------------------------------------
 
 _BWD1_CODE = """

@@ -23,7 +23,11 @@ the kernel.  The kernels run only on the card (``tests/test_torch_cuda.py``,
   3e-4), which is why the kernels take three;
 - the constants of ``axial_pipeline.cuh`` (tile sizes, weight offsets and
   sizes, the shared memory of a block) agree with the wrapper's, so a tile
-  or layout changed on one side only fails here and not first on the card.
+  or layout changed on one side only fails here and not first on the card;
+- kernel M's weight planes (``pipeline.pack_wg``: 64 x 64 blocks in the
+  shared-memory image of its warpgroup MMA, w2's rows permuted so that an
+  accumulator can be the A operand) unpack to every matrix of the B, row
+  and column groups bit for bit, in the plane order the header declares.
 """
 
 import math
@@ -250,3 +254,110 @@ def test_forward_block_fits_twice_an_sm():
     assert pipe.RESIDENT_BLOCKS == 2
     assert len({(4 * g + t) % 32 for g in range(8) for t in range(4)}) == 32
     assert all((g * c["XS"] + t) % 32 == (4 * g + t) % 32 for g in range(8) for t in range(4))
+
+
+# Kernel M's planes of each group, as (index in parts, first row, first column,
+# the header's plane constant), in pack_wg's order; w2's planes are permuted.
+WG_PLANES = {
+    "row": ((2, 0, 0, "RG_WQ"), (4, 0, 0, "RG_WK"), (6, 0, 0, "RG_WV"), (8, 0, 0, "RG_WO")),
+    "col": ((2, 0, 0, "CG_WQ"), (4, 0, 0, "CG_WK"), (6, 0, 0, "CG_WV")),
+    "b": ((2, 0, 0, "BG_CWQ"), (4, 0, 0, "BG_CWO"))
+    + tuple((8, 0, D * c, "BG_W1") for c in range(4))
+    + tuple((10, D * c, 0, "BG_W2") for c in range(4)),
+}
+
+
+@pytest.mark.parametrize("layer", range(6))
+@pytest.mark.parametrize("kind", list(WG_PLANES))
+def test_pack_wg_round_trips(kind, layer, weights):
+    """Every 64 x 64 block of every matrix of the B, row and column groups of
+    the checkpoint: the plane at the header's offset (chunk c of w1 and w2
+    at BG_W1 + c, BG_W2 + c) unpacks to the split of that block bit for bit,
+    and image element (n, k) sits at float (k / 4) 256 + (n / 8) 32 +
+    (n % 8) 4 + k % 4 of each half, physical k of a w2 plane holding logical
+    row 8j + 2 (s % 4) + s / 4, as the kernel's bulk copies and descriptors
+    read it."""
+    w, _ = weights
+    c = _header_constants()
+    group = {"row": w.row, "col": w.col, "b": w.b}[kind][layer]
+    sizes = {"row": pipe.ROW_WG_SIZE, "col": pipe.COL_WG_SIZE, "b": pipe.B_WG_SIZE}
+    assert group.wg.shape == (sizes[kind],)
+    rng = np.random.default_rng(layer)
+    chunk = {}
+    for i, k0, n0, name in WG_PLANES[kind]:
+        index = c[name] + chunk.get(name, 0)
+        chunk[name] = chunk.get(name, 0) + 1
+        permute = name == "BG_W2"
+        block = group.parts[i][k0:k0 + D, n0:n0 + D].numpy()
+        big, small = _split(np.ascontiguousarray(block))
+        plane = group.wg[index * c["WG_PLANE"]:(index + 1) * c["WG_PLANE"]]
+        got_big, got_small = pipe.unpack_wg(plane, permute)
+        np.testing.assert_array_equal(got_big.numpy().view(np.uint32), big.view(np.uint32))
+        np.testing.assert_array_equal(got_small.numpy().view(np.uint32), small.view(np.uint32))
+        img = plane.numpy()
+        for _ in range(64):
+            n, k = (int(v) for v in rng.integers(0, D, 2))
+            j, s_ = divmod(k, 8)
+            logical = 8 * j + 2 * (s_ % 4) + s_ // 4 if permute else k
+            at = (k // 4) * 256 + (n // 8) * 32 + (n % 8) * 4 + k % 4
+            assert img[at].view(np.uint32) == big[logical, n].view(np.uint32)
+            assert img[D * D + at].view(np.uint32) == small[logical, n].view(np.uint32)
+    assert sum(chunk.values()) * c["WG_PLANE"] == group.wg.numel()
+
+
+def test_wg_header_constants_match_the_wrapper():
+    """Kernel M's plane constants: one plane is two 64 x 64 images, the
+    groups' plane counts and sizes are the wrapper's, w2's planes follow
+    w1's, and the consumers per block are the wrapper's slot count."""
+    c = _header_constants()
+    assert c["WG_PLANE"] == pipe.WG_PLANE == 2 * D * D
+    assert (c["RG_SIZE"], c["CG_SIZE"], c["BG_SIZE"]) == (
+        pipe.ROW_WG_SIZE, pipe.COL_WG_SIZE, pipe.B_WG_SIZE)
+    assert (c["RG_PLANES"], c["CG_PLANES"], c["BG_PLANES"]) == (
+        len(WG_PLANES["row"]), len(WG_PLANES["col"]), len(WG_PLANES["b"]))
+    assert (c["BG_W1"], c["BG_W2"]) == (2, 6)
+    assert c["M_CONSUMERS"] == pipe.M_CONSUMERS == 2
+
+
+def test_w2_permutation_is_the_accumulator_to_a_fragment_map():
+    """The A fragment of wgmma.m64nNk8 TF32 holds (row, k slot t) and (row,
+    k slot t + 4) of each k-step; the accumulator holds columns 8j + 2t and
+    8j + 2t + 1.  Kernel M puts accumulator element 2h + e in A register
+    2e + h, so k slot t + 4e of k-step j holds logical column 8j + 2t + e:
+    exactly _k_slots().  A product over the permuted rows then equals the
+    product over the logical ones."""
+    slots = pipe._k_slots().numpy()
+    for j in range(D // 8):
+        for t in range(4):
+            for e in range(2):
+                reg = 2 * e  # element 2h + e with h = 0 lands in register 2e + h
+                assert 8 * j + t + 4 * (reg >> 1) == 8 * j + t + 4 * e
+                assert slots[8 * j + t + 4 * e] == 8 * j + 2 * t + e
+    assert sorted(slots) == list(range(D))
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal((pipe.FWD_TILE_SITES, D))
+    wt = rng.standard_normal((D, D))
+    np.testing.assert_allclose(a[:, slots] @ wt[slots], a @ wt, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("B,P,want", [(1, 4950, 132), (9, 1770, 14), (1, 45, 45),
+                                      (3, 1225, 44), (200, 45, 1), (4, 1, 1)])
+def test_kernel_m_grid_fits_one_wave(B, P, want, monkeypatch):
+    """One block of kernel M an SM: at most the SM count over the grid where
+    the batch allows, never more blocks than pairs, at least one."""
+    monkeypatch.setattr(pipe, "_sms", lambda device: 132)
+    assert pipe.m_blocks(P, B, torch.device("cpu")) == want
+    assert want * B <= max(132, B)
+
+
+def test_forward_variants_apply_to_the_sources():
+    """Every substitution of ``forward_variants.json`` (the variants tool's
+    diagnostics, kernel M's among them) finds its text in ``csrc/``: a
+    source edited under a diagnostic fails here, not in a chip run."""
+    import json
+
+    variants = json.loads((CSRC.parent / "forward_variants.json").read_text())
+    assert variants["final"] == []
+    for name, subs in variants.items():
+        for f, old, _ in subs:
+            assert old in (CSRC / f).read_text(), (name, f)
