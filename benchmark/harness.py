@@ -149,6 +149,8 @@ class Reading:
     late_ms: List[float]
     active_s: float  # seconds in which the system had work: the window, or
     # for served requests the union of their times in flight
+    work: Dict[str, float]  # counts of work by name over the window (a runner's
+    # ``work``), for readers of other architectures than ``pair_sites`` serves
 
     def share(self, num: float, den: float) -> Optional[float]:
         """100 num / den, or None where there is nothing to read."""
@@ -206,7 +208,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, root: Path,
         reading = Reading(cell.name, cell.config, win.seconds, win.summary, counters,
                           out.get("spans", {}), out["model_flop"], out["pair_sites"],
                           out["units"], out.get("late_ms", []),
-                          out.get("active_s", win.seconds))
+                          out.get("active_s", win.seconds), out.get("work", {}))
         for m in per_layer_metrics(cell):
             value = load_reader(cell.bench, m["name"])(reading)
             if value is not None:

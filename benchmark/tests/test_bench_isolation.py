@@ -38,13 +38,15 @@ def test_reference_imports_nothing_of_the_program(path):
 
 
 def test_a_rehearsal_loads_no_jax_side_module(tiny_root):
-    """The run's process, after a whole rehearsal of every runner."""
+    """The run's process, after a whole rehearsal of every cell of the
+    manifest."""
     code = (
         "import sys, time; sys.path.insert(0, %r)\n"
-        "from benchmark import harness\n"
-        "for cell in ('infer.fp32.grid', 'train.tf32.recipe', 'serve.tf32.poisson'):\n"
-        "    harness.run(cell, 9, 0.5, False, __import__('pathlib').Path(%r),"
-        " time.perf_counter(), device='cpu')\n"
+        "from pathlib import Path\n"
+        "from benchmark import harness, manifest\n"
+        "root = Path(%r)\n"
+        "for cell in manifest.load(root)['workloads']:\n"
+        "    harness.run(cell['name'], 9, 0.5, False, root, time.perf_counter(), device='cpu')\n"
         "print(sorted({m.split('.')[0] for m in sys.modules} & %r))\n"
         % (str(REPO), str(tiny_root), JAX_SIDE))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -10,10 +10,10 @@ import time
 
 import pytest
 
-from benchmark import harness
+from benchmark import harness, manifest
 from conftest import REPO
 
-CELLS = ("infer.fp32.grid", "train.tf32.recipe", "serve.tf32.poisson")
+CELLS = tuple(w["name"] for w in manifest.load(REPO)["workloads"])  # a new cell is rehearsed
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 
 
